@@ -1,0 +1,88 @@
+"""Build and load the hand-written Hopper kernels.
+
+Each ``repro_torch/csrc/<name>.cu`` exposes a plain C launch function.
+At first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library under ``build/kernels/`` at the checkout root (git-ignored),
+named by a hash of its source and flags so an edit rebuilds and an
+unchanged source loads straight away, and loaded with ``ctypes``. All
+sources compile at once, one ``nvcc`` process each.
+
+No ``--use_fast_math`` / ``-ftz=true``: the CIM kernel's wide
+power-of-two construction relies on exact subnormal products.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNELS = ("cim_linear", "paged_decode_mx")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, str] = {}  # nvcc's stderr (ptxas register report)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_all(names=KERNELS) -> float:
+    """Compile every missing library in parallel; returns wall seconds.
+    Raises ``RuntimeError`` with nvcc's output if any build fails."""
+    t0 = time.perf_counter()
+    todo = [n for n in names if n not in _loaded and not _lib_path(n).exists()]
+    if todo:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in todo:
+            tmp = _lib_path(name).with_suffix(f".tmp{os.getpid()}")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            build_log[name] = out
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (exit {proc.returncode})\n{out}")
+            else:
+                os.replace(tmp, _lib_path(name))
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, building it if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _loaded[name] = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

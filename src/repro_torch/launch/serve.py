@@ -1,0 +1,186 @@
+"""Serving launcher for the port: the hybrid analog/digital LM served by
+the continuous-batching engine on the fused paged KV pool.
+
+Static linears run on the analog CTT-CIM arrays (``cim_analog``, the
+hand-written ``cim_linear`` kernel on CUDA); SDPA runs on the digital
+MXFP4 path, decode through the hand-written ``paged_flash_decode_mx``
+kernel. Weights are random from a seed, calibrated offline (Row-Hist) on
+synthetic token batches and converted to resident INT5 codes.
+
+Runs on CUDA unless ``--device cpu`` is given (then the kernels' plain
+versions run); without a GPU and without ``--device cpu`` it raises.
+
+  python -m repro_torch.launch.serve --serve-trace --backend cim \\
+      --kv-layout fused                     # tiny starcoder2-7b on the GPU
+  python -m repro_torch.launch.serve --no-tiny --serve-trace --backend cim \\
+      --kv-layout fused                     # full width, 32 layers
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve-trace \\
+      --device cpu                          # tiny, CPU plain versions
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs as C
+from repro_torch import obs as obs_lib
+from repro_torch import resolve_device
+from repro_torch.core import cim as cimlib
+from repro_torch.layers.common import RunCtx
+from repro_torch.models import calibrate, lm
+
+
+def conversion_args(args) -> dict:
+    """Backend-conversion knobs, read from the CLI in exactly one place."""
+    return dict(min_n=args.cim_min_n, adc_bits=args.adc_bits,
+                cm_bits=args.cm_bits, calib_batches=args.calib_batches)
+
+
+def build_backend(args, cfg, params, device, obs=None):
+    """Row-Hist calibration + conversion for ``--backend cim``. Returns
+    (converted_params, RunCtx)."""
+    if args.backend != "cim":
+        raise NotImplementedError(f"--backend {args.backend!r} is not ported "
+                                  "(ROADMAP.md Queue 1/2)")
+    conv_kw = conversion_args(args)
+    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    cim_cfg = cimlib.CIMConfig(adc_bits=conv_kw["adc_bits"],
+                               cm_bits=conv_kw["cm_bits"], two_pass=True)
+    base_ctx = RunCtx(dense_attn_max=256)
+    batches = calibrate.calibration_batches(
+        cfg, n_batches=conv_kw["calib_batches"], batch=args.batch,
+        seq=args.prompt_len, device=device)
+    t0 = time.perf_counter()
+    conv, calibs = calibrate.convert_model_cim(
+        params, cfg, base_ctx, batches, cim_cfg=cim_cfg,
+        min_n=conv_kw["min_n"])
+    log.info("row-hist calibration: %s", obs_lib.kv(
+        linears=len(calibs), wall_s=time.perf_counter() - t0))
+    return conv, RunCtx(quant="cim", cim=cim_cfg, dense_attn_max=256, obs=obs)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_trace(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
+    """A burst of staggered synthetic requests through the engine.
+    Returns a summary: requests, tokens, wall, tokens/s, TTFT and
+    decode-step percentiles (host wall clock, steps end in a host read)."""
+    from repro_torch.serving import Engine, EngineConfig
+
+    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    windows = [s.attn.window for s in lm.build_segments(cfg)
+               if s.attn.window > 0]
+    page_len = args.prompt_len + args.tokens
+    if windows:
+        page_len = min(page_len, min(windows))
+    prefill_len = max(2, page_len - args.tokens)
+    ecfg = EngineConfig(lanes=args.lanes, num_slots=args.slots,
+                        page_len=page_len, prefill_len=prefill_len,
+                        kv_layout=args.kv_layout)
+    eng = Engine(params, cfg, ctx, ecfg, obs=obs)
+    rng = np.random.default_rng(args.seed)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(args.requests):
+        n = int(rng.integers(2, prefill_len + 1))
+        prompt = rng.integers(0, cfg.vocab_size, size=n).tolist()
+        eng.add_request(prompt, max_new=min(args.tokens, page_len - n))
+        for _ in range(int(rng.integers(0, 3))):  # staggered arrivals
+            eng.step()
+    out = eng.run()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(v) for v in out.values())
+    host = obs.request_summary()
+    dec = [e.wall_s for e in obs.steps if e.kind == "decode"]
+    pre = [e.wall_s for e in obs.steps if e.kind == "prefill"]
+    summary = {
+        "requests": len(out), "tokens": n_tok, "wall_s": wall,
+        "tok_s": n_tok / wall, "page_len": page_len,
+        "prefill_len": prefill_len, "decode_steps": len(dec),
+        "decode_step_ms_p50": float(np.median(dec)) * 1e3 if dec else None,
+        "prefill_ms_p50": float(np.median(pre)) * 1e3 if pre else None,
+        "ttft_ms_p50": host["ttft_s"]["p50"] * 1e3 if host["ttft_s"] else None,
+        "ttft_ms_p99": host["ttft_s"]["p99"] * 1e3 if host["ttft_s"] else None,
+        "slot_util": eng.slot_utilization, "out": out,
+    }
+    log.info("%s [%s] serve-trace done: %s", cfg.name, args.backend,
+             obs_lib.kv(**{k: v for k, v in summary.items() if k != "out"}))
+    return summary
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="starcoder2-7b", choices=sorted(C.ARCHS))
+    ap.add_argument("--tiny", action="store_true", default=True,
+                    help="reduced smoke config (default)")
+    ap.add_argument("--no-tiny", dest="tiny", action="store_false",
+                    help="run the full-size architecture")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers, widths kept "
+                         "(0: the config's own depth)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and requests")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="calibration batch size")
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--backend", default="cim", choices=("cim",))
+    ap.add_argument("--calib-batches", type=int, default=2)
+    ap.add_argument("--cim-min-n", type=int, default=32)
+    ap.add_argument("--adc-bits", type=int, default=10)
+    ap.add_argument("--cm-bits", type=int, default=3)
+    ap.add_argument("--serve-trace", action="store_true",
+                    help="continuous-batching engine run over staggered "
+                         "synthetic requests (the ported serving mode)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--lanes", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=6)
+    ap.add_argument("--kv-layout", default="fused", choices=("fused",))
+    ap.add_argument("--log-level", default="info", choices=obs_lib.log.LEVELS)
+    return ap
+
+
+def build_model(args, obs=None):
+    """Config, converted parameters and RunCtx for the run: random weights
+    from ``--seed`` on the run's device, Row-Hist calibrated and converted.
+    Raises if CUDA is asked for (the default) and missing."""
+    device = resolve_device(args.device)
+    cfg = C.tiny(C.ARCHS[args.arch]) if args.tiny else C.ARCHS[args.arch]
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    with torch.no_grad():
+        fparams = lm.init_model(cfg, gen)
+        params, ctx = build_backend(args, cfg, fparams, device, obs=obs)
+    del fparams
+    log.info("model ready: %s", obs_lib.kv(
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        device=str(device), wall_s=time.perf_counter() - t0))
+    return cfg, params, ctx, device
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    if not args.serve_trace:
+        raise SystemExit("only --serve-trace is ported (the greedy "
+                         "legacy-cache decode is in ROADMAP.md Queue 1)")
+    obs = obs_lib.Obs()
+    cfg, params, ctx, device = build_model(args, obs=obs)
+    return serve_trace(args, cfg, params, ctx, obs, device)
+
+if __name__ == "__main__":
+    main()

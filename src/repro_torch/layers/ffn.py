@@ -1,0 +1,60 @@
+"""Feed-forward variants (counterpart of ``repro.layers.ffn``): gelu /
+squared-relu MLPs and swiglu / geglu GLUs."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.layers.common import (
+    RunCtx,
+    linear_apply,
+    linear_init,
+    norm_apply,
+    norm_init,
+)
+
+GLU_KINDS = ("swiglu", "geglu")
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-form GELU as ``jax.nn.gelu`` writes it, op by op in the
+    input's dtype: in bf16 each op rounds, as in the reference. A fused
+    f32 GELU rounds once, and its bf16 outputs differ by an ulp often
+    enough that the MXFP4 quantizer downstream flips codes."""
+    c = torch.tensor(np.sqrt(2 / np.pi), dtype=x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x))))
+    return x * cdf
+
+
+def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
+    if kind in ("gelu", "geglu"):  # jax.nn.gelu defaults to the tanh form
+        return _gelu_tanh(x)
+    if kind == "relu2":
+        r = F.relu(x)
+        return r * r
+    if kind == "swiglu":
+        return F.silu(x)
+    raise ValueError(kind)
+
+
+def ffn_init(gen: torch.Generator, d: int, d_ff: int, kind: str, norm: str,
+             use_bias: bool = False) -> dict:
+    p = {"ln": norm_init(norm, d, gen.device)}
+    p["w1"] = linear_init(gen, d, d_ff, use_bias=use_bias)
+    if kind in GLU_KINDS:
+        p["w3"] = linear_init(gen, d, d_ff, use_bias=use_bias)
+    p["w2"] = linear_init(gen, d_ff, d, use_bias=use_bias)
+    return p
+
+
+def ffn_apply(ctx: RunCtx, kind: str, norm: str, p: dict,
+              x: torch.Tensor) -> torch.Tensor:
+    """Pre-norm FFN sublayer with residual."""
+    xn = norm_apply(norm, p["ln"], x)
+    h = _act(kind, linear_apply(ctx, p["w1"], xn, name="w1"))
+    if kind in GLU_KINDS:
+        h = h * linear_apply(ctx, p["w3"], xn, name="w3")
+    y = linear_apply(ctx, p["w2"], h, name="w2")
+    return x + y.to(x.dtype)

@@ -1,0 +1,15 @@
+"""Serving telemetry (pure Python host-side): the metrics registry, the
+:class:`Obs` lifecycle tracer, structured logging and the kernel
+profiling hook — the parts of ``repro.obs`` the engine and launcher use."""
+
+from repro_torch.obs.log import get_logger, kv  # noqa: F401
+from repro_torch.obs.profile import profiled_call  # noqa: F401
+from repro_torch.obs.registry import (  # noqa: F401
+    LATENCY_BUCKETS_S,
+    RATIO_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+)
+from repro_torch.obs.tracing import Obs, RequestMetrics, StepEvent  # noqa: F401

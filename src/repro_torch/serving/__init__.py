@@ -1,0 +1,3 @@
+"""Continuous-batching serving on the fused paged KV pool."""
+
+from repro_torch.serving.engine import Engine, EngineConfig  # noqa: F401

@@ -1,0 +1,206 @@
+"""Continuous-batching inference engine (counterpart of
+``repro.serving.engine``) on the fused paged KV pool.
+
+Every step is fixed-shape, as in the reference:
+
+  prefill  [1, prefill_len]   one padded prompt into its allocated slot
+  decode   [lanes, 1]         one token per lane at per-lane positions
+
+Prompts are right-padded with ``KV_PAD`` positions; idle decode lanes
+park on their scratch rows and their outputs are dropped on the host.
+Decode runs in place on the pool through ``RunCtx.paged_rows``: the
+attention layers write the new K/V row and its mirrors straight into the
+lanes' pool rows and run one ragged paged decode per layer.
+
+Not ported yet (ROADMAP.md Queue 1): chunked prefill (``chunk_len``), the
+prefix cache, the legacy split-page layout and ``trace_report`` (the FWS
+pipeline model).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.layers import attention as attn_mod
+from repro_torch.models import lm
+from repro_torch.obs import Obs
+from repro_torch.serving.kvcache import PagedKVCache, PoolExhausted, scatter_rows
+from repro_torch.serving.scheduler import Request, Scheduler
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    lanes: int = 4  # decode batch width
+    num_slots: int = 6  # KV pages in the pool
+    page_len: int = 48  # positions per page (prompt + generated)
+    prefill_len: int = 16  # fixed prefill shape; prompts pad up to this
+    policy: str = "prefill"  # admission policy (see scheduler.py)
+    kv_layout: str = "fused"
+    chunk_len: int | None = None
+    prefix_cache: bool = False
+
+
+class Engine:
+    def __init__(self, params, cfg, ctx, ecfg: EngineConfig = EngineConfig(),
+                 obs: Obs | None = None):
+        if ecfg.prefill_len > ecfg.page_len:
+            raise ValueError("prefill_len must fit in a page")
+        if ecfg.chunk_len is not None or ecfg.prefix_cache:
+            raise NotImplementedError("chunked prefill and the prefix cache "
+                                      "are not ported yet (ROADMAP.md Queue 1)")
+        self.params = params
+        self.cfg = cfg
+        self.ctx = ctx
+        self.ecfg = ecfg
+        self.device = params["embed"]["emb"].device  # the params' device
+        self.obs = obs if obs is not None else Obs()
+        self.kv = PagedKVCache(cfg, ecfg.num_slots, ecfg.lanes, ecfg.page_len,
+                               mx_digital=ctx.hybrid_digital_sdpa,
+                               layout=ecfg.kv_layout, device=self.device)
+        self.sched = Scheduler(ecfg.lanes, ecfg.policy, obs=self.obs)
+        self.requests: dict[int, Request] = {}
+        self._next_rid = 0
+        self._step_idx = 0
+
+    # --------------------------------------------------------------- steps
+
+    @torch.no_grad()
+    def _prefill(self, ids, positions, row: int, last: int) -> int:
+        cfg, ecfg = self.cfg, self.ecfg
+        caches = lm.init_cache(cfg, 1, ecfg.page_len,
+                               mx_digital=self.kv.mx_digital, fused=True,
+                               device=self.device)
+        hidden, caches = lm.forward(
+            self.params, cfg, self.ctx, {"ids": ids, "positions": positions},
+            caches=caches, return_hidden=True)
+        # head over the real last position only (padded tail discarded)
+        logits = lm._head(self.ctx, cfg, self.params,
+                          hidden[:, last][:, None])
+        scatter_rows(self.kv.pool, self.kv.specs,
+                     torch.tensor([row], device=self.device), caches)
+        return int(torch.argmax(logits[0, 0].float()))
+
+    @torch.no_grad()
+    def _decode(self, rows, ids, pos) -> np.ndarray:
+        dctx = dataclasses.replace(self.ctx, paged_rows=rows)
+        logits, _ = lm.decode_step(self.params, self.cfg, dctx, ids, pos,
+                                   self.kv.pool)
+        return torch.argmax(logits.float(), -1).cpu().numpy()
+
+    # ---------------------------------------------------------- public API
+
+    def add_request(self, prompt, max_new: int,
+                    stop_token: int | None = None) -> int:
+        prompt = [int(t) for t in prompt]
+        if not prompt or len(prompt) > self.ecfg.prefill_len:
+            raise ValueError(f"prompt length {len(prompt)} not in "
+                             f"[1, {self.ecfg.prefill_len}]")
+        if max_new < 1:
+            raise ValueError("max_new must be >= 1 (prefill emits a token)")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid=rid, prompt=prompt, max_new=max_new,
+                      stop_token=stop_token, arrival=self._step_idx)
+        self.requests[rid] = req
+        self.sched.add(req)
+        self.obs.request_enqueued(rid, n_prompt=len(prompt))
+        return rid
+
+    def step(self) -> list:
+        """One scheduled unit of work (a prefill or a decode step).
+        Returns the requests that finished during it."""
+        action = self.sched.plan(self.kv.num_free)
+        if action == "idle":
+            return []
+        self._step_idx += 1
+        done = self._run_prefill() if action == "prefill" else \
+            self._run_decode()
+        self.obs.lanes_state(len(self.sched.waiting), self.sched.num_active,
+                             self.kv.num_free)
+        return done
+
+    def run(self, max_steps: int = 100_000) -> dict:
+        """Drive until every queued request completes; {rid: tokens}."""
+        for _ in range(max_steps):
+            if not self.sched.has_work:
+                break
+            self.step()
+        if self.sched.has_work:
+            raise RuntimeError(f"engine did not drain in {max_steps} steps")
+        return {rid: list(r.out) for rid, r in self.requests.items()}
+
+    def trace_report(self):
+        raise NotImplementedError("the FWS pipeline model (serving/pipeline."
+                                  "py, hwmodel) is not ported yet "
+                                  "(ROADMAP.md Queue 1)")
+
+    @property
+    def slot_utilization(self) -> float:
+        """Mean fraction of decode lanes doing live work (vs parked)."""
+        decodes = [len(e.rids) for e in self.obs.steps if e.kind == "decode"]
+        if not decodes:
+            return 1.0
+        return sum(decodes) / (self.ecfg.lanes * len(decodes))
+
+    # ----------------------------------------------------------- internals
+
+    def _run_prefill(self) -> list:
+        t0 = self.obs.clock()
+        slot = self.kv.allocator.try_alloc()
+        if slot is None:
+            raise PoolExhausted("no free KV page slots (num_slots="
+                                f"{self.ecfg.num_slots})")
+        req = self.sched.admit(slot, self._step_idx)
+        self.obs.request_admitted(req.rid)
+        n, p = len(req.prompt), self.ecfg.prefill_len
+        ids = np.zeros((1, p), np.int64)
+        ids[0, :n] = req.prompt
+        positions = np.full((1, p), attn_mod.KV_PAD, np.int64)
+        positions[0, :n] = np.arange(n)
+        tok = self._prefill(torch.from_numpy(ids).to(self.device),
+                            torch.from_numpy(positions).to(self.device),
+                            slot, n - 1)
+        req.out.append(tok)  # host read: the step is complete here
+        t1 = self.obs.clock()
+        # bill the executed width (the fixed-shape step runs all of it)
+        self.obs.step_recorded("prefill", (req.rid,), p, t0, t1)
+        self.obs.token_emitted(req.rid, t1)
+        return self._retire([req])
+
+    def _run_decode(self) -> list:
+        t0 = self.obs.clock()
+        lanes = self.ecfg.lanes
+        rows = np.asarray([self.kv.scratch_row(i) for i in range(lanes)],
+                          np.int64)
+        ids = np.zeros((lanes, 1), np.int64)
+        pos = np.zeros((lanes,), np.int64)
+        active = sorted(self.sched.running.items())
+        for lane, req in active:
+            rows[lane] = req.slot
+            ids[lane, 0] = req.out[-1]
+            pos[lane] = req.pos
+        next_ids = self._decode(torch.from_numpy(rows).to(self.device),
+                                torch.from_numpy(ids).to(self.device),
+                                torch.from_numpy(pos).to(self.device))
+        t1 = self.obs.clock()
+        for lane, req in active:
+            req.out.append(int(next_ids[lane]))
+            req.pos += 1
+            self.obs.token_emitted(req.rid, t1)
+        self.obs.step_recorded("decode", tuple(r.rid for _, r in active),
+                               len(active), t0, t1, lanes=lanes)
+        return self._retire([r for _, r in active])
+
+    def _retire(self, reqs) -> list:
+        done = []
+        for req in reqs:
+            reason = Scheduler.stop_reason(req, self.ecfg.page_len)
+            if reason is not None:
+                self.sched.finish(req, self._step_idx)
+                self.kv.allocator.free(req.slot)
+                self.obs.request_finished(req.rid, reason)
+                done.append(req)
+        return done

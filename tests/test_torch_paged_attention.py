@@ -1,0 +1,222 @@
+"""The port's fused paged KV layout and ragged paged decode against the
+JAX reference.
+
+- Layout: the fused MXFP4 mirrors from ``quant_page_full`` and the
+  in-place ``quant_page_step`` update, and the page dequantizers, are
+  bitwise the reference's.
+- Dense reference: the port's ``ragged_paged_decode_ref`` against JAX's
+  on the same mirrors. Not bitwise: the score and PV sums are f32 sums
+  taken in another order by the two frameworks, and after the bf16 score
+  round a one-ulp difference can flip one P code, which moves one output
+  element by one P step times |v|. Bound: SQNR > 40 dB and atol 0.05.
+- Chunked plain version of the CUDA kernel against the Pallas
+  ``paged_flash_decode_mx`` in interpret mode at the same ``bk``, with
+  W=48 / bk=32 (clamped tail chunk) and lengths 0, 1, 31, 32, 33 and W.
+  Same bound and reason. It is also held to the dense reference at the
+  reference's own kernel bound (SQNR > 13 dB, atol 0.35): per-chunk vs
+  whole-axis P quantization.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import mx as jmx  # noqa: E402
+from repro.kernels.paged_attention import kernel as jkernel  # noqa: E402
+from repro.kernels.paged_attention import layout as jlayout  # noqa: E402
+from repro.kernels.paged_attention import ops as jops  # noqa: E402
+from repro.kernels.paged_attention import ref as jref  # noqa: E402
+from repro_torch.core import mx as tmx  # noqa: E402
+from repro_torch.kernels.paged_attention import layout as tlayout  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as tops  # noqa: E402
+from repro_torch.kernels.paged_attention import ref as tref  # noqa: E402
+
+# one compiled graph per reference function (eager JAX compiles op by op)
+j_decode_ref = jax.jit(jref.ragged_paged_decode_ref, static_argnames="scale")
+j_fake_quant = jax.jit(jmx.fake_quant)
+
+P, HKV, G, DH = 5, 2, 3, 32
+SCALE = DH ** -0.5
+LENGTHS = {48: ([0, 1, 31, 48], [32, 33, 47, 0]), 64: ([64, 1, 33, 0],)}
+
+
+def _bf16(a: np.ndarray):
+    """(jax bf16 array, torch bf16 tensor) with identical bits."""
+    j = jnp.asarray(a).astype(jnp.bfloat16)
+    t = torch.from_numpy(np.array(j).view(np.int16)).view(torch.bfloat16)
+    return j, t
+
+
+def _bits(a) -> np.ndarray:
+    if torch.is_tensor(a):
+        return a.contiguous().view(torch.int16).numpy()
+    return np.asarray(a).view(np.int16)
+
+
+def _pages(seed: int, w: int, lanes: int = 4):
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((P, w, HKV, DH)).astype(np.float32) * 0.7
+    v = rng.standard_normal((P, w, HKV, DH)).astype(np.float32) * 0.7
+    q = rng.standard_normal((lanes, HKV, G, DH)).astype(np.float32) * 0.7
+    return _bf16(k), _bf16(v), _bf16(q)
+
+
+def _quant_both(k, v):
+    jq = jax.jit(jlayout.quant_page_full)(k[0], v[0])
+    tq = tlayout.quant_page_full(k[1], v[1])
+    return jq, tq
+
+
+def _sqnr_db(ref, got) -> float:
+    err = np.sum((ref - got) ** 2)
+    return float("inf") if err == 0 else float(
+        10 * np.log10(np.sum(ref ** 2) / err))
+
+
+def _assert_close(got, ref, live, sqnr_min, atol):
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    assert _sqnr_db(ref[live], got[live]) > sqnr_min
+    np.testing.assert_allclose(got, ref, atol=atol, rtol=0.0)
+    np.testing.assert_array_equal(got[~live], 0.0)
+
+
+@pytest.mark.parametrize("w", [48, 64])
+def test_quant_page_full_and_dequant_bitwise(w):
+    k, v, _ = _pages(0, w)
+    jq, tq = _quant_both(k, v)
+    for name in ("kv_codes", "k_exps", "v_exps"):
+        np.testing.assert_array_equal(tq[name].numpy(), np.asarray(jq[name]))
+    np.testing.assert_array_equal(
+        _bits(tlayout.dequant_k_pages(tq["kv_codes"], tq["k_exps"], DH)),
+        _bits(jax.jit(jlayout.dequant_k_pages, static_argnums=2)(
+            jq["kv_codes"], jq["k_exps"], DH)))
+    np.testing.assert_array_equal(
+        _bits(tlayout.dequant_v_pages(tq["kv_codes"], tq["v_exps"], DH)),
+        _bits(jax.jit(jlayout.dequant_v_pages, static_argnums=2)(
+            jq["kv_codes"], jq["v_exps"], DH)))
+    kv = tlayout.fuse_kv(k[1], v[1])
+    np.testing.assert_array_equal(_bits(kv), _bits(jlayout.fuse_kv(k[0], v[0])))
+    ks, vs = tlayout.split_kv(kv)
+    np.testing.assert_array_equal(_bits(ks), _bits(k[1]))
+    np.testing.assert_array_equal(_bits(vs), _bits(v[1]))
+
+
+@pytest.mark.parametrize("w", [48, 50])
+def test_quant_page_step_bitwise_in_place(w):
+    """Write one new row per lane into the pool, then update the mirrors
+    in place: bitwise the reference's functional update (W=50 has a
+    partial trailing 32-slot block)."""
+    k, v, _ = _pages(1, w)
+    jq, tq = _quant_both(k, v)
+    rng = np.random.default_rng(2)
+    new = rng.standard_normal((3, 2 * HKV, DH)).astype(np.float32)
+    jnew, tnew = _bf16(new)
+    rows, slot = np.array([4, 0, 2]), np.array([w - 1, 0, 33])
+    jkv = jlayout.fuse_kv(k[0], v[0]).at[rows, slot].set(jnew)
+    tkv = tlayout.fuse_kv(k[1], v[1])
+    tkv[torch.from_numpy(rows), torch.from_numpy(slot)] = tnew
+    jout = jax.jit(jlayout.quant_page_step)(jq, jkv, jnp.asarray(rows),
+                                            jnp.asarray(slot))
+    tlayout.quant_page_step(tq, tkv, torch.from_numpy(rows),
+                            torch.from_numpy(slot))
+    for name in ("kv_codes", "k_exps", "v_exps"):
+        np.testing.assert_array_equal(tq[name].numpy(), np.asarray(jout[name]))
+
+
+@pytest.mark.parametrize("w", [48, 64])
+def test_dense_ref_matches_reference(w):
+    k, v, q = _pages(3, w)
+    jq, tq = _quant_both(k, v)
+    qmx_j = j_fake_quant(q[0]).astype(jnp.bfloat16)
+    qmx_t = tmx.fake_quant(q[1])
+    np.testing.assert_array_equal(_bits(qmx_t), _bits(qmx_j))
+    rows = np.array([4, 0, 2, 1])
+    for lens in LENGTHS[w]:
+        lens = np.array(lens)
+        ref = j_decode_ref(
+            qmx_j, jnp.asarray(rows), jnp.asarray(lens), quant=jq, scale=SCALE)
+        got = tref.ragged_paged_decode_ref(
+            qmx_t, torch.from_numpy(rows), torch.from_numpy(lens), quant=tq,
+            scale=SCALE)
+        _assert_close(got.float(), ref, lens > 0, 40.0, 0.05)
+    # float pages: the same dense function without quantization
+    kvj, kvt = jlayout.fuse_kv(k[0], v[0]), tlayout.fuse_kv(k[1], v[1])
+    lens = np.array(LENGTHS[w][0])
+    ref = j_decode_ref(q[0], jnp.asarray(rows), jnp.asarray(lens), kv=kvj,
+                       scale=SCALE)
+    got = tref.ragged_paged_decode_ref(q[1], torch.from_numpy(rows),
+                                       torch.from_numpy(lens), kv=kvt,
+                                       scale=SCALE)
+    _assert_close(got.float(), ref, lens > 0, 40.0, 0.05)
+
+
+@pytest.mark.parametrize("w", [48, 64])
+def test_chunked_plain_matches_pallas_interpret(w):
+    """The CUDA kernel's plain version against the Pallas kernel it
+    replaces, at the reference's chunk width (W=48 -> bk=32: the tail chunk
+    is fetched at the clamped offset 16 and its overlap masked)."""
+    k, v, q = _pages(4, w)
+    jq, tq = _quant_both(k, v)
+    bk = tops.pick_bk(w)
+    assert bk == jops.pick_bk(w)
+    qmx_j = j_fake_quant(q[0]).astype(jnp.bfloat16)
+    qmx_t = tmx.fake_quant(q[1])
+    rows = np.array([4, 0, 2, 1])
+    for lens in LENGTHS[w]:
+        lens = np.array(lens)
+        ref = jkernel.paged_flash_decode_mx(
+            qmx_j, jq["kv_codes"], jq["k_exps"], jq["v_exps"],
+            jnp.asarray(rows, jnp.int32), jnp.asarray(lens, jnp.int32),
+            scale=SCALE, bk=bk, interpret=True)
+        got = tops.ragged_paged_decode(
+            qmx_t, torch.from_numpy(rows), torch.from_numpy(lens), quant=tq,
+            scale=SCALE)
+        _assert_close(got.float(), ref, lens > 0, 40.0, 0.05)
+        dense = tref.ragged_paged_decode_ref(
+            qmx_t, torch.from_numpy(rows), torch.from_numpy(lens), quant=tq,
+            scale=SCALE)
+        _assert_close(got.float(), dense.float(), lens > 0, 13.0, 0.35)
+
+
+def test_pick_bk_and_wrapper_contract():
+    for w in (8, 31, 32, 48, 100, 256, 1024):
+        assert tops.pick_bk(w) == jops.pick_bk(w)
+    k, v, q = _pages(5, 48)
+    tq = tlayout.quant_page_full(k[1], v[1])
+    rows = torch.zeros(4, dtype=torch.int32)
+    lens = torch.ones(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="exactly one"):
+        tops.ragged_paged_decode(q[1], rows, lens, scale=SCALE)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        tops.ragged_paged_decode(q[1], rows, lens, scale=SCALE,
+                                 kv=tlayout.fuse_kv(k[1], v[1]))
+    before = tops.ragged_paged_decode.launches
+    out = tops.ragged_paged_decode(q[1], rows, lens, quant=tq, scale=SCALE)
+    assert out.shape == q[1].shape and out.dtype == torch.bfloat16
+    assert tops.ragged_paged_decode.launches == before  # CPU: plain version
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [48, 64])
+def test_cuda_kernel_matches_plain_version(w):
+    """The CUDA kernel against its plain version on the card; bound as
+    above (f32 sums in another order, one P code flip)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    k, v, q = _pages(6, w)
+    tq = {n: t.cuda() for n, t in tlayout.quant_page_full(k[1], v[1]).items()}
+    qmx = tmx.fake_quant(q[1]).cuda()
+    rows = torch.tensor([4, 0, 2, 1], dtype=torch.int32).cuda()
+    for lens in LENGTHS[w]:
+        lens = torch.tensor(lens, dtype=torch.int32).cuda()
+        got = tops.ragged_paged_decode(qmx, rows, lens, quant=tq, scale=SCALE)
+        ref = tref.paged_flash_decode_mx_ref(
+            qmx, tq["kv_codes"], tq["k_exps"], tq["v_exps"], rows, lens,
+            scale=SCALE, bk=tops.pick_bk(w))
+        _assert_close(got.float().cpu(), ref.float().cpu(),
+                      (lens > 0).cpu().numpy(), 40.0, 0.05)

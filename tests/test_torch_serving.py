@@ -1,0 +1,168 @@
+"""The port's serving engine, its host-side pieces and the package's
+isolation from JAX.
+
+- A staggered multi-request run through ``Engine`` on the fused
+  quantized-resident pool produces, token for token, what each request
+  produces alone (the reference's isolation invariant, inside the port).
+- Allocator and scheduler behave as the reference's (same host code).
+- ``repro_torch`` imports without JAX and imports nothing of ``repro``.
+- The launcher serves on the CPU when asked and refuses to fall back to
+  the CPU silently.
+"""
+
+import dataclasses
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.serving.scheduler import Scheduler as JScheduler  # noqa: E402
+from repro_torch import configs as C  # noqa: E402
+from repro_torch.core import cim as tcim  # noqa: E402
+from repro_torch.layers.common import RunCtx  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models import calibrate, lm  # noqa: E402
+from repro_torch.serving import Engine, EngineConfig  # noqa: E402
+from repro_torch.serving.kvcache import (  # noqa: E402
+    PagedKVCache,
+    PoolExhausted,
+    SlotAllocator,
+    gather_rows,
+    scatter_rows,
+)
+from repro_torch.serving.scheduler import Request, Scheduler  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+CFG = C.tiny(C.STARCODER2_7B)
+ECFG = EngineConfig(lanes=3, num_slots=4, page_len=40, prefill_len=16)
+
+
+@pytest.fixture(scope="module")
+def cim_model():
+    gen = torch.Generator().manual_seed(0)
+    params = lm.init_model(CFG, gen)
+    batches = calibrate.calibration_batches(CFG, n_batches=2, batch=2, seq=16)
+    conv, _ = calibrate.convert_model_cim(
+        params, CFG, RunCtx(dense_attn_max=256), batches,
+        cim_cfg=tcim.CIMConfig(), min_n=32)
+    return conv, RunCtx(quant="cim", cim=tcim.CIMConfig(), dense_attn_max=256)
+
+
+def _requests():
+    rng = np.random.default_rng(3)
+    return [(rng.integers(0, CFG.vocab_size, int(n)).tolist(), int(m))
+            for n, m in zip(rng.integers(2, 17, 5), rng.integers(3, 12, 5))]
+
+
+def test_staggered_batching_equals_solo_runs(cim_model):
+    params, ctx = cim_model
+    eng = Engine(params, CFG, ctx, ECFG)
+    for i, (prompt, n_new) in enumerate(_requests()):
+        eng.add_request(prompt, max_new=n_new)
+        for _ in range(i % 3):  # staggered arrivals mid-flight
+            eng.step()
+    together = eng.run()
+    assert eng.slot_utilization < 1.0 or len(together) <= ECFG.lanes
+    for rid, (prompt, n_new) in enumerate(_requests()):
+        solo = Engine(params, CFG, ctx, ECFG)
+        solo.add_request(prompt, max_new=n_new)
+        assert solo.run()[0] == together[rid], rid
+        assert len(together[rid]) == n_new
+
+
+def test_engine_rejects_unported_modes(cim_model):
+    params, ctx = cim_model
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        Engine(params, CFG, ctx, dataclasses.replace(ECFG, chunk_len=8))
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        Engine(params, CFG, ctx, dataclasses.replace(ECFG, kv_layout="legacy"))
+    with pytest.raises(NotImplementedError):
+        Engine(params, CFG, ctx, ECFG).trace_report()
+    with pytest.raises(ValueError, match="prompt length"):
+        Engine(params, CFG, ctx, ECFG).add_request(list(range(17)), 2)
+
+
+def test_slot_allocator_refcounts():
+    a = SlotAllocator(3)
+    assert sorted(a.alloc() for _ in range(3)) == [0, 1, 2]
+    assert a.try_alloc() is None and a.num_free == 0
+    with pytest.raises(PoolExhausted):
+        a.alloc()
+    a.retain(1)
+    a.release(1)
+    assert a.refcount(1) == 1 and a.num_free == 0
+    a.free(1)
+    assert a.num_free == 1 and a.alloc() == 1
+
+
+def test_gather_scatter_rows_roundtrip():
+    kv = PagedKVCache(CFG, num_slots=3, lanes=2, page_len=32, mx_digital=True)
+    rows = torch.tensor([4, 1])
+    vals = gather_rows(kv.pool, kv.specs, rows)
+    for layer in vals[0]:
+        layer["kv"].fill_(1.5)
+        layer["k_exps"].fill_(3)
+    scatter_rows(kv.pool, kv.specs, rows, vals)
+    for layer in kv.pool[0]:
+        assert bool((layer["kv"][rows] == 1.5).all())
+        assert bool((layer["kv"][[0, 2, 3]] == 0).all())
+        assert bool((layer["k_exps"][rows] == 3).all())
+    bad = [[{**layer, "kv": layer["kv"].float()} for layer in vals[0]]]
+    with pytest.raises(TypeError, match="kv"):
+        scatter_rows(kv.pool, kv.specs, rows, bad)
+
+
+@pytest.mark.parametrize("policy", ["prefill", "decode", "chunked"])
+def test_scheduler_plans_like_reference(policy):
+    """The same admission sequence through the port's and the reference's
+    scheduler yields the same plan at every step."""
+    scheds = (Scheduler(2, policy), JScheduler(2, policy))
+    for i in range(4):
+        for s in scheds:
+            s.add(Request(rid=i, prompt=[1, 2], max_new=2))
+    plans = [[], []]
+    for step in range(12):
+        for k, s in enumerate(scheds):
+            act = s.plan(free_slots=2)
+            plans[k].append(act)
+            if act == "prefill":
+                s.admit(slot=step, step=step)
+            elif act == "decode" and step % 3 == 2:
+                s.finish(next(iter(s.running.values())), step)
+    assert plans[0] == plans[1]
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.launch.serve, repro_torch.convert, "
+            "repro_torch.kernels.cim_linear.ops, "
+            "repro_torch.kernels.paged_attention.ops; "
+            "import runpy; runpy.run_path('chip_smoke.py', run_name='x'); "
+            "assert not [m for m, v in sys.modules.items() "
+            "if v is not None and m.split('.')[0] in ('jax', 'repro')]")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    bad = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for f in files:
+        assert not bad.search(f.read_text()), f
+
+
+def test_launcher_serves_on_cpu_and_never_falls_back():
+    out = tserve.main(["--serve-trace", "--device", "cpu", "--requests", "3",
+                       "--prompt-len", "8", "--tokens", "4",
+                       "--log-level", "warning"])
+    assert out["requests"] == 3 and out["tokens"] > 0
+    assert all(0 <= t < CFG.vocab_size for v in out["out"].values() for t in v)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tserve.main(["--serve-trace"])
