@@ -25,9 +25,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("cim_linear", "paged_decode_mx")
+KERNELS = ("cim_linear", "paged_decode_mx", "mxfp4_matmul", "paged_decode",
+           "flash_attention")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple, ctypes._CFuncPtr] = {}
 build_log: dict[str, str] = {}  # nvcc's stderr (ptxas register report)
 
 
@@ -80,6 +82,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """Launch function ``symbol`` of kernel ``name``, typed once (it
+    returns a CUDA error code); the per-call host cost is the call."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _functions[(name, symbol)] = fn
+    return fn
 
 
 def check(err: int, name: str) -> None:

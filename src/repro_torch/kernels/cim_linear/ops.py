@@ -21,6 +21,8 @@ from repro_torch.kernels.cim_linear.ref import cim_linear_ref
 from repro_torch.obs.profile import profiled_call
 
 BM = 8  # the kernel's row tile: M pads up to it, never shrinks
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+    ctypes.c_float] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def calib_buffer(calib: cimlib.LayerCalib) -> torch.Tensor:
@@ -41,11 +43,7 @@ def _launch(xm, w: mxlib.MXW, cal, cfg: cimlib.CIMConfig) -> torch.Tensor:
             raise ValueError(f"cim_linear: {name} must be contiguous on "
                              f"{xm.device}")
     out = torch.empty((m, n), dtype=torch.float32, device=xm.device)
-    lib = _build.load("cim_linear")
-    fn = lib.cim_linear_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_float] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = _build.function("cim_linear", "cim_linear_launch", _ARGTYPES)
     cm = cfg.cm_bits
     err = fn(xm.data_ptr(), w.codes.data_ptr(), w.exps.data_ptr(),
              cal.data_ptr(), out.data_ptr(), m, k, n,

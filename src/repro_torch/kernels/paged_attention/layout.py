@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.core import mx as mxlib
 
 BLOCK = mxlib.BLOCK
@@ -41,14 +42,18 @@ def split_kv(kv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def fused_cache_init(batch: int, w: int, n_kv: int, hd: int,
-                     dtype=torch.bfloat16, device="cpu") -> dict:
+                     dtype=torch.bfloat16, device=None) -> dict:
+    """A zero fused page pool on ``device`` (default ``cuda``; raises
+    without a GPU unless ``device="cpu"`` is given)."""
     return {"kv": torch.zeros((batch, w, 2 * n_kv, hd), dtype=dtype,
-                              device=device)}
+                              device=resolve_device(device))}
 
 
 def fused_quant_init(batch: int, w: int, n_kv: int, hd: int,
-                     device="cpu") -> dict:
-    """Quantized mirrors of a zero page: zero codes, E8M0 floor exps."""
+                     device=None) -> dict:
+    """Quantized mirrors of a zero page: zero codes, E8M0 floor exps, on
+    ``device`` (default ``cuda``, as :func:`fused_cache_init`)."""
+    device = resolve_device(device)
     dpad = padded_head_dim(hd)
     nwb = -(-w // BLOCK)
     return {

@@ -4,8 +4,18 @@
   the JAX package runs off the TPU (``repro.kernels.paged_attention.ref``):
   it gathers the lanes' pages and runs the legacy decode math with P
   quantized along the whole key axis.
-- :func:`paged_flash_decode_mx_ref` is the plain version of the CUDA
-  kernel's own function, a port of the Pallas ``_decode_kernel_mx``: the
+- :func:`paged_flash_decode_ref` is the plain version of the float-page
+  CUDA kernel, a port of the Pallas ``_decode_kernel`` with
+  ``_online_update(mx=False)``: the chunked online softmax at ``bk``, the
+  tail chunk fetched at the clamped offset ``min(c*bk, W-bk)`` with the
+  overlap masked, an f32 running max and sum, and PV over P cast to the
+  page dtype, accumulated in f32. The Pallas source asks for a bf16 PV
+  (``einsum(...).astype(f32)``), but XLA compiles the kernel's dot with an
+  f32 result and folds the bf16 round trip away, so the reference, as it
+  runs, adds the unrounded PV; this version does the same and matches
+  its interpret run bitwise on the tested pages.
+- :func:`paged_flash_decode_mx_ref` is the plain version of the mx
+  CUDA kernel, a port of the Pallas ``_decode_kernel_mx``: the
   chunked online softmax at the same ``bk``, tail chunk fetched at the
   clamped offset ``min(c*bk, W-bk)`` with the overlap masked, P
   fake-quantized per chunk in 32-key blocks aligned to that offset, bf16
@@ -59,6 +69,42 @@ def ragged_paged_decode_ref(q, rows, lengths, *, kv=None, quant=None,
         return (o / den).to(torch.bfloat16)
     o = torch.einsum("bhgk,bkhd->bhgd", pr.to(vd.dtype).float(), vd.float())
     return o.to(vd.dtype)
+
+
+def paged_flash_decode_ref(q, kv, rows, lengths, *, scale: float,
+                           bk: int) -> torch.Tensor:
+    """Chunked online-softmax decode over float pages kv [P, W, 2Hkv, Dh],
+    all lanes and KV heads at once -> ``kv.dtype`` [L, Hkv, G, Dh]. As in
+    :func:`paged_flash_decode_mx_ref`, a chunk past a lane's length leaves
+    its state bitwise unchanged."""
+    L, hkv, g, hd = q.shape
+    w = kv.shape[1]
+    rows = rows.long()
+    lengths = lengths.to(q.device).long()
+    qf = q.float()
+    acc = torch.zeros((L, hkv, g, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((L, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((L, hkv, g), dtype=torch.float32, device=q.device)
+    nchunks = -(-int(lengths.max()) // bk) if L else 0
+    for c in range(nchunks):
+        offs = min(c * bk, w - bk)
+        k, v = layout.split_kv(kv[rows, offs:offs + bk])  # [L, bk, Hkv, Dh]
+        pos = offs + torch.arange(bk, device=q.device)
+        live = (pos[None, :] >= c * bk) & (pos[None, :] < lengths[:, None])
+        live = live[:, None, None, :]  # [L, 1, 1, bk]
+        s = torch.einsum("lhgd,lkhd->lhgk", qf, k.float()) * scale
+        s = torch.where(live, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(live, p, 0.0)
+        corr = torch.exp(m - m_new)
+        pv = torch.einsum("lhgk,lkhd->lhgd", p.to(kv.dtype).float(),
+                          v.float())
+        acc = acc * corr[..., None] + pv
+        l = l * corr + p.sum(-1)
+        m = m_new
+    den = torch.where(l == 0.0, 1.0, l)
+    return (acc / den[..., None]).to(kv.dtype)
 
 
 def paged_flash_decode_mx_ref(q, kv_codes, k_exps, v_exps, rows, lengths, *,

@@ -1,21 +1,26 @@
-"""Serving launcher for the port: the hybrid analog/digital LM served by
-the continuous-batching engine on the fused paged KV pool.
+"""Serving launcher for the port: the LM served by the continuous-batching
+engine on the fused paged KV pool.
 
-Static linears run on the analog CTT-CIM arrays (``cim_analog``, the
-hand-written ``cim_linear`` kernel on CUDA); SDPA runs on the digital
-MXFP4 path, decode through the hand-written ``paged_flash_decode_mx``
-kernel. Weights are random from a seed, calibrated offline (Row-Hist) on
-synthetic token batches and converted to resident INT5 codes.
+``--backend mxfp4`` (default): every static linear is resident as packed
+MXFP4 (4.25 bits/param) and runs through the hand-written
+``mxfp4_matmul`` kernel; decode runs over float pages through the
+``paged_flash_decode`` kernel. ``--backend cim``: the hybrid analog/digital
+model; static linears are calibrated offline (Row-Hist) on synthetic
+token batches, converted to resident INT5 codes and run on the analog
+CTT-CIM arrays (``cim_linear`` kernel), SDPA runs on the digital MXFP4
+path, decode through ``paged_flash_decode_mx`` over quantized-resident
+pages. ``--backend float``: bf16 linears, float pages. Weights are random
+from a seed.
 
 Runs on CUDA unless ``--device cpu`` is given (then the kernels' plain
 versions run); without a GPU and without ``--device cpu`` it raises.
 
+  python -m repro_torch.launch.serve --no-tiny --serve-trace \\
+      --backend mxfp4 --kv-layout fused     # full width, 32 layers
   python -m repro_torch.launch.serve --serve-trace --backend cim \\
       --kv-layout fused                     # tiny starcoder2-7b on the GPU
-  python -m repro_torch.launch.serve --no-tiny --serve-trace --backend cim \\
-      --kv-layout fused                     # full width, 32 layers
   PYTHONPATH=src python -m repro_torch.launch.serve --serve-trace \\
-      --device cpu                          # tiny, CPU plain versions
+      --backend float --device cpu          # tiny, CPU plain versions
 """
 
 from __future__ import annotations
@@ -31,24 +36,30 @@ from repro_torch import configs as C
 from repro_torch import obs as obs_lib
 from repro_torch import resolve_device
 from repro_torch.core import cim as cimlib
-from repro_torch.layers.common import RunCtx
+from repro_torch.layers.common import RunCtx, convert_params_mxfp4
 from repro_torch.models import calibrate, lm
 
 
 def conversion_args(args) -> dict:
-    """Backend-conversion knobs, read from the CLI in exactly one place."""
+    """Backend-conversion knobs, read from the CLI in exactly one place;
+    ``min_n`` gates MXFP4 packing and CIM conversion alike."""
     return dict(min_n=args.cim_min_n, adc_bits=args.adc_bits,
                 cm_bits=args.cm_bits, calib_batches=args.calib_batches)
 
 
 def build_backend(args, cfg, params, device, obs=None):
-    """Row-Hist calibration + conversion for ``--backend cim``. Returns
-    (converted_params, RunCtx)."""
-    if args.backend != "cim":
-        raise NotImplementedError(f"--backend {args.backend!r} is not ported "
-                                  "(ROADMAP.md Queue 1/2)")
+    """(converted_params, RunCtx) for ``--backend``: ``float`` serves the
+    parameters as they are, ``mxfp4`` packs the static linears, ``cim``
+    runs Row-Hist calibration and the analog conversion."""
     conv_kw = conversion_args(args)
     log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    if args.backend == "float":
+        return params, RunCtx(dense_attn_max=256, obs=obs)
+    if args.backend == "mxfp4":
+        return (convert_params_mxfp4(params, min_n=conv_kw["min_n"]),
+                RunCtx(quant="mxfp4_wonly", dense_attn_max=256, obs=obs))
+    if args.backend != "cim":
+        raise SystemExit(f"unknown --backend {args.backend!r}")
     cim_cfg = cimlib.CIMConfig(adc_bits=conv_kw["adc_bits"],
                                cm_bits=conv_kw["cm_bits"], two_pass=True)
     base_ctx = RunCtx(dense_attn_max=256)
@@ -136,7 +147,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="calibration batch size")
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--tokens", type=int, default=16)
-    ap.add_argument("--backend", default="cim", choices=("cim",))
+    ap.add_argument("--backend", default="mxfp4",
+                    choices=("float", "mxfp4", "cim"),
+                    help="linear backend: packed MXFP4 weight-only "
+                         "(default), hybrid analog CIM, or bf16")
     ap.add_argument("--calib-batches", type=int, default=2)
     ap.add_argument("--cim-min-n", type=int, default=32)
     ap.add_argument("--adc-bits", type=int, default=10)
@@ -154,7 +168,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_model(args, obs=None):
     """Config, converted parameters and RunCtx for the run: random weights
-    from ``--seed`` on the run's device, Row-Hist calibrated and converted.
+    from ``--seed`` on the run's device, converted for ``--backend``.
     Raises if CUDA is asked for (the default) and missing."""
     device = resolve_device(args.device)
     cfg = C.tiny(C.ARCHS[args.arch]) if args.tiny else C.ARCHS[args.arch]

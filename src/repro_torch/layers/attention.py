@@ -2,7 +2,8 @@
 the fused paged KV cache (counterpart of ``repro.layers.attention``).
 
 Ported branches of :func:`attn_apply`: prefill without a cache, prefill
-into a fused cache, and the fused paged decode. The online-softmax
+into a fused cache, and the fused paged decode, over float pages or (under
+a digital-SDPA backend) the quantized-resident mirrors. The online-softmax
 prefill (``_flash_attn``), chunked prefill and the legacy split cache
 raise ``NotImplementedError`` (ROADMAP.md Queue 1).
 """
@@ -269,9 +270,11 @@ def _fused_decode(ctx, cfg, q, k, v, cache, pos, mx_dig):
 
 def attn_cache_init(cfg: AttnStatic, batch: int, max_len: int,
                     dtype=torch.bfloat16, mx_digital: bool = False,
-                    fused: bool = False, device="cpu") -> dict:
-    """Fused paged K/V cache; with ``mx_digital`` it also carries the
-    quantized-resident code mirrors for the digital-SDPA decode."""
+                    fused: bool = False, device=None) -> dict:
+    """Fused paged K/V cache on ``device`` (default ``cuda``; raises
+    without a GPU unless ``device="cpu"`` is given); with ``mx_digital`` it
+    also carries the quantized-resident code mirrors for the digital-SDPA
+    decode."""
     if not fused:
         raise NotImplementedError("the legacy split K/V cache is not ported "
                                   "(ROADMAP.md Queue 1); use fused=True")

@@ -5,15 +5,16 @@ counterpart of ``repro.layers.backends``.
 ``float_bf16``      unquantized BF16 matmul
 ``mxfp4_ste``       fake-quant of weights + activations (STE); with the
                     digital MXFP4 SDPA this is the ``mxfp4_digital`` mode
+``mxfp4_wonly``     weight-only packed MXFP4 (4.25 b/param resident); the
+                    hand-written ``mxfp4_matmul`` kernel on CUDA
 ``cim_analog``      analog CTT-CIM array: resident INT5 codes, per-block
                     exponents, Row-Hist ``LayerCalib`` (paper §3, §5.2.2)
 ==================  =======================================================
 
 Aliases: ``none -> float_bf16``, ``cim -> cim_analog``, ``mxfp4_digital ->
-mxfp4_ste``. Unknown names raise ``ValueError``. ``mxfp4_wonly`` (packed
-weight-only serving, the Pallas ``mxfp4_matmul`` kernel) and
-``mxfp4_ste_prequant`` (training) are not ported yet and raise
-``NotImplementedError``; neither falls through to float.
+mxfp4_ste``. Unknown names raise ``ValueError``. ``mxfp4_ste_prequant``
+(training) is not ported yet and raises ``NotImplementedError``; it does
+not fall through to float.
 """
 
 from __future__ import annotations
@@ -26,6 +27,44 @@ import torch
 from repro_torch.core import cim as cimlib
 from repro_torch.core import mx as mxlib
 from repro_torch.kernels.cim_linear import ops as cim_ops
+from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+
+
+# ----------------------------------------------------------- param packing
+
+def _dequant_packed(codes: torch.Tensor, exps: torch.Tensor) -> torch.Tensor:
+    """packed uint8 codes [K//2, N] + biased exps [K//32, N] -> bf16 [K, N]
+    through the pair table, bitwise the reference's. The scale 2^(b-128)
+    is exact in bf16; for ``b <= 1`` it is the subnormal that the
+    reference's platforms flush, so it is 0 here."""
+    kp2, n = codes.shape[-2], codes.shape[-1]
+    k = 2 * kp2
+    pair = mxlib.pair_table(str(codes.device))[codes.long()]  # [K//2, N]
+    cb = pair.view(torch.int16).view(torch.bfloat16)  # [K//2, 2N]: lo, hi
+    cb = cb.reshape(kp2, n, 2).transpose(-1, -2).reshape(k, n)
+    b = exps.to(torch.int32)
+    scale = torch.where(b <= 1, torch.zeros((), device=b.device),
+                        mxlib._f32_from_field(b - 1)).to(torch.bfloat16)
+    w = cb.reshape(k // mxlib.BLOCK, mxlib.BLOCK, n) * scale[:, None, :]
+    return w.reshape(k, n)
+
+
+def _quantize_packed(w: torch.Tensor) -> dict:
+    """[K, N] float -> packed MXFP4 {codes [K//2, N] uint8, exps [K//32, N]
+    uint8 biased} quantized along K."""
+    mxq = mxlib.quantize(w.transpose(-1, -2))
+    return {"codes": mxlib.pack_codes(mxq.codes).transpose(-1, -2).contiguous(),
+            "exps": mxlib.exps_to_biased(mxq.exps).transpose(-1, -2)
+            .contiguous()}
+
+
+def quantize_linear_params(params: dict) -> dict:
+    """Convert a float linear param dict to packed MXFP4 (weight-only);
+    the bias stays as it is, as in the reference."""
+    out = _quantize_packed(params["w"])
+    if "b" in params:
+        out["b"] = params["b"]
+    return out
 
 
 class LinearBackend:
@@ -44,7 +83,7 @@ class LinearBackend:
 _REGISTRY: dict[str, LinearBackend] = {}
 _ALIASES = {"none": "float_bf16", "cim": "cim_analog",
             "mxfp4_digital": "mxfp4_ste"}
-_NOT_PORTED = ("mxfp4_wonly", "mxfp4_ste_prequant")
+_NOT_PORTED = ("mxfp4_ste_prequant",)
 
 
 def backend_names() -> list[str]:
@@ -55,7 +94,7 @@ def get_backend(name: str) -> LinearBackend:
     key = _ALIASES.get(name, name)
     if key in _NOT_PORTED:
         raise NotImplementedError(
-            f"linear backend {name!r} is not ported yet (ROADMAP.md Queue 2)")
+            f"linear backend {name!r} is not ported yet (ROADMAP.md Queue 1)")
     if key not in _REGISTRY:
         raise ValueError(
             f"unknown linear-execution backend {name!r}; known: "
@@ -64,13 +103,12 @@ def get_backend(name: str) -> LinearBackend:
 
 
 def resolve_backend(ctx, params: dict) -> LinearBackend:
-    """Converted-param markers win (what is resident decides execution);
-    otherwise ``ctx.quant`` names the backend."""
-    if _REGISTRY["cim_analog"].handles(params):
-        return _REGISTRY["cim_analog"]
-    if "codes" in params:
-        raise NotImplementedError("packed mxfp4_wonly params are not ported "
-                                  "yet (ROADMAP.md Queue 2)")
+    """Converted-param markers win, in the reference's order (what is
+    resident decides execution: a packed node runs weight-only whatever
+    ``ctx.quant`` says); otherwise ``ctx.quant`` names the backend."""
+    for marker in ("cim_analog", "mxfp4_wonly"):
+        if _REGISTRY[marker].handles(params):
+            return _REGISTRY[marker]
     return get_backend(ctx.quant)
 
 
@@ -102,6 +140,31 @@ class _MXFP4STE(LinearBackend):
         wq = mxlib.fake_quant_axis(params["w"], 0)
         xq = mxlib.fake_quant(x.to(torch.float32))
         return torch.matmul(xq.to(torch.bfloat16), wq.to(torch.bfloat16))
+
+
+@_register
+class _MXFP4WeightOnly(LinearBackend):
+    """Weight-only packed MXFP4. Converted node: ``codes`` uint8 [K//2, N],
+    ``exps`` uint8 [K//32, N] biased E8M0, optional ``b``."""
+
+    name = "mxfp4_wonly"
+
+    def handles(self, params):
+        return "codes" in params and "e_n" not in params
+
+    def convert(self, params) -> dict:
+        return quantize_linear_params(params)
+
+    def forward(self, ctx, params, x):
+        if "codes" not in params:
+            # not converted (eval on a float tree): weight-only quantization
+            # happens at convert time, so this is the plain bf16 matmul
+            return _REGISTRY["float_bf16"].forward(ctx, params, x)
+        if ctx.impl == "ref":
+            w = _dequant_packed(params["codes"], params["exps"])
+            return torch.matmul(x.to(torch.bfloat16), w)
+        return mm_ops.mxfp4_matmul(x, params["codes"], params["exps"],
+                                   obs=ctx.obs)
 
 
 @_register

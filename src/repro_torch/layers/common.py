@@ -23,10 +23,11 @@ class RunCtx:
 
     ``quant`` names a linear-execution backend (``none -> float_bf16``,
     ``cim -> cim_analog``); unknown names raise ``ValueError``. ``impl``:
-    ``"auto"`` routes the analog linears and the fused paged decode through
-    the kernel wrappers (CUDA kernel on CUDA tensors, its plain version on
-    CPU tensors); ``"ref"`` runs the reference's own compositions instead
-    (blockwise ``core.cim.cim_linear`` and the dense whole-key-axis
+    ``"auto"`` routes the analog and packed-MXFP4 linears and the fused
+    paged decode through the kernel wrappers (CUDA kernel on CUDA tensors,
+    its plain version on CPU tensors); ``"ref"`` runs the reference's own
+    compositions instead (blockwise ``core.cim.cim_linear``, the bf16
+    ``_dequant_packed`` matmul and the dense whole-key-axis
     ``ragged_paged_decode_ref``), as the JAX package does off the TPU.
     """
 
@@ -135,3 +136,31 @@ def embed_init(gen: torch.Generator, vocab: int, d: int) -> dict:
 
 def embed_apply(params: dict, ids: torch.Tensor) -> torch.Tensor:
     return params["emb"].to(torch.bfloat16)[ids]
+
+
+# ---------------------------------------------------- serving conversion
+
+def convert_params_mxfp4(tree, min_n: int = 256):
+    """Serving transform: every static linear weight with a 32-aligned
+    contraction dim and at least ``min_n`` outputs becomes packed MXFP4
+    (4.25 b/param resident, the ``mxfp4_wonly`` node; its bias stays as it
+    is); every other float32 leaf is cast to bf16. The reference's gate,
+    over the port's tree of one dict per layer."""
+
+    def rec(node):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if (w is not None and w.ndim == 2 and w.shape[0] % 32 == 0
+                    and w.shape[1] >= min_n):
+                out = backends_lib.quantize_linear_params(node)
+                out.update({k: rec(v) for k, v in node.items()
+                            if k not in ("w", "b")})
+                return out
+            return {k: rec(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [rec(v) for v in node]
+        if torch.is_tensor(node) and node.dtype == torch.float32:
+            return node.to(torch.bfloat16)
+        return node
+
+    return rec(tree)

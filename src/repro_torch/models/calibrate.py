@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import cim as cimlib
 from repro_torch.layers import backends
 from repro_torch.layers.common import RunCtx
@@ -52,9 +53,12 @@ def convert_model_cim(params, cfg, ctx: RunCtx, batches, *,
 
 
 def calibration_batches(cfg, n_batches: int = 4, batch: int = 4,
-                        seq: int = 32, seed: int = 1234, device="cpu"):
+                        seq: int = 32, seed: int = 1234, device=None):
     """Synthetic representative batches (random token ids) from a seeded
-    ``torch.Generator`` (not the reference's jax.random stream)."""
+    ``torch.Generator`` (not the reference's jax.random stream), on
+    ``device`` (default ``cuda``; raises without a GPU unless
+    ``device="cpu"`` is given)."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     return [{"ids": torch.randint(0, cfg.vocab_size, (batch, seq),
                                   generator=gen, device=device)}

@@ -80,8 +80,10 @@ def init_model(cfg: ArchConfig, gen: torch.Generator) -> dict:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                mx_digital: bool = False, fused: bool = False,
-               device="cpu") -> list:
-    """Decode caches: per segment, one fused page dict per layer."""
+               device=None) -> list:
+    """Decode caches: per segment, one fused page dict per layer, on
+    ``device`` (default ``cuda``; raises without a GPU unless
+    ``device="cpu"`` is given)."""
     return [
         [attn_mod.attn_cache_init(seg.attn, batch, max_len,
                                   mx_digital=mx_digital, fused=fused,

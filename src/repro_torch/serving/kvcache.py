@@ -92,12 +92,14 @@ def scatter_rows(pool, specs, rows, values) -> None:
 
 
 class PagedKVCache:
-    """Fixed pool of fused KV pages + slot allocator for one served model;
-    ``mx_digital`` pools carry the quantized-resident code mirrors."""
+    """Fixed pool of fused KV pages + slot allocator for one served model,
+    on ``device`` (default ``cuda``; raises without a GPU unless
+    ``device="cpu"`` is given); ``mx_digital`` pools carry the
+    quantized-resident code mirrors, float pools carry none."""
 
     def __init__(self, cfg, num_slots: int, lanes: int, page_len: int,
                  mx_digital: bool = False, layout: str = "fused",
-                 device="cpu"):
+                 device=None):
         if layout != "fused":
             raise NotImplementedError(f"KV layout {layout!r} is not ported "
                                       "(ROADMAP.md Queue 1); use 'fused'")

@@ -101,15 +101,15 @@ def test_cpu_wrapper_runs_plain_version_without_launching():
 
 def test_backend_registry_names_and_errors():
     assert tbackends.backend_names() == ["cim_analog", "float_bf16",
-                                         "mxfp4_ste"]
+                                         "mxfp4_ste", "mxfp4_wonly"]
     assert tbackends.get_backend("cim").name == "cim_analog"
     assert tbackends.get_backend("none").name == "float_bf16"
     assert tbackends.get_backend("mxfp4_digital").name == "mxfp4_ste"
     with pytest.raises(ValueError, match="unknown"):
         tbackends.get_backend("int3_magic")
-    for name in ("mxfp4_wonly", "mxfp4_ste_prequant"):
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            tbackends.get_backend(name)
+    assert tbackends.get_backend("mxfp4_wonly").name == "mxfp4_wonly"
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        tbackends.get_backend("mxfp4_ste_prequant")  # training
 
 
 def test_cim_backend_converted_node_and_fallback():

@@ -126,7 +126,8 @@ def test_decode_logits_match_reference_kernels(models):
                                impl="pallas", interpret=True)
     tctx = TCtx(quant="cim", cim=tcim.CIMConfig(), dense_attn_max=256)
     jc = jlm.init_cache(JCFG, 1, PAGE, mx_digital=True, fused=True)
-    tc = tlm.init_cache(TCFG, 1, PAGE, mx_digital=True, fused=True)
+    tc = tlm.init_cache(TCFG, 1, PAGE, mx_digital=True, fused=True,
+                        device="cpu")
     _, jc = jlm.forward(models["jconv"], JCFG, jctx,
                         {"ids": jnp.asarray(IDS[:, :SEQ])}, caches=jc)
     _, tc = tlm.forward(models["tconv"], TCFG, tctx,

@@ -15,6 +15,15 @@ JAX reference.
   Same bound and reason. It is also held to the dense reference at the
   reference's own kernel bound (SQNR > 13 dB, atol 0.35): per-chunk vs
   whole-axis P quantization.
+- Float pages: the chunked plain version of the float CUDA kernel
+  (``paged_flash_decode_ref``) against the Pallas ``paged_flash_decode``
+  in interpret mode at W=48 / bk=32 on the reference's pinned ragged
+  lengths, at atol 1e-2. The Pallas source rounds each chunk's PV to
+  bf16, but XLA folds that round trip away (an f32 dot), so neither side
+  rounds it: the measured maximum difference is 0 on these pages (with
+  the round, 1 bf16 ulp on about a fifth of the outputs). Against
+  the dense reference it holds the reference's own kernel bound (atol
+  0.04, rtol 0.05).
 """
 
 import numpy as np
@@ -42,6 +51,7 @@ j_fake_quant = jax.jit(jmx.fake_quant)
 P, HKV, G, DH = 5, 2, 3, 32
 SCALE = DH ** -0.5
 LENGTHS = {48: ([0, 1, 31, 48], [32, 33, 47, 0]), 64: ([64, 1, 33, 0],)}
+FLOAT_LENGTHS = ([0, 1, 32, 48], [33, 47, 31, 0], [48, 48, 1, 17])
 
 
 def _bf16(a: np.ndarray):
@@ -183,22 +193,77 @@ def test_chunked_plain_matches_pallas_interpret(w):
         _assert_close(got.float(), dense.float(), lens > 0, 13.0, 0.35)
 
 
+def test_float_chunked_plain_matches_pallas_interpret():
+    """The float-page CUDA kernel's plain version against the Pallas
+    kernel it replaces (W=48 -> bk=32: clamped tail chunk at offset 16),
+    and against the dense reference; zero-length lanes exactly zero."""
+    k, v, q = _pages(7, 48)
+    kvj, kvt = jlayout.fuse_kv(k[0], v[0]), tlayout.fuse_kv(k[1], v[1])
+    rows = np.array([4, 0, 2, 1])
+    assert tops.pick_bk(48) == 32
+    for lens in FLOAT_LENGTHS:
+        lens = np.array(lens)
+        ref = jkernel.paged_flash_decode(
+            q[0], kvj, jnp.asarray(rows, jnp.int32),
+            jnp.asarray(lens, jnp.int32), scale=SCALE, bk=32, interpret=True)
+        got = tops.ragged_paged_decode(
+            q[1], torch.from_numpy(rows), torch.from_numpy(lens), kv=kvt,
+            scale=SCALE)
+        assert got.dtype == torch.bfloat16
+        got = got.float().numpy()
+        np.testing.assert_allclose(got, np.asarray(ref, np.float32),
+                                   atol=1e-2, rtol=0.0)
+        dense = tref.ragged_paged_decode_ref(
+            q[1], torch.from_numpy(rows), torch.from_numpy(lens), kv=kvt,
+            scale=SCALE)
+        np.testing.assert_allclose(got, dense.float().numpy(), atol=0.04,
+                                   rtol=0.05)
+        np.testing.assert_array_equal(got[lens == 0], 0.0)
+
+
 def test_pick_bk_and_wrapper_contract():
     for w in (8, 31, 32, 48, 100, 256, 1024):
         assert tops.pick_bk(w) == jops.pick_bk(w)
     k, v, q = _pages(5, 48)
     tq = tlayout.quant_page_full(k[1], v[1])
+    kv = tlayout.fuse_kv(k[1], v[1])
     rows = torch.zeros(4, dtype=torch.int32)
     lens = torch.ones(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="exactly one"):
         tops.ragged_paged_decode(q[1], rows, lens, scale=SCALE)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tops.ragged_paged_decode(q[1], rows, lens, scale=SCALE,
-                                 kv=tlayout.fuse_kv(k[1], v[1]))
-    before = tops.ragged_paged_decode.launches
-    out = tops.ragged_paged_decode(q[1], rows, lens, quant=tq, scale=SCALE)
-    assert out.shape == q[1].shape and out.dtype == torch.bfloat16
-    assert tops.ragged_paged_decode.launches == before  # CPU: plain version
+    before = (tops.paged_flash_decode.launches,
+              tops.paged_flash_decode_mx.launches)
+    for pages in ({"quant": tq}, {"kv": kv}):
+        out = tops.ragged_paged_decode(q[1], rows, lens, scale=SCALE, **pages)
+        assert out.shape == q[1].shape and out.dtype == torch.bfloat16
+        with pytest.raises(ValueError, match="unsupported device"):
+            tops.ragged_paged_decode(q[1].to("meta"), rows, lens,
+                                     scale=SCALE, **pages)
+    # CPU: the plain versions, no launch counted
+    assert (tops.paged_flash_decode.launches,
+            tops.paged_flash_decode_mx.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [48, 256])
+def test_cuda_float_kernel_matches_plain_version(w):
+    """The float-page CUDA kernel against its plain version on the card:
+    f32 sums in another order, so a bf16 ulp of PV at most."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    k, v, q = _pages(8, w)
+    kv = tlayout.fuse_kv(k[1], v[1]).cuda()
+    qc = q[1].cuda()
+    rows = torch.tensor([4, 0, 2, 1], dtype=torch.int32).cuda()
+    for lens in (FLOAT_LENGTHS if w == 48 else ([0, 31, 129, 256],)):
+        lens = torch.tensor(lens, dtype=torch.int32).cuda()
+        before = tops.paged_flash_decode.launches
+        got = tops.ragged_paged_decode(qc, rows, lens, kv=kv, scale=SCALE)
+        assert tops.paged_flash_decode.launches == before + 1
+        ref = tref.paged_flash_decode_ref(qc, kv, rows, lens, scale=SCALE,
+                                          bk=tops.pick_bk(w))
+        _assert_close(got.float().cpu(), ref.float().cpu(),
+                      (lens > 0).cpu().numpy(), 40.0, 1e-2)
 
 
 @pytest.mark.cuda

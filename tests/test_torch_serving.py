@@ -6,8 +6,9 @@ isolation from JAX.
   produces alone (the reference's isolation invariant, inside the port).
 - Allocator and scheduler behave as the reference's (same host code).
 - ``repro_torch`` imports without JAX and imports nothing of ``repro``.
-- The launcher serves on the CPU when asked and refuses to fall back to
-  the CPU silently.
+- The launcher serves every backend on the CPU when asked and refuses to
+  fall back to the CPU silently; so does every public builder of device
+  state.
 """
 
 import dataclasses
@@ -24,7 +25,9 @@ torch = pytest.importorskip("torch")
 from repro.serving.scheduler import Scheduler as JScheduler  # noqa: E402
 from repro_torch import configs as C  # noqa: E402
 from repro_torch.core import cim as tcim  # noqa: E402
-from repro_torch.layers.common import RunCtx  # noqa: E402
+from repro_torch.kernels.paged_attention import layout  # noqa: E402
+from repro_torch.layers import attention as tattention  # noqa: E402
+from repro_torch.layers.common import RunCtx, convert_params_mxfp4  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import calibrate, lm  # noqa: E402
 from repro_torch.serving import Engine, EngineConfig  # noqa: E402
@@ -46,11 +49,19 @@ ECFG = EngineConfig(lanes=3, num_slots=4, page_len=40, prefill_len=16)
 def cim_model():
     gen = torch.Generator().manual_seed(0)
     params = lm.init_model(CFG, gen)
-    batches = calibrate.calibration_batches(CFG, n_batches=2, batch=2, seq=16)
+    batches = calibrate.calibration_batches(CFG, n_batches=2, batch=2, seq=16,
+                                            device="cpu")
     conv, _ = calibrate.convert_model_cim(
         params, CFG, RunCtx(dense_attn_max=256), batches,
         cim_cfg=tcim.CIMConfig(), min_n=32)
     return conv, RunCtx(quant="cim", cim=tcim.CIMConfig(), dense_attn_max=256)
+
+
+@pytest.fixture(scope="module")
+def mxfp4_model():
+    params = lm.init_model(CFG, torch.Generator().manual_seed(1))
+    return (convert_params_mxfp4(params, min_n=32),
+            RunCtx(quant="mxfp4_wonly", dense_attn_max=256))
 
 
 def _requests():
@@ -59,9 +70,13 @@ def _requests():
             for n, m in zip(rng.integers(2, 17, 5), rng.integers(3, 12, 5))]
 
 
-def test_staggered_batching_equals_solo_runs(cim_model):
-    params, ctx = cim_model
+@pytest.mark.parametrize("backend", ["cim", "mxfp4"])
+def test_staggered_batching_equals_solo_runs(backend, request):
+    """cim: quantized-resident pool; mxfp4: float pool, no code mirrors."""
+    params, ctx = request.getfixturevalue(f"{backend}_model")
     eng = Engine(params, CFG, ctx, ECFG)
+    assert eng.kv.mx_digital == (backend == "cim")
+    assert ("kv_codes" in eng.kv.pool[0][0]) == (backend == "cim")
     for i, (prompt, n_new) in enumerate(_requests()):
         eng.add_request(prompt, max_new=n_new)
         for _ in range(i % 3):  # staggered arrivals mid-flight
@@ -101,7 +116,8 @@ def test_slot_allocator_refcounts():
 
 
 def test_gather_scatter_rows_roundtrip():
-    kv = PagedKVCache(CFG, num_slots=3, lanes=2, page_len=32, mx_digital=True)
+    kv = PagedKVCache(CFG, num_slots=3, lanes=2, page_len=32, mx_digital=True,
+                      device="cpu")
     rows = torch.tensor([4, 1])
     vals = gather_rows(kv.pool, kv.specs, rows)
     for layer in vals[0]:
@@ -142,7 +158,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "sys.modules['repro'] = None; "
             "import repro_torch.launch.serve, repro_torch.convert, "
             "repro_torch.kernels.cim_linear.ops, "
-            "repro_torch.kernels.paged_attention.ops; "
+            "repro_torch.kernels.paged_attention.ops, "
+            "repro_torch.kernels.mxfp4_matmul.ops, "
+            "repro_torch.kernels.flash_attention.ops; "
             "import runpy; runpy.run_path('chip_smoke.py', run_name='x'); "
             "assert not [m for m, v in sys.modules.items() "
             "if v is not None and m.split('.')[0] in ('jax', 'repro')]")
@@ -157,12 +175,40 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         assert not bad.search(f.read_text()), f
 
 
-def test_launcher_serves_on_cpu_and_never_falls_back():
-    out = tserve.main(["--serve-trace", "--device", "cpu", "--requests", "3",
-                       "--prompt-len", "8", "--tokens", "4",
-                       "--log-level", "warning"])
+@pytest.mark.parametrize("backend", ["mxfp4", "float", "cim"])
+def test_launcher_serves_on_cpu_and_never_falls_back(backend):
+    out = tserve.main(["--serve-trace", "--backend", backend, "--device",
+                       "cpu", "--requests", "3", "--prompt-len", "8",
+                       "--tokens", "4", "--log-level", "warning"])
     assert out["requests"] == 3 and out["tokens"] > 0
     assert all(0 <= t < CFG.vocab_size for v in out["out"].values() for t in v)
+    assert tserve.build_parser().parse_args([]).backend == "mxfp4"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            tserve.main(["--serve-trace"])
+            tserve.main(["--serve-trace", "--backend", backend])
+
+
+def test_public_builders_default_to_cuda(monkeypatch):
+    """Without a ``device`` every public builder of device state resolves
+    to CUDA: on a machine with no GPU it raises before it allocates, and
+    never quietly builds CPU tensors."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seg = lm.build_segments(CFG)[0]
+    builders = [
+        lambda **kw: lm.init_cache(CFG, 1, 32, fused=True, **kw),
+        lambda **kw: tattention.attn_cache_init(seg.attn, 1, 32, fused=True,
+                                                mx_digital=True, **kw),
+        lambda **kw: layout.fused_cache_init(1, 32, 2, 16, **kw),
+        lambda **kw: layout.fused_quant_init(1, 32, 2, 16, **kw),
+        lambda **kw: PagedKVCache(CFG, 2, 2, 32, **kw),
+        lambda **kw: calibrate.calibration_batches(CFG, 1, 1, 8, **kw),
+    ]
+    allocs = []
+    monkeypatch.setattr(torch, "zeros", lambda *a, **kw: allocs.append(a))
+    for build in builders:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    assert not allocs
+    monkeypatch.undo()
+    cache = lm.init_cache(CFG, 1, 32, fused=True, device="cpu")
+    assert cache[0][0]["kv"].device.type == "cpu"
