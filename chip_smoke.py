@@ -14,6 +14,11 @@
    operations over the peak rate of their type, H100 SXM data sheet) and,
    where one PyTorch call computes the same function, that call's time
    (``library_ms``; timed here only, never used by the port).
+   ``mxfp4_matmul`` rows name their route (``fma`` or ``wgmma``, picked
+   from shape and dtype) and the route's counter must move; w1 is also
+   run with f32 x at M=192 and at the ragged M=100, and timed on both
+   routes at small M (``route crossover`` lines). ``paged_decode`` rows
+   name their key split (``split_width``, ``splits``).
 4. Serve ``--backend cim``: starcoder2-7b at full width with the depth cut
    to 8 of 32 layers, through the launcher's entry points: 8 staggered
    requests, 4 lanes, 6 slots, prompts up to 192 tokens, 64 new tokens.
@@ -23,18 +28,21 @@
    vocabulary and as many as asked; prefill logits of a 192-token prompt
    through the kernels agree with ``impl="ref"`` on the card (SQNR >= 30
    dB); a tiny model with the same weights gives the same logits on the
-   card as on the CPU. Then 8 decode steps (4 live lanes) under
-   ``torch.profiler``: device time by kernel and the device's busy share.
+   card as on the CPU. Then one 192-token prefill and 8 decode steps (4
+   live lanes), each under ``torch.profiler``: device time by kernel, wall
+   time and the device's busy share.
 5. Serve ``--backend mxfp4`` the same way at full width and full depth (32
-   layers): ``mxfp4_matmul`` and ``paged_decode`` must have launched,
-   ``cim_linear`` and ``paged_decode_mx`` not; the same output checks and
-   the decode profile.
+   layers): ``mxfp4_matmul`` (both routes) and ``paged_decode`` must have
+   launched, ``cim_linear`` and ``paged_decode_mx`` not; the same output
+   checks and profiles, where the prefill's linears must take the
+   ``wgmma`` route and the decode step's the ``fma`` route only.
 6. Prints the kernels line, then the card's name and power limit, then
    the device line, as the last line.
 
 Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``paged_decode_mx {...}``, ``mxfp4_matmul {...}``, ``paged_decode {...}``,
-``flash_attention {...}``, ``serve {...}``, ``decode profile {...}``).
+``flash_attention {...}``, ``serve {...}``, ``prefill profile {...}``,
+``decode profile {...}``).
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_S = 3.35e12  # H100 SXM
-PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12}
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 TRACE_ARGS = ["--no-tiny", "--serve-trace", "--kv-layout", "fused",
               "--requests", "8", "--lanes", "4", "--slots", "6",
               "--prompt-len", "192", "--tokens", "64"]
@@ -69,6 +77,8 @@ OWN_KERNELS = {"cim": ("cim_linear", "paged_decode_mx"),
 LINEAR_SHAPES = [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608),
               (4608, 49152)]
 M_PREFILL = 192  # rows of a prefill linear (the served prompt length)
+M_RAGGED = 100  # a prefill row count that is not a multiple of 64
+CROSSOVER_M = (4, 8, 16, 32, 64)  # rows at which both matmul routes are timed
 DECODE_DIMS = (4, 4, 9, 128)  # lanes, KV heads, heads per KV head, head_dim
 PAGES = ((48, [0, 1, 33, 48]), (256, [0, 31, 129, 256]))  # W, lengths
 # flash_attention at the prefill shape the model would give it:
@@ -93,19 +103,33 @@ def _device_kernels_ms(prof) -> dict:
 def _device_ms(fn, reps: int) -> float:
     """Device time per call: the kernels that ``reps`` warmed calls launch,
     summed (``torch.profiler``), over ``reps``. Host dispatch is not in it;
-    :func:`_time_ms` around one call includes it."""
+    :func:`_time_ms` around one call includes it. The profiler's device
+    trace has come back empty now and then on the H100 machine: it is
+    taken again, and after three empty traces the call is timed with CUDA
+    events around ``reps`` back-to-back calls instead (launch gaps
+    included, so an upper bound), and a line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_device_kernels_ms(prof).values())
-    if total <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return total / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_device_kernels_ms(prof).values())
+        if total > 0:
+            return total / reps
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    print("device timer: three empty profiler traces, timed with CUDA "
+          "events", flush=True)
+    return a.elapsed_time(b) / reps
 
 
 def _time_ms(fn, reps: int, warm: int = 2) -> float:
@@ -249,6 +273,9 @@ def check_paged_decode(dev) -> list:
 
 
 def check_mxfp4_matmul(dev, m_prefill: int) -> list:
+    """Every linear shape at decode (M=4) and prefill (M=192) in bf16, plus
+    w1 at M=192 with f32 x (the fma route) and at the ragged M=100 in
+    bf16. Each row names its route; the route's counter must move."""
     from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
     from repro_torch.kernels.mxfp4_matmul.ref import mxfp4_matmul_ref
     from repro_torch.layers import backends
@@ -260,32 +287,61 @@ def check_mxfp4_matmul(dev, m_prefill: int) -> list:
             torch.randn((k, n), generator=gen, device=dev) * k ** -0.5)
         codes, exps = packed["codes"], packed["exps"]
         w_bf16 = backends._dequant_packed(codes, exps)  # library operand
-        for m in (4, m_prefill):
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
+        cases = [(4, torch.bfloat16), (m_prefill, torch.bfloat16)]
+        if (k, n) == LINEAR_SHAPES[2]:
+            cases += [(m_prefill, torch.float32), (M_RAGGED, torch.bfloat16)]
+        for m, dtype in cases:
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            w_lib = w_bf16 if dtype == torch.bfloat16 else w_bf16.float()
+            route = mm_ops.pick_route(m, k, n, dtype)
+            before = mm_ops.mxfp4_matmul.route_launches[route]
             got = mm_ops.mxfp4_matmul(x, codes, exps).float()
+            if mm_ops.mxfp4_matmul.route_launches[route] != before + 1:
+                raise AssertionError(f"mxfp4_matmul did not take the {route} "
+                                     f"route at {(m, k, n)}")
             ref = mxfp4_matmul_ref(x, codes, exps).float()
             torch.cuda.synchronize()
             err = (got - ref).abs()
             ok = bool((err <= 2e-2 * ref.abs() + 2e-2 * ref.abs().max()).all())
-            n_bytes = 2 * m * k + k * n // 2 + k * n // 32 + 2 * m * n
-            bound, by = _bound_ms(n_bytes, 2.0 * m * n * k, "bf16")
+            n_bytes = (x.element_size() * m * k + k * n // 2 + k * n // 32
+                       + 2 * m * n)
+            bound, by = _bound_ms(n_bytes, 2.0 * m * n * k,
+                                  "bf16" if dtype == torch.bfloat16 else "f32")
             rows.append(dict(
-                m=m, k=k, n=n, max_abs_err=float(err.max()),
-                sqnr_db=_sqnr_db(ref, got), ok=ok,
+                m=m, k=k, n=n, x_dtype=str(dtype).split(".")[-1], route=route,
+                max_abs_err=float(err.max()), sqnr_db=_sqnr_db(ref, got),
+                ok=ok,
                 ms=_device_ms(lambda: mm_ops.mxfp4_matmul(x, codes, exps), 20),
                 call_ms=_time_ms(lambda: mm_ops.mxfp4_matmul(x, codes, exps),
                                  20),
                 plain_ms=_device_ms(lambda: mxfp4_matmul_ref(x, codes, exps),
                                     3),
                 bound_ms=bound, bound_by=by,
-                library_ms=_device_ms(lambda: torch.matmul(x, w_bf16), 20)))
+                library_ms=_device_ms(lambda: torch.matmul(x, w_lib), 20)))
             print("mxfp4_matmul", json.dumps(rows[-1]), flush=True)
             if not ok:
                 raise AssertionError(f"mxfp4_matmul kernel disagrees with its "
                                      f"plain version at {(m, k, n)}")
+        if (k, n) == LINEAR_SHAPES[2]:
+            route_crossover(codes, exps, gen, dev)
         del packed, codes, exps, w_bf16
     return rows
+
+
+def route_crossover(codes, exps, gen, dev) -> None:
+    """Both routes of ``mxfp4_matmul`` on one shape (w1) at small M, bf16
+    x: where the tensor-core route starts to win (``TC_MIN_M``)."""
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+
+    k = codes.shape[0] * 2
+    for m in CROSSOVER_M:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        ms = {r: _device_ms(lambda: mm_ops._launch(x, codes, exps, route=r),
+                            20) for r in mm_ops.ROUTES}
+        print("mxfp4_matmul route crossover", json.dumps(
+            {"m": m, "k": k, "n": codes.shape[1],
+             "picked": mm_ops.pick_route(m, k, codes.shape[1], x.dtype)}
+            | {f"{r}_ms": t for r, t in ms.items()}), flush=True)
 
 
 def check_paged_decode_float(dev) -> list:
@@ -338,8 +394,10 @@ def check_paged_decode_float(dev) -> list:
             + 8 * lanes
         ops = sum(4.0 * n * hkv * g * dh for n in lens)
         bound, by = _bound_ms(n_bytes, ops, "bf16")
+        sw, splits = pops.pick_splits(w)
         rows_out.append(dict(
-            lanes=lanes, hkv=hkv, g=g, dh=dh, w=w, bk=bk, lengths=lens,
+            lanes=lanes, hkv=hkv, g=g, dh=dh, w=w, bk=bk, split_width=sw,
+            splits=splits, lengths=lens,
             max_abs_err=err, sqnr_vs_plain_db=sq_plain,
             sqnr_vs_dense_db=_sqnr_db(dense[live], got[live]), ok=ok,
             ms=_device_ms(kernel, 50), call_ms=_time_ms(kernel, 50),
@@ -465,15 +523,14 @@ def serve_full_width(backend: str) -> dict:
     resident = sum(t.numel() * t.element_size() for t in _leaves(params))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wrappers = _kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    _zero_counts()
     summary = serve.serve_trace(args, cfg, params, ctx, obs, dev)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches, routes = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     print("serve", json.dumps({"backend": backend, "layers": cfg.n_layers}
                               | {k: v for k, v in summary.items() if k != "out"}
                               | {"launches": launches,
+                                 "mxfp4_matmul_routes": routes,
                                  "peak_mem_gib": peak / 2**30,
                                  "build_peak_mem_gib": build_peak / 2**30,
                                  "resident_params_gib": resident / 2**30,
@@ -483,6 +540,9 @@ def serve_full_width(backend: str) -> dict:
             v for k, v in launches.items() if k not in own):
         raise AssertionError(f"[{backend}] launches {launches}: the path's "
                              f"own kernels are {own}, and only those")
+    if backend == "mxfp4" and not all(routes.values()):
+        raise AssertionError(f"[mxfp4] mxfp4_matmul routes {routes}: the "
+                             "serve must run both")
     for v in summary["out"].values():
         if not v or not all(0 <= t < cfg.vocab_size for t in v):
             raise AssertionError("served tokens out of the vocabulary")
@@ -503,20 +563,88 @@ def serve_full_width(backend: str) -> dict:
           flush=True)
     if not finite or sq < 30.0:
         raise AssertionError(f"[{backend}] full-width prefill logits disagree")
-    prof = profile_decode(cfg, params, ctx, dev)
+    prof = {"prefill": profile_prefill(cfg, params, ctx),
+            "decode": profile_decode(cfg, params, ctx)}
     return {"launches": launches, "summary": summary, "profile": prof}
 
 
-def profile_decode(cfg, params, ctx, dev, steps: int = 8) -> dict:
-    """Device time by kernel over a steady window of decode steps (4 live
-    lanes) under ``torch.profiler``, against the window's wall clock."""
-    from torch.profiler import ProfilerActivity, profile
+def _zero_counts() -> None:
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
 
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+    for r in mm_ops.ROUTES:
+        mm_ops.mxfp4_matmul.route_launches[r] = 0
+
+
+def _read_counts() -> tuple[dict, dict]:
+    """(launches by kernel, ``mxfp4_matmul`` launches by route)."""
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+
+    return ({name: fn.launches for name, fn in _kernel_wrappers().items()},
+            dict(mm_ops.mxfp4_matmul.route_launches))
+
+
+def _engine(params, cfg, ctx):
     from repro_torch.serving import Engine, EngineConfig
 
-    eng = Engine(params, cfg, dataclasses.replace(ctx, obs=None),
-                 EngineConfig(lanes=4, num_slots=4, page_len=256,
-                              prefill_len=192))
+    return Engine(params, cfg, dataclasses.replace(ctx, obs=None),
+                  EngineConfig(lanes=4, num_slots=4, page_len=256,
+                               prefill_len=M_PREFILL))
+
+
+def _profiled(label: str, ctx, steps: int, step) -> dict:
+    """Run ``step`` ``steps`` times under ``torch.profiler``: device time by
+    kernel (device events only) against the window's wall clock, and the
+    launch counts of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches, routes = _read_counts()
+    by_name = _device_kernels_ms(prof)
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_ms_per_step": device_ms / steps if device_ms else None,
+           "device_busy_share": device_ms / wall_ms if device_ms else None,
+           "top_kernels_ms_per_step": {k: v / steps for k, v in top},
+           "launches": {k: v for k, v in launches.items() if v},
+           "mxfp4_matmul_routes": routes}
+    print(label, json.dumps({"backend": ctx.quant} | out), flush=True)
+    return out
+
+
+def profile_prefill(cfg, params, ctx) -> dict:
+    """One 192-token prefill through the engine (the request's first step)
+    under ``torch.profiler``. Under ``mxfp4`` its linears must take the
+    tensor-core route."""
+    eng = _engine(params, cfg, ctx)
+    rng = np.random.default_rng(9)
+    eng.add_request(rng.integers(0, cfg.vocab_size, M_PREFILL // 3).tolist(),
+                    max_new=2)
+    eng.step()  # a warm prefill outside the window
+    eng.add_request(rng.integers(0, cfg.vocab_size, M_PREFILL).tolist(),
+                    max_new=2)
+    out = _profiled("prefill profile", ctx, 1, eng.step)
+    if ctx.quant == "mxfp4_wonly" and not out["mxfp4_matmul_routes"]["wgmma"]:
+        raise AssertionError("[mxfp4] the prefill did not take the wgmma "
+                             f"route: {out['mxfp4_matmul_routes']}")
+    return out
+
+
+def profile_decode(cfg, params, ctx, steps: int = 8) -> dict:
+    """A steady window of decode steps (4 live lanes) under
+    ``torch.profiler``. Under ``mxfp4`` its linears (M = 4) must take the
+    fma route only."""
+    eng = _engine(params, cfg, ctx)
     rng = np.random.default_rng(5)
     for _ in range(4):
         eng.add_request(rng.integers(0, cfg.vocab_size, 128).tolist(),
@@ -524,23 +652,10 @@ def profile_decode(cfg, params, ctx, dev, steps: int = 8) -> dict:
     while len(eng.sched.running) < 4:  # the four prefills
         eng.step()
     eng.step()  # one decode step outside the window
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = _device_kernels_ms(prof)
-    device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-           "device_ms_per_step": device_ms / steps if device_ms else None,
-           "device_busy_share": device_ms / wall_ms if device_ms else None,
-           "top_kernels_ms_per_step": {k: v / steps for k, v in top}}
-    print("decode profile", json.dumps({"backend": ctx.quant} | out),
-          flush=True)
+    out = _profiled("decode profile", ctx, steps, eng.step)
+    routes = out["mxfp4_matmul_routes"]
+    if ctx.quant == "mxfp4_wonly" and (routes["wgmma"] or not routes["fma"]):
+        raise AssertionError(f"[mxfp4] decode took the routes {routes}")
     return out
 
 
@@ -572,7 +687,8 @@ def main() -> int:
     print(f"kernel build: {build_s:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                       "arning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     t0 = time.perf_counter()

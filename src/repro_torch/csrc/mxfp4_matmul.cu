@@ -1,20 +1,18 @@
-// Packed-MXFP4 dequant-matmul for Hopper (sm_90a).
+// Packed-MXFP4 dequant-matmul for Hopper (sm_90a), two routes.
 //
 // Replaces the Pallas TPU kernel `mxfp4_matmul_kernel`
 // (src/repro/kernels/mxfp4_matmul/kernel.py, `_kernel` / `_decode_tile`):
 // y[M, N] = x[M, K] @ dequant(codes, exps), f32 accumulation, bf16 out.
 // The weights stay packed in device memory, 4.25 bits per value: codes
 // [K/2, N] u8 with two E2M1 nibbles per byte along K (even row in the low
-// nibble), exps [K/32, N] u8 biased E8M0. They are expanded only in
-// registers.
+// nibble), exps [K/32, N] u8 biased E8M0. They are expanded only on chip.
+// The wrapper picks the route from the shape and dtype alone
+// (kernels/mxfp4_matmul/ops.py::pick_route).
 //
-// What bounds it on the H100: at decode (M = lanes <= 4) memory. The
-// packed weight is read once (w1 at starcoder2-7b width, 4608 x 18432, is
-// 45.1 MB: 13.5 us at 3.35 TB/s), about 8 flops per weight byte. At
-// prefill (M = 192) the f32 FMAs: sm_90 has no FP4 MMA and this kernel
-// uses no tensor cores (a bf16 wgmma design is for a later change).
-//
-// Design:
+// Route "fma" (`mxfp4_matmul_launch`): decode (M = lanes <= 4), f32 x,
+// and shapes the other route does not take. Bound by memory at decode:
+// the packed weight is read once (w1 at starcoder2-7b width, 4608 x 18432,
+// is 45.1 MB: 13.5 us at 3.35 TB/s), about 8 flops per weight byte.
 // - A block of 8 warps owns BM rows x 128 columns; each lane owns 4
 //   adjacent columns, so a warp reads 128 contiguous code bytes per packed
 //   row and 4 exponent bytes per 32-row block, as 32-bit loads.
@@ -24,21 +22,53 @@
 //   registers while this step computes. Per block a lane has 16 code words
 //   and 1 exponent word; it decodes each nibble through a 16-entry table
 //   of 2x the FP4 value (the integer arithmetic of `_decode_tile`), sums
-//   x * code over the block in f32, and adds the block sum times the block
-//   scale. The scale is a power of two, so scaling the block sum equals
-//   scaling each product.
-// - The scale is 0.5 * 2^(b-127) built in the IEEE exponent field, as
-//   `_decode_tile` builds it, and 0 for b <= 1: the reference's platforms
-//   flush that subnormal to zero, so this kernel gives what they give.
+//   x * code over the block in f32 FMAs, and adds the block sum times the
+//   block scale. The scale is a power of two, so scaling the block sum
+//   equals scaling each product.
 // - M is masked in the kernel (BM = 4 for M <= 4, else 8), never padded.
 //   When the output tiles are too few to fill the card, K is split over
 //   blockIdx.z into a f32 partial buffer, summed in split order by a
 //   second pass (deterministic, no atomics). The warps of a block are
 //   summed in warp order through shared memory.
+//
+// Route "wgmma" (`mxfp4_matmul_tc_launch`): bf16 x at prefill sizes
+// (M >= 16, K % 64 == 0, N % 128 == 0). Bound by the bf16 tensor cores
+// (w1 at M = 192: 32.6 GFLOP, 33 us at 989 TFLOP/s), where the fma route
+// is held at the f32 FMA rate and decodes each weight once per 8 rows.
+// - Why it is the same function: every dequantized weight is
+//   code2x * 0.5 * 2^(b-127), at most 2 significant bits and normal for
+//   b >= 2 (0 for b <= 1, inf or NaN at the top exponents as in f32), so
+//   it is exactly a bf16 value; bf16 x bf16 products are exact in f32, and
+//   the result differs from the reference's f32 dot only in sum order.
+// - A block owns 64 * NWG rows (NWG = 1..3 warpgroups, 3 at M >= 129) x
+//   128 columns, so at M = 192 each packed weight is decoded once. K goes
+//   in 64-row tiles through a 4-stage ring in shared memory: the x tile
+//   (128-byte swizzled rows, the layout wgmma reads K-major), the packed
+//   codes tile and its 2 exponent rows, all with 16-byte cp.async, 3
+//   tiles ahead; rows of x past M are zero-filled.
+// - Every warp decodes: 128 columns x 8 groups of 8 K rows, each item
+//   4 code bytes and 1 exponent byte -> 8 bf16 (16 B) written to the
+//   K-major, 128-byte swizzled B tile, as the bf16x2 product of a
+//   256-entry byte table (the `_decode_tile` values of both nibbles) and
+//   the block scale. The B tile is double-buffered: tile t+1 is decoded
+//   while the warpgroups' wgmma m64n128k16 (4 per tile, f32 accumulators
+//   in registers) run asynchronously on tile t.
+// - Output tiles that leave a wave of 132 SMs part empty (N = 512 gives
+//   4, N = 4608 36, N = 18432 144): K is split over blockIdx.z as in the
+//   fma route, into f32 partials summed in split order by the same second
+//   pass; ops.py::pick_tc_splits weighs the waves against the partials.
+// - Measured on the H100 (PERF.md): about 1.45 us per 64-row K tile of a
+//   192 x 128 block, against 0.42 us of tensor-core work; the x tile's
+//   re-read from L2 by every column block, the decode and the block-wide
+//   barriers add up rather than overlap. A producer warpgroup that loads
+//   and decodes for three consumer warpgroups was slower (it became the
+//   bottleneck), and so was keeping a second tile's wgmma in flight.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -49,6 +79,13 @@ constexpr int KSTEP = WARPS * 32;  // K rows per block step
 
 __device__ __forceinline__ float half_scale(uint32_t b) {
   return b <= 1u ? 0.0f : 0.5f * __uint_as_float(b << 23);
+}
+
+// 2x the E2M1 value of nibble c: the integer decode of `_decode_tile`
+__device__ __forceinline__ float code2x(int c) {
+  const int s = (c >> 3) & 1, e = (c >> 1) & 3, m = c & 1;
+  const int v = e == 0 ? m : (2 + m) << (e - 1);
+  return (float)(s ? -v : v);
 }
 
 __device__ __forceinline__ float load_x(const float* x, size_t i) {
@@ -80,11 +117,7 @@ mxfp4_matmul_kernel(const XT* __restrict__ x,
   const int c = col0 + 4 * lane;  // this lane's first column
   const bool col_ok = c < N;      // N % 4 == 0: all four columns or none
 
-  if (tid < 16) {  // 2x the E2M1 value of nibble tid, as `_decode_tile`
-    const int s = (tid >> 3) & 1, e = (tid >> 1) & 3, m = tid & 1;
-    const int v = e == 0 ? m : (2 + m) << (e - 1);
-    lut[tid] = (float)(s ? -v : v);
-  }
+  if (tid < 16) lut[tid] = code2x(tid);  // as `_decode_tile`
   float acc[BM][4];
 #pragma unroll
   for (int m = 0; m < BM; ++m)
@@ -191,6 +224,13 @@ __global__ void splitk_sum_kernel(const float* __restrict__ partial,
   }
 }
 
+int launch_splitk_sum(const float* partial, __nv_bfloat16* out, int splits,
+                      size_t mn, cudaStream_t st) {
+  const int blocks = (int)((mn + 255) / 256 < 1024 ? (mn + 255) / 256 : 1024);
+  splitk_sum_kernel<<<blocks, 256, 0, st>>>(partial, out, splits, mn);
+  return (int)cudaGetLastError();
+}
+
 template <int BM>
 void launch_tile(const void* x, bool x_bf16, const uint8_t* codes,
                  const uint8_t* exps, __nv_bfloat16* out, float* partial,
@@ -206,6 +246,260 @@ void launch_tile(const void* x, bool x_bf16, const uint8_t* codes,
         reinterpret_cast<const float*>(x), codes, exps, out, partial, M, K,
         N, kb_per_split);
 }
+
+// ---- route "wgmma": bf16 tensor cores --------------------------------------
+
+namespace tc {
+
+constexpr int BN = 128;                 // output columns per block
+constexpr int BK = 64;                  // K rows per tile (two scale blocks)
+constexpr int STAGES = 4;               // cp.async ring depth
+constexpr int B_BYTES = BN * BK * 2;    // decoded bf16 tile, 16 KB
+constexpr int C_BYTES = BK / 2 * BN;    // packed codes tile, 4 KB
+constexpr int E_BYTES = BK / 32 * BN;   // exponent rows, 256 B
+
+template <int NWG>
+struct Smem {
+  static constexpr int A_BYTES = NWG * 64 * BK * 2;  // x tile, swizzled
+  static constexpr int A_OFF = 0;
+  static constexpr int B_OFF = A_OFF + STAGES * A_BYTES;
+  static constexpr int C_OFF = B_OFF + 2 * B_BYTES;
+  static constexpr int E_OFF = C_OFF + STAGES * C_BYTES;
+  static constexpr int LUT_OFF = E_OFF + STAGES * E_BYTES;
+  static constexpr int BYTES = LUT_OFF + 256 * 4 + 1024;  // + base alignment
+};
+
+// Byte offset of 16-byte chunk `c` of row `r` in a 128-byte swizzled tile
+// (the layout of CU_TENSOR_MAP_SWIZZLE_128B that wgmma's B128 mode reads).
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart (SBO), leading offset unused by the swizzled layout.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+template <int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
+mxfp4_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                       const uint8_t* __restrict__ codes,
+                       const uint8_t* __restrict__ exps,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ partial, int M, int K, int N,
+                       int kt_per_split) {
+  using S = Smem<NWG>;
+  constexpr int THREADS = NWG * 128;
+  constexpr int ROWS = NWG * 64;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte aligned base: the swizzle pattern is taken on address bits
+  const uint32_t raw_addr = hopper::smem_addr(smem_raw);
+  unsigned char* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
+  uint32_t* lut2 = reinterpret_cast<uint32_t*>(smem + S::LUT_OFF);
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * ROWS;
+  const int split = blockIdx.z, nkt = K / BK;
+  const int kt0 = split * kt_per_split;
+  const int nk = max(0, min(nkt, kt0 + kt_per_split) - kt0);
+
+  for (int i = tid; i < 256; i += THREADS) {  // byte -> (lo, hi) as bf16x2
+    const __nv_bfloat162 v =
+        __floats2bfloat162_rn(code2x(i & 15), code2x(i >> 4));
+    lut2[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+
+  auto load_tile = [&](int st, int kt) {
+    unsigned char* a = smem + S::A_OFF + st * S::A_BYTES;
+    unsigned char* c = smem + S::C_OFF + st * C_BYTES;
+    unsigned char* e = smem + S::E_OFF + st * E_BYTES;
+    for (int i = tid; i < ROWS * 8; i += THREADS) {  // x: 8 chunks a row
+      const int r = i >> 3, ch = i & 7;
+      const bool ok = m0 + r < M;
+      const __nv_bfloat16* src =
+          ok ? x + (size_t)(m0 + r) * K + kt * BK + 8 * ch : x;
+      hopper::cp_async16(a + swz(r, ch), src, ok);
+    }
+    for (int i = tid; i < (BK / 2) * 8; i += THREADS) {  // codes rows
+      const int r = i >> 3, ch = i & 7;
+      hopper::cp_async16(c + r * BN + 16 * ch,
+                         codes + (size_t)(kt * (BK / 2) + r) * N + n0 + 16 * ch);
+    }
+    if (tid < (BK / 32) * 8) {  // exponent rows
+      const int r = tid >> 3, ch = tid & 7;
+      hopper::cp_async16(e + r * BN + 16 * ch,
+                         exps + (size_t)(kt * (BK / 32) + r) * N + n0 + 16 * ch);
+    }
+  };
+
+  // packed tile of stage st -> bf16 B tile b: item (n, kq) holds K rows
+  // 8kq..8kq+7 of column n, one 16-byte chunk of row n of the tile. Every
+  // item's bytes are loaded before any is expanded (independent loads in
+  // flight); each byte becomes its two values at once, as the bf16x2
+  // product of its table entry and the block scale (both exact in bf16).
+  constexpr int ITEMS = (BN * 8 + THREADS - 1) / THREADS;
+  auto decode_tile = [&](int st, int b) {
+    const unsigned char* c = smem + S::C_OFF + st * C_BYTES;
+    const unsigned char* e = smem + S::E_OFF + st * E_BYTES;
+    unsigned char* bt = smem + S::B_OFF + b * B_BYTES;
+    uint32_t by[ITEMS][4], eb[ITEMS];
+#pragma unroll
+    for (int t = 0; t < ITEMS; ++t) {
+      const int i = tid + t * THREADS, n = i % BN, kq = i / BN;
+      if (i < BN * 8) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) by[t][r] = c[(4 * kq + r) * BN + n];
+        eb[t] = e[(kq >> 2) * BN + n];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < ITEMS; ++t) {
+      const int i = tid + t * THREADS, n = i % BN, kq = i / BN;
+      if (i < BN * 8) {
+        const __nv_bfloat162 hs2 = __float2bfloat162_rn(half_scale(eb[t]));
+        uint32_t w[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const __nv_bfloat162 v = __hmul2(
+              *reinterpret_cast<const __nv_bfloat162*>(&lut2[by[t][r]]), hs2);
+          w[r] = *reinterpret_cast<const uint32_t*>(&v);
+        }
+        *reinterpret_cast<uint4*>(bt + swz(n, kq)) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  };
+
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+  const int wg = tid >> 7;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_tile(s, kt0 + s);
+    hopper::cp_async_commit();
+  }
+  __syncthreads();  // lut2
+  if (nk > 0) {
+    hopper::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    decode_tile(0, 0);
+    hopper::fence_proxy_async();
+  }
+  __syncthreads();
+
+  for (int it = 0; it < nk; ++it) {
+    if (it + STAGES - 1 < nk)  // stage (it-1) % STAGES was consumed by it-1
+      load_tile((it + STAGES - 1) % STAGES, kt0 + it + STAGES - 1);
+    hopper::cp_async_commit();
+    const uint32_t a = hopper::smem_addr(smem + S::A_OFF +
+                                         (it % STAGES) * S::A_BYTES) +
+                       wg * 64 * 128;
+    const uint32_t bb = hopper::smem_addr(smem + S::B_OFF + (it & 1) * B_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n128k16(d, desc(a + 32 * kk), desc(bb + 32 * kk));
+    wgmma_commit();
+    if (it + 1 < nk) {  // decode the next tile while the tensor cores run
+      hopper::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      decode_tile((it + 1) % STAGES, (it + 1) & 1);
+      hopper::fence_proxy_async();
+    }
+    wgmma_wait0();
+    __syncthreads();
+  }
+
+  // accumulator fragment: warp w of the warpgroup holds rows 16w..16w+15;
+  // d[4j..4j+1] at row lane/4, columns 8j + 2(lane%4) + {0, 1}; d[4j+2..3]
+  // eight rows below
+  const int wl = (tid >> 5) & 3, lane = tid & 31;
+  const int row0 = m0 + wg * 64 + wl * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row < M) {
+        const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+        if (gridDim.z == 1)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
+              __floats2bfloat162_rn(v0, v1);
+        else
+          *reinterpret_cast<float2*>(
+              partial + ((size_t)split * M + row) * N + col) = make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+template <int NWG>
+int launch(const __nv_bfloat16* x, const uint8_t* codes, const uint8_t* exps,
+           __nv_bfloat16* out, float* partial, int M, int K, int N, int splits,
+           cudaStream_t st) {
+  static bool attr_set = false;
+  const int smem = Smem<NWG>::BYTES;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mxfp4_matmul_tc_kernel<NWG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int nkt = K / BK;
+  const int kt_per_split = (nkt + splits - 1) / splits;
+  dim3 grid(N / BN, (M + NWG * 64 - 1) / (NWG * 64), splits);
+  mxfp4_matmul_tc_kernel<NWG><<<grid, NWG * 128, smem, st>>>(
+      x, codes, exps, out, partial, M, K, N, kt_per_split);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -228,8 +522,28 @@ extern "C" int mxfp4_matmul_launch(const void* x, const uint8_t* codes,
                    kb_per_split, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t mn = (size_t)M * N;
-  const int blocks = (int)((mn + 255) / 256 < 1024 ? (mn + 255) / 256 : 1024);
-  splitk_sum_kernel<<<blocks, 256, 0, st>>>(partial, o, splits, mn);
-  return (int)cudaGetLastError();
+  return launch_splitk_sum(partial, o, splits, (size_t)M * N, st);
+}
+
+// x [M, K] bf16; codes u8 [K/2, N]; exps u8 [K/32, N]; out bf16 [M, N];
+// partial f32 [splits, M, N] (unused when splits == 1). M >= 1,
+// K % 64 == 0, N % 128 == 0, x / codes / exps 16-byte aligned; every split
+// owns ceil(K/64 / splits) tiles (the last may own none and writes zeros).
+// Returns the launches' cudaError_t.
+extern "C" int mxfp4_matmul_tc_launch(const void* x, const uint8_t* codes,
+                                      const uint8_t* exps, void* out,
+                                      float* partial, int M, int K, int N,
+                                      int splits, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out);
+  int err;
+  if (M <= 64)
+    err = tc::launch<1>(xb, codes, exps, o, partial, M, K, N, splits, st);
+  else if (M <= 128)
+    err = tc::launch<2>(xb, codes, exps, o, partial, M, K, N, splits, st);
+  else
+    err = tc::launch<3>(xb, codes, exps, o, partial, M, K, N, splits, st);
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_splitk_sum(partial, o, splits, (size_t)M * N, st);
 }

@@ -1,5 +1,5 @@
 // Ragged paged flash-decode over float (bf16) fused KV pages, for Hopper
-// (sm_90a).
+// (sm_90a), split over the keys (flash-decoding).
 //
 // Replaces the Pallas TPU kernel `paged_flash_decode`
 // (src/repro/kernels/paged_attention/kernel.py, `_decode_kernel` with
@@ -7,41 +7,50 @@
 // slots [0, len) of its pool row's page. Pages are head-interleaved,
 // kv [P, W, 2Hkv, Dh] bf16 with K_h = kv[:, :, 2h] and V_h = kv[:, :, 2h+1].
 //
-// What bounds it on the H100: memory. Each live slot's K and V rows are
-// read once (4 * Dh bytes per slot and KV head) for ~4 flops per value. At
-// decode sizes it is launch-latency bound: lanes x KV heads blocks of a few
-// microseconds each.
+// What bounds it on the H100: memory, and at decode sizes launch latency.
+// Each live slot's K and V rows are read once (4 * Dh bytes per slot and KV
+// head) for ~4 flops per value: 0.85 MB at 4 lanes x 4 KV heads x 256
+// slots, 0.3 us at 3.35 TB/s. The TPU kernel walks a lane's chunks in one
+// grid step; on the card that gives lanes x KV heads blocks (16 of 132
+// SMs) with a serial chunk loop. Here the keys are split instead.
 //
-// Design (the structure of paged_decode_mx.cu without dequant and without
-// P quantization):
-// - One block per (lane, KV head); the G query heads of the group share it.
-// - The block walks its lane's length in bk-slot chunks, bk = pick_bk(W).
-//   The tail chunk is fetched at the clamped offset min(c*bk, W-bk), as the
-//   Pallas kernel does, and the overlap is masked by `live`.
-// - Per chunk: the K rows go to shared memory (padded row stride), scores
-//   q.k in f32 times scale, dead slots at NEG_INF; then the V rows into the
-//   same buffer; online softmax per query head, one warp per head, with an
-//   f32 running max and sum of the unrounded P; PV over bf16(P) in f32,
-//   one head_dim column per thread. The Pallas source writes the PV einsum
-//   with a bf16 result, but XLA compiles it to an f32 dot and folds the
-//   bf16 round trip away, so the reference adds the unrounded PV to its
-//   f32 accumulator; so does this kernel.
-// - Epilogue divides by l (l == 0 -> 1); a lane of length 0 runs no chunk
-//   and writes zeros.
+// Design:
+// - Grid (split, KV head, lane). Split s owns slots [s*SW, (s+1)*SW) of the
+//   lane's page, SW = pick_splits(...) in ops.py (16..64). Its rows are
+//   fetched at the clamped offset min(s*SW, W-SW), so the tail split of a
+//   page whose width is not a multiple of SW re-reads an overlap that the
+//   `live` mask drops. A split at or past the lane's length exits at once.
+// - The split's K and V rows and the group's q rows go to shared memory
+//   with 16-byte cp.async (at most (2 x 64 + 16) x 128 x 2 B = 36 KB); q
+//   is in flight while the lane's length and page row are read. 8 warps a
+//   block, so a 16-key split is one pass of the score loop.
+// - Scores: Dh/8 lanes share a key, each holding 8 bf16 of its K row; the
+//   G query heads' partial dots (G rounded up to 4, 8, 12 or 16, so they
+//   are independent chains) finish with xor shuffles inside the group.
+//   f32 times scale, dead slots at NEG_INF.
+// - Softmax per query head (one warp per head): the split's own max, P =
+//   exp(s - max), its sum l over the unrounded P, and bf16-rounded P for
+//   PV, which is summed in f32 and added unrounded (the reference as XLA
+//   compiles it; see paged_attention/ref.py).
+// - Each split writes f32 (m, l) [G] and acc [G, Dh] to a scratch buffer
+//   the wrapper allocates. A second kernel, one block per query head,
+//   combines a lane's live splits in a fixed order (deterministic, no
+//   atomics): with M = max m_s, out = sum_s e^(m_s-M) acc_s /
+//   sum_s e^(m_s-M) l_s (l == 0 -> 1); a lane of length 0 writes zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int GMAX = 16;
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+constexpr int MAX_SPLITS = 32 * 8;  // the combine's warp holds 8 a lane
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -55,158 +64,274 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Copy bk page rows of one operand (Dh bf16 each, `slot_stride` elements
-// apart) into `tile` (row stride `ts` halves), two halves per load.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* tile, int ts,
-                                          const __nv_bfloat16* src,
-                                          size_t slot_stride, int bk, int Dh) {
-  const int pairs = Dh / 2;
-  for (int i = threadIdx.x; i < bk * pairs; i += THREADS) {
-    const int j = i / pairs, d2 = i % pairs;
-    *reinterpret_cast<__nv_bfloat162*>(tile + j * ts + 2 * d2) =
-        *reinterpret_cast<const __nv_bfloat162*>(src + (size_t)j * slot_stride + 2 * d2);
+// One block per (split, KV head, lane); GB >= G query heads are computed
+// side by side (rows past G are computed and dropped). Scratch: ml
+// [L, Hkv, NS, G, 2] (m, l) and acc [L, Hkv, NS, G, Dh], both f32.
+template <int DH, int GB>
+__global__ void __launch_bounds__(THREADS)
+paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ kv,
+                          const int* __restrict__ rows,
+                          const int* __restrict__ lengths,
+                          float* __restrict__ ml, float* __restrict__ acc,
+                          int W, int Hkv, int G, int SW, float scale) {
+  constexpr int LPK = DH / 8;     // lanes per key (8 bf16 = 16 B each)
+  constexpr int KPW = 32 / LPK;   // keys per warp pass
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [SW][DH]
+  __nv_bfloat16* vs = ks + SW * DH;                             // [SW][DH]
+  __nv_bfloat16* qs = vs + SW * DH;                             // [G][DH]
+  float* ss = reinterpret_cast<float*>(qs + G * DH);            // [G][SW]
+
+  const int s = blockIdx.x, h = blockIdx.y, li = blockIdx.z;
+  const int NS = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the group's q rows are in flight while the lane's length is read
+  const __nv_bfloat16* qh = q + (size_t)(li * Hkv + h) * G * DH;
+  for (int i = tid; i < G * LPK; i += THREADS)
+    hopper::cp_async16(qs + 8 * i, qh + 8 * i);
+  hopper::cp_async_commit();
+  const int len = min(max(lengths[li], 0), W);
+  const int s0 = s * SW;
+  if (s0 >= len) {  // empty split: the combine does not read it
+    hopper::cp_async_wait<0>();
+    return;
+  }
+  const int offs = min(s0, W - SW);
+  const size_t slot_stride = (size_t)2 * Hkv * DH;  // elements per slot
+  const __nv_bfloat16* kbase =
+      kv + ((size_t)rows[li] * W + offs) * slot_stride + (size_t)2 * h * DH;
+  for (int i = tid; i < SW * LPK; i += THREADS) {  // K and V rows, 16 B each
+    const int j = i / LPK, c = i % LPK;
+    const __nv_bfloat16* src = kbase + (size_t)j * slot_stride + 8 * c;
+    hopper::cp_async16(ks + j * DH + 8 * c, src);
+    hopper::cp_async16(vs + j * DH + 8 * c, src + DH);
+  }
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+
+  // scores: lane group of LPK lanes per key, 8 dims a lane
+  const int part = lane % LPK;
+  for (int j0 = warp * KPW; j0 < SW; j0 += WARPS * KPW) {
+    const int j = j0 + lane / LPK;
+    float kf[8];
+    if (j < SW) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(ks + j * DH + 8 * part);
+      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(k2[e]);
+        kf[2 * e] = f.x;
+        kf[2 * e + 1] = f.y;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) kf[e] = 0.0f;
+    }
+    const int pos = offs + j;
+    const bool live = j < SW && pos >= s0 && pos < len;
+    float dots[GB];  // the heads' partial dots, independent chains
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const int gq = g < G ? g : G - 1;
+      const uint4 qraw = *reinterpret_cast<const uint4*>(qs + gq * DH + 8 * part);
+      const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&qraw);
+      float d = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(q2[e]);
+        d = fmaf(f.x, kf[2 * e], d);
+        d = fmaf(f.y, kf[2 * e + 1], d);
+      }
+      dots[g] = d;
+    }
+#pragma unroll
+    for (int o = LPK / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+        dots[g] += __shfl_xor_sync(0xffffffffu, dots[g], o);
+    if (part == 0 && j < SW) {
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+        if (g < G) ss[g * SW + j] = live ? dots[g] * scale : NEG_INF;
+    }
+  }
+  __syncthreads();
+
+  // softmax of the split, one warp per query head
+  const size_t base = ((size_t)(li * Hkv + h) * NS + s) * G;
+  for (int g = warp; g < G; g += WARPS) {
+    float mx = NEG_INF;
+    for (int j = lane; j < SW; j += 32) mx = fmaxf(mx, ss[g * SW + j]);
+    mx = warp_max(mx);
+    float rsum = 0.0f;
+    for (int j = lane; j < SW; j += 32) {
+      const int pos = offs + j;
+      float p = 0.0f;
+      if (pos >= s0 && pos < len) p = expf(ss[g * SW + j] - mx);
+      ss[g * SW + j] = __bfloat162float(__float2bfloat16_rn(p));
+      rsum += p;
+    }
+    rsum = warp_sum(rsum);
+    if (lane == 0) {
+      ml[2 * (base + g)] = mx;
+      ml[2 * (base + g) + 1] = rsum;
+    }
+  }
+  __syncthreads();
+
+  // PV over bf16(P), f32 sums: a thread owns column d of the query heads
+  // g0, g0 + GPT, ... and reads each V value once
+  constexpr int GPT = THREADS / DH;  // query heads side by side in a pass
+  constexpr int GREG = (GB + GPT - 1) / GPT;
+  const int d = tid % DH, g0 = tid / DH;
+  float pv[GREG];
+#pragma unroll
+  for (int r = 0; r < GREG; ++r) pv[r] = 0.0f;
+  for (int j = 0; j < SW; ++j) {
+    const float v = __bfloat162float(vs[j * DH + d]);
+#pragma unroll
+    for (int r = 0; r < GREG; ++r) {
+      const int g = g0 + r * GPT;
+      if (g < G) pv[r] = fmaf(ss[g * SW + j], v, pv[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < GREG; ++r) {
+    const int g = g0 + r * GPT;
+    if (g < G) acc[(base + g) * DH + d] = pv[r];
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ kv,
-                    const int* __restrict__ rows,
-                    const int* __restrict__ lengths,
-                    __nv_bfloat16* __restrict__ out, int W, int Hkv, int G,
-                    int Dh, int bk, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [G][Dh]
-  float* ss = qs + G * Dh;                     // [G][bk]
-  float* m_s = ss + G * bk;                    // [G]
-  float* l_s = m_s + G;
-  float* corr_s = l_s + G;
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(corr_s + G);
-  const int ts = Dh + 2;  // halves per tile row (odd word stride)
-
-  const int li = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row = rows[li];
-  const int len = min(max(lengths[li], 0), W);
-
-  const __nv_bfloat16* qh = q + (size_t)(li * Hkv + h) * G * Dh;
-  for (int i = tid; i < G * Dh; i += THREADS) qs[i] = __bfloat162float(qh[i]);
-  if (tid < G) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.0f;
-  }
-  float acc[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) acc[g] = 0.0f;
-  __syncthreads();
-
-  const size_t slot_stride = (size_t)2 * Hkv * Dh;  // elements per slot
-  const int nchunks = (len + bk - 1) / bk;
-  for (int c = 0; c < nchunks; ++c) {
-    const int offs = min(c * bk, W - bk);
-    const __nv_bfloat16* kbase = kv + ((size_t)row * W + offs) * slot_stride + (size_t)2 * h * Dh;
-    load_tile(tile, ts, kbase, slot_stride, bk, Dh);
-    __syncthreads();
-    if (tid < bk) {  // scores of key tid for every query head of the group
-      float sacc[GMAX];
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) sacc[g] = 0.0f;
-      const __nv_bfloat162* krow = reinterpret_cast<const __nv_bfloat162*>(tile + tid * ts);
-      for (int d2 = 0; d2 < Dh / 2; ++d2) {
-        float2 k2 = __bfloat1622float2(krow[d2]);
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g) {
-          if (g < G) {
-            sacc[g] += qs[g * Dh + 2 * d2] * k2.x;
-            sacc[g] += qs[g * Dh + 2 * d2 + 1] * k2.y;
-          }
-        }
-      }
-      const int pos = offs + tid;
-      const bool live = pos >= c * bk && pos < len;
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g)
-        if (g < G) ss[g * bk + tid] = live ? sacc[g] * scale : NEG_INF;
-    }
-    __syncthreads();
-    load_tile(tile, ts, kbase + Dh, slot_stride, bk, Dh);  // V rows
-    // online softmax: f32 running max and sum of the unrounded P; the
-    // bf16-rounded P is what enters PV
-    for (int g = warp; g < G; g += THREADS / 32) {
-      float mx = NEG_INF;
-      for (int j = lane; j < bk; j += 32) mx = fmaxf(mx, ss[g * bk + j]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float corr = expf(m_prev - m_new);
-      float rsum = 0.0f;
-      for (int j = lane; j < bk; j += 32) {
-        const int pos = offs + j;
-        float p = 0.0f;
-        if (pos >= c * bk && pos < len) p = expf(ss[g * bk + j] - m_new);
-        ss[g * bk + j] = bf16_round(p);
-        rsum += p;
-      }
-      rsum = warp_sum(rsum);
-      if (lane == 0) {
-        m_s[g] = m_new;
-        l_s[g] = l_s[g] * corr + rsum;
-        corr_s[g] = corr;
-      }
-    }
-    __syncthreads();
-    if (tid < Dh) {  // PV: head_dim column tid
-      float pv[GMAX];
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) pv[g] = 0.0f;
-      for (int j = 0; j < bk; ++j) {
-        const float v = __bfloat162float(tile[j * ts + tid]);
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g)
-          if (g < G) pv[g] += ss[g * bk + j] * v;
-      }
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g)
-        if (g < G) acc[g] = acc[g] * corr_s[g] + pv[g];
-    }
-    __syncthreads();
-  }
-
+// One block per (query head, KV head, lane), a thread per head_dim column:
+// combine the lane's live splits in split order. Every load is issued at
+// once (one round trip): the length, warp 0's (m, l) of every split, each
+// column's acc of the first 16 splits; the splits past the length are
+// dropped after. Warp 0 turns (m, l) into weights e^(m_s - M) and the
+// denominator; then each column takes its weighted sum.
+__global__ void paged_decode_combine_kernel(const float* __restrict__ ml,
+                                            const float* __restrict__ acc,
+                                            const int* __restrict__ lengths,
+                                            __nv_bfloat16* __restrict__ out,
+                                            int W, int Hkv, int G, int Dh,
+                                            int SW, int NS) {
+  extern __shared__ float wts[];  // [NS] weights, then the denominator
+  const int g = blockIdx.x, h = blockIdx.y, li = blockIdx.z;
+  const size_t base = (size_t)(li * Hkv + h) * NS;  // split 0 of the lane
+  const int tid = threadIdx.x;
+  float a[16];
   if (tid < Dh) {
-    __nv_bfloat16* oh = out + (size_t)(li * Hkv + h) * G * Dh;
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (g < G) {
-        const float l = l_s[g];
-        oh[g * Dh + tid] = __float2bfloat16_rn(acc[g] / (l == 0.0f ? 1.0f : l));
-      }
+    for (int r = 0; r < 16; ++r)
+      a[r] = r < NS ? acc[((base + r) * G + g) * Dh + tid] : 0.0f;
+  }
+  float m[8], l[8];
+  if (tid < 32) {  // lane t holds splits t, t + 32, ... (NS <= MAX_SPLITS)
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int s = tid + 32 * r;
+      const size_t i = 2 * ((base + s) * G + g);
+      m[r] = s < NS ? ml[i] : NEG_INF;
+      l[r] = s < NS ? ml[i + 1] : 0.0f;
     }
   }
+  const int len = min(max(lengths[li], 0), W);
+  const int nlive = (len + SW - 1) / SW;
+  if (tid < 32) {
+    float mmax = NEG_INF;
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (tid + 32 * r < nlive) mmax = fmaxf(mmax, m[r]);
+    mmax = warp_max(mmax);
+    float den = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int s = tid + 32 * r;
+      if (s < nlive) {
+        const float w = expf(m[r] - mmax);
+        wts[s] = w;
+        den = fmaf(w, l[r], den);
+      }
+    }
+    den = warp_sum(den);
+    if (tid == 0) wts[NS] = den == 0.0f ? 1.0f : den;
+  }
+  __syncthreads();
+  if (tid < Dh) {
+    float num = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if (r < nlive) num = fmaf(wts[r], a[r], num);
+    for (int s0 = 16; s0 < nlive; s0 += 16) {  // pages past 16 splits
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+        a[r] = s0 + r < nlive ? acc[((base + s0 + r) * G + g) * Dh + tid] : 0.0f;
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+        if (s0 + r < nlive) num = fmaf(wts[s0 + r], a[r], num);
+    }
+    out[((size_t)(li * Hkv + h) * G + g) * Dh + tid] =
+        __float2bfloat16_rn(num / wts[NS]);
+  }
+}
+
+template <int DH, int GB>
+int launch_split(const void* q, const void* kv, const int* rows,
+                 const int* lengths, float* ml, float* acc, int L, int W,
+                 int Hkv, int G, int SW, int NS, float scale,
+                 cudaStream_t st) {
+  const int smem = (2 * SW + G) * DH * 2 + G * SW * 4;
+  dim3 grid(NS, Hkv, L);
+  paged_decode_split_kernel<DH, GB><<<grid, THREADS, smem, st>>>(
+      reinterpret_cast<const __nv_bfloat16*>(q),
+      reinterpret_cast<const __nv_bfloat16*>(kv), rows, lengths, ml, acc, W,
+      Hkv, G, SW, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_split_g(const void* q, const void* kv, const int* rows,
+                   const int* lengths, float* ml, float* acc, int L, int W,
+                   int Hkv, int G, int SW, int NS, float scale,
+                   cudaStream_t st) {
+  if (G <= 4)
+    return launch_split<DH, 4>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st);
+  if (G <= 8)
+    return launch_split<DH, 8>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st);
+  if (G <= 12)
+    return launch_split<DH, 12>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st);
+  return launch_split<DH, GMAX>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st);
 }
 
 }  // namespace
 
-extern "C" int paged_decode_smem_bytes(int G, int Dh, int bk) {
-  return (G * Dh + G * bk + 3 * G) * 4 + bk * (Dh + 2) * 2;
-}
-
 // q bf16 [L, Hkv, G, Dh]; kv bf16 [P, W, 2Hkv, Dh]; rows / lengths i32
-// [L]; out bf16 [L, Hkv, G, Dh]. G <= 16, Dh <= 128 and even,
-// bk <= min(128, W). Returns the launch's cudaError_t.
+// [L]; ml f32 [L, Hkv, NS, G, 2] and acc f32 [L, Hkv, NS, G, Dh] scratch;
+// out bf16 [L, Hkv, G, Dh]. G <= 16, Dh in {8, 16, 32, 64, 128}, SW <= 64
+// and SW <= W, NS = ceil(W / SW) <= 256; 16-byte aligned q and kv. Shared memory
+// stays under 48 KB ((2*64 + 16)*128*2 + 16*64*4 = 40 KB). Returns the
+// launches' cudaError_t.
 extern "C" int paged_decode_launch(const void* q, const void* kv,
                                    const int* rows, const int* lengths,
-                                   void* out, int L, int W, int Hkv, int G,
-                                   int Dh, int bk, float scale, void* stream) {
-  const int smem = paged_decode_smem_bytes(G, Dh, bk);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+                                   float* ml, float* acc, void* out, int L,
+                                   int W, int Hkv, int G, int Dh, int SW,
+                                   int NS, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (NS > MAX_SPLITS) return (int)cudaErrorInvalidValue;
+  int err;
+  switch (Dh) {
+    case 8: err = launch_split_g<8>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st); break;
+    case 16: err = launch_split_g<16>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st); break;
+    case 32: err = launch_split_g<32>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st); break;
+    case 64: err = launch_split_g<64>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st); break;
+    case 128: err = launch_split_g<128>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st); break;
+    default: return (int)cudaErrorInvalidValue;
   }
-  dim3 grid(L, Hkv);
-  paged_decode_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q),
-      reinterpret_cast<const __nv_bfloat16*>(kv), rows, lengths,
-      reinterpret_cast<__nv_bfloat16*>(out), W, Hkv, G, Dh, bk, scale);
+  if (err != cudaSuccess) return err;
+  dim3 grid(G, Hkv, L);
+  paged_decode_combine_kernel<<<grid, Dh < 32 ? 32 : Dh, (NS + 1) * 4, st>>>(
+      ml, acc, lengths, reinterpret_cast<__nv_bfloat16*>(out), W, Hkv, G, Dh,
+      SW, NS);
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,10 @@ Each ``repro_torch/csrc/<name>.cu`` exposes a plain C launch function.
 At first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library under ``build/kernels/`` at the checkout root (git-ignored),
 named by a hash of its source and flags so an edit rebuilds and an
-unchanged source loads straight away, and loaded with ``ctypes``. All
-sources compile at once, one ``nvcc`` process each.
+unchanged source loads straight away, and loaded with ``ctypes``. The
+hash covers the source, every header in ``csrc/`` (``*.cuh``) and the
+flags, so an edit of a shared header rebuilds too. All sources compile at
+once, one ``nvcc`` process each.
 
 No ``--use_fast_math`` / ``-ftz=true``: the CIM kernel's wide
 power-of-two construction relies on exact subnormal products.
@@ -41,9 +43,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=KERNELS) -> float:

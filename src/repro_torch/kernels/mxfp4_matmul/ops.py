@@ -1,9 +1,13 @@
 """Wrapper for the packed-MXFP4 dequant-matmul kernel
 (``csrc/mxfp4_matmul.cu``): ``x @ dequant(codes, exps)`` with the weights
-expanded only in registers.
+expanded only on chip.
 
 CPU tensors take the plain version (:mod:`.ref`); CUDA tensors launch the
-kernel or raise. ``mxfp4_matmul.launches`` counts kernel launches.
+kernel or raise. The kernel has two routes, picked by :func:`pick_route`
+from the shape and dtype alone: ``"fma"`` (f32 FMAs on the CUDA cores:
+decode lanes, f32 ``x``) and ``"wgmma"`` (bf16 tensor cores at prefill
+sizes). ``mxfp4_matmul.launches`` counts wrapper launches, one per call;
+``mxfp4_matmul.route_launches`` counts them by route.
 """
 
 from __future__ import annotations
@@ -20,7 +24,52 @@ BM_SMALL, BM = 4, 8  # the kernel's row tiles (M <= 4: decode lanes)
 COLS = 128  # output columns per block: 32 lanes x 4
 KB_PER_STEP = 8  # 32-row K blocks per block step (one per warp)
 TARGET_BLOCKS = 4 * 132  # four blocks per H100 SM before K is split
+SMS = 132  # H100 SXM streaming multiprocessors
+# rows from which bf16 x takes the tensor-core route: chip_smoke.py's
+# "route crossover" lines time both routes on w1 at M = 4..64
+TC_MIN_M = 16
+TC_BN, TC_BK = 128, 64  # its output columns per block and K rows per tile
+# its time model (tc_time_us), fitted to scripts/torch_kernel_sweep.py
+TC_TILE_US, TC_BLOCK_US = 1.45, 3.0  # per K tile of a block, per block
+TC_PARTIAL_BYTES_US = 4e6  # split-K partials written and read back
+ROUTES = ("fma", "wgmma")
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES_TC = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def pick_route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
+    """``"wgmma"`` for bf16 ``x`` with at least ``TC_MIN_M`` rows on a shape
+    the tensor-core kernel tiles (K % 64, N % 128), else ``"fma"``. f32
+    ``x`` stays on ``"fma"``: rounding it to bf16 would change the
+    function."""
+    if (dtype != torch.bfloat16 or m < TC_MIN_M or k % TC_BK
+            or n % TC_BN):
+        return "fma"
+    return "wgmma"
+
+
+def tc_time_us(m: int, k: int, n: int, splits: int) -> float:
+    """The tensor-core route's time model, fitted to its H100 runs (one
+    block an SM, 64-192 rows x 128 columns a block): ``waves x
+    (TC_TILE_US per 64-row K tile + TC_BLOCK_US)`` for the kernel plus
+    the f32 partials written and summed at ``TC_PARTIAL_BYTES_US``."""
+    rows = 64 * min(3, -(-m // 64))
+    tiles = -(-m // rows) * (n // TC_BN)
+    nkt = k // TC_BK
+    waves = -(-tiles * splits // SMS)
+    t = waves * (-(-nkt // splits) * TC_TILE_US + TC_BLOCK_US)
+    return t + (8 * splits * m * n / TC_PARTIAL_BYTES_US if splits > 1
+                else 0.0)
+
+
+def pick_tc_splits(m: int, k: int, n: int) -> int:
+    """K splits of the tensor-core route with the least :func:`tc_time_us`:
+    splitting fills a wave that the output tiles alone leave part empty
+    (w1: 144 tiles on 132 SMs) at the cost of the partials. No split is
+    empty (each count is one the kernel's ceil division reproduces)."""
+    nkt = k // TC_BK
+    counts = sorted({-(-nkt // -(-nkt // s)) for s in range(1, nkt + 1)})
+    return min(counts, key=lambda s: tc_time_us(m, k, n, s))
 
 
 def pick_splits(m: int, k: int, n: int) -> int:
@@ -34,8 +83,14 @@ def pick_splits(m: int, k: int, n: int) -> int:
     return max(1, min(-(-TARGET_BLOCKS // tiles), nkb // KB_PER_STEP))
 
 
-def _launch(xm: torch.Tensor, codes: torch.Tensor,
-            exps: torch.Tensor) -> torch.Tensor:
+def _launch(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
+            route: str | None = None,
+            tc_splits: int | None = None) -> torch.Tensor:
+    """Launch the kernel on ``route`` (default :func:`pick_route`) with
+    ``tc_splits`` K splits on the wgmma route (default
+    :func:`pick_tc_splits`); a caller names them only to time the
+    alternatives on one shape (``chip_smoke.py``,
+    ``scripts/torch_kernel_sweep.py``)."""
     m, k = xm.shape
     n = codes.shape[1]
     if n % 4:
@@ -51,17 +106,40 @@ def _launch(xm: torch.Tensor, codes: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xm.device)
     if m == 0:
         return out
-    splits = pick_splits(m, k, n)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=xm.device) if splits > 1 else out)
-    fn = _build.function("mxfp4_matmul", "mxfp4_matmul_launch", _ARGTYPES)
-    err = fn(xm.data_ptr(), codes.data_ptr(), exps.data_ptr(),
-             out.data_ptr(), partial.data_ptr(), m, k, n, splits,
-             int(xm.dtype == torch.bfloat16),
-             torch.cuda.current_stream(xm.device).cuda_stream)
+    route = route or pick_route(m, k, n, xm.dtype)
+    stream = torch.cuda.current_stream(xm.device).cuda_stream
+    if route == "wgmma":
+        if xm.dtype != torch.bfloat16 or k % TC_BK or n % TC_BN:
+            raise ValueError(f"mxfp4_matmul: the wgmma route takes bf16 x, "
+                             f"K % {TC_BK} == 0 and N % {TC_BN} == 0")
+        if any(t.data_ptr() % 16 for t in (xm, codes, exps)):
+            raise ValueError("mxfp4_matmul: the wgmma route needs 16-byte "
+                             "aligned x, codes and exps")
+        splits = tc_splits or pick_tc_splits(m, k, n)
+        partial = _partial(splits, m, n, out)
+        fn = _build.function("mxfp4_matmul", "mxfp4_matmul_tc_launch",
+                             _ARGTYPES_TC)
+        err = fn(xm.data_ptr(), codes.data_ptr(), exps.data_ptr(),
+                 out.data_ptr(), partial.data_ptr(), m, k, n, splits, stream)
+    else:
+        splits = pick_splits(m, k, n)
+        partial = _partial(splits, m, n, out)
+        fn = _build.function("mxfp4_matmul", "mxfp4_matmul_launch",
+                             _ARGTYPES)
+        err = fn(xm.data_ptr(), codes.data_ptr(), exps.data_ptr(),
+                 out.data_ptr(), partial.data_ptr(), m, k, n, splits,
+                 int(xm.dtype == torch.bfloat16), stream)
     mxfp4_matmul.launches += 1
+    mxfp4_matmul.route_launches[route] += 1
     _build.check(err, "mxfp4_matmul")
     return out
+
+
+def _partial(splits: int, m: int, n: int, out: torch.Tensor) -> torch.Tensor:
+    """The f32 split-K partials, or ``out`` itself when K is not split."""
+    if splits == 1:
+        return out
+    return torch.empty((splits, m, n), dtype=torch.float32, device=out.device)
 
 
 def mxfp4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
@@ -86,3 +164,4 @@ def mxfp4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
 
 
 mxfp4_matmul.launches = 0
+mxfp4_matmul.route_launches = dict.fromkeys(ROUTES, 0)

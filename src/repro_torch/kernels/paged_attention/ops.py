@@ -1,8 +1,8 @@
-"""Wrappers for ragged paged decode over the fused page pool and the
-shape-derived chunk width.
+"""Wrappers for ragged paged decode over the fused page pool, the
+shape-derived chunk width and the float kernel's key split.
 
 - :func:`paged_flash_decode` runs ``csrc/paged_decode.cu`` over float
-  (bf16) pages ``kv``.
+  (bf16) pages ``kv``, the keys split over blocks (:func:`pick_splits`).
 - :func:`paged_flash_decode_mx` runs ``csrc/paged_decode_mx.cu`` over the
   quantized-resident MXFP4 mirrors ``quant``.
 - :func:`ragged_paged_decode` is what ``layers.attention`` calls from the
@@ -30,7 +30,10 @@ from repro_torch.obs.profile import profiled_call
 BLOCK = mxlib.BLOCK
 MAX_BK = 128
 G_MAX = 16  # query heads per KV head the kernels hold in registers
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+SPLIT_WIDTHS = (16, 32, 64)  # keys per block of the float kernel
+MAX_SPLITS = 256  # splits per lane its combine takes (pages <= 16384 slots)
+FLOAT_DH = (8, 16, 32, 64, 128)  # head widths the float kernel takes
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
 _ARGTYPES_MX = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
@@ -43,6 +46,29 @@ def pick_bk(w: int) -> int:
     if w < BLOCK:
         return w
     return min(MAX_BK, (w // BLOCK) * BLOCK)
+
+
+def pick_splits(w: int) -> tuple[int, int]:
+    """(split width SW, splits NS) of the float kernel for pages of ``w``
+    slots: 16 keys a block, the fastest of 16 / 32 / 64 at 4 lanes on the
+    H100 (a block's score, softmax and PV passes grow with its keys; see
+    PERF.md), widened only where a page would need more than
+    ``MAX_SPLITS``; pages narrower than that split whole. Only the float
+    kernel's speed and rounding depend on it, not its function."""
+    sw = next((s for s in SPLIT_WIDTHS if -(-w // s) <= MAX_SPLITS), None)
+    if sw is None:
+        raise ValueError(f"paged_decode kernel: W={w} needs more than "
+                         f"{MAX_SPLITS} splits of {SPLIT_WIDTHS[-1]}")
+    sw = min(sw, w)
+    return sw, -(-w // sw)
+
+
+def split_slots(w: int, sw: int, s: int, length: int) -> range:
+    """The slots split ``s`` of the float kernel attends to in a lane of
+    ``length``: its rows are fetched at ``min(s*sw, w-sw)`` and only the
+    slots in ``[s*sw, length)`` stay live."""
+    offs = min(s * sw, w - sw)
+    return range(max(offs, s * sw), min(offs + sw, length))
 
 
 def _check_shape(name: str, q, w: int, bk: int, n_kv: int) -> None:
@@ -58,21 +84,37 @@ def _lane_ints(t, dev) -> torch.Tensor:
     return t.to(device=dev, dtype=torch.int32).contiguous()
 
 
-def _launch(q, kv, rows, lengths, scale: float, bk: int) -> torch.Tensor:
+def _launch(q, kv, rows, lengths, scale: float,
+            split_width: int | None = None) -> torch.Tensor:
+    """Launch the float kernel, its keys split by :func:`pick_splits` or,
+    to time the alternatives (``scripts/torch_kernel_sweep.py``), into
+    ``split_width``-key splits."""
     L, hkv, g, hd = q.shape
     w = kv.shape[1]
-    _check_shape("paged_decode", q, w, bk, kv.shape[2] // 2)
+    _check_shape("paged_decode", q, w, pick_bk(w), kv.shape[2] // 2)
     if (kv.dtype != torch.bfloat16 or kv.device != q.device
             or not kv.is_contiguous() or kv.shape[3] != hd):
         raise ValueError(f"paged_decode: kv must be contiguous bf16 "
                          f"[P, W, 2Hkv, {hd}] on {q.device}")
+    if hd not in FLOAT_DH:
+        raise ValueError(f"paged_decode kernel: head_dim {hd} not in "
+                         f"{FLOAT_DH}")
     rows, lengths = _lane_ints(rows, q.device), _lane_ints(lengths, q.device)
     q = q.contiguous()
+    if q.data_ptr() % 16 or kv.data_ptr() % 16:
+        raise ValueError("paged_decode kernel: q and kv must be 16-byte "
+                         "aligned")
+    sw, ns = pick_splits(w)
+    if split_width:
+        sw, ns = min(split_width, w), -(-w // min(split_width, w))
     out = torch.empty_like(q)
+    ml = torch.empty((L, hkv, ns, g, 2), dtype=torch.float32, device=q.device)
+    acc = torch.empty((L, hkv, ns, g, hd), dtype=torch.float32,
+                      device=q.device)
     fn = _build.function("paged_decode", "paged_decode_launch", _ARGTYPES)
     err = fn(q.data_ptr(), kv.data_ptr(), rows.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), L, w, hkv, g, hd, bk, scale,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             ml.data_ptr(), acc.data_ptr(), out.data_ptr(), L, w, hkv, g, hd,
+             sw, ns, scale, torch.cuda.current_stream(q.device).cuda_stream)
     paged_flash_decode.launches += 1
     _build.check(err, "paged_decode")
     return out
@@ -105,7 +147,8 @@ def _launch_mx(q, quant, rows, lengths, scale: float, bk: int) -> torch.Tensor:
 def paged_flash_decode(q, kv, rows, lengths, *, scale: float,
                        bk: int | None = None, obs=None) -> torch.Tensor:
     """q [L, Hkv, G, Dh] bf16, fused pages kv [P, W, 2Hkv, Dh] bf16, rows /
-    lengths int [L] -> bf16 [L, Hkv, G, Dh]."""
+    lengths int [L] -> bf16 [L, Hkv, G, Dh]. ``bk`` is the plain version's
+    chunk width; the kernel splits the keys by :func:`pick_splits`."""
     bk = bk or pick_bk(kv.shape[1])
     if q.device.type == "cpu":
         return profiled_call("paged_attention.ref", obs, lambda: (
@@ -113,7 +156,7 @@ def paged_flash_decode(q, kv, rows, lengths, *, scale: float,
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
     return profiled_call("paged_attention", obs,
-                         lambda: _launch(q, kv, rows, lengths, scale, bk))
+                         lambda: _launch(q, kv, rows, lengths, scale))
 
 
 def paged_flash_decode_mx(q, quant, rows, lengths, *, scale: float,

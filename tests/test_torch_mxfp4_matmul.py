@@ -5,6 +5,10 @@ the JAX reference.
   ``mxfp4_matmul_ref`` and the Pallas kernel in interpret mode, at the
   shapes and the bound of ``tests/test_kernels.py`` (rtol 2e-2, atol
   2e-2 * max|ref|): f32 sums taken in another order.
+- Routes: :func:`pick_route` (decode lanes and f32 x on the fma kernel,
+  bf16 prefill on the tensor-core kernel) and the tensor-core route's K
+  split. Every dequantized weight is exactly a bf16 value, bit for bit,
+  which makes the bf16 ``wgmma`` route the reference's function.
 - Bitwise: ``dequant_ref``, ``_dequant_packed``, ``_quantize_packed`` and
   ``convert_params_mxfp4`` (on tiny starcoder2-7b, carried by
   ``from_reference``). At the E8M0 floor (biased exponent 0 or 1) the
@@ -242,13 +246,69 @@ def test_wrapper_contract():
     assert tmm_ops.pick_splits(192, 4608, 49152) == 1
 
 
+# (K, N) of the static linears at starcoder2-7b width: wq/wo, wk/wv, w1,
+# w2, the LM head
+STARCODER2_LINEARS = [(4608, 4608), (4608, 512), (4608, 18432),
+                      (18432, 4608), (4608, 49152)]
+
+
+@pytest.mark.parametrize("k,n", STARCODER2_LINEARS)
+def test_pick_route(k, n):
+    """Decode lanes (M <= 4) and f32 x keep the fma route; bf16 x at the
+    served prefill length takes the tensor-core route on every linear."""
+    for m in (1, 4):
+        assert tmm_ops.pick_route(m, k, n, torch.bfloat16) == "fma"
+    assert tmm_ops.pick_route(192, k, n, torch.float32) == "fma"
+    assert tmm_ops.pick_route(192, k, n, torch.bfloat16) == "wgmma"
+    assert tmm_ops.pick_route(100, k, n, torch.bfloat16) == "wgmma"
+    # shapes the tensor-core kernel does not tile stay on the fma route
+    assert tmm_ops.pick_route(192, k + 32, n, torch.bfloat16) == "fma"
+    assert tmm_ops.pick_route(192, k, n + 64, torch.bfloat16) == "fma"
+
+
+@pytest.mark.parametrize("m", [16, 100, 192, 400])
+@pytest.mark.parametrize("k,n", STARCODER2_LINEARS + [(512, 640),
+                                                      (18432, 256)])
+def test_pick_tc_splits_leaves_no_split_empty(m, k, n):
+    """Every K split of the tensor-core route owns at least one 64-row
+    tile and together they cover K once (the kernel's ceil division)."""
+    splits = tmm_ops.pick_tc_splits(m, k, n)
+    nkt = k // tmm_ops.TC_BK
+    per = -(-nkt // splits)
+    assert 1 <= splits <= nkt and (splits - 1) * per < nkt <= splits * per
+
+
+def test_dequant_values_are_exact_in_bf16():
+    """The premise of the tensor-core route: every dequantized weight (each
+    nibble 0-15 under each biased exponent 0-255) is a bf16 value, bit for
+    bit, including the b <= 1 flush and the infinities at the top
+    exponents. The only exception is a zero code at b = 255 (0 x inf), NaN
+    before and after the round."""
+    rows = np.arange(16, dtype=np.uint8)
+    codes = np.repeat((rows | (rows << 4))[:, None], 256, axis=1)  # [16, 256]
+    exps = np.arange(256, dtype=np.uint8)[None, :]  # one 32-row block
+    d = tmm_ref.dequant_ref(_to_torch(codes), _to_torch(exps))  # [32, 256]
+    rounded = d.to(torch.bfloat16).float()
+    differ = _bits(rounded) != _bits(d)
+    nan = torch.isnan(d).numpy()
+    nibble = np.repeat(rows, 2)[:, None] & 0x7  # |code| of each K row
+    expected_nan = (nibble == 0) & (np.arange(256)[None, :] == 255)
+    np.testing.assert_array_equal(nan, expected_nan)
+    assert torch.isnan(rounded).numpy()[nan].all()
+    np.testing.assert_array_equal(differ & ~nan, False)
+    assert torch.isinf(d).any() and (d.numpy()[:, :2] == 0).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1, 4608, 512), (4, 2048, 1024),
-                                   (33, 96, 48), (192, 512, 640)])
+                                   (33, 96, 48), (192, 512, 640),
+                                   (192, 4608, 512), (100, 512, 640),
+                                   (192, 18432, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_kernel_matches_plain_version(m, k, n, dtype):
     """The CUDA kernel against its plain version on the card: ragged M,
-    split K (M <= 4) and a floor block; f32 sums in another order."""
+    split K on both routes, and a floor block; f32 sums in another order.
+    The route the shape and dtype pick is the one that launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     _, codes, exps = _packed(m + k, k, n)
@@ -256,9 +316,13 @@ def test_cuda_kernel_matches_plain_version(m, k, n, dtype):
     te = _to_torch(_floor_exps(np.asarray(exps))).cuda()
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(
         dtype).cuda()
+    route = tmm_ops.pick_route(m, k, n, dtype)
     before = tmm_ops.mxfp4_matmul.launches
+    routes = dict(tmm_ops.mxfp4_matmul.route_launches)
     got = tmm_ops.mxfp4_matmul(x, tc, te)
     assert tmm_ops.mxfp4_matmul.launches == before + 1
+    routes[route] += 1
+    assert tmm_ops.mxfp4_matmul.route_launches == routes
     ref = tmm_ref.mxfp4_matmul_ref(x, tc, te).float()
     torch.testing.assert_close(got.float(), ref, rtol=2e-2,
                                atol=2e-2 * float(ref.abs().max()))

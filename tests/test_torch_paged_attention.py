@@ -23,7 +23,8 @@ JAX reference.
   rounds it: the measured maximum difference is 0 on these pages (with
   the round, 1 bf16 ulp on about a fifth of the outputs). Against
   the dense reference it holds the reference's own kernel bound (atol
-  0.04, rtol 0.05).
+  0.04, rtol 0.05). The float CUDA kernel splits each lane's keys over
+  blocks (``pick_splits``); the split rule covers every live key once.
 """
 
 import numpy as np
@@ -244,18 +245,42 @@ def test_pick_bk_and_wrapper_contract():
             tops.paged_flash_decode_mx.launches) == before
 
 
+@pytest.mark.parametrize("w", [48, 64, 256, 4096, 16384])
+def test_pick_splits_covers_every_live_key_once(w):
+    """The float kernel's key split: at most 64 keys and 256 splits a
+    lane, more than one split on these pages, and for lengths 0, 1, a
+    split edge +- 1 and W the live slots of the splits (``split_slots``,
+    the kernel's own rule) are [0, length), each exactly once."""
+    sw, ns = tops.pick_splits(w)
+    assert 1 <= sw <= min(64, w) and ns == -(-w // sw) and 1 < ns <= 256
+    for length in sorted({0, 1, sw - 1, sw, sw + 1, w - 1, w}):
+        slots = [p for s in range(ns)
+                 for p in tops.split_slots(w, sw, s, length)]
+        assert slots == list(range(length))
+        for s in range(ns):  # a split's fetch stays inside the page
+            assert 0 <= min(s * sw, w - sw) <= w - sw
+    assert tops.pick_splits(8) == (8, 1)
+    with pytest.raises(ValueError, match="splits"):
+        tops.pick_splits(256 * 64 + 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", [48, 256])
 def test_cuda_float_kernel_matches_plain_version(w):
-    """The float-page CUDA kernel against its plain version on the card:
-    f32 sums in another order, so a bf16 ulp of PV at most."""
+    """The float-page CUDA kernel against its plain version on the card,
+    lengths at the key splits' edges included: each split takes its own
+    max and the combine rescales, so P rounds to bf16 against another max
+    (a bf16 ulp of the output at most)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     k, v, q = _pages(8, w)
     kv = tlayout.fuse_kv(k[1], v[1]).cuda()
     qc = q[1].cuda()
     rows = torch.tensor([4, 0, 2, 1], dtype=torch.int32).cuda()
-    for lens in (FLOAT_LENGTHS if w == 48 else ([0, 31, 129, 256],)):
+    sw, _ = tops.pick_splits(w)
+    edges = [sw - 1, sw, sw + 1, w - 1]
+    for lens in (FLOAT_LENGTHS + (edges,) if w == 48
+                 else ([0, 31, 129, 256], edges)):
         lens = torch.tensor(lens, dtype=torch.int32).cuda()
         before = tops.paged_flash_decode.launches
         got = tops.ragged_paged_decode(qc, rows, lens, kv=kv, scale=SCALE)
