@@ -18,7 +18,10 @@
    from shape and dtype) and the route's counter must move; w1 is also
    run with f32 x at M=192 and at the ragged M=100, and timed on both
    routes at small M (``route crossover`` lines). ``paged_decode`` rows
-   name their key split (``split_width``, ``splits``).
+   name their key split (``split_width``, ``splits``). ``flash_attention``
+   rows name their route (``wgmma``: bf16 with D 64 or 128; ``fma``: f32)
+   and SQNR; the bf16 rows must take ``wgmma``, and the ``tile`` line
+   times both routes on one bf16 shape.
 4. Serve ``--backend cim``: starcoder2-7b at full width with the depth cut
    to 8 of 32 layers, through the launcher's entry points: 8 staggered
    requests, 4 lanes, 6 slots, prompts up to 192 tokens, 64 new tokens.
@@ -84,19 +87,26 @@ PAGES = ((48, [0, 1, 33, 48]), (256, [0, 31, 129, 256]))  # W, lengths
 # flash_attention at the prefill shape the model would give it:
 # (B, S, H, Hkv, D) of starcoder2-7b with a 2048-token prompt
 FA_SHAPE = (1, 2048, 36, 4, 128)
+FA_F32_S = 512  # sequence length of the f32 (fma route) row
+FA_MIN_SQNR_DB = 40.0  # bf16 rows: P is rounded to bf16 for the PV product
+
+
+def _device_events(prof) -> list:
+    """The device's own events of a ``torch.profiler`` run, by kernel name
+    (a CPU op's self device time repeats its kernels' time, so it is not
+    counted again)."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)]
 
 
 def _device_kernels_ms(prof) -> dict:
-    """Device time by kernel name from a ``torch.profiler`` run: only the
-    device's own events (a CPU op's self device time repeats its kernels'
-    time, so it is not added again)."""
-    from torch.autograd import DeviceType
-
+    """Device time by kernel name from a ``torch.profiler`` run."""
     out: dict = {}
-    for ev in prof.key_averages():
-        if (ev.device_type == DeviceType.CUDA
-                and not getattr(ev, "is_user_annotation", False)):
-            out[ev.key] = out.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
+    for ev in _device_events(prof):
+        out[ev.key] = out.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
     return out
 
 
@@ -104,10 +114,14 @@ def _device_ms(fn, reps: int) -> float:
     """Device time per call: the kernels that ``reps`` warmed calls launch,
     summed (``torch.profiler``), over ``reps``. Host dispatch is not in it;
     :func:`_time_ms` around one call includes it. The profiler's device
-    trace has come back empty now and then on the H100 machine: it is
-    taken again, and after three empty traces the call is timed with CUDA
-    events around ``reps`` back-to-back calls instead (launch gaps
-    included, so an upper bound), and a line says so."""
+    trace has come back empty, or with a kernel one launch short (which
+    reads low), now and then on the H100 machine: a trace in which some
+    kernel's launches are not a multiple of ``reps`` is taken again, and
+    after three such traces the call is timed with CUDA events
+    around ``reps`` calls queued behind a sleep kernel that outlasts their
+    host dispatch, so that the events time the device and not the host
+    (gaps between launches included, so an upper bound), and a line says
+    so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -117,18 +131,28 @@ def _device_ms(fn, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(_device_kernels_ms(prof).values())
-        if total > 0:
-            return total / reps
+        events = _device_events(prof)
+        short = [ev for ev in events if ev.count % reps]
+        if events and not short:
+            return sum(ev.self_device_time_total for ev in events) / 1e3 / reps
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    # twice the host's dispatch time of the calls, in cycles at <= 2 GHz
+    torch.cuda._sleep(int(min(2e9, 4e9 * reps * host_s)))
     a.record()
     for _ in range(reps):
         fn()
     b.record()
     b.synchronize()
-    print("device timer: three empty profiler traces, timed with CUDA "
-          "events", flush=True)
+    last = (f"{short[0].count} launches of {short[0].key[:60]} in {reps} "
+            "calls" if short else "no kernel")
+    print(f"device timer: three empty or partial profiler traces (the last: "
+          f"{last}), timed with CUDA events behind a sleep kernel",
+          flush=True)
     return a.elapsed_time(b) / reps
 
 
@@ -412,54 +436,103 @@ def check_paged_decode_float(dev) -> list:
 
 
 def check_flash_attention(dev) -> list:
-    """At ``FA_SHAPE`` in bf16: causal over the whole prompt, a sliding
-    window of half of it, and the last eighth of the queries at their
-    offset (256 queries at 1792 for S = 2048)."""
+    """At ``FA_SHAPE`` in bf16 (the ``wgmma`` route): causal over the whole
+    prompt, a sliding window of half of it, and the last eighth of the
+    queries at their offset (256 queries at 1792 for S = 2048); then causal
+    with D = 64 (``wgmma``) and causal in f32 at ``FA_F32_S`` (the ``fma``
+    route). Each row names its route, whose counter must move; bf16 rows
+    must take ``wgmma`` and reach ``FA_MIN_SQNR_DB``. Then the ``tile``
+    line times both routes on the causal bf16 shape."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    b, s, h, hkv, d = FA_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cases = [(torch.bfloat16, d, s, s, 0, 0),
+             (torch.bfloat16, d, s, s, s // 2, 0),
+             (torch.bfloat16, d, s, s // 8, 0, s - s // 8),
+             (torch.bfloat16, 64, s, s, 0, 0),
+             (torch.float32, d, FA_F32_S, FA_F32_S, 0, 0)]
+    rows = []
+    for dtype, dh, sk, sq, window, off in cases:
+        k, v, q_full = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                        for shape in ((b, sk, hkv, dh), (b, sk, hkv, dh),
+                                      (b, sk, h, dh)))
+        q = q_full[:, sk - sq:].contiguous()
+        rows.append(_flash_attention_row(q, k, v, window, off))
+        print("flash_attention", json.dumps(rows[-1]), flush=True)
+        if not rows[-1]["ok"]:
+            raise AssertionError(f"flash_attention kernel disagrees at "
+                                 f"{rows[-1]}")
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    tile = {f"{r}_ms": _device_ms(lambda: fa_ops._launch(
+        q, k, v, True, 0, 0, route=r), reps) for r, reps in (
+            ("wgmma", 10), ("fma", 5))}
+    print("flash_attention tile", json.dumps(
+        {"b": b, "s": s, "h": h, "hkv": hkv, "d": d, "causal": True} | tile),
+        flush=True)
+    return rows
+
+
+def _flash_attention_row(q, k, v, window: int, off: int) -> dict:
+    """One causal ``flash_attention`` shape against its plain version:
+    |err| <= 1e-2 + 1e-2 |ref| everywhere, and SQNR >= ``FA_MIN_SQNR_DB``
+    in bf16; the picked route's counter moves by one. The library time is
+    SDPA's with the boolean mask, or, where ``is_causal`` computes the same
+    function (square, no window, no offset), the faster of that and
+    ``is_causal=True``, which may take a faster backend; ``library_call``
+    names the one kept."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    b, s, h, hkv, d = FA_SHAPE
-    gen = torch.Generator(device=dev).manual_seed(8)
-    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(
-        torch.bfloat16)
-    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(
-        torch.bfloat16)
-    q_full = torch.randn((b, s, h, d), generator=gen, device=dev).to(
-        torch.bfloat16)
-    rows = []
-    for sq, window, off in ((s, 0, 0), (s, s // 2, 0), (s // 8, 0, s - s // 8)):
-        q = q_full[:, s - sq:].contiguous()
-        kw = dict(causal=True, window=window, q_offset=off)
-        got = fa_ops.flash_attention(q, k, v, **kw).float()
-        ref = flash_attention_ref(q, k, v, **kw).float()
-        torch.cuda.synchronize()
-        err = (got - ref).abs()
-        ok = bool((err <= 1e-2 + 1e-2 * ref.abs()).all())
-        qp = torch.arange(sq, device=dev)[:, None] + off
-        kp = torch.arange(s, device=dev)[None, :]
-        mask = kp <= qp
-        if window:
-            mask &= kp > qp - window
-        pairs = float(mask.sum())
-        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        bound, by = _bound_ms(n_bytes, 4.0 * b * h * d * pairs, "bf16")
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        rows.append(dict(
-            b=b, sq=sq, sk=s, h=h, hkv=hkv, d=d, window=window, q_offset=off,
-            max_abs_err=float(err.max()), sqnr_db=_sqnr_db(ref, got), ok=ok,
-            ms=_device_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 10),
-            call_ms=_time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 10),
-            plain_ms=_device_ms(lambda: flash_attention_ref(q, k, v, **kw), 3),
-            bound_ms=bound, bound_by=by,
-            library_ms=_device_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)))
-        print("flash_attention", json.dumps(rows[-1]), flush=True)
-        if not ok:
-            raise AssertionError(f"flash_attention kernel disagrees at "
-                                 f"{(sq, window, off)}")
-    return rows
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    kw = dict(causal=True, window=window, q_offset=off)
+    route = fa_ops.pick_route(sq, sk, d, q.dtype)
+    if q.dtype == torch.bfloat16 and route != "wgmma":
+        raise AssertionError(f"flash_attention picked {route} for bf16 at "
+                             f"{tuple(q.shape)}")
+    before = fa_ops.flash_attention.route_launches[route]
+    got = fa_ops.flash_attention(q, k, v, **kw).float()
+    if fa_ops.flash_attention.route_launches[route] != before + 1:
+        raise AssertionError(f"flash_attention did not take the {route} "
+                             f"route at {tuple(q.shape)}")
+    ref = flash_attention_ref(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    sqnr = _sqnr_db(ref, got)
+    ok = bool((err <= 1e-2 + 1e-2 * ref.abs()).all()) and bool(
+        q.dtype != torch.bfloat16 or sqnr >= FA_MIN_SQNR_DB)
+    qp = torch.arange(sq, device=dev)[:, None] + off
+    kp = torch.arange(sk, device=dev)[None, :]
+    mask = kp <= qp
+    if window:
+        mask &= kp > qp - window
+    pairs = float(mask.sum())
+    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    kind = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    bound, by = _bound_ms(n_bytes, 4.0 * b * h * d * pairs, kind)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    library = {"attn_mask": _device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)}
+    if sq == sk and not window and not off:
+        library["is_causal"] = _device_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    library_call = min(library, key=library.get)
+    return dict(
+        b=b, sq=sq, sk=sk, h=h, hkv=hkv, d=d, dtype=kind, window=window,
+        q_offset=off, route=route, max_abs_err=float(err.max()),
+        sqnr_db=sqnr, ok=ok,
+        ms=_device_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 10),
+        call_ms=_time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 10),
+        plain_ms=_device_ms(lambda: flash_attention_ref(q, k, v, **kw), 3),
+        bound_ms=bound, bound_by=by, library_ms=library[library_call],
+        library_call=library_call,
+        library_by_call=library)
 
 
 def check_tiny_agreement(dev, backend: str) -> None:
@@ -569,12 +642,15 @@ def serve_full_width(backend: str) -> dict:
 
 
 def _zero_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
 
     for fn in _kernel_wrappers().values():
         fn.launches = 0
     for r in mm_ops.ROUTES:
         mm_ops.mxfp4_matmul.route_launches[r] = 0
+    for r in fa_ops.ROUTES:
+        fa_ops.flash_attention.route_launches[r] = 0
 
 
 def _read_counts() -> tuple[dict, dict]:
@@ -730,6 +806,7 @@ def main() -> int:
                 "bound_by": main_row["bound_by"],
                 "library_ms": main_row.get("library_ms"),
                 "call_ms": main_row["call_ms"],
+                "kernel_route": main_row.get("route"),
                 "shape": shape.format(**main_row)}
 
     w1 = (4,) + LINEAR_SHAPES[2]  # the decode step's ffn w1
@@ -747,7 +824,8 @@ def main() -> int:
               lambda r: r["w"] == PAGES[-1][0], page_shape),
         entry("flash_attention",
               "src/repro/kernels/flash_attention/kernel.py:90",
-              lambda r: r["sq"] == FA_SHAPE[1] and r["window"] == 0,
+              lambda r: (r["sq"], r["d"], r["dtype"], r["window"])
+              == (FA_SHAPE[1], FA_SHAPE[4], "bf16", 0),
               "B={b} S={sq} H={h} Hkv={hkv} D={d} bf16 causal"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

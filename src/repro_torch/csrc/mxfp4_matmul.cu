@@ -269,59 +269,6 @@ struct Smem {
   static constexpr int BYTES = LUT_OFF + 256 * 4 + 1024;  // + base alignment
 };
 
-// Byte offset of 16-byte chunk `c` of row `r` in a 128-byte swizzled tile
-// (the layout of CU_TENSOR_MAP_SWIZZLE_128B that wgmma's B128 mode reads).
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart (SBO), leading offset unused by the swizzled layout.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
 template <int NWG>
 __global__ void __launch_bounds__(NWG * 128, 1)
 mxfp4_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,
@@ -360,7 +307,7 @@ mxfp4_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,
       const bool ok = m0 + r < M;
       const __nv_bfloat16* src =
           ok ? x + (size_t)(m0 + r) * K + kt * BK + 8 * ch : x;
-      hopper::cp_async16(a + swz(r, ch), src, ok);
+      hopper::cp_async16(a + hopper::swz128(r, ch), src, ok);
     }
     for (int i = tid; i < (BK / 2) * 8; i += THREADS) {  // codes rows
       const int r = i >> 3, ch = i & 7;
@@ -406,7 +353,7 @@ mxfp4_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,
               *reinterpret_cast<const __nv_bfloat162*>(&lut2[by[t][r]]), hs2);
           w[r] = *reinterpret_cast<const uint32_t*>(&v);
         }
-        *reinterpret_cast<uint4*>(bt + swz(n, kq)) =
+        *reinterpret_cast<uint4*>(bt + hopper::swz128(n, kq)) =
             make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
@@ -439,18 +386,19 @@ mxfp4_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,
                                          (it % STAGES) * S::A_BYTES) +
                        wg * 64 * 128;
     const uint32_t bb = hopper::smem_addr(smem + S::B_OFF + (it & 1) * B_BYTES);
-    wgmma_fence();
+    hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_m64n128k16(d, desc(a + 32 * kk), desc(bb + 32 * kk));
-    wgmma_commit();
+      hopper::wgmma_ss_m64n128k16(d, hopper::desc128(a + 32 * kk),
+                                  hopper::desc128(bb + 32 * kk));
+    hopper::wgmma_commit();
     if (it + 1 < nk) {  // decode the next tile while the tensor cores run
       hopper::cp_async_wait<STAGES - 2>();
       __syncthreads();
       decode_tile((it + 1) % STAGES, (it + 1) & 1);
       hopper::fence_proxy_async();
     }
-    wgmma_wait0();
+    hopper::wgmma_wait0();
     __syncthreads();
   }
 

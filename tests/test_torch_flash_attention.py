@@ -90,28 +90,74 @@ def test_wrapper_contract():
         tfa_ops.flash_attention(q[:, :, :3], k, v)
 
 
+@pytest.mark.parametrize("d,dtype,route", [
+    (64, torch.bfloat16, "wgmma"),
+    (128, torch.bfloat16, "wgmma"),
+    (128, torch.float32, "fma"),
+    (32, torch.bfloat16, "fma"),
+    (96, torch.bfloat16, "fma"),
+])
+def test_pick_route(d, dtype, route):
+    """bf16 with a head_dim of whole 64-value tiles takes the tensor cores;
+    f32 (rounding it would change the function) and other head_dims stay
+    on the fma kernel, whatever the lengths."""
+    for sq, sk in ((1, 1), (129, 300), (2048, 2048)):
+        assert tfa_ops.pick_route(sq, sk, d, dtype) == route
+
+
+# sq, sk, heads, KV heads, head_dim, causal, window, q_offset
+_CUDA_CASES = [
+    (100, 100, 8, 2, 64, True, 0, 0),
+    (70, 200, 8, 2, 64, True, 0, 130),
+    (129, 129, 8, 2, 64, True, 40, 0),
+    (33, 48, 8, 2, 64, False, 0, 0),
+    # starcoder2-7b heads (G = 9); lengths that are no multiple of 64 or 128
+    (200, 200, 36, 4, 128, True, 0, 0),
+    (150, 333, 36, 4, 128, True, 0, 183),
+    (300, 300, 36, 4, 128, True, 100, 0),
+    (130, 330, 36, 4, 128, True, 70, 200),
+    (97, 161, 36, 4, 128, False, 0, 0),
+    (64, 256, 8, 2, 32, True, 0, 192),  # bf16 D=32: the fma route
+    # rows that see no key: 13..15 here (keys end at 47), all of them below
+    (16, 48, 8, 2, 64, True, 16, 50),
+    (16, 48, 8, 2, 128, True, 16, 100),
+]
+
+
+def _no_key_rows(sq, sk, causal, window, q_offset):
+    qp = np.arange(sq)[:, None] + q_offset
+    kp = np.arange(sk)[None, :]
+    m = np.ones((sq, sk), bool)
+    if causal:
+        m &= kp <= qp
+    if window > 0:
+        m &= kp > qp - window
+    return ~m.any(axis=1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sq,sk,causal,window,q_offset", [
-    (100, 100, True, 0, 0),
-    (70, 200, True, 0, 130),
-    (129, 129, True, 40, 0),
-    (33, 48, False, 0, 0),
-])
-def test_cuda_kernel_matches_plain_version(dtype, sq, sk, causal, window,
-                                           q_offset):
+@pytest.mark.parametrize("sq,sk,h,hkv,d,causal,window,q_offset", _CUDA_CASES)
+def test_cuda_kernel_matches_plain_version(dtype, sq, sk, h, hkv, d, causal,
+                                           window, q_offset):
     """The CUDA kernel against its plain version on the card: ragged
-    tiles, GQA, masks relative to q_offset; f32 sums in another order
-    (bf16: one output ulp)."""
+    tiles, GQA, masks relative to q_offset, on the route pick_route names;
+    f32 sums in another order (bf16: one output ulp, and P rounded to bf16
+    on the wgmma route). Rows that see no key are exact zeros."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     q, k, v = (t.to(dtype).cuda() for t in map(_to_torch, _qkv(
-        sq + sk, 2, sq, sk, 8, 2, 64, jnp.float32)))
+        sq + sk, 2, sq, sk, h, hkv, d, jnp.float32)))
+    route = tfa_ops.pick_route(sq, sk, d, dtype)
     before = tfa_ops.flash_attention.launches
+    before_route = tfa_ops.flash_attention.route_launches[route]
     got = tfa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset)
     assert tfa_ops.flash_attention.launches == before + 1
+    assert tfa_ops.flash_attention.route_launches[route] == before_route + 1
     ref = tfa_ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                       q_offset=q_offset)
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    dead = torch.from_numpy(_no_key_rows(sq, sk, causal, window, q_offset))
+    assert bool((got[:, dead.cuda()] == 0).all())
