@@ -14,6 +14,14 @@
    operations over the peak rate of their type, H100 SXM data sheet) and,
    where one PyTorch call computes the same function, that call's time
    (``library_ms``; timed here only, never used by the port).
+   ``cim_linear`` rows must be bitwise their plain version; each names its
+   route (``splitk``: integer sums, K split over ``splits`` blocks;
+   ``wgmma``: tensor-core block dots, ordered f32 alignment, an activation
+   pre-pass launched with it, one count), the rows that took the ordered
+   walk (``guard_rows``) and the alignment's ALU floor (``align_floor_ms``)
+   beside the bound; a constructed input at K=18432 whose ordered sum
+   rounds must be bitwise with its one guarded row, and the ``route
+   crossover`` lines time both routes on w1 at M = 16..128.
    ``mxfp4_matmul`` rows name their route (``fma`` or ``wgmma``, picked
    from shape and dtype) and the route's counter must move; w1 is also
    run with f32 x at M=192 and at the ragged M=100, and timed on both
@@ -33,7 +41,9 @@
    dB); a tiny model with the same weights gives the same logits on the
    card as on the CPU. Then one 192-token prefill and 8 decode steps (4
    live lanes), each under ``torch.profiler``: device time by kernel, wall
-   time and the device's busy share.
+   time and the device's busy share. ``cim_linear`` launches by route must
+   show both routes in the serve, ``wgmma`` in the prefill (M = 192 with
+   N > 1024) and ``splitk`` only in the decode steps.
 5. Serve ``--backend mxfp4`` the same way at full width and full depth (32
    layers): ``mxfp4_matmul`` (both routes) and ``paged_decode`` must have
    launched, ``cim_linear`` and ``paged_decode_mx`` not; the same output
@@ -65,6 +75,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_S = 3.35e12  # H100 SXM
 PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# cim_linear's alignment floor: integer instructions per (row, column,
+# block) triple, and 64 INT32 lanes a clock on 132 SMs at ~1.75 GHz
+ALIGN_OPS = 6
+INT32_OPS_S = 14.8e12
 TRACE_ARGS = ["--no-tiny", "--serve-trace", "--kv-layout", "fused",
               "--requests", "8", "--lanes", "4", "--slots", "6",
               "--prompt-len", "192", "--tokens", "64"]
@@ -82,6 +96,7 @@ LINEAR_SHAPES = [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608),
 M_PREFILL = 192  # rows of a prefill linear (the served prompt length)
 M_RAGGED = 100  # a prefill row count that is not a multiple of 64
 CROSSOVER_M = (4, 8, 16, 32, 64)  # rows at which both matmul routes are timed
+CIM_CROSSOVER_M = (16, 32, 64, 128)  # the same for cim_linear's routes
 DECODE_DIMS = (4, 4, 9, 128)  # lanes, KV heads, heads per KV head, head_dim
 PAGES = ((48, [0, 1, 33, 48]), (256, [0, 31, 129, 256]))  # W, lengths
 # flash_attention at the prefill shape the model would give it:
@@ -200,7 +215,44 @@ def _sqnr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
         float((ref ** 2).sum()) / err)
 
 
+def _align_floor_ms(m: int, k: int, n: int) -> float:
+    """The alignment's ALU floor: m*n*(k/32) (row, column, block) triples
+    at ``ALIGN_OPS`` integer instructions each over ``INT32_OPS_S``."""
+    return m * n * (k // 32) * ALIGN_OPS / INT32_OPS_S * 1e3
+
+
+def _rounding_input(dev):
+    """The constructed input whose ordered f32 sum rounds (K = 18432, CM =
+    3): row 0 has 460 32-blocks of products 12 * 12 at factor 1 (past 2^24
+    units of 2^-3) and then 116 blocks of one product 1 * 1 at factor 2^-3,
+    half an ulp each, which the ordered sum drops; row 1 has a quarter of
+    the big products and stays exact. Returns (x, K-major w, calib, cfg)."""
+    from repro_torch.core import cim as cimlib
+    from repro_torch.core import mx as mxlib
+
+    k, big, n, cm = 18432, 460, 4608, 3
+    x = torch.zeros((2, k), device=dev)
+    x[0, :big * 32] = 6.0
+    x[1, :big * 32:4] = 6.0
+    x[:, big * 32::32] = 6.0
+    x[:, big * 32 + 1::32] = 0.5
+    codes = torch.zeros((k, n), dtype=torch.int8, device=dev)
+    codes[:big * 32] = 12
+    codes[big * 32 + 1::32] = 1
+    exps = torch.zeros((k // 32, n), dtype=torch.int8, device=dev)
+    exps[big:] = -cm
+    w = mxlib.MXW(mxlib.kmajor(codes), mxlib.kmajor(exps))
+    cal = cimlib.LayerCalib(torch.tensor(0, dtype=torch.int32, device=dev),
+                            torch.tensor(1.0e7, device=dev))
+    return x, w, cal, cimlib.CIMConfig(adc_bits=None, cm_bits=cm)
+
+
 def check_cim_linear(dev, m_prefill: int) -> list:
+    """Every linear shape at decode (M=4) and prefill (M=192), then the
+    constructed rounding input at K=18432: each row bitwise its plain
+    version (a mismatch raises), with its route, K splits, the rows that
+    took the ordered walk (``guard_rows``, device counter) and the
+    alignment's ALU floor beside the bytes/ops bound."""
     from repro_torch.core import cim as cimlib
     from repro_torch.core import mx as mxlib
     from repro_torch.kernels.cim_linear import ops as cim_ops
@@ -208,34 +260,81 @@ def check_cim_linear(dev, m_prefill: int) -> list:
 
     gen = torch.Generator(device=dev).manual_seed(1)
     cfg = cimlib.CIMConfig()
+    counter = cim_ops.guard_rows(dev)
     rows = []
+
+    def row(x, w, cal, cfg, extra):
+        m, k = x.shape
+        n = w.codes.shape[1]
+        route = cim_ops.pick_route(m, k, n)
+        counter.zero_()
+        before = cim_ops.cim_linear.route_launches[route]
+        got = cim_ops.cim_linear(x, w, cal, cfg=cfg)
+        if cim_ops.cim_linear.route_launches[route] != before + 1:
+            raise AssertionError(f"cim_linear did not take the {route} route "
+                                 f"at {(m, k, n)}")
+        ref = cim_linear_ref(x, w, cal, cfg)
+        torch.cuda.synchronize()
+        guarded = int(counter)
+        err = (got - ref).abs()
+        n_bytes = m * k * 4 + k * n + (k // 32) * n + 8 + m * n * 4
+        bound, by = _bound_ms(n_bytes, 2.0 * m * n * k, "int8")
+        rows.append(extra | dict(
+            m=m, k=k, n=n, route=route, splits=cim_ops.pick_splits(m, k, n),
+            guard_rows=guarded, max_abs_err=float(err.max()),
+            bitwise=bool(torch.equal(got, ref)),
+            ms=_device_ms(lambda: cim_ops.cim_linear(x, w, cal, cfg=cfg), 20),
+            call_ms=_time_ms(lambda: cim_ops.cim_linear(x, w, cal, cfg=cfg),
+                             20),
+            plain_ms=_device_ms(lambda: cim_linear_ref(x, w, cal, cfg), 3),
+            bound_ms=bound, bound_by=by,
+            align_floor_ms=_align_floor_ms(m, k, n)))
+        rows[-1]["ok"] = rows[-1]["bitwise"]
+        print("cim_linear", json.dumps(rows[-1]), flush=True)
+        if not rows[-1]["ok"]:
+            raise AssertionError(f"cim_linear kernel is not bitwise its "
+                                 f"plain version at {(m, k, n)}")
+
     for k, n in LINEAR_SHAPES:
         w = mxlib.quantize_w(torch.randn((k, n), generator=gen, device=dev)
                              * k ** -0.5)
         for m in (4, m_prefill):
             x = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16).float()
-            cal = cimlib.calibrate_rowhist([x], w, cfg)
-            got = cim_ops.cim_linear(x, w, cal, cfg=cfg)
-            ref = cim_linear_ref(x, w, cal, cfg)
-            torch.cuda.synchronize()
-            err = (got - ref).abs()
-            ok = bool((err <= 1e-5 + 1e-5 * ref.abs()).all())
-            n_bytes = m * k * 4 + k * n + (k // 32) * n + 8 + m * n * 4
-            bound, by = _bound_ms(n_bytes, 2.0 * m * n * k, "int8")
-            rows.append(dict(
-                m=m, k=k, n=n, max_abs_err=float(err.max()),
-                bitwise=bool(torch.equal(got, ref)), ok=ok,
-                ms=_device_ms(lambda: cim_ops.cim_linear(x, w, cal, cfg=cfg), 20),
-                call_ms=_time_ms(lambda: cim_ops.cim_linear(x, w, cal, cfg=cfg),
-                                 20),
-                plain_ms=_device_ms(lambda: cim_linear_ref(x, w, cal, cfg), 3),
-                bound_ms=bound, bound_by=by))
-            print("cim_linear", json.dumps(rows[-1]), flush=True)
-            if not ok:
-                raise AssertionError(f"cim_linear kernel disagrees with its "
-                                     f"plain version at {(m, k, n)}")
+            row(x, w, cimlib.calibrate_rowhist([x], w, cfg), cfg, {})
+        if (k, n) == LINEAR_SHAPES[2]:
+            cim_route_crossover(w, gen, dev, cfg)
+    x, w, cal, rcfg = _rounding_input(dev)
+    row(x, w, cal, rcfg, {"case": "rounding"})
+    if rows[-1]["guard_rows"] != 1:
+        raise AssertionError(f"cim_linear rounding input: "
+                             f"{rows[-1]['guard_rows']} guarded rows, not 1")
     return rows
+
+
+def cim_route_crossover(w, gen, dev, cfg) -> None:
+    """Both routes of ``cim_linear`` on one shape (w1) at the row counts
+    around ``TC_MIN_M``, bitwise each: where the tensor-core route starts
+    to win."""
+    from repro_torch.core import cim as cimlib
+    from repro_torch.kernels.cim_linear import ops as cim_ops
+    from repro_torch.kernels.cim_linear.ref import cim_linear_ref
+
+    k, n = w.codes.shape
+    for m in CIM_CROSSOVER_M:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        cal = cimlib.calibrate_rowhist([x], w, cfg)
+        ref = cim_linear_ref(x, w, cal, cfg)
+        ms = {}
+        for r in cim_ops.ROUTES:
+            if not torch.equal(cim_ops._launch(x, w, cal, cfg, route=r), ref):
+                raise AssertionError(f"cim_linear route {r} is not bitwise "
+                                     f"its plain version at M={m}")
+            ms[f"{r}_ms"] = _device_ms(
+                lambda: cim_ops._launch(x, w, cal, cfg, route=r), 20)
+        print("cim_linear route crossover", json.dumps(
+            {"m": m, "k": k, "n": n, "picked": cim_ops.pick_route(m, k, n)}
+            | ms), flush=True)
 
 
 def check_paged_decode(dev) -> list:
@@ -599,11 +698,13 @@ def serve_full_width(backend: str) -> dict:
     _zero_counts()
     summary = serve.serve_trace(args, cfg, params, ctx, obs, dev)
     launches, routes = _read_counts()
+    cim_routes = _cim_routes()
     peak = torch.cuda.max_memory_allocated()
     print("serve", json.dumps({"backend": backend, "layers": cfg.n_layers}
                               | {k: v for k, v in summary.items() if k != "out"}
                               | {"launches": launches,
                                  "mxfp4_matmul_routes": routes,
+                                 "cim_linear_routes": cim_routes,
                                  "peak_mem_gib": peak / 2**30,
                                  "build_peak_mem_gib": build_peak / 2**30,
                                  "resident_params_gib": resident / 2**30,
@@ -615,6 +716,9 @@ def serve_full_width(backend: str) -> dict:
                              f"own kernels are {own}, and only those")
     if backend == "mxfp4" and not all(routes.values()):
         raise AssertionError(f"[mxfp4] mxfp4_matmul routes {routes}: the "
+                             "serve must run both")
+    if backend == "cim" and not all(cim_routes.values()):
+        raise AssertionError(f"[cim] cim_linear routes {cim_routes}: the "
                              "serve must run both")
     for v in summary["out"].values():
         if not v or not all(0 <= t < cfg.vocab_size for t in v):
@@ -642,6 +746,7 @@ def serve_full_width(backend: str) -> dict:
 
 
 def _zero_counts() -> None:
+    from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
 
@@ -649,6 +754,8 @@ def _zero_counts() -> None:
         fn.launches = 0
     for r in mm_ops.ROUTES:
         mm_ops.mxfp4_matmul.route_launches[r] = 0
+    for r in cim_ops.ROUTES:
+        cim_ops.cim_linear.route_launches[r] = 0
     for r in fa_ops.ROUTES:
         fa_ops.flash_attention.route_launches[r] = 0
 
@@ -659,6 +766,13 @@ def _read_counts() -> tuple[dict, dict]:
 
     return ({name: fn.launches for name, fn in _kernel_wrappers().items()},
             dict(mm_ops.mxfp4_matmul.route_launches))
+
+
+def _cim_routes() -> dict:
+    """``cim_linear`` launches by route since the counts were zeroed."""
+    from repro_torch.kernels.cim_linear import ops as cim_ops
+
+    return dict(cim_ops.cim_linear.route_launches)
 
 
 def _engine(params, cfg, ctx):
@@ -713,6 +827,9 @@ def profile_prefill(cfg, params, ctx) -> dict:
     if ctx.quant == "mxfp4_wonly" and not out["mxfp4_matmul_routes"]["wgmma"]:
         raise AssertionError("[mxfp4] the prefill did not take the wgmma "
                              f"route: {out['mxfp4_matmul_routes']}")
+    if ctx.quant == "cim" and not _cim_routes()["wgmma"]:
+        raise AssertionError("[cim] the prefill did not take the wgmma "
+                             f"route: {_cim_routes()}")
     return out
 
 
@@ -732,6 +849,10 @@ def profile_decode(cfg, params, ctx, steps: int = 8) -> dict:
     routes = out["mxfp4_matmul_routes"]
     if ctx.quant == "mxfp4_wonly" and (routes["wgmma"] or not routes["fma"]):
         raise AssertionError(f"[mxfp4] decode took the routes {routes}")
+    cim_routes = _cim_routes()
+    if ctx.quant == "cim" and (cim_routes["wgmma"]
+                               or not cim_routes["splitk"]):
+        raise AssertionError(f"[cim] decode took the routes {cim_routes}")
     return out
 
 

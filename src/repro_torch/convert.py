@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import mx as mxlib
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -52,4 +53,21 @@ def from_reference(tree, device=None) -> dict:
             segs.append([_map(seg, lambda a, j=j: _tensor(np.asarray(a)[j], dev))
                          for j in range(n)])
     out["segments"] = segs
-    return out
+    return _map_dicts(out, _kmajor_cim)
+
+
+def _kmajor_cim(node: dict) -> dict:
+    """CIM-converted nodes keep their codes and exps K-major, the layout
+    the port's kernel reads (``core.mx.MXW``)."""
+    if "e_n" in node:
+        node = dict(node, codes=mxlib.kmajor(node["codes"]),
+                    exps=mxlib.kmajor(node["exps"]))
+    return node
+
+
+def _map_dicts(node, fn):
+    if isinstance(node, dict):
+        return fn({k: _map_dicts(v, fn) for k, v in node.items()})
+    if isinstance(node, list):
+        return [_map_dicts(v, fn) for v in node]
+    return node

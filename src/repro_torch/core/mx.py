@@ -50,7 +50,9 @@ class MX(NamedTuple):
 
 class MXW(NamedTuple):
     """Weight matrix [K, N] quantized along K (the contraction axis):
-    codes int8 [K_pad, N]; exps int8 [K_pad // 32, N]."""
+    codes int8 [K_pad, N]; exps int8 [K_pad // 32, N]. :func:`quantize_w`
+    returns both K-major (strides ``(1, K_pad)`` and ``(1, K_pad // 32)``):
+    a column's codes are contiguous, as a CTT array column holds them."""
 
     codes: torch.Tensor
     exps: torch.Tensor
@@ -269,11 +271,18 @@ def fake_quant_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
     return _FakeQuant.apply(x, axis)
 
 
+def kmajor(t: torch.Tensor) -> torch.Tensor:
+    """The same [K, N] values with K contiguous (strides ``(1, K)``): the
+    [K, N] view of an [N, K] contiguous tensor. No copy if already so."""
+    return t.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 def quantize_w(w: torch.Tensor) -> MXW:
-    """Quantize a [K, N] weight along K (axis 0)."""
+    """Quantize a [K, N] weight along K (axis 0); codes and exps come out
+    K-major (see :class:`MXW`)."""
     mx = quantize(w.transpose(-1, -2))
-    return MXW(mx.codes.transpose(-1, -2).contiguous(),
-               mx.exps.transpose(-1, -2).contiguous())
+    return MXW(kmajor(mx.codes.transpose(-1, -2)),
+               kmajor(mx.exps.transpose(-1, -2)))
 
 
 def dequantize_w(w: MXW, dtype=torch.float32) -> torch.Tensor:

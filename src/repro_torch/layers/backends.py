@@ -170,8 +170,9 @@ class _MXFP4WeightOnly(LinearBackend):
 @_register
 class _CIMAnalog(LinearBackend):
     """Analog CTT-CIM execution of a static linear. Converted node:
-    ``codes`` int8 [K, N], ``exps`` int8 [K//32, N], ``e_n`` int32 [],
-    ``adc_fs`` f32 [], optional ``b`` (bf16, added after read-out)."""
+    ``codes`` int8 [K, N], ``exps`` int8 [K//32, N], both K-major (the
+    kernel's layout, ``core.mx.MXW``), ``e_n`` int32 [], ``adc_fs`` f32
+    [], optional ``b`` (bf16, added after read-out)."""
 
     name = "cim_analog"
 
@@ -182,7 +183,8 @@ class _CIMAnalog(LinearBackend):
                 wq: mxlib.MXW | None = None) -> dict:
         if wq is None:
             wq = mxlib.quantize_w(params["w"].to(torch.float32))
-        out = {"codes": wq.codes, "exps": wq.exps,
+        out = {"codes": mxlib.kmajor(wq.codes),
+               "exps": mxlib.kmajor(wq.exps),
                "e_n": calib.e_n.to(torch.int32),
                "adc_fs": calib.adc_fs.to(torch.float32)}
         if "b" in params:

@@ -134,20 +134,119 @@ def test_cim_backend_converted_node_and_fallback():
                                   dig.float().numpy())
 
 
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _cuda_case(m, k, n, seed, cfg, x_dtype=torch.float32):
+    """x and K-major weights on the card, calibrated on x."""
+    x, w = _case(m, k, n, seed)
+    dev = _cuda()
+    xt = torch.from_numpy(x).to(dev, x_dtype)
+    tw = tmx.quantize_w(torch.from_numpy(w / np.sqrt(k)).to(dev))
+    return xt, tw, tcim.calibrate_rowhist([xt.float()], tw, cfg)
+
+
+def _kernel_vs_plain(xt, tw, cal, cfg):
+    route = tcim_ops.pick_route(xt.shape[0], *tw.codes.shape)
+    before = tcim_ops.cim_linear.launches
+    before_route = tcim_ops.cim_linear.route_launches[route]
+    got = tcim_ops.cim_linear(xt, tw, cal, cfg=cfg)
+    assert tcim_ops.cim_linear.launches == before + 1
+    assert tcim_ops.cim_linear.route_launches[route] == before_route + 1
+    ref, _ = tcim.cim_linear(xt, tw, cfg, cal)
+    torch.cuda.synchronize()
+    return got, ref
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("adc,cm,two", CFGS)
 def test_cuda_kernel_matches_plain_version(adc, cm, two):
-    """The CUDA kernel against its plain version on the card, odd M
-    (padded to the row tile) and a partial column tile."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    x, w = _case(13, 96, 200, 11 + cm)
+    """The CUDA kernel against its plain version on the card, bitwise: odd
+    M (masked in the row tile) and a partial column tile."""
     cfg = tcim.CIMConfig(adc_bits=adc, cm_bits=cm, two_pass=two)
-    xt = torch.from_numpy(x).cuda()
-    tw = tmx.quantize_w(torch.from_numpy(w).cuda())
-    cal = tcim.calibrate_rowhist([xt], tw, cfg)
-    before = tcim_ops.cim_linear.launches
-    got = tcim_ops.cim_linear(xt, tw, cal, cfg=cfg)
-    assert tcim_ops.cim_linear.launches == before + 1
+    xt, tw, cal = _cuda_case(13, 96, 200, 11 + cm, cfg)
+    got, ref = _kernel_vs_plain(xt, tw, cal, cfg)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 13, 192])
+@pytest.mark.parametrize("k,n", [(640, 200), (4608, 520), (1024, 1100)])
+@pytest.mark.parametrize("adc,cm,two", CFGS)
+def test_cuda_splitk_bitwise(m, k, n, adc, cm, two):
+    """Bitwise at decode and prefill row counts, N not a multiple of the
+    column tile (64 or 256), K split over blocks (pick_splits > 1 at small
+    M) or not, on every (ADC, CM, two-pass) case."""
+    cfg = tcim.CIMConfig(adc_bits=adc, cm_bits=cm, two_pass=two)
+    xt, tw, cal = _cuda_case(m, k, n, m + k + n + cm, cfg)
+    got, ref = _kernel_vs_plain(xt, tw, cal, cfg)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 64, 100, 192])
+@pytest.mark.parametrize("adc,cm,two", CFGS)
+def test_cuda_both_routes_bitwise(m, adc, cm, two):
+    """Each route named on the same input, bitwise the plain version: the
+    tensor-core route on rows it would not be picked for (16) and on ragged
+    row and column tiles (M = 100, N = 1100)."""
+    cfg = tcim.CIMConfig(adc_bits=adc, cm_bits=cm, two_pass=two)
+    xt, tw, cal = _cuda_case(m, 1024, 1100, m + cm, cfg)
     ref, _ = tcim.cim_linear(xt, tw, cfg, cal)
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    for route in tcim_ops.ROUTES:
+        got = tcim_ops._launch(xt, tw, cal, cfg, route=route)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), route
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_activations():
+    """bf16 activations go in as they are, the same function as their f32
+    values."""
+    cfg = tcim.CIMConfig()
+    for m, n in ((4, 512), (192, 2048)):  # both routes
+        xt, tw, cal = _cuda_case(m, 4608, n, 21, cfg, torch.bfloat16)
+        got, ref = _kernel_vs_plain(xt, tw, cal, cfg)
+        assert torch.equal(got, ref)
+        assert torch.equal(got, tcim_ops.cim_linear(xt.float(), tw, cal,
+                                                    cfg=cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 13])
+def test_cuda_guard_rows_at_k18432(m):
+    """K = 18432 at CM = 3 needs the guard: random rows stay on the integer
+    sums (none guarded), and the constructed rows whose ordered f32 sum
+    rounds take the ordered walk on the card, bitwise the plain version."""
+    from test_torch_cim_splitk import rounding_case
+
+    dev = _cuda()
+    cfg = tcim.CIMConfig(adc_bits=None, cm_bits=3)
+    assert tcim_ops.needs_guard(18432, 3)
+    xr, wr, calr = rounding_case(n=300)
+    xr = xr.to(dev)
+    wr = tmx.MXW(wr.codes.to(dev), wr.exps.to(dev))
+    calr = tcim.LayerCalib(calr.e_n.to(dev), calr.adc_fs.to(dev))
+    counter = tcim_ops.guard_rows(dev)
+    for x, rows in ((xr, 1), (xr[[1, 0, 1, 1]], 1),
+                    (torch.randn((m, 18432), device=dev), 0)):
+        w, cal = wr, calr
+        if rows == 0:
+            w = tmx.quantize_w(torch.randn((18432, 300), device=dev) / 136)
+            cal = tcim.calibrate_rowhist([x], w, cfg)
+        counter.zero_()
+        got, ref = _kernel_vs_plain(x, w, cal, cfg)
+        assert torch.equal(got, ref)
+        assert int(counter) == rows
+
+
+@pytest.mark.cuda
+def test_cuda_rejects_n_contiguous_codes():
+    cfg = tcim.CIMConfig()
+    xt, tw, cal = _cuda_case(4, 96, 64, 3, cfg)
+    with pytest.raises(ValueError, match="K-major"):
+        tcim_ops.cim_linear(xt, tmx.MXW(tw.codes.contiguous(), tw.exps), cal,
+                            cfg=cfg)
