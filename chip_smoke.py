@@ -22,11 +22,13 @@
    beside the bound; a constructed input at K=18432 whose ordered sum
    rounds must be bitwise with its one guarded row, and the ``route
    crossover`` lines time both routes on w1 at M = 16..128.
-   ``mxfp4_matmul`` rows name their route (``fma`` or ``wgmma``, picked
-   from shape and dtype) and the route's counter must move; w1 is also
-   run with f32 x at M=192 and at the ragged M=100, and timed on both
-   routes at small M (``route crossover`` lines). ``paged_decode`` rows
-   name their key split (``split_width``, ``splits``). ``flash_attention``
+   ``mxfp4_matmul`` rows name their route (``mma`` for bf16 decode rows,
+   ``wgmma`` for bf16 prefill, ``fma`` for f32 x, picked from shape and
+   dtype) and the route's counter must move; w1 is also run with f32 x at
+   M=192 and at the ragged M=100, and timed on all three routes at small M
+   (``route crossover`` lines). ``paged_decode_mx`` rows name the query
+   heads a block takes. ``paged_decode`` rows name their key split
+   (``split_width``, ``splits``). ``flash_attention``
    rows name their route (``wgmma``: bf16 with D 64 or 128; ``fma``: f32)
    and SQNR; the bf16 rows must take ``wgmma``, and the ``tile`` line
    times both routes on one bf16 shape.
@@ -41,14 +43,16 @@
    dB); a tiny model with the same weights gives the same logits on the
    card as on the CPU. Then one 192-token prefill and 8 decode steps (4
    live lanes), each under ``torch.profiler``: device time by kernel, wall
-   time and the device's busy share. ``cim_linear`` launches by route must
+   time and the device's busy share; a window whose trace misses a launch
+   the wrappers counted is run again (``timer`` names the figure's
+   source). ``cim_linear`` launches by route must
    show both routes in the serve, ``wgmma`` in the prefill (M = 192 with
    N > 1024) and ``splitk`` only in the decode steps.
 5. Serve ``--backend mxfp4`` the same way at full width and full depth (32
    layers): ``mxfp4_matmul`` (both routes) and ``paged_decode`` must have
    launched, ``cim_linear`` and ``paged_decode_mx`` not; the same output
    checks and profiles, where the prefill's linears must take the
-   ``wgmma`` route and the decode step's the ``fma`` route only.
+   ``wgmma`` route and the decode step's the ``mma`` route only.
 6. Prints the kernels line, then the card's name and power limit, then
    the device line, as the last line.
 
@@ -89,13 +93,23 @@ SERVE_ARGS = {  # backend -> launcher arguments
 }
 OWN_KERNELS = {"cim": ("cim_linear", "paged_decode_mx"),
                "mxfp4": ("mxfp4_matmul", "paged_decode")}
+# each wrapper's main device kernels: exactly one of them per wrapper launch
+MAIN_KERNELS = {
+    "cim_linear": ("cim_splitk_kernel", "cim_tc_kernel"),
+    "paged_decode_mx": ("paged_decode_mx_kernel",),
+    "mxfp4_matmul": ("mxfp4_matmul_kernel", "mxfp4_matmul_tc_kernel",
+                     "mxfp4_matmul_mma_kernel"),
+    "paged_decode": ("paged_decode_split_kernel",),
+    "flash_attention": ("flash_attention_kernel", "flash_attention_tc_kernel"),
+}
+PROFILE_ATTEMPTS = 3  # profiler windows before their launch counts are used
 # (K, N) of the static linears at starcoder2-7b width: wq/wo, wk/wv, w1,
 # w2, the LM head
 LINEAR_SHAPES = [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608),
               (4608, 49152)]
 M_PREFILL = 192  # rows of a prefill linear (the served prompt length)
 M_RAGGED = 100  # a prefill row count that is not a multiple of 64
-CROSSOVER_M = (4, 8, 16, 32, 64)  # rows at which both matmul routes are timed
+CROSSOVER_M = (4, 8, 16, 32, 64)  # rows at which the matmul routes are timed
 CIM_CROSSOVER_M = (16, 32, 64, 128)  # the same for cim_linear's routes
 DECODE_DIMS = (4, 4, 9, 128)  # lanes, KV heads, heads per KV head, head_dim
 PAGES = ((48, [0, 1, 33, 48]), (256, [0, 31, 129, 256]))  # W, lengths
@@ -385,7 +399,7 @@ def check_paged_decode(dev) -> list:
         bound, by = _bound_ms(n_bytes, ops, "bf16")
         rows_out.append(dict(
             lanes=lanes, hkv=hkv, g=g, dh=dh, w=w, bk=bk, lengths=lens,
-            max_abs_err=err, sqnr_vs_plain_db=sq_plain,
+            heads_per_block=pops.pick_heads(g), max_abs_err=err, sqnr_vs_plain_db=sq_plain,
             sqnr_vs_dense_db=sq_dense, ok=ok, ms=_device_ms(kernel, 50),
             call_ms=_time_ms(kernel, 50), plain_ms=_device_ms(plain, 5),
             bound_ms=bound, bound_by=by))
@@ -452,15 +466,18 @@ def check_mxfp4_matmul(dev, m_prefill: int) -> list:
 
 
 def route_crossover(codes, exps, gen, dev) -> None:
-    """Both routes of ``mxfp4_matmul`` on one shape (w1) at small M, bf16
-    x: where the tensor-core route starts to win (``TC_MIN_M``)."""
+    """All three routes of ``mxfp4_matmul`` on one shape (w1) at small M,
+    bf16 x: where the warpgroup route starts to win over the warp-level
+    one (``TC_MIN_M``); null where a route does not take M (mma past
+    ``MMA_MAX_M`` rows)."""
     from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
 
     k = codes.shape[0] * 2
     for m in CROSSOVER_M:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        ms = {r: _device_ms(lambda: mm_ops._launch(x, codes, exps, route=r),
-                            20) for r in mm_ops.ROUTES}
+        ms = {r: None if r == "mma" and m > mm_ops.MMA_MAX_M else _device_ms(
+            lambda: mm_ops._launch(x, codes, exps, route=r), 20)
+            for r in mm_ops.ROUTES}
         print("mxfp4_matmul route crossover", json.dumps(
             {"m": m, "k": k, "n": codes.shape[1],
              "picked": mm_ops.pick_route(m, k, codes.shape[1], x.dtype)}
@@ -714,9 +731,10 @@ def serve_full_width(backend: str) -> dict:
             v for k, v in launches.items() if k not in own):
         raise AssertionError(f"[{backend}] launches {launches}: the path's "
                              f"own kernels are {own}, and only those")
-    if backend == "mxfp4" and not all(routes.values()):
+    if backend == "mxfp4" and not (routes["mma"] and routes["wgmma"]):
         raise AssertionError(f"[mxfp4] mxfp4_matmul routes {routes}: the "
-                             "serve must run both")
+                             "serve must run mma (decode) and wgmma "
+                             "(prefill)")
     if backend == "cim" and not all(cim_routes.values()):
         raise AssertionError(f"[cim] cim_linear routes {cim_routes}: the "
                              "serve must run both")
@@ -783,28 +801,74 @@ def _engine(params, cfg, ctx):
                                prefill_len=M_PREFILL))
 
 
-def _profiled(label: str, ctx, steps: int, step) -> dict:
+def _kernel_name(key: str) -> str:
+    """The function name of a profiler kernel event (no namespace, template
+    arguments or parameters)."""
+    name = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def _own_launches(events) -> dict:
+    """Launches of each wrapper's main kernel in a trace, by wrapper name
+    (``MAIN_KERNELS``: one of them per wrapper launch)."""
+    seen: dict = {}
+    for ev in events:
+        for wrapper, names in MAIN_KERNELS.items():
+            if _kernel_name(ev.key) in names:
+                seen[wrapper] = seen.get(wrapper, 0) + ev.count
+    return seen
+
+
+def _profiled(label: str, ctx, steps: int, step, prepare=None) -> dict:
     """Run ``step`` ``steps`` times under ``torch.profiler``: device time by
     kernel (device events only) against the window's wall clock, and the
-    launch counts of the window."""
+    launch counts of the window. A window whose trace holds another count
+    of some wrapper's main kernel than the wrapper's counter says is run
+    again (``prepare``, if given, readies each window outside it); after
+    ``PROFILE_ATTEMPTS`` such windows the last one's times of the short
+    kernels are scaled to the counted launches, ``timer`` says so and a
+    ``profile timer:`` line names them."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    _zero_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
+    for _ in range(PROFILE_ATTEMPTS):
+        if prepare is not None:
+            prepare()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    launches, routes = _read_counts()
+        _zero_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches, routes = _read_counts()
+        events = _device_events(prof)
+        seen = _own_launches(events)
+        short = {k: (seen.get(k, 0), n) for k, n in launches.items()
+                 if seen.get(k, 0) != n}
+        if not short:
+            break
     by_name = _device_kernels_ms(prof)
+    timer = "trace"
+    if short:
+        timer = "trace, launch-count scaled"
+        for ev in events:
+            wrapper = next((w for w, names in MAIN_KERNELS.items()
+                            if _kernel_name(ev.key) in names), None)
+            if wrapper in short and short[wrapper][0]:
+                got, want = short[wrapper]
+                by_name[ev.key] *= want / got
+        print(f"profile timer: {label} [{ctx.quant}]: {PROFILE_ATTEMPTS} "
+              f"traces with other launch counts than the wrappers' "
+              f"(traced, counted) {short}; the last one's times of those "
+              f"kernels scaled to the counted launches", flush=True)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
            "device_ms_per_step": device_ms / steps if device_ms else None,
            "device_busy_share": device_ms / wall_ms if device_ms else None,
+           "timer": timer,
            "top_kernels_ms_per_step": {k: v / steps for k, v in top},
            "launches": {k: v for k, v in launches.items() if v},
            "mxfp4_matmul_routes": routes}
@@ -821,9 +885,14 @@ def profile_prefill(cfg, params, ctx) -> dict:
     eng.add_request(rng.integers(0, cfg.vocab_size, M_PREFILL // 3).tolist(),
                     max_new=2)
     eng.step()  # a warm prefill outside the window
-    eng.add_request(rng.integers(0, cfg.vocab_size, M_PREFILL).tolist(),
-                    max_new=2)
-    out = _profiled("prefill profile", ctx, 1, eng.step)
+
+    def prepare():  # finish what runs, then queue the prompt of the window
+        while eng.sched.running or eng.sched.waiting:
+            eng.step()
+        eng.add_request(rng.integers(0, cfg.vocab_size, M_PREFILL).tolist(),
+                        max_new=2)
+
+    out = _profiled("prefill profile", ctx, 1, eng.step, prepare)
     if ctx.quant == "mxfp4_wonly" and not out["mxfp4_matmul_routes"]["wgmma"]:
         raise AssertionError("[mxfp4] the prefill did not take the wgmma "
                              f"route: {out['mxfp4_matmul_routes']}")
@@ -835,19 +904,20 @@ def profile_prefill(cfg, params, ctx) -> dict:
 
 def profile_decode(cfg, params, ctx, steps: int = 8) -> dict:
     """A steady window of decode steps (4 live lanes) under
-    ``torch.profiler``. Under ``mxfp4`` its linears (M = 4) must take the
-    fma route only."""
+    ``torch.profiler`` (the requests outlast every window it may take).
+    Under ``mxfp4`` its linears (M = 4) must take the mma route only."""
     eng = _engine(params, cfg, ctx)
     rng = np.random.default_rng(5)
     for _ in range(4):
         eng.add_request(rng.integers(0, cfg.vocab_size, 128).tolist(),
-                        max_new=steps + 4)
+                        max_new=PROFILE_ATTEMPTS * steps + 4)
     while len(eng.sched.running) < 4:  # the four prefills
         eng.step()
     eng.step()  # one decode step outside the window
     out = _profiled("decode profile", ctx, steps, eng.step)
     routes = out["mxfp4_matmul_routes"]
-    if ctx.quant == "mxfp4_wonly" and (routes["wgmma"] or not routes["fma"]):
+    if ctx.quant == "mxfp4_wonly" and (routes["wgmma"] or routes["fma"]
+                                       or not routes["mma"]):
         raise AssertionError(f"[mxfp4] decode took the routes {routes}")
     cim_routes = _cim_routes()
     if ctx.quant == "cim" and (cim_routes["wgmma"]

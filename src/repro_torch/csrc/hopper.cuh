@@ -1,9 +1,11 @@
 // Small Hopper (sm_90a) building blocks shared by the port's kernels:
-// 16-byte cp.async copies into shared memory, the proxy fence that makes
-// generic-proxy shared-memory writes visible to wgmma, the 128-byte
-// swizzled tile layout and its wgmma descriptor, and the wgmma shapes the
+// 16- and 8-byte cp.async copies into shared memory, the proxy fence that
+// makes generic-proxy shared-memory writes visible to wgmma, the 128-byte
+// swizzled tile layout and its wgmma descriptor, the wgmma shapes the
 // kernels issue with their fence / commit / wait (bf16 or f16 in, f32 out;
-// f16 also carries small integer codes exactly, as cim_linear uses it).
+// f16 also carries small integer codes exactly, as cim_linear uses it), and
+// the warp-level mma.sync m16n8k16 (bf16 in, f32 out) for tiles too small
+// for a warpgroup's 64 rows.
 #pragma once
 
 #include <stdint.h>
@@ -21,6 +23,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// The same for 8 bytes (through L1; src 8-byte aligned).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
                : "memory");
 }
 
@@ -182,6 +193,24 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float* d,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[16 x 8] = A[16 x 16] B[16 x 8] + C: bf16 in, f32 accumulators, one
+// warp. Lane l (g = l / 4, t = l % 4) holds a[0] = A[g][2t..2t+1], a[1] =
+// A[g+8][2t..], a[2] = A[g][2t+8..], a[3] = A[g+8][2t+8..]; b[0] =
+// B[2t..2t+1][g], b[1] = B[2t+8..2t+9][g] (the lower k in the low half);
+// d[0..1] = D[g][2t..2t+1], d[2..3] = D[g+8][2t..2t+1].
+__device__ __forceinline__ void mma_m16n8k16_bf16(float* d, uint32_t a0,
+                                                  uint32_t a1, uint32_t a2,
+                                                  uint32_t a3, uint32_t b0,
+                                                  uint32_t b1,
+                                                  const float* c) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(c[0]),
+        "f"(c[1]), "f"(c[2]), "f"(c[3]));
 }
 
 }  // namespace hopper

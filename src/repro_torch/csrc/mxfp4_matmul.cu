@@ -1,4 +1,4 @@
-// Packed-MXFP4 dequant-matmul for Hopper (sm_90a), two routes.
+// Packed-MXFP4 dequant-matmul for Hopper (sm_90a), three routes.
 //
 // Replaces the Pallas TPU kernel `mxfp4_matmul_kernel`
 // (src/repro/kernels/mxfp4_matmul/kernel.py, `_kernel` / `_decode_tile`):
@@ -9,10 +9,52 @@
 // The wrapper picks the route from the shape and dtype alone
 // (kernels/mxfp4_matmul/ops.py::pick_route).
 //
-// Route "fma" (`mxfp4_matmul_launch`): decode (M = lanes <= 4), f32 x,
-// and shapes the other route does not take. Bound by memory at decode:
-// the packed weight is read once (w1 at starcoder2-7b width, 4608 x 18432,
-// is 45.1 MB: 13.5 us at 3.35 TB/s), about 8 flops per weight byte.
+// Why the tensor-core routes compute the same function: every dequantized
+// weight is code2x * 0.5 * 2^(b-127), at most 2 significant bits and
+// normal for b >= 2 (0 for b <= 1, inf or NaN at the top exponents as in
+// f32), so it is exactly a bf16 value; bf16 x bf16 products are exact in
+// f32, and the result differs from the reference's f32 dot only in sum
+// order. f32 x stays on "fma": rounding it to bf16 would change the
+// function.
+//
+// Route "mma" (`mxfp4_matmul_mma_launch`): bf16 x at decode (M <= 16, the
+// serving lanes). Bound by memory (w1 at starcoder2-7b width, 4608 x
+// 18432, is 45.1 MB: 13.5 us at 3.35 TB/s); it reaches about half that
+// rate, its loads a K block ahead only partly hidden behind the widening
+// of the codes (PERF.md).
+// - Warp-level mma.sync m16n8k16 with the weight as the 16-row A operand
+//   (16 output columns) and x as B (8 rows of x, zero past M; two B tiles
+//   for M > 8): no wgmma, whose 64 rows would waste 16x at M = 4.
+// - The k order inside an mma is free as long as A and B agree. Lane
+//   (g, t) takes K rows 8t..8t+7 of each 32-row block, so its x is one
+//   16-byte run a row, and its codes are 4 packed rows x 16 columns
+//   (16 bytes each): byte j of a packed row is exactly one bf16x2 A
+//   register (rows 2i, 2i+1 of column 16g + j). Each byte is widened once,
+//   by one shared-memory load from a 256-entry table of its two code
+//   values, kept a copy a lane (one byte permute of the code word and the
+//   lane makes the address; a warp's 32 lookups hit 32 banks). The
+//   tensor core sums a 32-row block, and the f32 block sum takes the
+//   block scale 2^(b-128) (a power of two: scaling the sum is scaling each
+//   product).
+// - Loads: a lane's 16-byte items of the next K block (4 code rows
+//   streamed past L1, the exponent row, its x run) are in flight in
+//   registers while this block computes. 8 warps a block: wc of them side
+//   by side over the block's columns, the rest taking its 32-row K blocks
+//   in turn; summed in warp order through shared memory.
+// - Split K in one launch: when the tiles cannot fill the card K is split
+//   over blockIdx.y; each split writes f32 partials, and the last block to
+//   arrive at a column tile (an arrival counter) sums them in split order,
+//   writes bf16 and resets the counter. Deterministic: the sum order does
+//   not depend on the arrival order.
+// - Tried on the H100 and not kept (PERF.md): a cp.async ring in
+//   shared memory and a bulk-copy (TMA) ring with mbarriers both streamed
+//   slower than register prefetch here, and bulk prefetches into L2 ahead
+//   of it slowed it down; scaling each weight by a bf16 multiply cost
+//   more than scaling the block sums; 8 columns a lane group (more warps
+//   an SM) won on some shapes and lost on others.
+//
+// Route "fma" (`mxfp4_matmul_launch`): f32 x, and shapes the other routes
+// do not take. f32 FMAs on the CUDA cores.
 // - A block of 8 warps owns BM rows x 128 columns; each lane owns 4
 //   adjacent columns, so a warp reads 128 contiguous code bytes per packed
 //   row and 4 exponent bytes per 32-row block, as 32-bit loads.
@@ -23,8 +65,7 @@
 //   and 1 exponent word; it decodes each nibble through a 16-entry table
 //   of 2x the FP4 value (the integer arithmetic of `_decode_tile`), sums
 //   x * code over the block in f32 FMAs, and adds the block sum times the
-//   block scale. The scale is a power of two, so scaling the block sum
-//   equals scaling each product.
+//   block scale.
 // - M is masked in the kernel (BM = 4 for M <= 4, else 8), never padded.
 //   When the output tiles are too few to fill the card, K is split over
 //   blockIdx.z into a f32 partial buffer, summed in split order by a
@@ -33,13 +74,7 @@
 //
 // Route "wgmma" (`mxfp4_matmul_tc_launch`): bf16 x at prefill sizes
 // (M >= 16, K % 64 == 0, N % 128 == 0). Bound by the bf16 tensor cores
-// (w1 at M = 192: 32.6 GFLOP, 33 us at 989 TFLOP/s), where the fma route
-// is held at the f32 FMA rate and decodes each weight once per 8 rows.
-// - Why it is the same function: every dequantized weight is
-//   code2x * 0.5 * 2^(b-127), at most 2 significant bits and normal for
-//   b >= 2 (0 for b <= 1, inf or NaN at the top exponents as in f32), so
-//   it is exactly a bf16 value; bf16 x bf16 products are exact in f32, and
-//   the result differs from the reference's f32 dot only in sum order.
+// (w1 at M = 192: 32.6 GFLOP, 33 us at 989 TFLOP/s).
 // - A block owns 64 * NWG rows (NWG = 1..3 warpgroups, 3 at M >= 129) x
 //   128 columns, so at M = 192 each packed weight is decoded once. K goes
 //   in 64-row tiles through a 4-stage ring in shared memory: the x tile
@@ -449,6 +484,256 @@ int launch(const __nv_bfloat16* x, const uint8_t* codes, const uint8_t* exps,
 
 }  // namespace tc
 
+// ---- route "mma": warp-level bf16 tensor cores at decode -------------------
+
+namespace mma {
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int BN = 128;  // columns a warp: 8 lane groups x 16
+// byte -> code pair, a copy a lane: row b (256 bytes) holds lane l's copy
+// at byte 4l, so one byte permute of the code word and 4 x lane makes the
+// address, and a warp's 32 lookups hit 32 distinct banks
+constexpr int LUT_BYTES = 256 * 256;
+
+template <int MT>  // MT tiles of 8 rows of x
+struct Smem {
+  static constexpr int RED_BYTES = WARPS * 8 * MT * BN * 4;  // warp sums
+  static constexpr int BYTES = LUT_BYTES > RED_BYTES ? LUT_BYTES : RED_BYTES;
+};
+
+// 16 bytes streamed past L1 (each weight byte is read once); volatile so
+// the load stays where it is issued, a K block ahead of its use
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+// 16 bytes through L1 (exponent rows and x, re-read by neighbouring lanes)
+__device__ __forceinline__ uint4 ld_cached(const void* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+// the block scale 2^(b-128) of biased E8M0 byte k of w: exponent field
+// b - 1 (byte k permuted to bits 16..23, times 2^7, less 2^23), 0 at the
+// floor (b = 1 gives 0, b = 0 gives -inf, which the max takes to 0);
+// `_dequant_packed`'s scale
+__device__ __forceinline__ float block_scale(uint32_t w, int k) {
+  const uint32_t b16 = __byte_perm(w, 0u, 0x4044u | ((uint32_t)k << 8));
+  return fmaxf(__uint_as_float(b16 * 128u - 0x00800000u), 0.0f);
+}
+
+// a lane's share of one 32-row K block: packed rows 4t..4t+3 of the block
+// at its group's 16 columns, their exponent row, and x rows g (+ 8) at K
+// 8t..8t+7 of the block (zero past M)
+template <int MT>
+struct Block {
+  uint4 c[4], e, x[MT];
+};
+
+template <int MT>
+__global__ void __launch_bounds__(THREADS, MT == 1 ? 2 : 1)
+mxfp4_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                        const uint8_t* __restrict__ codes,
+                        const uint8_t* __restrict__ exps,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ partial, int* __restrict__ arrivals,
+                        int M, int K, int N, int kb_per_split, int wc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int is_last;
+  uint32_t* lut = reinterpret_cast<uint32_t*>(smem);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  // wc warps side by side over wc * 128 columns, wk = WARPS / wc of them
+  // in turn over K at each
+  const int wk = WARPS / wc, cw = warp % wc, kw = warp / wc;
+  const int n0 = tile * wc * BN;
+  const int col = n0 + cw * BN + 16 * g;  // this lane group's first column
+  const bool col_ok = col < N;  // N % 16 == 0: all 16 columns or none
+  const int kb0 = split * kb_per_split;
+  const int kb1 = min(K / 32, kb0 + kb_per_split);
+  // this warp's K blocks: kb0 + kw, kb0 + kw + wk, ...
+  const int nk = kb0 + kw < kb1 ? (kb1 - kb0 - kw + wk - 1) / wk : 0;
+
+  auto fetch = [&](int i, Block<MT>& b) {
+    const int kb = kb0 + kw + i * wk;
+    if (col_ok) {
+      const uint8_t* cp = codes + ((size_t)kb * 16 + 4 * t) * N + col;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) b.c[r] = ld_stream(cp + (size_t)r * N);
+      b.e = ld_cached(exps + (size_t)kb * N + col);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) b.c[r] = make_uint4(0, 0, 0, 0);
+      b.e = make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int m = g + 8 * mt;
+      b.x[mt] = m < M ? ld_cached(x + (size_t)m * K + kb * 32 + 8 * t)
+                      : make_uint4(0, 0, 0, 0);
+    }
+  };
+  Block<MT> cur, nxt;
+  if (nk > 0) fetch(0, cur);
+
+  // the table while the first block loads: entry tid, 32 copies with
+  // 16-byte stores rotated so a quarter warp hits distinct banks
+  {
+    const __nv_bfloat162 v =
+        __floats2bfloat162_rn(code2x(tid & 15), code2x(tid >> 4));
+    const uint32_t e = *reinterpret_cast<const uint32_t*>(&v);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      *reinterpret_cast<uint4*>(lut + tid * 64 + 4 * ((c + lane) & 7)) =
+          make_uint4(e, e, e, e);
+  }
+  __syncthreads();
+  const unsigned char* lutb = smem;
+  const uint32_t lane4 = 4u * lane;
+  // the code pair of byte k of w: address byte * 256 + 4 * lane
+  auto pair = [&](uint32_t w, int k) {
+    return *reinterpret_cast<const uint32_t*>(
+        lutb + __byte_perm(w, lane4, 0x5504u | ((uint32_t)k << 4)));
+  };
+
+  float acc[MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.0f;
+  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+
+  // A row g is column col + j, row g + 8 column col + 8 + j: the block's
+  // two k16 steps (step st: packed rows 4t + 2st, 4t + 2st + 1, i.e. K rows
+  // 8t + 4st .. 8t + 4st + 3, whose x pairs are words 2st, 2st + 1 of the
+  // lane's x run) sum the block on the tensor cores, and the f32 block
+  // sum takes its column's scale
+  auto compute = [&](const Block<MT>& b) {
+    const uint32_t ew[4] = {b.e.x, b.e.y, b.e.z, b.e.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = j & 3;
+      float bs[MT][4];
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        const uint4 ra = b.c[2 * st], rb = b.c[2 * st + 1];
+        const uint32_t a0 = pair(j < 4 ? ra.x : ra.y, k);
+        const uint32_t a1 = pair(j < 4 ? ra.z : ra.w, k);
+        const uint32_t a2 = pair(j < 4 ? rb.x : rb.y, k);
+        const uint32_t a3 = pair(j < 4 ? rb.z : rb.w, k);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          hopper::mma_m16n8k16_bf16(bs[mt], a0, a1, a2, a3,
+                                    st ? b.x[mt].z : b.x[mt].x,
+                                    st ? b.x[mt].w : b.x[mt].y,
+                                    st ? bs[mt] : zero);
+      }
+      const float s0 = block_scale(ew[j >> 2], k);
+      const float s1 = block_scale(ew[2 + (j >> 2)], k);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        acc[mt][j][0] = fmaf(bs[mt][0], s0, acc[mt][j][0]);
+        acc[mt][j][1] = fmaf(bs[mt][1], s0, acc[mt][j][1]);
+        acc[mt][j][2] = fmaf(bs[mt][2], s1, acc[mt][j][2]);
+        acc[mt][j][3] = fmaf(bs[mt][3], s1, acc[mt][j][3]);
+      }
+    }
+  };
+  // two buffers in turn: block i + 1 is in flight while block i computes
+  for (int i = 0; i < nk; i += 2) {
+    if (i + 1 < nk) fetch(i + 1, nxt);
+    compute(cur);
+    if (i + 2 < nk) fetch(i + 2, cur);
+    if (i + 1 < nk) compute(nxt);
+  }
+  __syncthreads();  // every warp is done with the table
+
+  // sum the warps of a column in order: red[warp][row][column], rows 2t,
+  // 2t + 1 (+ 8 mt) of columns 16g + j and 16g + 8 + j
+  float* red = reinterpret_cast<float*>(smem);
+  constexpr int ROWS = 8 * MT;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* r0 = red + (warp * ROWS + 8 * mt + 2 * t) * BN + 16 * g + j;
+      r0[0] = acc[mt][j][0];
+      r0[BN] = acc[mt][j][1];
+      r0[8] = acc[mt][j][2];
+      r0[BN + 8] = acc[mt][j][3];
+    }
+  __syncthreads();
+  const bool direct = splits == 1;
+  const int bn = wc * BN;  // the block's columns
+  for (int i = tid; i < M * bn; i += THREADS) {
+    const int r = i / bn, cc = i % bn, n = n0 + cc;
+    float v = 0.0f;
+    for (int w = cc / BN; w < WARPS; w += wc)  // the column's warps, in order
+      v += red[(w * ROWS + r) * BN + cc % BN];
+    if (n < N) {
+      if (direct)
+        out[(size_t)r * N + n] = __float2bfloat16_rn(v);
+      else
+        partial[((size_t)split * M + r) * N + n] = v;
+    }
+  }
+  if (direct) return;
+
+  // the last split to arrive at this column tile sums all of them in split
+  // order and leaves the counter at zero for the next launch
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&arrivals[tile], 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int i = tid; i < M * bn; i += THREADS) {
+    const int r = i / bn, n = n0 + i % bn;
+    if (n < N) {
+      float v = 0.0f;
+      for (int z = 0; z < splits; ++z)
+        v += __ldcg(partial + ((size_t)z * M + r) * N + n);
+      out[(size_t)r * N + n] = __float2bfloat16_rn(v);
+    }
+  }
+  if (tid == 0) arrivals[tile] = 0;
+}
+
+template <int MT>
+int launch(const __nv_bfloat16* x, const uint8_t* codes, const uint8_t* exps,
+           __nv_bfloat16* out, float* partial, int* arrivals, int M, int K,
+           int N, int splits, int wc, cudaStream_t st) {
+  static bool attr_set = false;
+  const int smem = Smem<MT>::BYTES;  // the 64 KB table
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mxfp4_matmul_mma_kernel<MT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int nkb = K / 32;
+  const int kb_per_split = (nkb + splits - 1) / splits;
+  dim3 grid((N + wc * BN - 1) / (wc * BN), splits);
+  mxfp4_matmul_mma_kernel<MT><<<grid, THREADS, smem, st>>>(
+      x, codes, exps, out, partial, arrivals, M, K, N, kb_per_split, wc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mma
+
 }  // namespace
 
 // x [M, K] bf16 (x_bf16 = 1) or f32; codes u8 [K/2, N]; exps u8 [K/32, N];
@@ -494,4 +779,25 @@ extern "C" int mxfp4_matmul_tc_launch(const void* x, const uint8_t* codes,
     err = tc::launch<3>(xb, codes, exps, o, partial, M, K, N, splits, st);
   if (err != cudaSuccess || splits == 1) return err;
   return launch_splitk_sum(partial, o, splits, (size_t)M * N, st);
+}
+
+// x [M, K] bf16; codes u8 [K/2, N]; exps u8 [K/32, N]; out bf16 [M, N];
+// partial f32 [splits, M, N] (unused when splits == 1) and arrivals int32
+// [ceil(N / (128 wc))], zero at rest (each launch leaves them so). wc in
+// {1, 2, 4, 8}: warps side by side over the block's columns. 1 <= M <= 16,
+// K % 32 == 0, N % 16 == 0, x / codes / exps 16-byte aligned. Returns the
+// launch's cudaError_t.
+extern "C" int mxfp4_matmul_mma_launch(const void* x, const uint8_t* codes,
+                                       const uint8_t* exps, void* out,
+                                       float* partial, int* arrivals, int M,
+                                       int K, int N, int splits, int wc,
+                                       void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out);
+  if (M <= 8)
+    return mma::launch<1>(xb, codes, exps, o, partial, arrivals, M, K, N,
+                          splits, wc, st);
+  return mma::launch<2>(xb, codes, exps, o, partial, arrivals, M, K, N,
+                        splits, wc, st);
 }

@@ -4,7 +4,8 @@ shape-derived chunk width and the float kernel's key split.
 - :func:`paged_flash_decode` runs ``csrc/paged_decode.cu`` over float
   (bf16) pages ``kv``, the keys split over blocks (:func:`pick_splits`).
 - :func:`paged_flash_decode_mx` runs ``csrc/paged_decode_mx.cu`` over the
-  quantized-resident MXFP4 mirrors ``quant``.
+  quantized-resident MXFP4 mirrors ``quant``, the query heads of a KV
+  head in blocks of :func:`pick_heads`.
 - :func:`ragged_paged_decode` is what ``layers.attention`` calls from the
   fused decode branch; it takes exactly one of ``kv=`` / ``quant=``.
 
@@ -35,8 +36,9 @@ MAX_SPLITS = 256  # splits per lane its combine takes (pages <= 16384 slots)
 FLOAT_DH = (8, 16, 32, 64, 128)  # head widths the float kernel takes
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
-_ARGTYPES_MX = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+_ARGTYPES_MX = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_void_p]
+MX_HEADS = 2  # query heads a block of the mx kernel takes (at most 16)
 
 
 def pick_bk(w: int) -> int:
@@ -69,6 +71,16 @@ def split_slots(w: int, sw: int, s: int, length: int) -> range:
     slots in ``[s*sw, length)`` stay live."""
     offs = min(s * sw, w - sw)
     return range(max(offs, s * sw), min(offs + sw, length))
+
+
+def pick_heads(g: int) -> int:
+    """Query heads a block of the mx kernel takes: the group's ``g`` heads
+    in ``ceil(g / MX_HEADS)`` blocks of at most ``MX_HEADS`` (``g`` = 9 at
+    starcoder2-7b width: 5 blocks per lane and KV head, 80 at 4 lanes; on
+    the H100, 2 heads a block beat 1 (144 blocks) and 9 (16):
+    ``scripts/torch_kernel_sweep.py``, ``mx_heads``). Each head keeps its
+    own softmax state and P blocks, so only the speed depends on it."""
+    return min(g, MX_HEADS)
 
 
 def _check_shape(name: str, q, w: int, bk: int, n_kv: int) -> None:
@@ -120,24 +132,35 @@ def _launch(q, kv, rows, lengths, scale: float,
     return out
 
 
-def _launch_mx(q, quant, rows, lengths, scale: float, bk: int) -> torch.Tensor:
+def _launch_mx(q, quant, rows, lengths, scale: float, bk: int,
+               heads: int | None = None) -> torch.Tensor:
+    """Launch the mx kernel, ``heads`` query heads a block (default
+    :func:`pick_heads`; named only to time the alternatives,
+    ``scripts/torch_kernel_sweep.py``)."""
     L, hkv, g, hd = q.shape
     kvc, ke, ve = quant["kv_codes"], quant["k_exps"], quant["v_exps"]
     w, dpad = kvc.shape[1], 2 * kvc.shape[-1]
     _check_shape("paged_decode_mx", q, w, bk, kvc.shape[2] // 2)
+    if hd % 16:
+        raise ValueError(f"paged_decode_mx kernel: head_dim {hd} is not a "
+                         f"multiple of 16")
     rows, lengths = _lane_ints(rows, q.device), _lane_ints(lengths, q.device)
     q = q.contiguous()
     for name, t in (("kv_codes", kvc), ("k_exps", ke), ("v_exps", ve)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"paged_decode_mx: {name} must be contiguous on "
                              f"{q.device}")
+    if kvc.data_ptr() % 16 or ve.data_ptr() % 16:
+        raise ValueError("paged_decode_mx kernel: kv_codes and v_exps must "
+                         "be 16-byte aligned")
+    heads = heads or pick_heads(g)
     out = torch.empty_like(q)
     fn = _build.function("paged_decode_mx", "paged_decode_mx_launch",
                          _ARGTYPES_MX)
     table = mxlib.pair_table(str(q.device))
     err = fn(q.data_ptr(), kvc.data_ptr(), ke.data_ptr(), ve.data_ptr(),
              rows.data_ptr(), lengths.data_ptr(), table.data_ptr(),
-             out.data_ptr(), L, w, hkv, g, hd, dpad, ve.shape[1], bk,
+             out.data_ptr(), L, w, hkv, g, hd, dpad, ve.shape[1], bk, heads,
              scale, torch.cuda.current_stream(q.device).cuda_stream)
     paged_flash_decode_mx.launches += 1
     _build.check(err, "paged_decode_mx")

@@ -5,10 +5,17 @@ the JAX reference.
   ``mxfp4_matmul_ref`` and the Pallas kernel in interpret mode, at the
   shapes and the bound of ``tests/test_kernels.py`` (rtol 2e-2, atol
   2e-2 * max|ref|): f32 sums taken in another order.
-- Routes: :func:`pick_route` (decode lanes and f32 x on the fma kernel,
-  bf16 prefill on the tensor-core kernel) and the tensor-core route's K
-  split. Every dequantized weight is exactly a bf16 value, bit for bit,
-  which makes the bf16 ``wgmma`` route the reference's function.
+- Routes: :func:`pick_route` (bf16 decode lanes on the warp-level ``mma``
+  route, bf16 prefill on the ``wgmma`` route, f32 x on ``fma``) and the
+  tensor-core routes' K splits. Every dequantized weight is exactly a bf16
+  value, bit for bit, which makes both bf16 tensor-core routes the
+  reference's function.
+- The ``mma`` route's arithmetic, modelled in numpy: its m16n8k16 fragment
+  mapping (every code byte of a K block in exactly one lane's register,
+  the warp's products exactly ``x @ W``), its code-pair table times the
+  block scale (bitwise ``_dequant_packed``, the E8M0 flush included) and
+  its in-launch split-K finish (bitwise the two-pass sum, whatever the
+  arrival order).
 - Bitwise: ``dequant_ref``, ``_dequant_packed``, ``_quantize_packed`` and
   ``convert_params_mxfp4`` (on tiny starcoder2-7b, carried by
   ``from_reference``). At the E8M0 floor (biased exponent 0 or 1) the
@@ -254,10 +261,12 @@ STARCODER2_LINEARS = [(4608, 4608), (4608, 512), (4608, 18432),
 
 @pytest.mark.parametrize("k,n", STARCODER2_LINEARS)
 def test_pick_route(k, n):
-    """Decode lanes (M <= 4) and f32 x keep the fma route; bf16 x at the
-    served prefill length takes the tensor-core route on every linear."""
+    """bf16 decode lanes (M <= 4) take the mma route and f32 x keeps the
+    fma route; bf16 x at the served prefill length takes the wgmma route
+    on every linear."""
     for m in (1, 4):
-        assert tmm_ops.pick_route(m, k, n, torch.bfloat16) == "fma"
+        assert tmm_ops.pick_route(m, k, n, torch.bfloat16) == "mma"
+        assert tmm_ops.pick_route(m, k, n, torch.float32) == "fma"
     assert tmm_ops.pick_route(192, k, n, torch.float32) == "fma"
     assert tmm_ops.pick_route(192, k, n, torch.bfloat16) == "wgmma"
     assert tmm_ops.pick_route(100, k, n, torch.bfloat16) == "wgmma"
@@ -327,3 +336,197 @@ def test_cuda_kernel_matches_plain_version(m, k, n, dtype):
     torch.testing.assert_close(got.float(), ref, rtol=2e-2,
                                atol=2e-2 * float(ref.abs().max()))
 
+
+
+@pytest.mark.parametrize("m", list(range(1, tmm_ops.TC_MIN_M + 2)))
+def test_pick_route_by_rows(m):
+    """bf16 below ``TC_MIN_M`` rows -> mma (within its two 8-row tiles), from
+    there -> wgmma; f32 -> fma at every row count; N % 16 != 0 -> fma."""
+    k, n = 4608, 18432
+    want = "mma" if m < tmm_ops.TC_MIN_M else "wgmma"
+    assert tmm_ops.pick_route(m, k, n, torch.bfloat16) == want
+    assert tmm_ops.pick_route(m, k, n, torch.float32) == "fma"
+    assert tmm_ops.pick_route(m, k, 40, torch.bfloat16) == "fma"
+    assert tmm_ops.TC_MIN_M - 1 <= tmm_ops.MMA_MAX_M
+
+
+@pytest.mark.parametrize("m", [1, 4, 15])
+@pytest.mark.parametrize("k,n", STARCODER2_LINEARS + [(96, 48), (512, 640),
+                                                      (18432, 256)])
+def test_pick_mma_leaves_no_split_empty(m, k, n):
+    """Every K split of the mma route owns at least one 32-row block, the
+    splits cover K once (the kernel's ceil division), and the grid stays
+    within one resident wave wherever K is split or two warps share a
+    tile's columns."""
+    wc, splits = tmm_ops.pick_mma(m, k, n)
+    nkb = k // 32
+    per = -(-nkb // splits)
+    assert 1 <= splits <= nkb and (splits - 1) * per < nkb <= splits * per
+    assert wc in (1, 2)
+    tiles = -(-n // (tmm_ops.MMA_BN * wc))
+    if splits > 1 or wc > 1:
+        assert tiles * splits <= tmm_ops.mma_resident(m)
+
+
+def _code_pairs() -> torch.Tensor:
+    """The mma route's table: byte -> bf16 code values (2x the FP4 value)
+    of its low and high nibble, [256, 2]."""
+    from repro_torch.core import mx as tmx
+
+    return torch.from_numpy(tmx.PAIR_TABLE.view(np.int32).copy()).view(
+        torch.bfloat16).reshape(256, 2)
+
+
+def _block_scale(b: np.ndarray) -> np.ndarray:
+    """The mma route's block scale 2^(b-128) in f32: exponent field
+    max(b - 1, 0), so 0 at the floor (b <= 1)."""
+    field = np.maximum(b.astype(np.int64) - 1, 0).astype(np.uint32) << 23
+    return field.view(np.float32)
+
+
+def test_mma_widening_is_dequant_packed_bitwise():
+    """Every byte under every exponent byte (the floor b <= 1 and the top
+    b = 255 included): the code pair times the block scale, in f32 as the
+    kernel scales its block sums, is bitwise ``_dequant_packed``."""
+    b = np.arange(256).astype(np.uint8)
+    codes = np.repeat(np.arange(256, dtype=np.uint8)[None, :], 16, 0)
+    codes = np.repeat(codes, len(b), 1)  # [16, 256 * 256]: a block a column
+    exps = np.repeat(b, 256)[None, :]
+    want = tbackends._dequant_packed(torch.from_numpy(codes),
+                                     torch.from_numpy(exps)).float().numpy()
+    pairs = _code_pairs().float().numpy()[codes[0]]  # [256 * 256, 2]
+    with np.errstate(over="ignore"):  # 12 x 2^127 is inf on both sides
+        got = pairs * _block_scale(exps[0])[:, None]
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  want[:2].T.copy().view(np.int32))
+    zero = exps[0] <= 1
+    assert (got[zero] == 0).all() and (got[~zero] != 0).any()
+
+
+def _mma_warp_model(x, codes, exps):
+    """The mma route's warp over one 128-column tile, lane by lane: each
+    lane's 16-byte items (packed rows 4t..4t+3 of a 32-row block at columns
+    16g..16g+15, the exponent row, x rows g and g + 8 at K 8t..8t+7), its
+    A registers (code pairs) and B registers of the block's two k16 steps,
+    m16n8k16 on the assembled tiles, the block sums times their columns'
+    scales. Returns the product [M, 128] and, per code byte, how many
+    registers took it."""
+    m, k = x.shape
+    tab = _code_pairs().float().numpy()
+    taken = np.zeros((k // 2, 128), np.int64)
+    out = np.zeros((16, 128))
+    for kb in range(k // 32):
+        scale = _block_scale(exps[kb]).astype(np.float64)  # [128]
+        for mt in range(2):
+            bs = np.zeros((8, 16, 8))  # [j, A row, B col]: the block sums
+            for st in range(2):
+                a = np.zeros((8, 16, 16))  # [j, row i, slot]
+                b = np.zeros((16, 8))
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    xrow = g + 8 * mt
+                    xv = (x[xrow, kb * 32 + 8 * t: kb * 32 + 8 * t + 8]
+                          if xrow < m else np.zeros(8))
+                    for half in range(2):  # b0 (slots 2t..), b1 (2t + 8..)
+                        w = xv[4 * st + 2 * half: 4 * st + 2 * half + 2]
+                        b[2 * t + 8 * half: 2 * t + 8 * half + 2, g] = w
+                    for half in range(2):  # a0 / a1 (row 4t + 2st), a2 / a3
+                        r = kb * 16 + 4 * t + 2 * st + half
+                        for j in range(8):
+                            for hi in range(2):  # A rows g, g + 8
+                                c = 16 * g + 8 * hi + j
+                                if mt == 0:
+                                    taken[r, c] += 1
+                                a[j, g + 8 * hi,
+                                  2 * t + 8 * half: 2 * t + 8 * half + 2] = \
+                                    tab[codes[r, c]]
+                bs += a @ b  # exact: small integers and code values
+            for j in range(8):
+                for hi in range(2):
+                    col = 16 * np.arange(8) + 8 * hi + j  # A rows 8hi..
+                    out[8 * mt: 8 * mt + 8, col] += \
+                        (bs[j, 8 * hi: 8 * hi + 8, :] * scale[col, None]).T
+    return out[:m], taken
+
+
+@pytest.mark.parametrize("m", [1, 4, 11])
+def test_mma_fragment_model(m):
+    """The mma route's fragment mapping: every (packed row, column) byte of
+    a K block lands in exactly one lane's register, and the warp's block
+    sums times the scales are exactly ``x @ dequant`` (integer x, so every
+    sum is exact), rows past M included as zeros."""
+    k = 64
+    rng = np.random.default_rng(m)
+    codes = rng.integers(0, 256, (k // 2, 128)).astype(np.uint8)
+    exps = rng.integers(120, 135, (k // 32, 128)).astype(np.uint8)
+    exps[0, :3] = [0, 1, 2]  # the floor and the smallest live scale
+    x = rng.integers(-3, 4, (m, k)).astype(np.float64)
+    got, taken = _mma_warp_model(x, codes, exps)
+    assert (taken == 1).all()
+    w = tmm_ref.dequant_ref(torch.from_numpy(codes),
+                            torch.from_numpy(exps)).double().numpy()
+    np.testing.assert_array_equal(got, x @ w)
+
+
+def _finish_splits(partial: np.ndarray, order) -> tuple[np.ndarray, int]:
+    """The mma route's split-K finish as the kernel runs it: splits arrive
+    in ``order``, each adds one to the tile's counter; the one that sees
+    ``splits - 1`` sums every split's partial in split order and resets
+    the counter. Returns (the f32 sum, the counter afterwards)."""
+    splits = partial.shape[0]
+    counter, out = 0, None
+    for _ in order:
+        arrived, counter = counter, counter + 1
+        if arrived == splits - 1:
+            out = np.zeros(partial.shape[1:], np.float32)
+            for z in range(splits):
+                out += partial[z]
+            counter = 0
+    return out, counter
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 9])
+def test_mma_split_sum_is_the_two_pass_sum(splits):
+    """Whatever order the splits arrive in, the last one's sum is bitwise
+    the two-pass sum (``splitk_sum_kernel``: split order), and the counter
+    is back at zero for the next launch."""
+    rng = np.random.default_rng(splits)
+    partial = (rng.standard_normal((splits, 4, 128))
+               * 10.0 ** rng.integers(-6, 7, (splits, 4, 128))
+               ).astype(np.float32)
+    two_pass = np.zeros((4, 128), np.float32)
+    for z in range(splits):
+        two_pass = two_pass + partial[z]
+    for _ in range(5):
+        got, counter = _finish_splits(partial, rng.permutation(splits))
+        assert counter == 0
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      two_pass.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", list(range(1, tmm_ops.TC_MIN_M)))
+@pytest.mark.parametrize("k,n", [(4608, 512), (2048, 1024), (512, 640),
+                                 (96, 48), (18432, 256)])
+def test_cuda_mma_route_matches_plain_version(m, k, n):
+    """The mma route against the plain version on the card at every row
+    count it takes, one and two 8-row tiles, with a floor block; split K
+    (the in-launch finish) on the narrow shapes. Bound as the other
+    routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _, codes, exps = _packed(m * k + n, k, n)
+    tc = _to_torch(codes).cuda()
+    te = _to_torch(_floor_exps(np.asarray(exps))).cuda()
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(
+        torch.bfloat16).cuda()
+    assert tmm_ops.pick_route(m, k, n, x.dtype) == "mma"
+    before = tmm_ops.mxfp4_matmul.route_launches["mma"]
+    got = tmm_ops.mxfp4_matmul(x, tc, te).float()
+    assert tmm_ops.mxfp4_matmul.route_launches["mma"] == before + 1
+    ref = tmm_ref.mxfp4_matmul_ref(x, tc, te).float()
+    torch.testing.assert_close(got, ref, rtol=2e-2,
+                               atol=2e-2 * float(ref.abs().max()))
+    # the same again: the split finish left its counters at zero
+    torch.testing.assert_close(tmm_ops.mxfp4_matmul(x, tc, te).float(), got,
+                               rtol=0, atol=0)
