@@ -53,13 +53,30 @@
    launched, ``cim_linear`` and ``paged_decode_mx`` not; the same output
    checks and profiles, where the prefill's linears must take the
    ``wgmma`` route and the decode step's the ``mma`` route only.
-6. Prints the kernels line, then the card's name and power limit, then
+6. Serve long [``mxfp4``]: phase 5's model through the launcher's
+   ``serve_trace`` with 4 prompts of up to 2048 tokens (every prefill
+   [1, 2048], past ``dense_attn_max``) and 32 new tokens: ``flash_attention``
+   must launch once a layer a prefill, all on ``wgmma``, beside
+   ``mxfp4_matmul`` and ``paged_decode`` (``cim_linear`` and
+   ``paged_decode_mx`` not); 2048-token prefill logits against
+   ``impl="ref"`` (the torch-op ``_flash_attn``) at SQNR >= 30 dB; one
+   2048-token prefill and 8 decode steps at the 2080-slot page profiled as
+   in phase 4, with kernel E's device ms a prefill beside its bound.
+7. Serve chunked + prefix [``cim``]: phase 4's model in an engine with
+   256-token chunks, the ``chunked`` policy and 1088-slot pages serves 8
+   requests (6 share a 512-token system prompt) with the prefix cache off
+   and then on: bitwise equal tokens, hits and no verify failure, fewer
+   prefill-chunk steps, and ``cim_linear`` and ``paged_decode_mx`` (only)
+   launched; a ``serve chunked`` line a run.
+8. Prints the kernels line, then the card's name and power limit, then
    the device line, as the last line.
 
 Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``paged_decode_mx {...}``, ``mxfp4_matmul {...}``, ``paged_decode {...}``,
 ``flash_attention {...}``, ``serve {...}``, ``prefill profile {...}``,
-``decode profile {...}``).
+``decode profile {...}``, ``serve long {...}``, ``serve chunked {...}``).
+The decode kernels are also checked at the page widths of phases 6 and 7
+(``FLOAT_PAGES``, ``MX_PAGES``).
 """
 
 from __future__ import annotations
@@ -113,6 +130,16 @@ CROSSOVER_M = (4, 8, 16, 32, 64)  # rows at which the matmul routes are timed
 CIM_CROSSOVER_M = (16, 32, 64, 128)  # the same for cim_linear's routes
 DECODE_DIMS = (4, 4, 9, 128)  # lanes, KV heads, heads per KV head, head_dim
 PAGES = ((48, [0, 1, 33, 48]), (256, [0, 31, 129, 256]))  # W, lengths
+# the long serve (phase 6): 2048-token prompts, 32 new tokens, 32 layers
+LONG_PROMPT, LONG_TOKENS, LONG_REQUESTS = 2048, 32, 4
+LONG_PAGE = LONG_PROMPT + LONG_TOKENS
+# the chunked serve with the prefix cache (phase 7), cim, 8 layers
+CHUNK_ECFG = dict(lanes=4, num_slots=6, page_len=1088, prefill_len=256,
+                  chunk_len=256, policy="chunked")
+SYS_PROMPT, CHUNK_TOKENS = 512, 32  # the shared prefix, new tokens a request
+# each decode kernel also at the page width of the serve that runs it
+MX_PAGES = PAGES + ((CHUNK_ECFG["page_len"], [0, 545, 1000, 1088]),)
+FLOAT_PAGES = PAGES + ((LONG_PAGE, [0, 1029, 1900, LONG_PAGE]),)
 # flash_attention at the prefill shape the model would give it:
 # (B, S, H, Hkv, D) of starcoder2-7b with a 2048-token prompt
 FA_SHAPE = (1, 2048, 36, 4, 128)
@@ -220,6 +247,14 @@ def _bound_ms(n_bytes: float, ops: float, kind: str):
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _flash_bound(b, sq, sk, h, hkv, d, elt: int, pairs: float):
+    """``flash_attention``'s bound: q, k, v read and out written once, 4 d
+    operations a (query, visible key) pair and head."""
+    n_bytes = elt * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
+    return _bound_ms(n_bytes, 4.0 * b * h * d * pairs,
+                     "bf16" if elt == 2 else "f32")
 
 
 def _sqnr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -352,6 +387,8 @@ def cim_route_crossover(w, gen, dev, cfg) -> None:
 
 
 def check_paged_decode(dev) -> list:
+    """``paged_decode_mx`` at each width of ``MX_PAGES`` against its plain
+    version (and, loosely, the dense reference)."""
     from repro_torch.core import mx as mxlib
     from repro_torch.kernels.paged_attention import layout
     from repro_torch.kernels.paged_attention import ops as pops
@@ -361,7 +398,7 @@ def check_paged_decode(dev) -> list:
     scale = dh ** -0.5
     gen = torch.Generator(device=dev).manual_seed(2)
     rows_out = []
-    for w, lens in PAGES:
+    for w, lens in MX_PAGES:
         kv = (torch.randn((pool, w, 2 * hkv, dh), generator=gen, device=dev)
               * 0.7).to(torch.bfloat16)
         k, v = layout.split_kv(kv)
@@ -485,6 +522,8 @@ def route_crossover(codes, exps, gen, dev) -> None:
 
 
 def check_paged_decode_float(dev) -> list:
+    """``paged_decode`` at each width of ``FLOAT_PAGES`` against its plain
+    version, the dense reference and SDPA."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention import layout
@@ -495,7 +534,7 @@ def check_paged_decode_float(dev) -> list:
     scale = dh ** -0.5
     gen = torch.Generator(device=dev).manual_seed(7)
     rows_out = []
-    for w, lens in PAGES:
+    for w, lens in FLOAT_PAGES:
         kv = (torch.randn((pool, w, 2 * hkv, dh), generator=gen, device=dev)
               * 0.7).to(torch.bfloat16)
         q = (torch.randn((lanes, hkv, g, dh), generator=gen, device=dev)
@@ -627,10 +666,9 @@ def _flash_attention_row(q, k, v, window: int, off: int) -> dict:
     mask = kp <= qp
     if window:
         mask &= kp > qp - window
-    pairs = float(mask.sum())
-    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     kind = "bf16" if q.dtype == torch.bfloat16 else "f32"
-    bound, by = _bound_ms(n_bytes, 4.0 * b * h * d * pairs, kind)
+    bound, by = _flash_bound(b, sq, sk, h, hkv, d, q.element_size(),
+                             float(mask.sum()))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     library = {"attn_mask": _device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)}
@@ -693,7 +731,9 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def serve_full_width(backend: str) -> dict:
+def serve_full_width(backend: str) -> tuple[dict, tuple]:
+    """Phases 4 and 5; returns the run and the model (cfg, params, ctx),
+    which phases 6 and 7 serve again."""
     from repro_torch import obs as obs_lib
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -760,7 +800,165 @@ def serve_full_width(backend: str) -> dict:
         raise AssertionError(f"[{backend}] full-width prefill logits disagree")
     prof = {"prefill": profile_prefill(cfg, params, ctx),
             "decode": profile_decode(cfg, params, ctx)}
-    return {"launches": launches, "summary": summary, "profile": prof}
+    return ({"launches": launches, "summary": summary, "profile": prof},
+            (cfg, params, ctx))
+
+
+def serve_long(cfg, params, ctx) -> dict:
+    """Phase 6: the 32-layer ``mxfp4`` model of phase 5 serves
+    ``LONG_REQUESTS`` prompts of up to ``LONG_PROMPT`` tokens through the
+    launcher's ``serve_trace``. Every prefill is [1, 2048], past
+    ``dense_attn_max``: ``flash_attention`` must launch once a layer a
+    prefill, all on ``wgmma``, with ``mxfp4_matmul`` and ``paged_decode``
+    and without ``cim_linear`` and ``paged_decode_mx``. Then logits of one
+    2048-token prompt against ``impl="ref"`` (torch-op ``_flash_attn``),
+    and one 2048-token prefill and 8 decode steps at the long page under
+    the profiler, with kernel E's device ms a prefill beside its bound."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    args = serve.build_parser().parse_args(SERVE_ARGS["mxfp4"] + [
+        "--prompt-len", str(LONG_PROMPT), "--tokens", str(LONG_TOKENS),
+        "--requests", str(LONG_REQUESTS)])
+    obs = obs_lib.Obs()
+    ctx = dataclasses.replace(ctx, obs=obs)
+    dev = params["embed"]["emb"].device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    summary = serve.serve_trace(args, cfg, params, ctx, obs, dev)
+    launches, routes = _read_counts()
+    fa_routes = dict(fa_ops.flash_attention.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    print("serve long", json.dumps(
+        {"backend": "mxfp4", "layers": cfg.n_layers}
+        | {k: v for k, v in summary.items() if k not in ("out", "prefix")}
+        | {"launches": launches, "mxfp4_matmul_routes": routes,
+           "flash_attention_routes": fa_routes,
+           "peak_mem_gib": peak / 2**30}), flush=True)
+    want = cfg.n_layers * LONG_REQUESTS  # one [1, 2048] prefill a request
+    if launches["flash_attention"] != want or fa_routes["wgmma"] != want:
+        raise AssertionError(f"[mxfp4 long] flash_attention launches "
+                             f"{launches['flash_attention']} ({fa_routes}), "
+                             f"want {want}, all wgmma")
+    if (not launches["mxfp4_matmul"] or not launches["paged_decode"]
+            or launches["cim_linear"] or launches["paged_decode_mx"]):
+        raise AssertionError(f"[mxfp4 long] launches {launches}")
+    for v in summary["out"].values():
+        if not v or not all(0 <= t < cfg.vocab_size for t in v):
+            raise AssertionError("served tokens out of the vocabulary")
+    if summary["tokens"] != LONG_REQUESTS * LONG_TOKENS:
+        raise AssertionError(f"[mxfp4 long] {summary['tokens']} tokens")
+    ids = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(13))
+    with torch.no_grad():
+        got, _ = lm.forward(params, cfg, ctx, {"ids": ids})
+        ref, _ = lm.forward(params, cfg, dataclasses.replace(
+            ctx, impl="ref", obs=None), {"ids": ids})
+    sq = _sqnr_db(ref.float(), got.float())
+    finite = bool(torch.isfinite(got.float()).all())
+    print(f"[mxfp4 long] {LONG_PROMPT}-token prefill logits, kernels vs "
+          f"impl=ref: SQNR {sq} dB, finite {finite}", flush=True)
+    del got, ref
+    if not finite or sq < 30.0:
+        raise AssertionError("[mxfp4 long] prefill logits disagree")
+    prof = {"prefill": profile_prefill(cfg, params, ctx, LONG_PROMPT,
+                                       LONG_PAGE),
+            "decode": profile_decode(cfg, params, ctx, prompt_len=LONG_PROMPT,
+                                     page_len=LONG_PAGE)}
+    fa_prof = prof["prefill"]["launches"].get("flash_attention", 0)
+    if fa_prof != cfg.n_layers:
+        raise AssertionError(f"[mxfp4 long] the profiled prefill launched "
+                             f"flash_attention {fa_prof} times")
+    s = LONG_PROMPT  # the kernel runs every row, pad rows too, causally
+    bound, by = _flash_bound(1, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 2,
+                             s * (s + 1) / 2)
+    fa_ms = prof["prefill"]["kernel_ms_per_step"].get("flash_attention")
+    print("flash_attention in the long prefill", json.dumps(
+        {"launches_a_prefill": fa_prof, "device_ms_a_prefill": fa_ms,
+         "device_ms_a_launch": fa_ms / fa_prof if fa_ms else None,
+         "bound_ms_a_launch": bound, "bound_by": by,
+         "timer": prof["prefill"]["timer"]}), flush=True)
+    return {"launches": launches, "summary": summary, "profile": prof,
+            "logits_sqnr_db": sq}
+
+
+def _chunked_prompts(vocab: int) -> list:
+    """8 prompts: 6 open with one ``SYS_PROMPT``-token system prompt and
+    go on with 64..448 tokens of their own, 2 share nothing (64..960
+    tokens); in a seeded order."""
+    rng = np.random.default_rng(12)
+    tokens = lambda n: rng.integers(0, vocab, int(n)).tolist()  # noqa: E731
+    system = tokens(SYS_PROMPT)
+    prompts = [system + tokens(rng.integers(64, 449)) for _ in range(6)]
+    prompts += [tokens(rng.integers(64, 961)) for _ in range(2)]
+    return [prompts[i] for i in rng.permutation(len(prompts))]
+
+
+def serve_chunked_prefix(cfg, params, ctx) -> dict:
+    """Phase 7: the 8-layer ``cim`` model of phase 4 in an engine with
+    ``CHUNK_ECFG`` (chunked prefill, 256-token chunks, 1088-slot pages)
+    serves :func:`_chunked_prompts` with the prefix cache off, then on.
+    The tokens must be bitwise equal, the cache must hit with no verify
+    failure and save prefill-chunk steps, and ``cim_linear`` and
+    ``paged_decode_mx`` must launch (and no other kernel)."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.serving import Engine, EngineConfig
+
+    prompts = _chunked_prompts(cfg.vocab_size)
+    runs = {}
+    _zero_counts()
+    for cached in (False, True):
+        obs = obs_lib.Obs()
+        eng = Engine(params, cfg, dataclasses.replace(ctx, obs=obs),
+                     EngineConfig(**CHUNK_ECFG, prefix_cache=cached), obs=obs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rids = [eng.add_request(p, max_new=CHUNK_TOKENS) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        chunks = [e.wall_s for e in obs.steps if e.kind == "prefill"]
+        decodes = [e.wall_s for e in obs.steps if e.kind == "decode"]
+        ttft = obs.request_summary()["ttft_s"]
+        n_tok = sum(len(v) for v in out.values())
+        runs[cached] = {"tokens": [out[r] for r in rids], "line": {
+            "backend": "cim", "layers": cfg.n_layers, "prefix_cache": cached,
+            "requests": len(out), "tokens": n_tok, "wall_s": wall,
+            "tok_s": n_tok / wall, "prefill_chunk_steps": len(chunks),
+            "chunk_step_ms_p50": float(np.median(chunks)) * 1e3,
+            "decode_steps": len(decodes),
+            "decode_step_ms_p50": float(np.median(decodes)) * 1e3,
+            "ttft_ms_p50": ttft["p50"] * 1e3, "ttft_ms_p99": ttft["p99"] * 1e3,
+            "prefix": eng.prefix_stats(),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}}
+        print("serve chunked", json.dumps(runs[cached]["line"]), flush=True)
+        del eng
+    launches, _ = _read_counts()
+    cim_routes = _cim_routes()
+    print("serve chunked launches", json.dumps(
+        {"launches": launches, "cim_linear_routes": cim_routes}), flush=True)
+    off, on = runs[False], runs[True]
+    stats = on["line"]["prefix"]
+    if on["tokens"] != off["tokens"]:
+        raise AssertionError("[cim chunked] prefix cache on and off give "
+                             "other tokens")
+    if not stats["hits"] or stats["verify_failures"]:
+        raise AssertionError(f"[cim chunked] prefix stats {stats}")
+    if on["line"]["prefill_chunk_steps"] >= off["line"]["prefill_chunk_steps"]:
+        raise AssertionError("[cim chunked] the prefix cache saved no chunk")
+    if (not launches["cim_linear"] or not launches["paged_decode_mx"]
+            or any(launches[k] for k in ("mxfp4_matmul", "paged_decode",
+                                         "flash_attention"))):
+        raise AssertionError(f"[cim chunked] launches {launches}")
+    for v in on["tokens"]:
+        if len(v) != CHUNK_TOKENS or not all(0 <= t < cfg.vocab_size
+                                             for t in v):
+            raise AssertionError("[cim chunked] served tokens")
+    return {"launches": launches, "off": off["line"], "on": on["line"]}
 
 
 def _zero_counts() -> None:
@@ -793,12 +991,13 @@ def _cim_routes() -> dict:
     return dict(cim_ops.cim_linear.route_launches)
 
 
-def _engine(params, cfg, ctx):
+def _engine(params, cfg, ctx, prefill_len: int = M_PREFILL,
+            page_len: int = 256):
     from repro_torch.serving import Engine, EngineConfig
 
     return Engine(params, cfg, dataclasses.replace(ctx, obs=None),
-                  EngineConfig(lanes=4, num_slots=4, page_len=256,
-                               prefill_len=M_PREFILL))
+                  EngineConfig(lanes=4, num_slots=4, page_len=page_len,
+                               prefill_len=prefill_len))
 
 
 def _kernel_name(key: str) -> str:
@@ -865,31 +1064,39 @@ def _profiled(label: str, ctx, steps: int, step, prepare=None) -> dict:
               f"kernels scaled to the counted launches", flush=True)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    by_wrapper: dict = {}
+    for key, ms in by_name.items():
+        wrapper = next((w for w, names in MAIN_KERNELS.items()
+                        if _kernel_name(key) in names), None)
+        if wrapper is not None:
+            by_wrapper[wrapper] = by_wrapper.get(wrapper, 0.0) + ms
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
            "device_ms_per_step": device_ms / steps if device_ms else None,
            "device_busy_share": device_ms / wall_ms if device_ms else None,
            "timer": timer,
            "top_kernels_ms_per_step": {k: v / steps for k, v in top},
+           "kernel_ms_per_step": {k: v / steps for k, v in by_wrapper.items()},
            "launches": {k: v for k, v in launches.items() if v},
            "mxfp4_matmul_routes": routes}
     print(label, json.dumps({"backend": ctx.quant} | out), flush=True)
     return out
 
 
-def profile_prefill(cfg, params, ctx) -> dict:
-    """One 192-token prefill through the engine (the request's first step)
-    under ``torch.profiler``. Under ``mxfp4`` its linears must take the
-    tensor-core route."""
-    eng = _engine(params, cfg, ctx)
+def profile_prefill(cfg, params, ctx, prompt_len: int = M_PREFILL,
+                    page_len: int = 256) -> dict:
+    """One ``prompt_len``-token prefill through the engine (the request's
+    first step) under ``torch.profiler``. Under ``mxfp4`` its linears must
+    take the tensor-core route."""
+    eng = _engine(params, cfg, ctx, prompt_len, page_len)
     rng = np.random.default_rng(9)
-    eng.add_request(rng.integers(0, cfg.vocab_size, M_PREFILL // 3).tolist(),
+    eng.add_request(rng.integers(0, cfg.vocab_size, prompt_len // 3).tolist(),
                     max_new=2)
     eng.step()  # a warm prefill outside the window
 
     def prepare():  # finish what runs, then queue the prompt of the window
         while eng.sched.running or eng.sched.waiting:
             eng.step()
-        eng.add_request(rng.integers(0, cfg.vocab_size, M_PREFILL).tolist(),
+        eng.add_request(rng.integers(0, cfg.vocab_size, prompt_len).tolist(),
                         max_new=2)
 
     out = _profiled("prefill profile", ctx, 1, eng.step, prepare)
@@ -902,14 +1109,16 @@ def profile_prefill(cfg, params, ctx) -> dict:
     return out
 
 
-def profile_decode(cfg, params, ctx, steps: int = 8) -> dict:
-    """A steady window of decode steps (4 live lanes) under
-    ``torch.profiler`` (the requests outlast every window it may take).
-    Under ``mxfp4`` its linears (M = 4) must take the mma route only."""
-    eng = _engine(params, cfg, ctx)
+def profile_decode(cfg, params, ctx, steps: int = 8, prompt_len: int = 128,
+                   page_len: int = 256) -> dict:
+    """A steady window of decode steps (4 live lanes, prompts of
+    ``prompt_len`` tokens) under ``torch.profiler`` (the requests outlast
+    every window it may take). Under ``mxfp4`` its linears (M = 4) must
+    take the mma route only."""
+    eng = _engine(params, cfg, ctx, max(M_PREFILL, prompt_len), page_len)
     rng = np.random.default_rng(5)
     for _ in range(4):
-        eng.add_request(rng.integers(0, cfg.vocab_size, 128).tolist(),
+        eng.add_request(rng.integers(0, cfg.vocab_size, prompt_len).tolist(),
                         max_new=PROFILE_ATTEMPTS * steps + 4)
     while len(eng.sched.running) < 4:  # the four prefills
         eng.step()
@@ -980,9 +1189,16 @@ def main() -> int:
                                      dev)}
     for backend in ("cim", "mxfp4"):
         phase(f"tiny {backend}", check_tiny_agreement, dev, backend)
-    # one backend's model at a time: each run's model is freed on return
-    runs = {b: phase(f"serve {b}", serve_full_width, b)
-            for b in ("cim", "mxfp4")}
+    # one backend's model at a time, each served twice: by the launcher
+    # (phases 4, 5) and then chunked with the prefix cache (cim, phase 7)
+    # or with long prompts (mxfp4, phase 6); freed before the next
+    runs = {}
+    for backend, name, again in (("cim", "chunked", serve_chunked_prefix),
+                                 ("mxfp4", "long", serve_long)):
+        runs[backend], model = phase(f"serve {backend}", serve_full_width,
+                                     backend)
+        runs[name] = phase(f"serve {name} [{backend}]", again, *model)
+        del model
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
 

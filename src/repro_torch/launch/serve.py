@@ -95,7 +95,9 @@ def serve_trace(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
     prefill_len = max(2, page_len - args.tokens)
     ecfg = EngineConfig(lanes=args.lanes, num_slots=args.slots,
                         page_len=page_len, prefill_len=prefill_len,
-                        kv_layout=args.kv_layout)
+                        policy=args.policy, kv_layout=args.kv_layout,
+                        chunk_len=args.chunk_len or None,
+                        prefix_cache=args.prefix_cache)
     eng = Engine(params, cfg, ctx, ecfg, obs=obs)
     rng = np.random.default_rng(args.seed)
     _sync(device)
@@ -121,10 +123,14 @@ def serve_trace(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
         "prefill_ms_p50": float(np.median(pre)) * 1e3 if pre else None,
         "ttft_ms_p50": host["ttft_s"]["p50"] * 1e3 if host["ttft_s"] else None,
         "ttft_ms_p99": host["ttft_s"]["p99"] * 1e3 if host["ttft_s"] else None,
-        "slot_util": eng.slot_utilization, "out": out,
+        "slot_util": eng.slot_utilization, "prefix": eng.prefix_stats(),
+        "out": out,
     }
     log.info("%s [%s] serve-trace done: %s", cfg.name, args.backend,
-             obs_lib.kv(**{k: v for k, v in summary.items() if k != "out"}))
+             obs_lib.kv(**{k: v for k, v in summary.items()
+                           if k not in ("out", "prefix")}))
+    if eng.prefix is not None:
+        log.info("prefix-cache: %s", obs_lib.kv(**eng.prefix_stats()))
     return summary
 
 
@@ -162,6 +168,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lanes", type=int, default=4)
     ap.add_argument("--slots", type=int, default=6)
     ap.add_argument("--kv-layout", default="fused", choices=("fused",))
+    ap.add_argument("--policy", default="prefill",
+                    choices=("prefill", "decode", "chunked"),
+                    help="admission policy; 'chunked' interleaves prefill "
+                         "chunks with decode steps (needs --chunk-len)")
+    ap.add_argument("--chunk-len", type=int, default=0,
+                    help="chunked prefill: run prompts through a fixed "
+                         "[1, chunk_len] step in absolute-position "
+                         "windows, lifting the prompt cap from "
+                         "prefill_len to page_len (0 = single-shot "
+                         "padded prefill)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over the KV page pool: "
+                         "shared prompt prefixes reuse refcounted, "
+                         "content-addressed pages (requires --chunk-len)")
     ap.add_argument("--log-level", default="info", choices=obs_lib.log.LEVELS)
     return ap
 

@@ -2,10 +2,12 @@
 the fused paged KV cache (counterpart of ``repro.layers.attention``).
 
 Ported branches of :func:`attn_apply`: prefill without a cache, prefill
-into a fused cache, and the fused paged decode, over float pages or (under
-a digital-SDPA backend) the quantized-resident mirrors. The online-softmax
-prefill (``_flash_attn``), chunked prefill and the legacy split cache
-raise ``NotImplementedError`` (ROADMAP.md Queue 1).
+into a fused cache, chunked prefill into a fused page, and the fused paged
+decode, over float pages or (under a digital-SDPA backend) the
+quantized-resident mirrors. Prefill past ``RunCtx.dense_attn_max`` takes
+the online-softmax ``_flash_attn``; on CUDA, without the digital SDPA,
+that is the ``flash_attention`` kernel. The legacy split cache raises
+``NotImplementedError`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -13,8 +15,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import mx as mxlib
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import layout as paged_layout
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
@@ -162,12 +166,107 @@ def _qkv(ctx: RunCtx, cfg: AttnStatic, p: dict, x, positions,
     return q, k, v
 
 
+def _flash_attn(q, k, v, q_pos, k_pos, cfg: AttnStatic, ctx: RunCtx,
+                mx_digital: bool = False) -> torch.Tensor:
+    """Online-softmax attention, tile for tile the reference's: queries in
+    ``ctx.q_chunk`` tiles, keys in ``ctx.attn_chunk`` tiles (padded keys
+    sit at KV_PAD), a running max, a corrected denominator and f32 ``acc``;
+    a query row with no live key gives 0. q [B,Sq,Hkv,G,Dh]; k,v
+    [B,Sk,Hkv,Dh]. Each tile's PV is rounded to v's dtype before it joins
+    ``acc``, as the eager reference does on the CPU (pinned by
+    ``tests/test_torch_flash_prefill.py``).
+
+    With ``mx_digital`` Q/K are quantized along head_dim, scores get the
+    BF16 round, and P/V are re-quantized per KV tile along the key axis;
+    the denominator sums the quantized P."""
+    if mx_digital:
+        qq, kq = _mx_qk(q, k)
+        q, k = qq.to(q.dtype), kq.to(k.dtype)
+    b, sq, hkv, g, dh = q.shape
+    sk = k.shape[1]
+    kc, qc = min(ctx.attn_chunk, sk), min(ctx.q_chunk, sq)
+    nkc, nqc = -(-sk // kc), -(-sq // qc)
+    pad_k, pad_q = nkc * kc - sk, nqc * qc - sq
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        k_pos = F.pad(k_pos, (0, pad_k), value=KV_PAD)
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pad_q))
+        q_pos = F.pad(q_pos, (0, pad_q))
+    f32 = torch.float32
+    out = []
+    for i in range(nqc):
+        qi = q[:, i * qc:(i + 1) * qc].to(f32)
+        qpi = q_pos[:, i * qc:(i + 1) * qc]
+        m_run = torch.full(qi.shape[:-1], float("-inf"), dtype=f32,
+                           device=q.device)
+        den = torch.zeros_like(m_run)
+        acc = torch.zeros(qi.shape, dtype=f32, device=q.device)
+        for j in range(nkc):
+            kci, vci = k[:, j * kc:(j + 1) * kc], v[:, j * kc:(j + 1) * kc]
+            kpi = k_pos[:, j * kc:(j + 1) * kc]
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qi, kci.to(f32)) * cfg.scale
+            if mx_digital:
+                s = _mx_score_round(s)
+            msk = _mask(qpi, kpi, cfg.causal, cfg.window)  # [B, qc, kc]
+            s = torch.where(msk[:, :, None, None, :], s, float("-inf"))
+            m_new = torch.maximum(m_run, s.amax(-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(torch.isfinite(s), p, 0.0)
+            corr = torch.where(torch.isfinite(m_run),
+                               torch.exp(m_run - m_safe), 0.0)
+            if mx_digital:  # per-tile P/V re-quant; den sums quantized P
+                p, vq, _ = _mx_pv(p, vci)
+                vci = vq.to(vci.dtype)
+            pv = torch.einsum("bqhgk,bkhd->bqhgd", p.to(vci.dtype).to(f32),
+                              vci.to(f32)).to(vci.dtype)
+            acc = acc * corr[..., None] + pv.to(f32)
+            den = den * corr + p.sum(-1)
+            m_run = m_new
+        den = torch.where(den == 0.0, 1.0, den)
+        out.append((acc / den[..., None]).to(q.dtype))
+    return torch.cat(out, dim=1)[:, :sq]
+
+
+def _flash_kernel(ctx, cfg, q, k, v, positions) -> torch.Tensor:
+    """``_flash_attn``'s function through the ``flash_attention`` kernel
+    wrapper, for positions in the ``RunCtx.arange_positions`` layout: the
+    kernel puts query and key i at position i, which the live rows are;
+    it attends causally from a KV_PAD row too, where ``_flash_attn``
+    gives 0, so those rows are zeroed. q [B,S,Hkv,G,Dh] goes in as
+    [B,S,H,Dh] (head h reads KV head h // G)."""
+    b, s, hkv, g, dh = q.shape
+    o = flash_ops.flash_attention(q.reshape(b, s, hkv * g, dh), k, v,
+                                  causal=cfg.causal, window=cfg.window,
+                                  q_offset=0, obs=ctx.obs)
+    live = (positions > _KV_PAD_MIN)[:, :, None, None, None]
+    return torch.where(live, o.reshape(q.shape),
+                       torch.zeros((), dtype=o.dtype, device=o.device))
+
+
+def _takes_flash_kernel(ctx, cfg, device_type: str, mx_dig: bool,
+                        s: int) -> bool:
+    """Whether a prefill of ``s`` rows runs on the ``flash_attention``
+    kernel: past ``dense_attn_max``, on CUDA under ``impl="auto"``, and
+    only where the kernel computes ``_flash_attn``'s function: without
+    the digital SDPA, causally (a KV_PAD key would enter a bidirectional
+    row), at its own d^-0.5 scale and in the arange layout of the
+    positions."""
+    return (s > ctx.dense_attn_max and device_type == "cuda"
+            and ctx.impl == "auto" and not mx_dig and ctx.arange_positions
+            and cfg.causal and cfg.scale == cfg.head_dim ** -0.5)
+
+
 def _prefill_attn(ctx, cfg, q, k, v, positions, mx_dig):
-    if q.shape[1] > ctx.dense_attn_max:
-        raise NotImplementedError(
-            "prefill longer than dense_attn_max needs the online-softmax "
-            "path (_flash_attn), not ported yet (ROADMAP.md Queue 1)")
-    return _dense_attn(q, k, v, positions, positions, cfg, mx_digital=mx_dig)
+    if q.shape[1] <= ctx.dense_attn_max:
+        return _dense_attn(q, k, v, positions, positions, cfg,
+                           mx_digital=mx_dig)
+    if _takes_flash_kernel(ctx, cfg, q.device.type, mx_dig, q.shape[1]):
+        return _flash_kernel(ctx, cfg, q, k, v, positions)
+    return _flash_attn(q, k, v, positions, positions, cfg, ctx,
+                       mx_digital=mx_dig)
 
 
 def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
@@ -175,9 +274,13 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
                pos=None, rope_tables=None):
     """Pre-norm attention sublayer with residual. Returns (y, cache).
 
-    - Prefill, ``cache=None``: dense attention over the sequence.
+    - Prefill, ``cache=None``: attention over the sequence (dense up to
+      ``ctx.dense_attn_max``, online softmax past it).
     - Prefill into a fused cache (``cache`` + S > 1, ``pos=None``): the
       returned cache holds the page filled with the last W positions.
+    - Chunked prefill (``cache`` + S > 1 + ``pos``, the chunk's start):
+      ``positions`` are absolute prompt offsets; the returned page holds
+      the chunk's rows at their slots (:func:`_chunk_prefill`).
     - Fused paged decode (S == 1): the new K/V row and its quantized
       mirrors are written *in place* into ``cache`` at pool rows
       ``ctx.paged_rows`` (default: lane i -> row i), then one ragged paged
@@ -203,9 +306,8 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
                                   "(ROADMAP.md Queue 1); use fused=True")
 
     if cache is not None and s > 1 and pos is not None:
-        raise NotImplementedError("chunked prefill is not ported yet "
-                                  "(ROADMAP.md Queue 1)")
-    if cache is not None and s > 1:
+        o, cache = _chunk_prefill(cfg, q, k, v, positions, cache, mx_dig)
+    elif cache is not None and s > 1:
         # prefill into a page: ring convention, slot = pos % W
         w = cache["kv"].shape[1]
         if s < w:
@@ -231,6 +333,36 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
     o = o.reshape(b, s, h * hd)
     y = linear_apply(ctx, p["wo"], o, name="wo")
     return x + y.to(x.dtype), cache
+
+
+def _chunk_prefill(cfg, q, k, v, positions, cache, mx_dig):
+    """One window of a longer prompt into an existing page (the engine's
+    ``chunk_len`` step): ``positions`` carry absolute prompt offsets
+    (KV_PAD on pad columns). Fresh K/V rows land at their absolute slots,
+    pad columns are dropped, and this chunk's queries attend over the
+    whole page: rows past the written prefix are zero (the engine clones
+    or resets the page at admission) and carry k_pos > q_pos, so the
+    causal mask drops them. Under the digital SDPA the quantized mirrors
+    are recomputed for the whole page every chunk: blockwise V exponents
+    near the chunk's edge depend on rows outside it, and mirrors equal to
+    a full requant of the raw page make pages content-addressable
+    (``serving/prefix.py``). Returns (o, the new page dict)."""
+    b = q.shape[0]
+    kv = cache["kv"]
+    w, dt = kv.shape[1], kv.dtype
+    rows = torch.arange(b, device=kv.device)[:, None]
+    # pad columns go to an extra slot W, cut off again
+    slot = torch.where(positions > _KV_PAD_MIN, positions, w)
+    page = F.pad(kv, (0, 0, 0, 0, 0, 1))
+    page[rows, slot] = paged_layout.fuse_kv(k.to(dt), v.to(dt))
+    page = page[:, :w]
+    new_cache = {"kv": page}
+    kpage, vpage = paged_layout.split_kv(page)
+    if "kv_codes" in cache:
+        new_cache.update(paged_layout.quant_page_full(kpage, vpage))
+    k_pos = torch.arange(w, device=kv.device)[None].expand(b, w)
+    o = _dense_attn(q, kpage, vpage, positions, k_pos, cfg, mx_digital=mx_dig)
+    return o, new_cache
 
 
 def _fused_decode(ctx, cfg, q, k, v, cache, pos, mx_dig):

@@ -25,14 +25,18 @@ class RunCtx:
     ``cim -> cim_analog``); unknown names raise ``ValueError``. ``impl``:
     ``"auto"`` routes the analog and packed-MXFP4 linears and the fused
     paged decode through the kernel wrappers (CUDA kernel on CUDA tensors,
-    its plain version on CPU tensors); ``"ref"`` runs the reference's own
-    compositions instead (blockwise ``core.cim.cim_linear``, the bf16
-    ``_dequant_packed`` matmul and the dense whole-key-axis
-    ``ragged_paged_decode_ref``), as the JAX package does off the TPU.
+    its plain version on CPU tensors), and on CUDA the float prefill past
+    ``dense_attn_max`` through the ``flash_attention`` kernel; ``"ref"``
+    runs the reference's own compositions instead (blockwise
+    ``core.cim.cim_linear``, the bf16 ``_dequant_packed`` matmul, the
+    dense whole-key-axis ``ragged_paged_decode_ref`` and the torch-op
+    ``_flash_attn``), as the JAX package does off the TPU.
     """
 
     quant: str = "none"
     impl: str = "auto"  # auto | ref
+    attn_chunk: int = 1024  # KV tile of the online-softmax prefill
+    q_chunk: int = 2048  # query tile of the online-softmax prefill
     dense_attn_max: int = 2048  # prefill longer than this needs flash attn
     cim: Any = None  # CIMConfig for the cim_analog backend
     tap: Any = None  # ActivationTap during calibration capture
@@ -40,6 +44,11 @@ class RunCtx:
     # int [batch] pool row per lane for the fused paged decode (None: lane
     # i reads cache row i)
     paged_rows: Any = None
+    # the caller's positions are [0, 1, ..., n) on every row, right-padded
+    # with KV_PAD (engine prefill, lm.forward without positions): the
+    # layout the flash_attention kernel assumes; nothing reads the
+    # positions back to the host to check it
+    arange_positions: bool = False
     obs: Any = None  # repro_torch.obs.Obs (kernel dispatch counters)
 
     def __post_init__(self):

@@ -106,7 +106,10 @@ def cache_specs(cfg: ArchConfig, mx_digital: bool = False,
 def forward(params, cfg: ArchConfig, ctx: RunCtx, batch: dict, caches=None,
             pos=None, return_hidden: bool = False):
     """batch: {'ids', optional 'positions'}. Returns (logits or hidden,
-    caches). ``pos`` (decode): int or int [B], the position of the token."""
+    caches). ``pos`` (decode): int or int [B], the position of the token;
+    with ``positions`` and caches, the start of a prefill chunk. Without
+    either, row i sits at position i and ``ctx.arange_positions`` is set
+    for the layers."""
     x = embed_apply(params["embed"], batch["ids"])
     b, s, _ = x.shape
     if "positions" in batch:
@@ -116,6 +119,7 @@ def forward(params, cfg: ArchConfig, ctx: RunCtx, batch: dict, caches=None,
         positions = positions.expand(b, s)
     else:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        ctx = dataclasses.replace(ctx, arange_positions=True)
     new_caches = []
     for i, seg in enumerate(build_segments(cfg)):
         a = seg.attn

@@ -91,6 +91,30 @@ def scatter_rows(pool, specs, rows, values) -> None:
                 v.index_copy_(spec[k].index("batch"), rows, val)
 
 
+def clone_prefix(pool, specs, src_row: int, dst_row: int, n: int) -> None:
+    """Copy the first ``n`` cache-sequence rows of page ``src_row`` into
+    page ``dst_row`` in place and zero everything past them (the
+    reference's ``clone_prefix``). With ``n == 0`` it resets the page: a
+    reused slot carries stale rows, and one inside the active V 32-block
+    would corrupt that block's shared exponent. With ``n > 0`` it is the
+    prefix cache's copy-on-write at admission. Only raw K/V rows are
+    copied, bit-exactly; the quantized mirror leaves are zeroed, because
+    the first suffix chunk recomputes them from the raw page before
+    anything reads them."""
+    for seg_pool, spec in zip(pool, specs):
+        for layer in seg_pool:
+            for name, v in layer.items():
+                ax = spec[name].index("batch")
+                if name == "kv":
+                    row = v.select(ax, src_row).clone()
+                    sax = spec[name].index("cache_seq")
+                    sax -= sax > ax  # the batch axis is gone from row
+                    row.narrow(sax, n, row.shape[sax] - n).zero_()
+                    v.select(ax, dst_row).copy_(row)
+                else:
+                    v.select(ax, dst_row).zero_()
+
+
 class PagedKVCache:
     """Fixed pool of fused KV pages + slot allocator for one served model,
     on ``device`` (default ``cuda``; raises without a GPU unless

@@ -1,0 +1,397 @@
+"""Chunked prefill and the prefix cache in the port's engine: the cases of
+``tests/test_prefix.py`` on ``repro_torch``, plus one check against the
+reference's chunk step.
+
+- Fixed ``[1, chunk_len]`` windows, including prompts longer than
+  ``prefill_len``, give the tokens of greedy full-sequence ``lm.forward``
+  (float, mxfp4).
+- With the prefix cache on, a shared-system-prompt workload gives the
+  tokens of the cache-off run bitwise, with hits, no verify failures and
+  fewer prefill steps (float, mxfp4, cim).
+- Fingerprints are content addresses: equal across donors of one prefix,
+  and bit-rot under a cached page is a counted miss.
+- The host control plane (scheduler, refcounted allocator, radix tree)
+  keeps its invariants under random interleavings.
+- Chunk steps of the port against the reference's on the same weights
+  under the digital SDPA (mirrors recomputed for the whole page every
+  chunk): logits SQNR >= 30 dB (``tests/test_torch_lm.py``'s bound), and
+  the first layer's raw page bitwise.
+"""
+
+import dataclasses
+import random
+
+import numpy as np
+import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.layers import attention as jattn  # noqa: E402
+from repro.layers import common as jcommon  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro_torch import configs as C  # noqa: E402
+from repro_torch.convert import from_reference  # noqa: E402
+from repro_torch.core import cim as tcim  # noqa: E402
+from repro_torch.layers import attention as tattn  # noqa: E402
+from repro_torch.layers.common import RunCtx, convert_params_mxfp4  # noqa: E402
+from repro_torch.models import calibrate, lm  # noqa: E402
+from repro_torch.obs import Obs  # noqa: E402
+from repro_torch.serving import Engine, EngineConfig, PrefixCache  # noqa: E402
+from repro_torch.serving.kvcache import (  # noqa: E402
+    PoolExhausted,
+    SlotAllocator,
+    clone_prefix,
+)
+from repro_torch.serving.prefix import page_fingerprint  # noqa: E402
+from repro_torch.serving.scheduler import Request, Scheduler  # noqa: E402
+
+CFG = C.tiny(C.STARCODER2_7B)
+SYS = [5, 6, 7, 8, 9, 10, 11, 12]  # 8-token shared system prompt
+
+
+def _sqnr_db(ref, got) -> float:
+    ref = np.asarray(ref, np.float64)
+    got = np.asarray(got, np.float64)
+    err = np.sum((ref - got) ** 2)
+    return float("inf") if err == 0 else float(
+        10 * np.log10(np.sum(ref ** 2) / err))
+
+
+@pytest.fixture(scope="module")
+def models():
+    params = lm.init_model(CFG, torch.Generator().manual_seed(0))
+    ctx = RunCtx(dense_attn_max=256)
+    batches = calibrate.calibration_batches(CFG, n_batches=2, batch=2, seq=16,
+                                            device="cpu")
+    conv, _ = calibrate.convert_model_cim(params, CFG, ctx, batches,
+                                          cim_cfg=tcim.CIMConfig(), min_n=32)
+    return {"float": (params, ctx),
+            "mxfp4": (convert_params_mxfp4(params, min_n=32),
+                      dataclasses.replace(ctx, quant="mxfp4_wonly")),
+            "cim": (conv, dataclasses.replace(ctx, quant="cim",
+                                              cim=tcim.CIMConfig()))}
+
+
+def _engine(params, ctx, obs_on=False, **kw):
+    base = dict(lanes=3, num_slots=4, page_len=24, prefill_len=8,
+                policy="chunked", chunk_len=4)
+    base.update(kw)
+    return Engine(params, CFG, ctx, EngineConfig(**base),
+                  obs=Obs(enabled=obs_on))
+
+
+@torch.no_grad()
+def _greedy(params, ctx, prompt, max_new):
+    toks, outs = list(prompt), []
+    for _ in range(max_new):
+        logits, _ = lm.forward(params, CFG, ctx, {"ids": torch.tensor([toks])})
+        outs.append(int(torch.argmax(logits[0, -1].float())))
+        toks.append(outs[-1])
+    return outs
+
+
+def _shared_prompts(n=5):
+    """Most prompts open with the shared system prompt; one does not."""
+    return [SYS + [20 + i] for i in range(n)] + [[3, 4, 5]]
+
+
+def _run(params, ctx, prompts, max_new=4, **kw):
+    eng = _engine(params, ctx, **kw)
+    rids = [eng.add_request(list(p), max_new=max_new) for p in prompts]
+    out = eng.run()
+    return eng, [out[r] for r in rids]
+
+
+# ------------------------------------------------- chunked prefill fidelity
+
+@pytest.mark.parametrize("backend", ["float", "mxfp4"])
+def test_chunked_prefill_matches_greedy(backend, models):
+    params, ctx = models[backend]
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, CFG.vocab_size, size=n).tolist()
+               for n in (3, 7, 8, 13, 20)]  # chunk and prefill_len edges
+    _, outs = _run(params, ctx, prompts, max_new=4, page_len=32)
+    for p, got in zip(prompts, outs):
+        assert got == _greedy(params, ctx, p, 4), f"len {len(p)}"
+
+
+def test_single_shot_rejects_long_prompt_chunked_accepts(models):
+    params, ctx = models["float"]
+    long_prompt = list(range(1, 15))  # 14 > prefill_len=8
+    eng = Engine(params, CFG, ctx, EngineConfig(lanes=1, num_slots=1,
+                                                page_len=24, prefill_len=8))
+    with pytest.raises(ValueError, match="prompt length"):
+        eng.add_request(long_prompt, max_new=2)
+    eng_c = _engine(params, ctx, lanes=1, num_slots=1)
+    rid = eng_c.add_request(long_prompt, max_new=2)
+    assert len(eng_c.run()[rid]) == 2
+
+
+# ------------------------------------------------ bitwise prefix-cache reuse
+
+@pytest.mark.parametrize("backend", ["float", "mxfp4", "cim"])
+def test_prefix_cache_outputs_bitwise_equal(backend, models):
+    """Cache-on tokens equal cache-off tokens with a nonzero hit rate; the
+    reused pages carry the quantized mirrors under cim."""
+    params, ctx = models[backend]
+    prompts = _shared_prompts(4 if backend == "cim" else 5)
+    _, off = _run(params, ctx, prompts, prefix_cache=False)
+    eng, on = _run(params, ctx, prompts, prefix_cache=True)
+    assert on == off
+    st_ = eng.prefix_stats()
+    assert st_["hits"] > 0 and st_["hit_tokens"] > 0, st_
+    assert st_["verify_failures"] == 0
+
+
+def test_prefix_hits_reduce_prefill_steps(models):
+    params, ctx = models["float"]
+    prompts = _shared_prompts(5)
+
+    def prefills(pc):
+        eng, _ = _run(params, ctx, prompts, prefix_cache=pc, obs_on=True)
+        return sum(1 for e in eng.obs.steps if e.kind == "prefill")
+
+    # 4 hit requests x 8 shared tokens / chunk_len 4 = 8 skipped windows
+    n_off, n_on = prefills(False), prefills(True)
+    assert n_on == n_off - 8, (n_on, n_off)
+
+
+def test_clone_prefix_copies_raw_rows_and_zeroes_the_rest(models):
+    params, ctx = models["cim"]
+    eng = _engine(params, ctx, lanes=1, num_slots=2)
+    rid = eng.add_request(SYS + [42], max_new=1)
+    eng.run()
+    donor = eng.requests[rid].slot
+    dst = 1 - donor
+    for layer in eng.kv.pool[0]:
+        for leaf in layer.values():
+            leaf[dst].fill_(3)  # stale bytes in the other slot
+    clone_prefix(eng.kv.pool, eng.kv.specs, donor, dst, 6)
+    for layer in eng.kv.pool[0]:
+        assert torch.equal(layer["kv"][dst, :6], layer["kv"][donor, :6])
+        assert layer["kv"][donor, :9].float().abs().sum() > 0
+        assert not layer["kv"][dst, 6:].float().any()
+        for name in ("kv_codes", "k_exps", "v_exps"):
+            assert not layer[name][dst].any(), name
+    clone_prefix(eng.kv.pool, eng.kv.specs, dst, dst, 0)  # a reset
+    assert not eng.kv.pool[0][0]["kv"][dst].float().any()
+
+
+# ------------------------------------------- content-addressable identity
+
+def test_fingerprint_deterministic_across_donors(models):
+    params, ctx = models["cim"]
+    eng = _engine(params, ctx, lanes=2, num_slots=4)
+    pa, pb = SYS + [101, 102], SYS + [111, 112]
+    # both stay live until the second admits, so the LIFO allocator
+    # cannot give the first page to the second request
+    ra = eng.add_request(pa, max_new=6)
+    rb = eng.add_request(pb, max_new=6)
+    while eng.requests[rb].slot < 0:  # -1 until admitted
+        eng.step()
+    sa, sb = eng.requests[ra].slot, eng.requests[rb].slot
+    assert sa != sb
+    eng.run()
+    n = len(SYS)
+    assert page_fingerprint(eng.kv, sa, n) == page_fingerprint(eng.kv, sb, n)
+    assert (page_fingerprint(eng.kv, sa, len(pa))
+            != page_fingerprint(eng.kv, sb, len(pa)))
+
+
+def test_fingerprint_corruption_is_counted_miss(models):
+    params, ctx = models["float"]
+    eng = _engine(params, ctx, prefix_cache=True)
+    rid = eng.add_request(SYS + [42], max_new=2)
+    eng.run()
+    donor = eng.requests[rid].slot
+    assert donor in eng.prefix.cached_slots
+    probe = SYS + [43]
+    assert eng.prefix.match(probe, eng.kv) is not None
+    eng.kv.pool[0][0]["kv"][donor, 0] += 1  # flip the donor's raw K/V
+    before = eng.prefix.stats()["verify_failures"]
+    assert eng.prefix.match(probe, eng.kv) is None
+    assert eng.prefix.stats()["verify_failures"] == before + 1
+    assert donor not in eng.prefix.cached_slots  # backing dropped
+    assert eng.kv.allocator.refcount(donor) == 0  # slot back on free list
+
+
+# ------------------------------------------------ eviction + refcount unit
+
+def test_prefix_eviction_respects_refcounts():
+    a = SlotAllocator(4)
+    pc = PrefixCache(chunk_len=2, allocator=a, fingerprints=False)
+    s_live, s_old, s_new = a.alloc(), a.alloc(), a.alloc()
+    assert pc.insert([1, 2, 3, 4], s_live)  # the cache takes its own ref
+    assert pc.insert([5, 6], s_old)
+    assert pc.insert([7, 8], s_new)
+    a.free(s_old)  # the donors' requests retire...
+    a.free(s_new)
+    # ...but s_live's request still runs: not evictable
+    assert pc.n_evictable == 2
+    assert pc.evict_lru()  # LRU: s_old went in before s_new
+    assert a.refcount(s_old) == 0 and pc.match([5, 6, 9]) is None
+    assert pc.evict_lru()
+    assert a.refcount(s_new) == 0
+    assert not pc.evict_lru()  # s_live is pinned by its request
+    assert pc.match([1, 2, 3]) is not None  # still served
+    a.free(s_live)
+    assert pc.n_evictable == 1 and pc.evict_lru()
+    assert a.num_free == 4  # every reference drained
+
+
+def test_prefix_match_always_leaves_live_suffix():
+    a = SlotAllocator(2)
+    pc = PrefixCache(chunk_len=2, allocator=a, fingerprints=False)
+    s = a.alloc()
+    pc.insert([1, 2, 3, 4], s)
+    hit = pc.match([1, 2, 3, 4])
+    assert hit is not None and hit.n_tokens == 2  # not 4
+    assert pc.match([1, 2]) is None  # would leave nothing live
+    assert pc.match([1, 2, 3, 4, 5]).n_tokens == 4
+
+
+def test_prefix_insert_keeps_existing_backing():
+    a = SlotAllocator(3)
+    pc = PrefixCache(chunk_len=2, allocator=a, fingerprints=False)
+    s1, s2 = a.alloc(), a.alloc()
+    assert pc.insert([1, 2, 3, 4], s1)
+    assert not pc.insert([1, 2, 3, 4], s2)  # nodes keep s1
+    assert pc.match([1, 2, 3, 4, 5]).slot == s1
+    assert a.refcount(s2) == 1  # only its request's own reference
+
+
+# --------------------------------------- control-plane property (invariants)
+
+_CHUNK, _SLOTS, _LANES = 2, 3, 2
+
+
+def _sim_step(rng, sched, alloc, cache, live):
+    """One scheduler-planned unit of fake work, the engine's chunked
+    admission and retire flow without any device compute."""
+    action = sched.plan(alloc.num_free + cache.n_evictable)
+    if action == "idle":
+        return
+    if action == "prefill":
+        req = sched.prefilling
+        if req is None:
+            hit = cache.match(sched.waiting[0].prompt)
+            if hit is not None:
+                alloc.retain(hit.slot)  # pin the donor
+            try:
+                slot = alloc.try_alloc()
+                while slot is None:
+                    if not cache.evict_lru():
+                        raise PoolExhausted("planned admit with no slot")
+                    slot = alloc.try_alloc()
+            finally:
+                if hit is not None:
+                    alloc.release(hit.slot)
+            req = sched.begin_prefill(slot, step=0)
+            live[req.rid] = req
+            if hit is not None:
+                req.prefilled = req.prefix_hit = hit.n_tokens
+        req.prefilled = min(len(req.prompt), req.prefilled + _CHUNK)
+        if req.prefilled == len(req.prompt):
+            sched.finish_prefill(req)
+            req.out.append(rng.randrange(100))
+            cache.insert(req.prompt, req.slot)
+    else:  # decode: every running request advances one token
+        for req in list(sched.running.values()):
+            req.out.append(rng.randrange(100))
+            req.pos += 1
+            if Scheduler.stop_reason(req, page_len=64) is not None:
+                sched.finish(req, step=0)
+                alloc.free(req.slot)
+                del live[req.rid]
+
+
+def _check_invariants(sched, alloc, cache):
+    holders = list(sched.running.values())
+    if sched.prefilling is not None:
+        holders.append(sched.prefilling)
+    slots = [r.slot for r in holders]
+    lanes = [r.lane for r in holders]
+    assert len(set(slots)) == len(slots), f"slot aliasing: {slots}"
+    assert len(set(lanes)) == len(lanes), f"lane aliasing: {lanes}"
+    for r in holders:
+        assert alloc.refcount(r.slot) >= 1
+    for s in cache.cached_slots:
+        assert alloc.refcount(s) >= 1, "cache advertises a freed slot"
+    assert alloc.num_free + len(alloc.in_use) == _SLOTS
+    expected = {r.slot for r in holders} | cache.cached_slots
+    assert alloc.in_use == expected, (alloc.in_use, expected)
+
+
+@settings(max_examples=10, deadline=None)
+@given(st.integers(0, 2**32 - 1))
+def test_control_plane_invariants_under_random_interleaving(seed):
+    """No slot aliased across lanes, nothing freed twice, no cached page
+    without its reference, and every refcount drained once quiet."""
+    rng = random.Random(seed)
+    sched = Scheduler(lanes=_LANES, policy="chunked")
+    alloc = SlotAllocator(_SLOTS)
+    cache = PrefixCache(chunk_len=_CHUNK, allocator=alloc, fingerprints=False)
+    live, rid = {}, 0
+    for _ in range(60):
+        if rng.random() < 0.4 and len(sched.waiting) < 4:
+            # a small alphabet and even lengths make prefixes collide
+            prompt = [rng.randrange(3) for _ in range(rng.choice([2, 4, 6]))]
+            sched.add(Request(rid=rid, prompt=prompt,
+                              max_new=rng.randint(1, 4)))
+            rid += 1
+        else:
+            _sim_step(rng, sched, alloc, cache, live)
+        _check_invariants(sched, alloc, cache)
+    while sched.has_work:  # drain
+        _sim_step(rng, sched, alloc, cache, live)
+        _check_invariants(sched, alloc, cache)
+    assert not live and sched.running == {} and sched.prefilling is None
+    while cache.evict_lru():  # the cache holds the last references
+        pass
+    assert alloc.num_free == _SLOTS and alloc.in_use == set()
+
+
+# ---------------------------------------- against the reference's chunk step
+
+def test_chunk_steps_match_reference():
+    """Three [1, 8] chunks of a 20-token prompt into one 32-slot page
+    under ``mxfp4_digital`` (the digital SDPA over quantized-resident
+    mirrors, float weights): each chunk's logits against the reference's
+    chunk step, then the raw page."""
+    jcfg = jconfigs.tiny(jconfigs.ARCHS["starcoder2-7b"])
+    jparams, _ = jlm.init_model(jax.random.PRNGKey(2), jcfg)
+    tparams = from_reference(jax.tree.map(np.asarray, jparams), device="cpu")
+    jctx = jcommon.RunCtx(shd=jcommon.ShardingCtx(), quant="mxfp4_digital",
+                          unroll_layers=True, dense_attn_max=256)
+    tctx = RunCtx(quant="mxfp4_digital", dense_attn_max=256)
+    prompt = np.random.default_rng(4).integers(0, CFG.vocab_size, 20)
+    jc = jlm.init_cache(jcfg, 1, 32, mx_digital=True, fused=True)
+    tc = lm.init_cache(CFG, 1, 32, mx_digital=True, fused=True, device="cpu")
+    for offs in (0, 8, 16):
+        take = min(8, len(prompt) - offs)
+        ids = np.zeros((1, 8), np.int64)
+        ids[0, :take] = prompt[offs:offs + take]
+        positions = np.full((1, 8), tattn.KV_PAD, np.int64)
+        positions[0, :take] = np.arange(offs, offs + take)
+        assert tattn.KV_PAD == jattn.KV_PAD
+        ref, jc = jlm.forward(jparams, jcfg, jctx,
+                              {"ids": jnp.asarray(ids, jnp.int32),
+                               "positions": jnp.asarray(positions, jnp.int32)},
+                              caches=jc, pos=jnp.int32(offs))
+        with torch.no_grad():
+            got, tc = lm.forward(tparams, CFG, tctx,
+                                 {"ids": torch.from_numpy(ids),
+                                  "positions": torch.from_numpy(positions)},
+                                 caches=tc, pos=offs)
+        ref = np.asarray(ref, np.float32)[0, :take]
+        assert _sqnr_db(ref, got[0, :take].float()) >= 30.0, offs
+    page = np.asarray(jax.tree.map(lambda a: a[0], jc[0])["kv"])
+    assert tc[0][0]["kv"].shape == page.shape
+    got = tc[0][0]["kv"].view(torch.int16).numpy()
+    np.testing.assert_array_equal(got, page.view(np.int16))

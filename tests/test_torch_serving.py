@@ -91,9 +91,14 @@ def test_staggered_batching_equals_solo_runs(backend, request):
 
 
 def test_engine_rejects_unported_modes(cim_model):
+    """What stays unported raises (the legacy layout, ``trace_report``);
+    chunked prefill and the prefix cache take the reference's checks."""
     params, ctx = cim_model
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        Engine(params, CFG, ctx, dataclasses.replace(ECFG, chunk_len=8))
+    with pytest.raises(ValueError, match="prefix_cache requires chunk_len"):
+        Engine(params, CFG, ctx, dataclasses.replace(ECFG, prefix_cache=True))
+    for bad in (1, ECFG.page_len + 1):
+        with pytest.raises(ValueError, match=r"chunk_len must be in \[2"):
+            Engine(params, CFG, ctx, dataclasses.replace(ECFG, chunk_len=bad))
     with pytest.raises(NotImplementedError, match="Queue 1"):
         Engine(params, CFG, ctx, dataclasses.replace(ECFG, kv_layout="legacy"))
     with pytest.raises(NotImplementedError):
@@ -186,6 +191,25 @@ def test_launcher_serves_on_cpu_and_never_falls_back(backend):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tserve.main(["--serve-trace", "--backend", backend])
+
+
+def test_launcher_serves_chunked_with_prefix_cache_on_cpu():
+    """``--chunk-len``, ``--policy chunked`` and ``--prefix-cache`` serve to
+    the end, and a prompt past ``dense_attn_max`` (256) takes the
+    online-softmax prefill."""
+    out = tserve.main(["--serve-trace", "--device", "cpu", "--requests", "3",
+                       "--prompt-len", "8", "--tokens", "4", "--chunk-len",
+                       "4", "--policy", "chunked", "--prefix-cache",
+                       "--log-level", "warning"])
+    assert out["requests"] == 3 and out["tokens"] > 0
+    assert out["prefix"]["verify_failures"] == 0
+    assert out["prefix"]["hits"] + out["prefix"]["misses"] == 3
+    out = tserve.main(["--serve-trace", "--device", "cpu", "--requests", "1",
+                       "--prompt-len", "300", "--tokens", "2", "--log-level",
+                       "warning"])
+    assert out["prefill_len"] == 300 and out["tokens"] == 2
+    with pytest.raises(SystemExit):  # argparse's choices
+        tserve.main(["--serve-trace", "--device", "cpu", "--policy", "lifo"])
 
 
 def test_public_builders_default_to_cuda(monkeypatch):
