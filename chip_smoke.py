@@ -68,13 +68,32 @@
    and then on: bitwise equal tokens, hits and no verify failure, fewer
    prefill-chunk steps, and ``cim_linear`` and ``paged_decode_mx`` (only)
    launched; a ``serve chunked`` line a run.
-8. Prints the kernels line, then the card's name and power limit, then
+8. Serve vision: the paper's Table 7 workloads at full width and depth
+   through the launcher's ``build_vision_model`` and ``serve_vision``,
+   ``VISION_FRAMES`` single-stream frames (B=1) each: ViT-B/16 (197
+   tokens, 12 layers) under ``cim`` and then ``mxfp4``, and ViT-L/32 (145
+   tokens, 24 layers) under ``cim`` as the two-chip chain (12+12) on the
+   one card. Only the backend's matmul kernel launches (``cim_linear``:
+   ``splitk`` and ``wgmma``; ``mxfp4_matmul``: ``wgmma`` and ``fma``, no
+   ``mma``), exactly on the routes a frame's shapes pick; no paged or
+   flash kernel. Logits of 4 frames against ``impl="ref"`` (SQNR >= 30
+   dB), the ViT-L/32 chain against the monolithic forward (bitwise), and
+   one frame under the profiler (device ms by kernel and route, wall ms,
+   busy share). A ``serve vision`` line a run gives the card's own
+   ``fps_host`` and frame times beside, apart and labelled as the
+   analytical model's, the FWS pipeline's ``fws_model_fps``, the paper's
+   Table 7 ``paper_fps`` and ``err_pct`` (which must stay under 5%).
+   ``tiny_vit`` gives the same logits on the card as on the CPU (SQNR >=
+   30 dB), and phase 3 also holds both matmul kernels at ViT-B/16's
+   shapes (``VIT_CIM_SHAPES``, ``VIT_MM_SHAPES``).
+9. Prints the kernels line, then the card's name and power limit, then
    the device line, as the last line.
 
 Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``paged_decode_mx {...}``, ``mxfp4_matmul {...}``, ``paged_decode {...}``,
 ``flash_attention {...}``, ``serve {...}``, ``prefill profile {...}``,
-``decode profile {...}``, ``serve long {...}``, ``serve chunked {...}``).
+``decode profile {...}``, ``serve long {...}``, ``serve chunked {...}``,
+``frame profile <arch> {...}``, ``serve vision {...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
@@ -145,6 +164,30 @@ FLOAT_PAGES = PAGES + ((LONG_PAGE, [0, 1029, 1900, LONG_PAGE]),)
 FA_SHAPE = (1, 2048, 36, 4, 128)
 FA_F32_S = 512  # sequence length of the f32 (fma route) row
 FA_MIN_SQNR_DB = 40.0  # bf16 rows: P is rounded to bf16 for the PV product
+# the vision phase (phase 8): the paper's Table 7 workloads at full size,
+# single-stream frames through the launcher's serve_vision
+VISION_FRAMES = 64
+VISION_RUNS = (("vit-b16", "cim"), ("vit-b16", "mxfp4"), ("vit-l32", "cim"))
+VISION_ARGS = ["--no-tiny", "--frames", str(VISION_FRAMES),
+               "--calib-batches", "2", "--batch", "2"]
+VISION_KERNEL = {"cim": "cim_linear", "mxfp4": "mxfp4_matmul"}
+VISION_CHECK_FRAMES = 4  # frames whose logits are held to impl="ref"
+# ViT-B/16's linears at the shapes a frame gives them (PERF.md §6):
+# cim_linear (M, K, N) and mxfp4_matmul (M, K, N, x dtype)
+VIT_CIM_SHAPES = ((197, 768, 768), (197, 768, 3072))
+VIT_MM_SHAPES = ((197, 768, 3072, torch.bfloat16),
+                 (196, 768, 768, torch.float32),
+                 (1, 768, 1000, torch.bfloat16))
+# kernel function -> wrapper and route, for device time by route
+KERNEL_ROUTES = {
+    "cim_splitk_kernel": "cim_linear splitk",
+    "cim_quant_kernel": "cim_linear wgmma (pre-pass)",
+    "cim_tc_kernel": "cim_linear wgmma",
+    "mxfp4_matmul_kernel": "mxfp4_matmul fma",
+    "mxfp4_matmul_tc_kernel": "mxfp4_matmul wgmma",
+    "mxfp4_matmul_mma_kernel": "mxfp4_matmul mma",
+    "splitk_sum_kernel": "mxfp4_matmul split-K sum",
+}
 
 
 def _device_events(prof) -> list:
@@ -296,6 +339,47 @@ def _rounding_input(dev):
     return x, w, cal, cimlib.CIMConfig(adc_bits=None, cm_bits=cm)
 
 
+def _cim_row(x, w, cal, cfg, extra: dict) -> dict:
+    """One ``cim_linear`` shape on the card: bitwise its plain version (a
+    mismatch raises), its route (whose counter must move), K splits, the
+    rows that took the ordered walk (``guard_rows``, device counter), the
+    times and the alignment's ALU floor beside the bytes/ops bound."""
+    from repro_torch.kernels.cim_linear import ops as cim_ops
+    from repro_torch.kernels.cim_linear.ref import cim_linear_ref
+
+    m, k = x.shape
+    n = w.codes.shape[1]
+    counter = cim_ops.guard_rows(x.device)
+    route = cim_ops.pick_route(m, k, n)
+    counter.zero_()
+    before = cim_ops.cim_linear.route_launches[route]
+    got = cim_ops.cim_linear(x, w, cal, cfg=cfg)
+    if cim_ops.cim_linear.route_launches[route] != before + 1:
+        raise AssertionError(f"cim_linear did not take the {route} route "
+                             f"at {(m, k, n)}")
+    ref = cim_linear_ref(x, w, cal, cfg)
+    torch.cuda.synchronize()
+    guarded = int(counter)
+    err = (got - ref).abs()
+    n_bytes = m * k * x.element_size() + k * n + (k // 32) * n + 8 + m * n * 4
+    bound, by = _bound_ms(n_bytes, 2.0 * m * n * k, "int8")
+    row = extra | dict(
+        m=m, k=k, n=n, x_dtype=str(x.dtype).split(".")[-1], route=route,
+        splits=cim_ops.pick_splits(m, k, n), guard_rows=guarded,
+        max_abs_err=float(err.max()), bitwise=bool(torch.equal(got, ref)),
+        ms=_device_ms(lambda: cim_ops.cim_linear(x, w, cal, cfg=cfg), 20),
+        call_ms=_time_ms(lambda: cim_ops.cim_linear(x, w, cal, cfg=cfg), 20),
+        plain_ms=_device_ms(lambda: cim_linear_ref(x, w, cal, cfg), 3),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        align_floor_ms=_align_floor_ms(m, k, n))
+    row["ok"] = row["bitwise"]
+    print("cim_linear", json.dumps(row), flush=True)
+    if not row["ok"]:
+        raise AssertionError(f"cim_linear kernel is not bitwise its plain "
+                             f"version at {(m, k, n)}")
+    return row
+
+
 def check_cim_linear(dev, m_prefill: int) -> list:
     """Every linear shape at decode (M=4) and prefill (M=192), then the
     constructed rounding input at K=18432: each row bitwise its plain
@@ -304,57 +388,22 @@ def check_cim_linear(dev, m_prefill: int) -> list:
     alignment's ALU floor beside the bytes/ops bound."""
     from repro_torch.core import cim as cimlib
     from repro_torch.core import mx as mxlib
-    from repro_torch.kernels.cim_linear import ops as cim_ops
-    from repro_torch.kernels.cim_linear.ref import cim_linear_ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
     cfg = cimlib.CIMConfig()
-    counter = cim_ops.guard_rows(dev)
     rows = []
-
-    def row(x, w, cal, cfg, extra):
-        m, k = x.shape
-        n = w.codes.shape[1]
-        route = cim_ops.pick_route(m, k, n)
-        counter.zero_()
-        before = cim_ops.cim_linear.route_launches[route]
-        got = cim_ops.cim_linear(x, w, cal, cfg=cfg)
-        if cim_ops.cim_linear.route_launches[route] != before + 1:
-            raise AssertionError(f"cim_linear did not take the {route} route "
-                                 f"at {(m, k, n)}")
-        ref = cim_linear_ref(x, w, cal, cfg)
-        torch.cuda.synchronize()
-        guarded = int(counter)
-        err = (got - ref).abs()
-        n_bytes = m * k * 4 + k * n + (k // 32) * n + 8 + m * n * 4
-        bound, by = _bound_ms(n_bytes, 2.0 * m * n * k, "int8")
-        rows.append(extra | dict(
-            m=m, k=k, n=n, route=route, splits=cim_ops.pick_splits(m, k, n),
-            guard_rows=guarded, max_abs_err=float(err.max()),
-            bitwise=bool(torch.equal(got, ref)),
-            ms=_device_ms(lambda: cim_ops.cim_linear(x, w, cal, cfg=cfg), 20),
-            call_ms=_time_ms(lambda: cim_ops.cim_linear(x, w, cal, cfg=cfg),
-                             20),
-            plain_ms=_device_ms(lambda: cim_linear_ref(x, w, cal, cfg), 3),
-            bound_ms=bound, bound_by=by,
-            align_floor_ms=_align_floor_ms(m, k, n)))
-        rows[-1]["ok"] = rows[-1]["bitwise"]
-        print("cim_linear", json.dumps(rows[-1]), flush=True)
-        if not rows[-1]["ok"]:
-            raise AssertionError(f"cim_linear kernel is not bitwise its "
-                                 f"plain version at {(m, k, n)}")
-
     for k, n in LINEAR_SHAPES:
         w = mxlib.quantize_w(torch.randn((k, n), generator=gen, device=dev)
                              * k ** -0.5)
         for m in (4, m_prefill):
             x = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16).float()
-            row(x, w, cimlib.calibrate_rowhist([x], w, cfg), cfg, {})
+            rows.append(_cim_row(x, w, cimlib.calibrate_rowhist([x], w, cfg),
+                                 cfg, {}))
         if (k, n) == LINEAR_SHAPES[2]:
             cim_route_crossover(w, gen, dev, cfg)
     x, w, cal, rcfg = _rounding_input(dev)
-    row(x, w, cal, rcfg, {"case": "rounding"})
+    rows.append(_cim_row(x, w, cal, rcfg, {"case": "rounding"}))
     if rows[-1]["guard_rows"] != 1:
         raise AssertionError(f"cim_linear rounding input: "
                              f"{rows[-1]['guard_rows']} guarded rows, not 1")
@@ -446,12 +495,48 @@ def check_paged_decode(dev) -> list:
     return rows_out
 
 
+def _mxfp4_row(x, codes, exps, w_bf16, extra: dict) -> dict:
+    """One ``mxfp4_matmul`` shape on the card against its plain version
+    (a disagreement raises): its route (whose counter must move), times,
+    the bound and ``torch.matmul`` on the weight dequantized outside the
+    timing (``w_bf16``) as the library call."""
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+    from repro_torch.kernels.mxfp4_matmul.ref import mxfp4_matmul_ref
+
+    (m, k), n, dtype = x.shape, codes.shape[1], x.dtype
+    w_lib = w_bf16 if dtype == torch.bfloat16 else w_bf16.float()
+    route = mm_ops.pick_route(m, k, n, dtype)
+    before = mm_ops.mxfp4_matmul.route_launches[route]
+    got = mm_ops.mxfp4_matmul(x, codes, exps).float()
+    if mm_ops.mxfp4_matmul.route_launches[route] != before + 1:
+        raise AssertionError(f"mxfp4_matmul did not take the {route} "
+                             f"route at {(m, k, n)}")
+    ref = mxfp4_matmul_ref(x, codes, exps).float()
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    ok = bool((err <= 2e-2 * ref.abs() + 2e-2 * ref.abs().max()).all())
+    n_bytes = x.element_size() * m * k + k * n // 2 + k * n // 32 + 2 * m * n
+    bound, by = _bound_ms(n_bytes, 2.0 * m * n * k,
+                          "bf16" if dtype == torch.bfloat16 else "f32")
+    row = extra | dict(
+        m=m, k=k, n=n, x_dtype=str(dtype).split(".")[-1], route=route,
+        max_abs_err=float(err.max()), sqnr_db=_sqnr_db(ref, got), ok=ok,
+        ms=_device_ms(lambda: mm_ops.mxfp4_matmul(x, codes, exps), 20),
+        call_ms=_time_ms(lambda: mm_ops.mxfp4_matmul(x, codes, exps), 20),
+        plain_ms=_device_ms(lambda: mxfp4_matmul_ref(x, codes, exps), 3),
+        bound_ms=bound, bound_by=by,
+        library_ms=_device_ms(lambda: torch.matmul(x, w_lib), 20))
+    print("mxfp4_matmul", json.dumps(row), flush=True)
+    if not ok:
+        raise AssertionError(f"mxfp4_matmul kernel disagrees with its plain "
+                             f"version at {(m, k, n)}")
+    return row
+
+
 def check_mxfp4_matmul(dev, m_prefill: int) -> list:
     """Every linear shape at decode (M=4) and prefill (M=192) in bf16, plus
     w1 at M=192 with f32 x (the fma route) and at the ragged M=100 in
     bf16. Each row names its route; the route's counter must move."""
-    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
-    from repro_torch.kernels.mxfp4_matmul.ref import mxfp4_matmul_ref
     from repro_torch.layers import backends
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -466,36 +551,7 @@ def check_mxfp4_matmul(dev, m_prefill: int) -> list:
             cases += [(m_prefill, torch.float32), (M_RAGGED, torch.bfloat16)]
         for m, dtype in cases:
             x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-            w_lib = w_bf16 if dtype == torch.bfloat16 else w_bf16.float()
-            route = mm_ops.pick_route(m, k, n, dtype)
-            before = mm_ops.mxfp4_matmul.route_launches[route]
-            got = mm_ops.mxfp4_matmul(x, codes, exps).float()
-            if mm_ops.mxfp4_matmul.route_launches[route] != before + 1:
-                raise AssertionError(f"mxfp4_matmul did not take the {route} "
-                                     f"route at {(m, k, n)}")
-            ref = mxfp4_matmul_ref(x, codes, exps).float()
-            torch.cuda.synchronize()
-            err = (got - ref).abs()
-            ok = bool((err <= 2e-2 * ref.abs() + 2e-2 * ref.abs().max()).all())
-            n_bytes = (x.element_size() * m * k + k * n // 2 + k * n // 32
-                       + 2 * m * n)
-            bound, by = _bound_ms(n_bytes, 2.0 * m * n * k,
-                                  "bf16" if dtype == torch.bfloat16 else "f32")
-            rows.append(dict(
-                m=m, k=k, n=n, x_dtype=str(dtype).split(".")[-1], route=route,
-                max_abs_err=float(err.max()), sqnr_db=_sqnr_db(ref, got),
-                ok=ok,
-                ms=_device_ms(lambda: mm_ops.mxfp4_matmul(x, codes, exps), 20),
-                call_ms=_time_ms(lambda: mm_ops.mxfp4_matmul(x, codes, exps),
-                                 20),
-                plain_ms=_device_ms(lambda: mxfp4_matmul_ref(x, codes, exps),
-                                    3),
-                bound_ms=bound, bound_by=by,
-                library_ms=_device_ms(lambda: torch.matmul(x, w_lib), 20)))
-            print("mxfp4_matmul", json.dumps(rows[-1]), flush=True)
-            if not ok:
-                raise AssertionError(f"mxfp4_matmul kernel disagrees with its "
-                                     f"plain version at {(m, k, n)}")
+            rows.append(_mxfp4_row(x, codes, exps, w_bf16, {}))
         if (k, n) == LINEAR_SHAPES[2]:
             route_crossover(codes, exps, gen, dev)
         del packed, codes, exps, w_bf16
@@ -961,6 +1017,184 @@ def serve_chunked_prefix(cfg, params, ctx) -> dict:
     return {"launches": launches, "off": off["line"], "on": on["line"]}
 
 
+def check_vit_linears(dev) -> tuple[list, list]:
+    """``cim_linear`` and ``mxfp4_matmul`` at ViT-B/16's shapes
+    (``VIT_CIM_SHAPES``, ``VIT_MM_SHAPES``): the trunk at a frame's 197
+    rows, the patch embedding's f32 x at 196 rows and the classifier's
+    CLS row at N = 1000; each row against its plain version, as in
+    phase 3."""
+    from repro_torch.core import cim as cimlib
+    from repro_torch.core import mx as mxlib
+    from repro_torch.layers import backends
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cfg = cimlib.CIMConfig()
+    cim_rows, mm_rows = [], []
+    for m, k, n in VIT_CIM_SHAPES:
+        w = mxlib.quantize_w(torch.randn((k, n), generator=gen, device=dev)
+                             * k ** -0.5)
+        x = torch.randn((m, k), generator=gen, device=dev).to(
+            torch.bfloat16).float()
+        cim_rows.append(_cim_row(x, w, cimlib.calibrate_rowhist([x], w, cfg),
+                                 cfg, {"case": "vit-b16"}))
+    for m, k, n, dtype in VIT_MM_SHAPES:
+        packed = backends._quantize_packed(
+            torch.randn((k, n), generator=gen, device=dev) * k ** -0.5)
+        w_bf16 = backends._dequant_packed(packed["codes"], packed["exps"])
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        mm_rows.append(_mxfp4_row(x, packed["codes"], packed["exps"], w_bf16,
+                                  {"case": "vit-b16"}))
+    return cim_rows, mm_rows
+
+
+def _vit_routes(cfg, backend: str) -> dict:
+    """Launches by route that one frame of ``cfg`` must make: the patch
+    embedding (f32 x), six linears a layer at a frame's rows and the
+    classifier over the CLS row, each on the route its picker takes."""
+    from repro_torch.kernels.cim_linear import ops as cim_ops
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+
+    s, d, f = cfg.seq_len, cfg.d_model, cfg.d_ff
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = ([(cfg.n_patches, cfg.patch_dim, d, f32)]
+              + cfg.n_layers * [(s, d, d, bf16)] * 4
+              + cfg.n_layers * [(s, d, f, bf16), (s, f, d, bf16)]
+              + [(1, d, cfg.n_classes, bf16)])
+    routes: dict = {}
+    for m, k, n, dtype in shapes:
+        r = (cim_ops.pick_route(m, k, n) if backend == "cim"
+             else mm_ops.pick_route(m, k, n, dtype))
+        routes[r] = routes.get(r, 0) + 1
+    return routes
+
+
+def check_tiny_vit_agreement(dev, backend: str) -> None:
+    """``tiny_vit`` with the same weights on the card (kernels) and on
+    the CPU (plain versions): logits SQNR >= 30 dB."""
+    from repro_torch import configs as C
+    from repro_torch.launch import serve
+    from repro_torch.models import vit
+
+    args = serve.build_parser().parse_args(
+        ["--arch", "vit-b16", "--backend", backend, "--device", "cpu",
+         "--log-level", "warning"])
+    cfg = C.tiny_vit(C.VIT_B16)
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        fparams = vit.init_model(cfg, torch.Generator().manual_seed(0))
+        params, ctx = serve.build_backend(
+            args, cfg, fparams, cpu, forward_fn=vit.forward,
+            batches=vit.calibration_images(cfg, device=cpu))
+        images = vit.calibration_images(cfg, 1, 2, seed=4, device=cpu)[0]
+        runs = [vit.forward(p, cfg, ctx, {"images": images["images"].to(d)}
+                            )[0].float().cpu()
+                for p, d in ((params, cpu), (_to(params, dev), dev))]
+    sq = _sqnr_db(*runs)
+    print(f"tiny_vit [{backend}], card vs CPU plain versions, logits SQNR "
+          f"{sq} dB", flush=True)
+    if sq < 30.0:
+        raise AssertionError(f"tiny_vit [{backend}]: card and CPU logits "
+                             "disagree")
+
+
+def serve_vision_full(arch: str, backend: str) -> dict:
+    """Phase 8, one run: ``arch`` at full width and depth through the
+    launcher's ``build_vision_model`` and ``serve_vision``,
+    ``VISION_FRAMES`` single-stream frames (vit-l32: the two-chip chain,
+    12+12 layers, on the one card). Only the backend's matmul kernel may
+    launch, on exactly the routes ``_vit_routes`` gives a frame. Then
+    logits of ``VISION_CHECK_FRAMES`` frames against ``impl="ref"``
+    (SQNR >= 30 dB), the chain against the monolithic forward (bitwise,
+    vit-l32) and one frame under the profiler."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.launch import serve
+    from repro_torch.models import vit
+    from repro_torch.serving import VisionEngine
+
+    args = serve.build_parser().parse_args(
+        ["--arch", arch, "--backend", backend] + VISION_ARGS)
+    obs = obs_lib.Obs()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, ctx, dev = serve.build_vision_model(args, obs=obs)
+    build_s = time.perf_counter() - t0
+    print(f"[{backend}] {cfg.name}: full width and depth (image "
+          f"{cfg.image_size}, patch {cfg.patch_size}, {cfg.seq_len} tokens, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}, d_ff {cfg.d_ff}, {cfg.n_classes} classes, "
+          f"{cfg.chips} chip(s))", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    summary = serve.serve_vision(args, cfg, params, ctx, obs, dev)
+    launches, mm_routes = _read_counts()
+    routes = _cim_routes() if backend == "cim" else mm_routes
+    peak = torch.cuda.max_memory_allocated()
+    kernel = VISION_KERNEL[backend]
+    want = {r: VISION_FRAMES * n for r, n in _vit_routes(cfg, backend).items()}
+    if (launches[kernel] != sum(want.values())
+            or any(v for k, v in launches.items() if k != kernel)
+            or {r: n for r, n in routes.items() if n} != want):
+        raise AssertionError(f"[{backend} {arch}] launches {launches}, "
+                             f"routes {routes}; want only {kernel} on {want}")
+    if summary["frames"] != VISION_FRAMES or not all(
+            0 <= t < cfg.n_classes for t in summary["top1"]):
+        raise AssertionError(f"[{backend} {arch}] served frames {summary}")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    frames = torch.randn((VISION_CHECK_FRAMES, cfg.image_size,
+                          cfg.image_size, cfg.in_channels), generator=gen,
+                         device=dev)
+    ref_ctx = dataclasses.replace(ctx, impl="ref", obs=None)
+    with torch.no_grad():
+        got = torch.cat([vit.forward(params, cfg, ctx, {"images": f[None]})[0]
+                         for f in frames]).float()
+        ref = torch.cat([vit.forward(params, cfg, ref_ctx,
+                                     {"images": f[None]})[0]
+                         for f in frames]).float()
+    sq = _sqnr_db(ref, got)
+    finite = bool(torch.isfinite(got).all())
+    print(f"[{backend} {arch}] logits of {VISION_CHECK_FRAMES} frames, "
+          f"kernels vs impl=ref: SQNR {sq} dB, finite {finite}, bitwise "
+          f"{bool(torch.equal(got, ref))}", flush=True)
+    if not finite or sq < 30.0:
+        raise AssertionError(f"[{backend} {arch}] logits disagree")
+    eng = VisionEngine(params, cfg, dataclasses.replace(ctx, obs=None))
+    chain_bitwise = None
+    if cfg.chips > 1:
+        with torch.no_grad():
+            mono, _ = vit.forward(params, cfg, ctx, {"images": frames[:2]})
+        chain_bitwise = bool(torch.equal(eng.logits(frames[:2]), mono))
+        print(f"[{backend} {arch}] {cfg.chips}-chip chain vs monolithic "
+              f"forward: bitwise {chain_bitwise}", flush=True)
+        if not chain_bitwise:
+            raise AssertionError(f"[{backend} {arch}] the chip chain is not "
+                                 "the monolithic forward")
+    eng.classify_frame(frames[0])  # warm, outside the window
+    prof = _profiled(f"frame profile {arch}", ctx, 1,
+                     lambda: eng.classify_frame(frames[0]))
+    fws = summary["fws"]
+    line = {"model": cfg.name, "backend": backend, "chips": cfg.chips,
+            "layers": cfg.n_layers, "tokens_each": cfg.seq_len,
+            "frames": summary["frames"], "fps_host": summary["fps_host"],
+            "frame_ms_p50": summary["frame_ms_p50"],
+            "profiled_frame_wall_ms": prof["wall_ms_per_step"],
+            "device_ms_a_frame": prof["device_ms_per_step"],
+            "device_busy_share": prof["device_busy_share"],
+            "route_ms_a_frame": prof["route_ms_per_step"],
+            "timer": prof["timer"], "launches": launches,
+            "routes": routes, "peak_mem_gib": peak / 2**30,
+            "model_build_s": build_s, "logits_sqnr_db": sq,
+            "chain_bitwise": chain_bitwise,
+            # the analytical model of the MXFormer chip, not this card
+            "fws_model": {k: fws.get(k) for k in (
+                "fws_model_fps", "paper_fps", "err_pct", "chips",
+                "frame_latency_us")}}
+    print("serve vision", json.dumps(line), flush=True)
+    if fws.get("err_pct") is None or fws["err_pct"] >= 5.0:
+        raise AssertionError(f"[{backend} {arch}] FWS model {fws}")
+    return {"launches": launches, "line": line}
+
+
 def _zero_counts() -> None:
     from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1058,10 +1292,17 @@ def _profiled(label: str, ctx, steps: int, step, prepare=None) -> dict:
             if wrapper in short and short[wrapper][0]:
                 got, want = short[wrapper]
                 by_name[ev.key] *= want / got
+        traced: dict = {}
+        for ev in events:
+            if any(_kernel_name(ev.key) in MAIN_KERNELS[w] for w in short):
+                route = KERNEL_ROUTES.get(_kernel_name(ev.key), ev.key[:60])
+                traced[route] = traced.get(route, 0) + ev.count
         print(f"profile timer: {label} [{ctx.quant}]: {PROFILE_ATTEMPTS} "
               f"traces with other launch counts than the wrappers' "
-              f"(traced, counted) {short}; the last one's times of those "
-              f"kernels scaled to the counted launches", flush=True)
+              f"(traced, counted) {short}; traced by route {traced}, "
+              f"counted {routes} (mxfp4_matmul) {_cim_routes()} "
+              f"(cim_linear); the last one's times of those kernels "
+              f"scaled to the counted launches", flush=True)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     by_wrapper: dict = {}
@@ -1070,12 +1311,18 @@ def _profiled(label: str, ctx, steps: int, step, prepare=None) -> dict:
                         if _kernel_name(key) in names), None)
         if wrapper is not None:
             by_wrapper[wrapper] = by_wrapper.get(wrapper, 0.0) + ms
+    by_route: dict = {}
+    for key, ms in by_name.items():
+        route = KERNEL_ROUTES.get(_kernel_name(key))
+        if route is not None:
+            by_route[route] = by_route.get(route, 0.0) + ms / steps
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
            "device_ms_per_step": device_ms / steps if device_ms else None,
            "device_busy_share": device_ms / wall_ms if device_ms else None,
            "timer": timer,
            "top_kernels_ms_per_step": {k: v / steps for k, v in top},
            "kernel_ms_per_step": {k: v / steps for k, v in by_wrapper.items()},
+           "route_ms_per_step": by_route,
            "launches": {k: v for k, v in launches.items() if v},
            "mxfp4_matmul_routes": routes}
     print(label, json.dumps({"backend": ctx.quant} | out), flush=True)
@@ -1187,8 +1434,12 @@ def main() -> int:
                                   dev),
             "flash_attention": phase("flash_attention", check_flash_attention,
                                      dev)}
+    vit_cim, vit_mm = phase("vit linears", check_vit_linears, dev)
+    rows["cim_linear"] += vit_cim
+    rows["mxfp4_matmul"] += vit_mm
     for backend in ("cim", "mxfp4"):
         phase(f"tiny {backend}", check_tiny_agreement, dev, backend)
+        phase(f"tiny_vit {backend}", check_tiny_vit_agreement, dev, backend)
     # one backend's model at a time, each served twice: by the launcher
     # (phases 4, 5) and then chunked with the prefix cache (cim, phase 7)
     # or with long prompts (mxfp4, phase 6); freed before the next
@@ -1199,6 +1450,10 @@ def main() -> int:
                                      backend)
         runs[name] = phase(f"serve {name} [{backend}]", again, *model)
         del model
+    for arch, backend in VISION_RUNS:  # phase 8
+        runs[f"vision {arch} {backend}"] = phase(
+            f"serve vision {arch} [{backend}]", serve_vision_full, arch,
+            backend)
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
 

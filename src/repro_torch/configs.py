@@ -1,6 +1,8 @@
 """Architecture configs, JAX-free (counterpart of ``repro.models.lm.
-ArchConfig`` and ``repro.configs``). Only the dense ``starcoder2-7b`` is
-ported so far; the other families are listed in ROADMAP.md."""
+ArchConfig``, ``repro.models.vit.ViTConfig`` and ``repro.configs``). Of
+the LMs only the dense ``starcoder2-7b`` is ported so far (the other
+families are listed in ROADMAP.md); the paper's two vision workloads,
+``vit-b16`` and ``vit-l32``, are in ``VISION_ARCHS``."""
 
 from __future__ import annotations
 
@@ -95,3 +97,92 @@ def tiny(cfg: ArchConfig, seq: int = 32) -> ArchConfig:
     if cfg.frontend != "none":
         over.update(frontend_dim=24, n_vis_tokens=8)
     return dataclasses.replace(cfg, **over)
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    """Encoder-only Vision Transformer (counterpart of
+    ``repro.models.vit.ViTConfig``)."""
+
+    name: str
+    image_size: int
+    patch_size: int
+    n_layers: int
+    d_model: int
+    n_heads: int
+    d_ff: int
+    n_classes: int = 1000
+    in_channels: int = 3
+    head_dim: int = 0
+    ffn_kind: str = "gelu"
+    norm: str = "layernorm"
+    use_bias: bool = True
+    remat: bool = False
+    chips: int = 1  # FWS stage partition (dual-chip vit-l32)
+    # unused by the encoder; kept so the fields match the reference's
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+
+    @property
+    def grid(self) -> int:
+        if self.image_size % self.patch_size:
+            raise ValueError(f"image_size {self.image_size} is not a "
+                             f"multiple of patch_size {self.patch_size}")
+        return self.image_size // self.patch_size
+
+    @property
+    def n_patches(self) -> int:
+        return self.grid * self.grid
+
+    @property
+    def seq_len(self) -> int:
+        return self.n_patches + 1  # CLS token
+
+    @property
+    def patch_dim(self) -> int:
+        return self.patch_size * self.patch_size * self.in_channels
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+
+# vit-b16 [ViT-B/16, 224 px]: the paper's single-chip headline workload
+# (Table 7: 41,269 FPS on the modelled Base system; N = 14*14 + 1 = 197).
+VIT_B16 = ViTConfig(
+    name="vit-b16", image_size=224, patch_size=16,
+    n_layers=12, d_model=768, n_heads=12, d_ff=3072, n_classes=1000,
+    ffn_kind="gelu", norm="layernorm", use_bias=True,
+)
+
+# vit-l32 [ViT-L/32, 384 px]: the paper's dual-chip headline workload
+# (Table 7: 58,275 FPS on two modelled Large chips; N = 12*12 + 1 = 145;
+# 24 encoder blocks split 12+12 over the two chips).
+VIT_L32 = ViTConfig(
+    name="vit-l32", image_size=384, patch_size=32,
+    n_layers=24, d_model=1024, n_heads=16, d_ff=4096, n_classes=1000,
+    ffn_kind="gelu", norm="layernorm", use_bias=True, chips=2,
+)
+
+VISION_ARCHS: dict[str, ViTConfig] = {c.name: c for c in (VIT_B16, VIT_L32)}
+
+
+def tiny_vit(cfg: ViTConfig) -> ViTConfig:
+    """Reduced vision config for CPU smoke tests. patch_dim stays
+    32-aligned (8*8*3 = 192) so the patch embedding remains
+    analog-eligible."""
+    return dataclasses.replace(
+        cfg, image_size=32, patch_size=8, n_layers=2, d_model=64,
+        n_heads=4, head_dim=16, d_ff=96, n_classes=32, chips=1,
+    )
+
+
+def geometry_tiny_vit(cfg: ViTConfig) -> ViTConfig:
+    """Width-reduced but geometry-true: the same image and patch grid (so
+    the same token count N), layer count and chip split as the full
+    workload (the shape the FWS pipeline model bills), with a tiny
+    d_model and d_ff."""
+    return dataclasses.replace(
+        cfg, d_model=64, n_heads=4, head_dim=16, d_ff=96, n_classes=32,
+    )

@@ -12,6 +12,18 @@ path, decode through ``paged_flash_decode_mx`` over quantized-resident
 pages. ``--backend float``: bf16 linears, float pages. Weights are random
 from a seed.
 
+``--arch vit-b16`` / ``--arch vit-l32`` (or ``--model``) serve the
+paper's vision workloads instead: ``--frames`` synthetic frames stream one
+at a time through the ViT (``serving/vision.py``; vit-l32 as a two-chip
+chain, 12+12 layers, on the one device), and the measured token traffic
+drives the FWS pipeline model of the MXFormer chip, checked against the
+paper's Table 7 row. The ``vision-stream:`` line gives the device's own
+frame rate (``fps_host``, host wall clock); the ``fws-pipeline:`` line
+gives the analytical model's (``fws_model_fps``, beside ``paper_fps``),
+not a speed of the device. ``--tiny`` (the default) keeps the token
+geometry and layer count and shrinks the width; ``--no-tiny`` runs the
+full model.
+
 Runs on CUDA unless ``--device cpu`` is given (then the kernels' plain
 versions run); without a GPU and without ``--device cpu`` it raises.
 
@@ -21,6 +33,10 @@ versions run); without a GPU and without ``--device cpu`` it raises.
       --kv-layout fused                     # tiny starcoder2-7b on the GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --serve-trace \\
       --backend float --device cpu          # tiny, CPU plain versions
+  python -m repro_torch.launch.serve --arch vit-b16 --no-tiny \\
+      --backend cim --frames 64             # full ViT-B/16 on the GPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch vit-l32 \\
+      --backend mxfp4 --device cpu          # geometry-true tiny, CPU
 """
 
 from __future__ import annotations
@@ -37,7 +53,8 @@ from repro_torch import obs as obs_lib
 from repro_torch import resolve_device
 from repro_torch.core import cim as cimlib
 from repro_torch.layers.common import RunCtx, convert_params_mxfp4
-from repro_torch.models import calibrate, lm
+from repro_torch.hwmodel import specs as S
+from repro_torch.models import calibrate, lm, vit
 
 
 def conversion_args(args) -> dict:
@@ -47,10 +64,13 @@ def conversion_args(args) -> dict:
                 cm_bits=args.cm_bits, calib_batches=args.calib_batches)
 
 
-def build_backend(args, cfg, params, device, obs=None):
+def build_backend(args, cfg, params, device, obs=None, batches=None,
+                  forward_fn=None):
     """(converted_params, RunCtx) for ``--backend``: ``float`` serves the
     parameters as they are, ``mxfp4`` packs the static linears, ``cim``
-    runs Row-Hist calibration and the analog conversion."""
+    runs Row-Hist calibration and the analog conversion on ``batches``
+    through ``forward_fn`` (default: token batches through
+    ``lm.forward``; the vision path passes images and ``vit.forward``)."""
     conv_kw = conversion_args(args)
     log = obs_lib.get_logger("repro_torch.serve", args.log_level)
     if args.backend == "float":
@@ -63,13 +83,14 @@ def build_backend(args, cfg, params, device, obs=None):
     cim_cfg = cimlib.CIMConfig(adc_bits=conv_kw["adc_bits"],
                                cm_bits=conv_kw["cm_bits"], two_pass=True)
     base_ctx = RunCtx(dense_attn_max=256)
-    batches = calibrate.calibration_batches(
-        cfg, n_batches=conv_kw["calib_batches"], batch=args.batch,
-        seq=args.prompt_len, device=device)
+    if batches is None:
+        batches = calibrate.calibration_batches(
+            cfg, n_batches=conv_kw["calib_batches"], batch=args.batch,
+            seq=args.prompt_len, device=device)
     t0 = time.perf_counter()
     conv, calibs = calibrate.convert_model_cim(
         params, cfg, base_ctx, batches, cim_cfg=cim_cfg,
-        min_n=conv_kw["min_n"])
+        min_n=conv_kw["min_n"], forward_fn=forward_fn)
     log.info("row-hist calibration: %s", obs_lib.kv(
         linears=len(calibs), wall_s=time.perf_counter() - t0))
     return conv, RunCtx(quant="cim", cim=cim_cfg, dense_attn_max=256, obs=obs)
@@ -136,7 +157,10 @@ def serve_trace(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="starcoder2-7b", choices=sorted(C.ARCHS))
+    ap.add_argument("--arch", "--model", dest="arch", default="starcoder2-7b",
+                    choices=sorted(C.ARCHS | C.VISION_ARCHS),
+                    help="an LM (served by the continuous-batching engine) "
+                         "or a vision workload (streamed frames)")
     ap.add_argument("--tiny", action="store_true", default=True,
                     help="reduced smoke config (default)")
     ap.add_argument("--no-tiny", dest="tiny", action="store_false",
@@ -182,6 +206,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="radix prefix cache over the KV page pool: "
                          "shared prompt prefixes reuse refcounted, "
                          "content-addressed pages (requires --chunk-len)")
+    ap.add_argument("--frames", type=int, default=4,
+                    help="synthetic frames streamed (vision archs)")
     ap.add_argument("--log-level", default="info", choices=obs_lib.log.LEVELS)
     return ap
 
@@ -207,14 +233,90 @@ def build_model(args, obs=None):
     return cfg, params, ctx, device
 
 
+def build_vision_model(args, obs=None):
+    """Config, converted parameters and RunCtx of a vision arch: random
+    weights from ``--seed``; ``cim`` calibrates on synthetic images
+    (``vit.calibration_images``). ``--tiny`` keeps the token geometry
+    (patch grid, layers, chips) and shrinks the width."""
+    device = resolve_device(args.device)
+    full = C.VISION_ARCHS[args.arch]
+    cfg = C.geometry_tiny_vit(full) if args.tiny else full
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    with torch.no_grad():
+        fparams = vit.init_model(cfg, gen)
+        batches = vit.calibration_images(
+            cfg, n_batches=args.calib_batches, batch=args.batch,
+            device=device) if args.backend == "cim" else None
+        params, ctx = build_backend(args, cfg, fparams, device, obs=obs,
+                                    batches=batches, forward_fn=vit.forward)
+    del fparams, batches
+    log.info("model ready: %s", obs_lib.kv(
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        tokens=cfg.seq_len, chips=cfg.chips, device=str(device),
+        wall_s=time.perf_counter() - t0))
+    return cfg, params, ctx, device
+
+
+def serve_vision(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
+    """Stream ``--frames`` synthetic frames through the ViT (one at a
+    time, the Table 7 operating mode), then map the measured stage
+    traffic onto the FWS pipeline model at the workload's hardware shape.
+    Returns a summary: the device's own frame rate and frame wall times
+    (host wall clock, each frame ends in a host read), and, apart, the
+    analytical model's ``fws_model_fps`` beside the paper's."""
+    from repro_torch.serving import VisionEngine
+
+    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    eng = VisionEngine(params, cfg, ctx, obs=obs)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    frames = torch.randn((args.frames, cfg.image_size, cfg.image_size,
+                          cfg.in_channels), generator=gen, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    labels = eng.stream(frames)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    frame_s = [e.wall_s for e in obs.steps if e.kind == "frame"]
+    summary = {"model": cfg.name, "backend": args.backend,
+               "layers": cfg.n_layers, "chips": eng.chips,
+               "frames": len(labels), "tokens_each": cfg.seq_len,
+               "wall_s": wall, "fps_host": len(labels) / wall,
+               "frame_ms_p50": float(np.median(frame_s)) * 1e3,
+               "top1": labels}
+    log.info("%s [%s] vision-stream: %s", cfg.name, args.backend,
+             obs_lib.kv(**{k: v for k, v in summary.items()
+                           if k not in ("model", "backend")}))
+    workload = cfg.name if cfg.name in S.WORKLOADS else None
+    rep = eng.fws_report(workload=workload)
+    rep.publish(obs.registry)
+    fws = dict(chips=rep.chips, d=rep.d_model, n_tokens=rep.n_tokens,
+               fws_model_fps=rep.fps,
+               frame_latency_us=rep.frame_latency_s * 1e6,
+               stage_occupancy=rep.pipeline.stage_utilization,
+               bubble=rep.pipeline.bubble_fraction)
+    if rep.paper_fps:
+        fws.update(paper_fps=rep.paper_fps, err_pct=100 * rep.fps_error)
+    log.info("fws-pipeline: %s", obs_lib.kv(**fws))
+    return summary | {"fws": fws}
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    if args.arch in C.VISION_ARCHS:
+        obs = obs_lib.Obs()
+        cfg, params, ctx, device = build_vision_model(args, obs=obs)
+        return serve_vision(args, cfg, params, ctx, obs, device)
     if not args.serve_trace:
         raise SystemExit("only --serve-trace is ported (the greedy "
                          "legacy-cache decode is in ROADMAP.md Queue 1)")
     obs = obs_lib.Obs()
     cfg, params, ctx, device = build_model(args, obs=obs)
     return serve_trace(args, cfg, params, ctx, obs, device)
+
 
 if __name__ == "__main__":
     main()

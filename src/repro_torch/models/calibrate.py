@@ -24,29 +24,35 @@ def capture_rowhist_calibration(params, cfg, ctx: RunCtx, batches, *,
                                 cim_cfg: cimlib.CIMConfig | None = None,
                                 min_n: int = 256, max_rows: int = 512,
                                 calib_quant: str = "mxfp4_digital",
-                                wq_cache: dict | None = None) -> dict:
+                                wq_cache: dict | None = None,
+                                forward_fn=None) -> dict:
     """``{param-tree path: LayerCalib}`` for every static analog-eligible
-    linear, from ``batches`` (model-input dicts) run on ``calib_quant``."""
+    linear, from ``batches`` (model-input dicts) run on ``calib_quant``
+    through ``forward_fn(params, cfg, ctx, batch)`` (default
+    ``lm.forward``; ``vit.forward`` for the encoder)."""
+    forward_fn = forward_fn or lm.forward
     tap = backends.ActivationTap(min_n=min_n, max_rows=max_rows)
     cap_ctx = dataclasses.replace(ctx, quant=calib_quant, tap=tap, scope="")
     with torch.no_grad():
         for batch in batches:
-            lm.forward(params, cfg, cap_ctx, batch)
+            forward_fn(params, cfg, cap_ctx, batch)
         return backends.calibrate_taps(tap, cim_cfg or cimlib.CIMConfig(),
                                        wq_cache=wq_cache)
 
 
 def convert_model_cim(params, cfg, ctx: RunCtx, batches, *,
                       cim_cfg: cimlib.CIMConfig | None = None,
-                      min_n: int = 256, max_rows: int = 512):
+                      min_n: int = 256, max_rows: int = 512,
+                      forward_fn=None):
     """Capture -> Row-Hist calibrate -> convert. Returns
     ``(converted_params, calibs)``; serve with ``RunCtx(quant="cim",
-    cim=cim_cfg)``."""
+    cim=cim_cfg)``. ``forward_fn`` selects the model family (default
+    ``lm.forward``, see :func:`capture_rowhist_calibration`)."""
     cim_cfg = cim_cfg or cimlib.CIMConfig()
     wq_cache: dict = {}
     calibs = capture_rowhist_calibration(
         params, cfg, ctx, batches, cim_cfg=cim_cfg, min_n=min_n,
-        max_rows=max_rows, wq_cache=wq_cache)
+        max_rows=max_rows, wq_cache=wq_cache, forward_fn=forward_fn)
     conv = backends.convert_params_cim(params, calibs, min_n=min_n,
                                        wq_cache=wq_cache)
     return conv, calibs

@@ -63,17 +63,21 @@ def build_segments(cfg: ArchConfig) -> list[Segment]:
 def init_model(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random float32 parameters on ``gen``'s device."""
     params: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model)}
-    params["segments"] = [
-        [{"attn": attn_mod.attn_init(gen, seg.attn),
-          "ffn": ffn_mod.ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
-                                  cfg.norm, cfg.use_bias)}
-         for _ in range(seg.n)]
-        for seg in build_segments(cfg)
-    ]
+    params["segments"] = [[block_init(gen, cfg, seg) for _ in range(seg.n)]
+                          for seg in build_segments(cfg)]
     params["final_ln"] = norm_init(cfg.norm, cfg.d_model, gen.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size)
     return params
+
+
+def block_init(gen: torch.Generator, cfg, seg: Segment) -> dict:
+    """One layer's parameters: the attention sublayer, then the FFN
+    (``cfg`` needs ``d_model``, ``d_ff``, ``ffn_kind``, ``norm`` and
+    ``use_bias``: an ``ArchConfig`` or a ``ViTConfig``)."""
+    return {"attn": attn_mod.attn_init(gen, seg.attn),
+            "ffn": ffn_mod.ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
+                                    cfg.norm, cfg.use_bias)}
 
 
 # --------------------------------------------------------------- caches
@@ -122,25 +126,40 @@ def forward(params, cfg: ArchConfig, ctx: RunCtx, batch: dict, caches=None,
         ctx = dataclasses.replace(ctx, arange_positions=True)
     new_caches = []
     for i, seg in enumerate(build_segments(cfg)):
-        a = seg.attn
-        tables = (ropelib.rope_tables(positions, a.head_dim, a.rope_theta)
-                  if a.use_rope else None)
-        layers = params["segments"][i]
-        seg_caches = []
-        paths = layer_paths(f"segments/{i}", seg.n)
-        for j, (pj, path) in enumerate(zip(layers, paths)):
-            lctx = ctx.scoped(path)
-            cj = caches[i][j] if caches is not None else None
-            x, nc = attn_mod.attn_apply(lctx.scoped("attn"), a, pj["attn"], x,
-                                        positions, cj, pos, rope_tables=tables)
-            x = ffn_mod.ffn_apply(lctx.scoped("ffn"), cfg.ffn_kind, cfg.norm,
-                                  pj["ffn"], x)
-            seg_caches.append(nc)
+        x, seg_caches = run_segment(
+            ctx, cfg, seg, params["segments"][i], x, positions,
+            caches[i] if caches is not None else None, pos,
+            path=f"segments/{i}")
         new_caches.append(seg_caches)
     x = norm_apply(cfg.norm, params["final_ln"], x)
     if return_hidden:
         return x, new_caches
     return _head(ctx, cfg, params, x), new_caches
+
+
+def run_segment(ctx: RunCtx, cfg, seg: Segment, layers: list, x, positions,
+                caches: list | None = None, pos=None, *, path: str):
+    """Run one segment's layers (attention, then FFN, each pre-norm with
+    its residual) over ``x``: the counterpart of the reference's
+    ``lm._run_segment`` in its unrolled mode. ``cfg`` needs ``ffn_kind``
+    and ``norm`` (an ``ArchConfig`` or a ``ViTConfig``). Each layer's
+    capture scope is ``<path>/L<j>``, or ``<path>`` for a single layer
+    (``layers/backends.py::layer_paths``). Returns (x, the layers' new
+    caches, None each without ``caches``)."""
+    a = seg.attn
+    tables = (ropelib.rope_tables(positions, a.head_dim, a.rope_theta)
+              if a.use_rope else None)
+    new_caches = []
+    for j, (pj, lpath) in enumerate(zip(layers,
+                                        layer_paths(path, len(layers)))):
+        lctx = ctx.scoped(lpath)
+        cj = caches[j] if caches is not None else None
+        x, nc = attn_mod.attn_apply(lctx.scoped("attn"), a, pj["attn"], x,
+                                    positions, cj, pos, rope_tables=tables)
+        x = ffn_mod.ffn_apply(lctx.scoped("ffn"), cfg.ffn_kind, cfg.norm,
+                              pj["ffn"], x)
+        new_caches.append(nc)
+    return x, new_caches
 
 
 def _head(ctx, cfg, params, x):

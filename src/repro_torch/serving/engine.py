@@ -23,8 +23,9 @@ from its donor page and only the suffix chunks run; on a miss the clone
 zeroes the page, whose stale rows would otherwise corrupt the V blocks'
 shared exponents of the quantized-resident mirrors.
 
-Not ported yet (ROADMAP.md Queue 1): the legacy split-page layout and
-``trace_report`` (the FWS pipeline model).
+``trace_report`` maps the recorded step events onto the FWS pipeline
+model (``serving/pipeline.py``). Not ported yet (ROADMAP.md Queue 1): the
+legacy split-page layout.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 from repro_torch.layers import attention as attn_mod
 from repro_torch.models import lm
 from repro_torch.obs import Obs
+from repro_torch.serving import pipeline as pipe_mod
 from repro_torch.serving.kvcache import (
     PagedKVCache,
     PoolExhausted,
@@ -191,10 +193,10 @@ class Engine:
             raise RuntimeError(f"engine did not drain in {max_steps} steps")
         return {rid: list(r.out) for rid, r in self.requests.items()}
 
-    def trace_report(self):
-        raise NotImplementedError("the FWS pipeline model (serving/pipeline."
-                                  "py, hwmodel) is not ported yet "
-                                  "(ROADMAP.md Queue 1)")
+    def trace_report(self) -> pipe_mod.TraceReport:
+        """The recorded step events mapped onto the FWS pipeline model."""
+        return pipe_mod.simulate_trace(self.obs.steps, self.cfg.d_model,
+                                       self.ecfg.lanes)
 
     @property
     def slot_utilization(self) -> float:

@@ -5,6 +5,8 @@ isolation from JAX.
   quantized-resident pool produces, token for token, what each request
   produces alone (the reference's isolation invariant, inside the port).
 - Allocator and scheduler behave as the reference's (same host code).
+  (The FWS pipeline model behind ``trace_report`` is held to the
+  reference in ``tests/test_torch_vision.py``.)
 - ``repro_torch`` imports without JAX and imports nothing of ``repro``.
 - The launcher serves every backend on the CPU when asked and refuses to
   fall back to the CPU silently; so does every public builder of device
@@ -91,8 +93,9 @@ def test_staggered_batching_equals_solo_runs(backend, request):
 
 
 def test_engine_rejects_unported_modes(cim_model):
-    """What stays unported raises (the legacy layout, ``trace_report``);
-    chunked prefill and the prefix cache take the reference's checks."""
+    """What stays unported raises (the legacy layout); chunked prefill and
+    the prefix cache take the reference's checks; ``trace_report`` of an
+    engine that ran nothing is the pipeline model of no jobs."""
     params, ctx = cim_model
     with pytest.raises(ValueError, match="prefix_cache requires chunk_len"):
         Engine(params, CFG, ctx, dataclasses.replace(ECFG, prefix_cache=True))
@@ -101,8 +104,8 @@ def test_engine_rejects_unported_modes(cim_model):
             Engine(params, CFG, ctx, dataclasses.replace(ECFG, chunk_len=bad))
     with pytest.raises(NotImplementedError, match="Queue 1"):
         Engine(params, CFG, ctx, dataclasses.replace(ECFG, kv_layout="legacy"))
-    with pytest.raises(NotImplementedError):
-        Engine(params, CFG, ctx, ECFG).trace_report()
+    rep = Engine(params, CFG, ctx, ECFG).trace_report()
+    assert rep.request_latency == {} and rep.pipeline.makespan == 0.0
     with pytest.raises(ValueError, match="prompt length"):
         Engine(params, CFG, ctx, ECFG).add_request(list(range(17)), 2)
 
@@ -165,7 +168,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.kernels.cim_linear.ops, "
             "repro_torch.kernels.paged_attention.ops, "
             "repro_torch.kernels.mxfp4_matmul.ops, "
-            "repro_torch.kernels.flash_attention.ops; "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.models.vit, repro_torch.serving.vision, "
+            "repro_torch.serving.pipeline, repro_torch.hwmodel.perf; "
             "import runpy; runpy.run_path('chip_smoke.py', run_name='x'); "
             "assert not [m for m, v in sys.modules.items() "
             "if v is not None and m.split('.')[0] in ('jax', 'repro')]")
