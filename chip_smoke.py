@@ -48,11 +48,12 @@
    source). ``cim_linear`` launches by route must
    show both routes in the serve, ``wgmma`` in the prefill (M = 192 with
    N > 1024) and ``splitk`` only in the decode steps.
-5. Serve ``--backend mxfp4`` the same way at full width and full depth (32
-   layers): ``mxfp4_matmul`` (both routes) and ``paged_decode`` must have
-   launched, ``cim_linear`` and ``paged_decode_mx`` not; the same output
-   checks and profiles, where the prefill's linears must take the
-   ``wgmma`` route and the decode step's the ``mma`` route only.
+5. Serve ``--backend mxfp4`` the same way at full width with the depth
+   cut to 16 of 32 layers (the run's time limit): ``mxfp4_matmul`` (both
+   routes) and ``paged_decode`` must have launched, ``cim_linear`` and
+   ``paged_decode_mx`` not; the same output checks and profiles, where the
+   prefill's linears must take the ``wgmma`` route and the decode step's
+   the ``mma`` route only.
 6. Serve long [``mxfp4``]: phase 5's model through the launcher's
    ``serve_trace`` with 4 prompts of up to 2048 tokens (every prefill
    [1, 2048], past ``dense_attn_max``) and 32 new tokens: ``flash_attention``
@@ -86,20 +87,41 @@
    ``tiny_vit`` gives the same logits on the card as on the CPU (SQNR >=
    30 dB), and phase 3 also holds both matmul kernels at ViT-B/16's
    shapes (``VIT_CIM_SHAPES``, ``VIT_MM_SHAPES``).
-9. Prints the kernels line, then the card's name and power limit, then
-   the device line, as the last line.
+9. Serve the other dense families: gemma3-1b (26 layers, 5:1
+   local:global, head_dim 256, one KV head, tied head) and
+   h2o-danube-1.8b (24 layers, 4096-slot window, head_dim 80) at full
+   width and depth through the launcher's ``build_model`` and
+   ``serve_trace`` under ``mxfp4`` and ``cim`` (``DENSE_RUNS``): 8
+   staggered requests of up to 384-token prompts ([1, 384] prefills, past
+   ``dense_attn_max``) and 64 new tokens, 4 lanes, 6 slots, page 448.
+   Launch counts by kernel and route must be exactly those the code gives
+   (``_dense_launches``; ``flash_attention`` on ``fma`` under ``mxfp4``);
+   logits of a 384-token prefill and 4 decode steps against
+   ``impl="ref"`` with the chunked plain decode (SQNR >= 30 dB; the dense
+   ``impl="ref"`` figure is printed beside it); each request served alone
+   gives its first 32 staggered tokens bitwise; the tied head timed; one
+   prefill and 8 decode steps profiled (one window each); a ``serve
+   dense`` line a run. First, the kernel rows at these archs' shapes
+   (``DENSE_SHAPES``): B and D at head widths 256 and 80 (page 448,
+   lengths 0, 1, W/2, W), E at the [1, 384] prefill shapes in bf16 and at
+   D 256 in f32, A and C at the new linear shapes at M = 4 and 384.
+10. Prints the kernels line (phase 9 adds B, D and E at head widths 256
+    and 80), then the card's name and power limit, then the device line,
+    as the last line.
 
 Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``paged_decode_mx {...}``, ``mxfp4_matmul {...}``, ``paged_decode {...}``,
 ``flash_attention {...}``, ``serve {...}``, ``prefill profile {...}``,
 ``decode profile {...}``, ``serve long {...}``, ``serve chunked {...}``,
-``frame profile <arch> {...}``, ``serve vision {...}``).
+``frame profile <arch> {...}``, ``serve vision {...}``, ``serve dense
+{...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -125,7 +147,8 @@ TRACE_ARGS = ["--no-tiny", "--serve-trace", "--kv-layout", "fused",
 SERVE_ARGS = {  # backend -> launcher arguments
     "cim": TRACE_ARGS + ["--backend", "cim", "--layers", "8",
                          "--calib-batches", "2", "--batch", "2"],
-    "mxfp4": TRACE_ARGS + ["--backend", "mxfp4"],
+    # 16 of 32 layers: the run's time limit, with phase 9
+    "mxfp4": TRACE_ARGS + ["--backend", "mxfp4", "--layers", "16"],
 }
 OWN_KERNELS = {"cim": ("cim_linear", "paged_decode_mx"),
                "mxfp4": ("mxfp4_matmul", "paged_decode")}
@@ -149,7 +172,8 @@ CROSSOVER_M = (4, 8, 16, 32, 64)  # rows at which the matmul routes are timed
 CIM_CROSSOVER_M = (16, 32, 64, 128)  # the same for cim_linear's routes
 DECODE_DIMS = (4, 4, 9, 128)  # lanes, KV heads, heads per KV head, head_dim
 PAGES = ((48, [0, 1, 33, 48]), (256, [0, 31, 129, 256]))  # W, lengths
-# the long serve (phase 6): 2048-token prompts, 32 new tokens, 32 layers
+# the long serve (phase 6): 2048-token prompts, 32 new tokens, phase 5's
+# 16 layers
 LONG_PROMPT, LONG_TOKENS, LONG_REQUESTS = 2048, 32, 4
 LONG_PAGE = LONG_PROMPT + LONG_TOKENS
 # the chunked serve with the prefix cache (phase 7), cim, 8 layers
@@ -178,6 +202,31 @@ VIT_CIM_SHAPES = ((197, 768, 768), (197, 768, 3072))
 VIT_MM_SHAPES = ((197, 768, 3072, torch.bfloat16),
                  (196, 768, 768, torch.float32),
                  (1, 768, 1000, torch.bfloat16))
+# the two other dense families (phase 9) at full width and depth through
+# the launcher's serve_trace: 8 staggered requests of up to 384-token
+# prompts ([1, 384] prefills, past dense_attn_max) and 64 new tokens, page
+# 448 (inside gemma3-1b's 512-slot local window)
+DENSE_RUNS = (("gemma3-1b", "mxfp4"), ("gemma3-1b", "cim"),
+              ("h2o-danube-1.8b", "mxfp4"), ("h2o-danube-1.8b", "cim"))
+DENSE_PROMPT, DENSE_TOKENS, DENSE_PAGE = 384, 64, 448
+DENSE_ARGS = ["--no-tiny", "--serve-trace", "--requests", "8", "--lanes",
+              "4", "--slots", "6", "--prompt-len", str(DENSE_PROMPT),
+              "--tokens", str(DENSE_TOKENS), "--calib-batches", "2",
+              "--batch", "2"]
+DENSE_STEPS = 4  # teacher-forced decode steps held to impl="ref"
+SOLO_TOKENS = 32  # each request alone: its first tokens of the serve
+# per arch: decode dims (lanes, KV heads, heads per KV head, head_dim),
+# flash_attention's prefill shape (B, S, H, Hkv, D, window) and the static
+# linears (K, N): wq, wk / wv, wo, w1 / w3, w2 (and danube's head)
+DENSE_SHAPES = {
+    "gemma3-1b": ((4, 1, 4, 256), (1, DENSE_PROMPT, 4, 1, 256, 512),
+                  ((1152, 1024), (1152, 256), (1024, 1152), (1152, 6912),
+                   (6912, 1152))),
+    "h2o-danube-1.8b": ((4, 8, 4, 80), (1, DENSE_PROMPT, 32, 8, 80, 4096),
+                        ((2560, 2560), (2560, 640), (2560, 6912),
+                         (6912, 2560), (2560, 32000))),
+}
+DENSE_LENGTHS = [0, 1, DENSE_PAGE // 2, DENSE_PAGE]
 # kernel function -> wrapper and route, for device time by route
 KERNEL_ROUTES = {
     "cim_splitk_kernel": "cim_linear splitk",
@@ -435,19 +484,21 @@ def cim_route_crossover(w, gen, dev, cfg) -> None:
             | ms), flush=True)
 
 
-def check_paged_decode(dev) -> list:
-    """``paged_decode_mx`` at each width of ``MX_PAGES`` against its plain
-    version (and, loosely, the dense reference)."""
+def check_paged_decode(dev, dims=DECODE_DIMS, pages=MX_PAGES,
+                       extra: dict | None = None) -> list:
+    """``paged_decode_mx`` at ``dims`` (lanes, KV heads, heads per KV head,
+    head_dim) and each width of ``pages`` against its plain version (and,
+    loosely, the dense reference)."""
     from repro_torch.core import mx as mxlib
     from repro_torch.kernels.paged_attention import layout
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.paged_attention import ref as pref
 
-    (lanes, hkv, g, dh), pool = DECODE_DIMS, 10
+    (lanes, hkv, g, dh), pool = dims, 10
     scale = dh ** -0.5
     gen = torch.Generator(device=dev).manual_seed(2)
     rows_out = []
-    for w, lens in MX_PAGES:
+    for w, lens in pages:
         kv = (torch.randn((pool, w, 2 * hkv, dh), generator=gen, device=dev)
               * 0.7).to(torch.bfloat16)
         k, v = layout.split_kv(kv)
@@ -483,7 +534,7 @@ def check_paged_decode(dev) -> list:
                       for n in lens) + 2 * 2 * q.numel() + 8 * lanes
         ops = sum(4.0 * n * hkv * g * dh for n in lens)
         bound, by = _bound_ms(n_bytes, ops, "bf16")
-        rows_out.append(dict(
+        rows_out.append((extra or {}) | dict(
             lanes=lanes, hkv=hkv, g=g, dh=dh, w=w, bk=bk, lengths=lens,
             heads_per_block=pops.pick_heads(g), max_abs_err=err, sqnr_vs_plain_db=sq_plain,
             sqnr_vs_dense_db=sq_dense, ok=ok, ms=_device_ms(kernel, 50),
@@ -577,20 +628,21 @@ def route_crossover(codes, exps, gen, dev) -> None:
             | {f"{r}_ms": t for r, t in ms.items()}), flush=True)
 
 
-def check_paged_decode_float(dev) -> list:
-    """``paged_decode`` at each width of ``FLOAT_PAGES`` against its plain
-    version, the dense reference and SDPA."""
+def check_paged_decode_float(dev, dims=DECODE_DIMS, pages=FLOAT_PAGES,
+                             extra: dict | None = None) -> list:
+    """``paged_decode`` at ``dims`` and each width of ``pages`` against its
+    plain version, the dense reference and SDPA."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention import layout
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.paged_attention import ref as pref
 
-    (lanes, hkv, g, dh), pool = DECODE_DIMS, 10
+    (lanes, hkv, g, dh), pool = dims, 10
     scale = dh ** -0.5
     gen = torch.Generator(device=dev).manual_seed(7)
     rows_out = []
-    for w, lens in FLOAT_PAGES:
+    for w, lens in pages:
         kv = (torch.randn((pool, w, 2 * hkv, dh), generator=gen, device=dev)
               * 0.7).to(torch.bfloat16)
         q = (torch.randn((lanes, hkv, g, dh), generator=gen, device=dev)
@@ -630,7 +682,7 @@ def check_paged_decode_float(dev) -> list:
         ops = sum(4.0 * n * hkv * g * dh for n in lens)
         bound, by = _bound_ms(n_bytes, ops, "bf16")
         sw, splits = pops.pick_splits(w)
-        rows_out.append(dict(
+        rows_out.append((extra or {}) | dict(
             lanes=lanes, hkv=hkv, g=g, dh=dh, w=w, bk=bk, split_width=sw,
             splits=splits, lengths=lens,
             max_abs_err=err, sqnr_vs_plain_db=sq_plain,
@@ -688,7 +740,8 @@ def check_flash_attention(dev) -> list:
 def _flash_attention_row(q, k, v, window: int, off: int) -> dict:
     """One causal ``flash_attention`` shape against its plain version:
     |err| <= 1e-2 + 1e-2 |ref| everywhere, and SQNR >= ``FA_MIN_SQNR_DB``
-    in bf16; the picked route's counter moves by one. The library time is
+    in bf16 (bf16 with D 64 or 128 must take ``wgmma``); the picked
+    route's counter moves by one. The library time is
     SDPA's with the boolean mask, or, where ``is_causal`` computes the same
     function (square, no window, no offset), the faster of that and
     ``is_causal=True``, which may take a faster backend; ``library_call``
@@ -703,7 +756,7 @@ def _flash_attention_row(q, k, v, window: int, off: int) -> dict:
     dev = q.device
     kw = dict(causal=True, window=window, q_offset=off)
     route = fa_ops.pick_route(sq, sk, d, q.dtype)
-    if q.dtype == torch.bfloat16 and route != "wgmma":
+    if q.dtype == torch.bfloat16 and d in fa_ops.TC_D and route != "wgmma":
         raise AssertionError(f"flash_attention picked {route} for bf16 at "
                              f"{tuple(q.shape)}")
     before = fa_ops.flash_attention.route_launches[route]
@@ -814,7 +867,8 @@ def serve_full_width(backend: str) -> tuple[dict, tuple]:
     cim_routes = _cim_routes()
     peak = torch.cuda.max_memory_allocated()
     print("serve", json.dumps({"backend": backend, "layers": cfg.n_layers}
-                              | {k: v for k, v in summary.items() if k != "out"}
+                              | {k: v for k, v in summary.items()
+                                 if k not in serve.SUMMARY_DATA}
                               | {"launches": launches,
                                  "mxfp4_matmul_routes": routes,
                                  "cim_linear_routes": cim_routes,
@@ -861,7 +915,7 @@ def serve_full_width(backend: str) -> tuple[dict, tuple]:
 
 
 def serve_long(cfg, params, ctx) -> dict:
-    """Phase 6: the 32-layer ``mxfp4`` model of phase 5 serves
+    """Phase 6: the 16-layer ``mxfp4`` model of phase 5 serves
     ``LONG_REQUESTS`` prompts of up to ``LONG_PROMPT`` tokens through the
     launcher's ``serve_trace``. Every prefill is [1, 2048], past
     ``dense_attn_max``: ``flash_attention`` must launch once a layer a
@@ -890,7 +944,8 @@ def serve_long(cfg, params, ctx) -> dict:
     peak = torch.cuda.max_memory_allocated()
     print("serve long", json.dumps(
         {"backend": "mxfp4", "layers": cfg.n_layers}
-        | {k: v for k, v in summary.items() if k not in ("out", "prefix")}
+        | {k: v for k, v in summary.items()
+           if k not in serve.SUMMARY_DATA + ("prefix",)}
         | {"launches": launches, "mxfp4_matmul_routes": routes,
            "flash_attention_routes": fa_routes,
            "peak_mem_gib": peak / 2**30}), flush=True)
@@ -1195,6 +1250,319 @@ def serve_vision_full(arch: str, backend: str) -> dict:
     return {"launches": launches, "line": line}
 
 
+def check_dense_kernels(dev) -> dict:
+    """Phase 9's kernel rows, each against its plain version as in phase
+    3: ``paged_decode_mx`` and ``paged_decode`` at each arch's decode shape
+    (page 448, lengths 0, 1, W/2, W), ``flash_attention`` at its [1, 384]
+    prefill shape in bf16 (the fma route) and, at head_dim 256, in f32;
+    ``cim_linear`` and ``mxfp4_matmul`` at its linear shapes at M = 4 and
+    M = 384. Rows by kernel name; each names its arch (``case``)."""
+    from repro_torch.core import cim as cimlib
+    from repro_torch.core import mx as mxlib
+    from repro_torch.layers import backends
+
+    rows: dict = {name: [] for name in _kernel_wrappers()}
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cfg = cimlib.CIMConfig()
+    for arch, (dims, fa, linears) in DENSE_SHAPES.items():
+        extra, pages = {"case": arch}, ((DENSE_PAGE, DENSE_LENGTHS),)
+        rows["paged_decode_mx"] += check_paged_decode(dev, dims, pages, extra)
+        rows["paged_decode"] += check_paged_decode_float(dev, dims, pages,
+                                                         extra)
+        b, s, h, hkv, d, window = fa
+        for dtype in ((torch.bfloat16, torch.float32) if d == 256
+                      else (torch.bfloat16,)):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, s, h, d), (b, s, hkv, d),
+                                     (b, s, hkv, d)))
+            rows["flash_attention"].append(
+                extra | _flash_attention_row(q, k, v, window, 0))
+            print("flash_attention", json.dumps(rows["flash_attention"][-1]),
+                  flush=True)
+            if not rows["flash_attention"][-1]["ok"]:
+                raise AssertionError(f"flash_attention kernel disagrees at "
+                                     f"{rows['flash_attention'][-1]}")
+        for kk, n in linears:
+            w = mxlib.quantize_w(torch.randn((kk, n), generator=gen,
+                                             device=dev) * kk ** -0.5)
+            packed = backends._quantize_packed(
+                torch.randn((kk, n), generator=gen, device=dev) * kk ** -0.5)
+            w_bf16 = backends._dequant_packed(packed["codes"], packed["exps"])
+            for m in (4, DENSE_PROMPT):
+                x = torch.randn((m, kk), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                rows["cim_linear"].append(_cim_row(
+                    x.float(), w, cimlib.calibrate_rowhist([x.float()], w, cfg),
+                    cfg, extra))
+                rows["mxfp4_matmul"].append(_mxfp4_row(
+                    x, packed["codes"], packed["exps"], w_bf16, extra))
+            del w, packed, w_bf16
+    return rows
+
+
+def _dense_launches(cfg, backend: str, prefills: int, decodes: int,
+                    prefill_len: int, lanes: int, attn_max: int, min_n: int):
+    """Launches by kernel and the matmul kernel's launches by route that
+    ``prefills`` [1, prefill_len] prefills (the layers' linears at
+    prefill_len rows, an untied head at the last row) and ``decodes``
+    [lanes, 1] decode steps of ``cfg`` make: a linear is the kernel's where
+    the conversion packs it (K % 32 == 0, N >= ``min_n``); one paged decode
+    a layer a step, and, under mxfp4 past ``attn_max``, one
+    ``flash_attention`` a layer a prefill (under cim the digital SDPA is
+    torch ops)."""
+    from repro_torch.kernels.cim_linear import ops as cim_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    layer = ([(d, cfg.n_heads * hd)] + [(d, cfg.n_kv_heads * hd)] * 2
+             + [(cfg.n_heads * hd, d), (d, f)]
+             + [(d, f)] * (cfg.ffn_kind in ("swiglu", "geglu")) + [(f, d)])
+    head = [] if cfg.tie_embeddings else [(d, cfg.vocab_size)]
+    body = layer * cfg.n_layers
+    routes: dict = {}
+    for m, times, shapes in ((prefill_len, prefills, body), (1, prefills, head),
+                             (lanes, decodes, body + head)):
+        for k, n in shapes:
+            if k % 32 or n < min_n:
+                continue
+            r = (cim_ops.pick_route(m, k, n) if backend == "cim"
+                 else mm_ops.pick_route(m, k, n, torch.bfloat16))
+            routes[r] = routes.get(r, 0) + times
+    launches = dict.fromkeys(_kernel_wrappers(), 0)
+    launches[VISION_KERNEL[backend]] = sum(routes.values())
+    launches["paged_decode_mx" if backend == "cim" else "paged_decode"] = (
+        decodes * cfg.n_layers)
+    fa_routes = dict.fromkeys(fa_ops.ROUTES, 0)
+    if backend != "cim" and prefill_len > attn_max:
+        launches["flash_attention"] = prefills * cfg.n_layers
+        fa_routes[fa_ops.pick_route(prefill_len, prefill_len, hd,
+                                    torch.bfloat16)] = prefills * cfg.n_layers
+    return launches, routes, fa_routes
+
+
+@contextlib.contextmanager
+def _chunked_ref_decode():
+    """``impl="ref"`` with the paged decode's chunked plain versions in
+    place of the dense whole-axis ``ragged_paged_decode_ref``: the function
+    the kernels (and the Pallas ones) compute. Under the digital SDPA the
+    dense function quantizes P over the whole key axis against the final
+    max, the chunked one per chunk against the running max: another
+    function, about 6 dB apart in the logits of a random-weight model at
+    page 448 (on the CPU, plain versions both)."""
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention import ref as pref
+
+    dense = pref.ragged_paged_decode_ref
+
+    def chunked(q, rows, lengths, *, kv=None, quant=None, scale: float):
+        if kv is not None:
+            return pref.paged_flash_decode_ref(
+                q, kv, rows, lengths, scale=scale, bk=pops.pick_bk(kv.shape[1]))
+        return pref.paged_flash_decode_mx_ref(
+            q, quant["kv_codes"], quant["k_exps"], quant["v_exps"], rows,
+            lengths, scale=scale, bk=pops.pick_bk(quant["kv_codes"].shape[1]))
+
+    pref.ragged_paged_decode_ref = chunked
+    try:
+        yield
+    finally:
+        pref.ragged_paged_decode_ref = dense
+
+
+def _dense_prefill(cfg, params, ctx, ids):
+    """Logits (all rows) and the fused page of a ``DENSE_PROMPT``-token
+    prefill."""
+    from repro_torch.models import lm
+
+    caches = lm.init_cache(cfg, 1, DENSE_PAGE, fused=True, device=ids.device,
+                           mx_digital=ctx.hybrid_digital_sdpa)
+    with torch.no_grad():
+        lo, caches = lm.forward(params, cfg, ctx,
+                                {"ids": ids[:, :DENSE_PROMPT]}, caches=caches)
+    return lo.float(), caches
+
+
+def _dense_decode(cfg, params, ctx, ids, caches) -> list:
+    """Logits of ``DENSE_STEPS`` teacher-forced decode steps after
+    :func:`_dense_prefill`, on a copy of its page."""
+    from repro_torch.models import lm
+
+    caches = [[{k: v.clone() for k, v in layer.items()} for layer in seg]
+              for seg in caches]
+    out = []
+    with torch.no_grad():
+        for p in range(DENSE_PROMPT, DENSE_PROMPT + DENSE_STEPS):
+            lo, caches = lm.decode_step(params, cfg, ctx, ids[:, p:p + 1], p,
+                                        caches)
+            out.append(lo.float())
+    return out
+
+
+def serve_dense(arch: str, backend: str) -> dict:
+    """Phase 9, one run: ``arch`` at full width and depth through the
+    launcher's ``build_model`` and ``serve_trace`` (``DENSE_ARGS``). The
+    launches by kernel and route must be exactly ``_dense_launches``'s for
+    the serve's prefills and decode steps. Then logits of a 384-token
+    prefill and 4 decode steps against ``impl="ref"`` with the chunked
+    plain decode (SQNR >= 30 dB; the dense ``impl="ref"`` figure is
+    printed beside it), each request served alone giving its first
+    ``SOLO_TOKENS`` staggered tokens bitwise, the tied head's time
+    (gemma3-1b), and one prefill and 8 decode steps under the profiler."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import Engine
+
+    args = serve.build_parser().parse_args(
+        ["--arch", arch, "--backend", backend] + DENSE_ARGS)
+    obs = obs_lib.Obs()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, ctx, dev = serve.build_model(args, obs=obs)
+    build_s = time.perf_counter() - t0
+    resident = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[{backend}] {cfg.name}: full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}, head_dim {cfg.hd}, d_ff {cfg.d_ff} "
+          f"{cfg.ffn_kind}, vocab {cfg.vocab_size}, segments "
+          f"{[(s.n, s.attn.window) for s in lm.build_segments(cfg)]})",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    summary = serve.serve_trace(args, cfg, params, ctx, obs, dev)
+    launches, mm_routes = _read_counts()
+    routes = _cim_routes() if backend == "cim" else mm_routes
+    fa_routes = dict(fa_ops.flash_attention.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    ecfg = summary["ecfg"]
+    want, want_routes, want_fa = _dense_launches(
+        cfg, backend, len(summary["out"]), summary["decode_steps"],
+        ecfg.prefill_len, ecfg.lanes, ctx.dense_attn_max, args.cim_min_n)
+    exact = (launches == want and fa_routes == want_fa
+             and {r: n for r, n in routes.items() if n} == want_routes)
+    for v in summary["out"].values():
+        if len(v) != DENSE_TOKENS or not all(0 <= t < cfg.vocab_size
+                                              for t in v):
+            raise AssertionError(f"[{backend} {arch}] served tokens {v}")
+    # logits: kernels vs impl="ref" with the chunked plain decode
+    ids = torch.randint(0, cfg.vocab_size, (1, DENSE_PROMPT + DENSE_STEPS),
+                        device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(14))
+    kctx = dataclasses.replace(ctx, obs=None)
+    rctx = dataclasses.replace(kctx, impl="ref")
+    lo, caches = _dense_prefill(cfg, params, kctx, ids)
+    got = [lo] + _dense_decode(cfg, params, kctx, ids, caches)
+    lo, caches = _dense_prefill(cfg, params, rctx, ids)
+    with _chunked_ref_decode():
+        ref = [lo] + _dense_decode(cfg, params, rctx, ids, caches)
+    dense = [lo] + _dense_decode(cfg, params, rctx, ids, caches)
+    del lo, caches
+    sq = [_sqnr_db(r, g) for r, g in zip(ref, got)]
+    sq_dense = [_sqnr_db(r, g) for r, g in zip(dense, got)]
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    print(f"[{backend} {arch}] logits of a {DENSE_PROMPT}-token prefill and "
+          f"{DENSE_STEPS} decode steps, kernels vs impl=ref (chunked plain "
+          f"decode): SQNR {sq} dB; vs impl=ref (dense decode) {sq_dense} dB;"
+          f" finite {finite}", flush=True)
+    del got, ref, dense
+    # each request alone, through an engine of the serve's config: its
+    # first SOLO_TOKENS greedy tokens, which a longer solo run repeats
+    t1 = time.perf_counter()
+    solo_diff = []
+    for rid, prompt in summary["prompts"].items():
+        eng = Engine(params, cfg, kctx, ecfg)
+        want = summary["out"][rid][:SOLO_TOKENS]
+        eng.add_request(prompt, max_new=len(want))
+        if eng.run()[0] != want:
+            solo_diff.append(rid)
+    solo_s = time.perf_counter() - t1
+    head = None
+    if cfg.tie_embeddings:  # the tied head at a decode step's 4 rows
+        x = torch.randn((4, 1, cfg.d_model), device=dev).to(torch.bfloat16)
+        emb = params["embed"]["emb"]
+        e32 = emb.float()  # what the float backend keeps resident
+        head = {"emb_dtype": str(emb.dtype).split(".")[-1],
+                "ms": _device_ms(lambda: lm._head(kctx, cfg, params, x), 20),
+                "bound_ms": _bound_ms(emb.numel() * 2 + 4 * cfg.vocab_size * 2,
+                                      2.0 * 4 * cfg.d_model * cfg.vocab_size,
+                                      "bf16")[0],
+                "f32_cast_ms": _device_ms(lambda: e32.to(torch.bfloat16), 5)}
+        del e32
+    # one profiler window each: in PR 20's runs every decode window traced
+    # 3 matmul launches fewer than counted, whatever the attempt
+    prof = {"prefill": profile_prefill(cfg, params, ctx, DENSE_PROMPT,
+                                       DENSE_PAGE, attempts=1),
+            "decode": profile_decode(cfg, params, ctx,
+                                     prompt_len=DENSE_PROMPT // 3,
+                                     page_len=DENSE_PAGE, attempts=1)}
+    line = {"model": cfg.name, "backend": backend, "layers": cfg.n_layers,
+            **{k: v for k, v in summary.items()
+               if k not in serve.SUMMARY_DATA + ("prefix",)},
+            "launches": launches, "routes": routes,
+            "flash_attention_routes": fa_routes, "want_launches": want,
+            "want_routes": want_routes, "launches_exact": exact,
+            "logits_sqnr_db": sq, "logits_sqnr_vs_dense_ref_db": sq_dense,
+            "staggered_equals_solo": not solo_diff, "solo_s": solo_s,
+            "tied_head": head, "peak_mem_gib": peak / 2**30,
+            "resident_params_gib": resident / 2**30,
+            "model_build_s": build_s,
+            "prefill_device_ms": prof["prefill"]["device_ms_per_step"],
+            "prefill_kernel_ms": prof["prefill"]["kernel_ms_per_step"],
+            "decode_device_ms": prof["decode"]["device_ms_per_step"],
+            "decode_kernel_ms": prof["decode"]["kernel_ms_per_step"],
+            "decode_busy_share": prof["decode"]["device_busy_share"]}
+    print("serve dense", json.dumps(line), flush=True)
+    if not exact:
+        raise AssertionError(f"[{backend} {arch}] launches {launches} "
+                             f"routes {routes} flash {fa_routes}; want "
+                             f"{want} {want_routes} {want_fa}")
+    if not finite or min(sq) < 30.0:
+        raise AssertionError(f"[{backend} {arch}] logits disagree: {sq}")
+    if solo_diff:
+        raise AssertionError(f"[{backend} {arch}] requests {solo_diff}: "
+                             "staggered tokens are not the solo ones")
+    return {"launches": launches, "line": line}
+
+
+def dense_kernel_entries(dense_rows: dict, runs: dict) -> list:
+    """The kernels line's entries of phase 9: the decode and attention
+    kernels at each arch's head width, each with its launches in the serve
+    that ran it."""
+    out = []
+    for name, replaces, key, run in (
+            ("paged_decode_mx",
+             "src/repro/kernels/paged_attention/kernel.py:275", "dh", "cim"),
+            ("paged_decode",
+             "src/repro/kernels/paged_attention/kernel.py:228", "dh", "mxfp4"),
+            ("flash_attention",
+             "src/repro/kernels/flash_attention/kernel.py:90", "d", "mxfp4")):
+        for arch, (dims, _, _) in DENSE_SHAPES.items():
+            width = dims[3]
+            row = next(r for r in dense_rows[name] if r[key] == width
+                       and r.get("dtype", "bf16") == "bf16")
+            shape = (f"L={row['lanes']} Hkv={row['hkv']} G={row['g']} "
+                     f"Dh={width} W={row['w']} lengths {row['lengths']}"
+                     if key == "dh" else
+                     f"B={row['b']} S={row['sq']} H={row['h']} Hkv="
+                     f"{row['hkv']} D={width} bf16 causal window "
+                     f"{row['window']}")
+            out.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": replaces,
+                "launches": runs[f"dense {arch} {run}"]["launches"][name],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms"),
+                "call_ms": row["call_ms"], "kernel_route": row.get("route"),
+                "shape": f"{shape} ({arch})"})
+    return out
+
+
 def _zero_counts() -> None:
     from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1252,18 +1620,19 @@ def _own_launches(events) -> dict:
     return seen
 
 
-def _profiled(label: str, ctx, steps: int, step, prepare=None) -> dict:
+def _profiled(label: str, ctx, steps: int, step, prepare=None,
+              attempts: int = PROFILE_ATTEMPTS) -> dict:
     """Run ``step`` ``steps`` times under ``torch.profiler``: device time by
     kernel (device events only) against the window's wall clock, and the
     launch counts of the window. A window whose trace holds another count
     of some wrapper's main kernel than the wrapper's counter says is run
     again (``prepare``, if given, readies each window outside it); after
-    ``PROFILE_ATTEMPTS`` such windows the last one's times of the short
+    ``attempts`` such windows the last one's times of the short
     kernels are scaled to the counted launches, ``timer`` says so and a
     ``profile timer:`` line names them."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(PROFILE_ATTEMPTS):
+    for _ in range(attempts):
         if prepare is not None:
             prepare()
         torch.cuda.synchronize()
@@ -1297,7 +1666,7 @@ def _profiled(label: str, ctx, steps: int, step, prepare=None) -> dict:
             if any(_kernel_name(ev.key) in MAIN_KERNELS[w] for w in short):
                 route = KERNEL_ROUTES.get(_kernel_name(ev.key), ev.key[:60])
                 traced[route] = traced.get(route, 0) + ev.count
-        print(f"profile timer: {label} [{ctx.quant}]: {PROFILE_ATTEMPTS} "
+        print(f"profile timer: {label} [{ctx.quant}]: {attempts} "
               f"traces with other launch counts than the wrappers' "
               f"(traced, counted) {short}; traced by route {traced}, "
               f"counted {routes} (mxfp4_matmul) {_cim_routes()} "
@@ -1330,7 +1699,8 @@ def _profiled(label: str, ctx, steps: int, step, prepare=None) -> dict:
 
 
 def profile_prefill(cfg, params, ctx, prompt_len: int = M_PREFILL,
-                    page_len: int = 256) -> dict:
+                    page_len: int = 256,
+                    attempts: int = PROFILE_ATTEMPTS) -> dict:
     """One ``prompt_len``-token prefill through the engine (the request's
     first step) under ``torch.profiler``. Under ``mxfp4`` its linears must
     take the tensor-core route."""
@@ -1346,7 +1716,7 @@ def profile_prefill(cfg, params, ctx, prompt_len: int = M_PREFILL,
         eng.add_request(rng.integers(0, cfg.vocab_size, prompt_len).tolist(),
                         max_new=2)
 
-    out = _profiled("prefill profile", ctx, 1, eng.step, prepare)
+    out = _profiled("prefill profile", ctx, 1, eng.step, prepare, attempts)
     if ctx.quant == "mxfp4_wonly" and not out["mxfp4_matmul_routes"]["wgmma"]:
         raise AssertionError("[mxfp4] the prefill did not take the wgmma "
                              f"route: {out['mxfp4_matmul_routes']}")
@@ -1357,7 +1727,8 @@ def profile_prefill(cfg, params, ctx, prompt_len: int = M_PREFILL,
 
 
 def profile_decode(cfg, params, ctx, steps: int = 8, prompt_len: int = 128,
-                   page_len: int = 256) -> dict:
+                   page_len: int = 256,
+                   attempts: int = PROFILE_ATTEMPTS) -> dict:
     """A steady window of decode steps (4 live lanes, prompts of
     ``prompt_len`` tokens) under ``torch.profiler`` (the requests outlast
     every window it may take). Under ``mxfp4`` its linears (M = 4) must
@@ -1366,11 +1737,11 @@ def profile_decode(cfg, params, ctx, steps: int = 8, prompt_len: int = 128,
     rng = np.random.default_rng(5)
     for _ in range(4):
         eng.add_request(rng.integers(0, cfg.vocab_size, prompt_len).tolist(),
-                        max_new=PROFILE_ATTEMPTS * steps + 4)
+                        max_new=attempts * steps + 4)
     while len(eng.sched.running) < 4:  # the four prefills
         eng.step()
     eng.step()  # one decode step outside the window
-    out = _profiled("decode profile", ctx, steps, eng.step)
+    out = _profiled("decode profile", ctx, steps, eng.step, attempts=attempts)
     routes = out["mxfp4_matmul_routes"]
     if ctx.quant == "mxfp4_wonly" and (routes["wgmma"] or routes["fma"]
                                        or not routes["mma"]):
@@ -1454,6 +1825,10 @@ def main() -> int:
         runs[f"vision {arch} {backend}"] = phase(
             f"serve vision {arch} [{backend}]", serve_vision_full, arch,
             backend)
+    dense_rows = phase("dense kernels", check_dense_kernels, dev)  # phase 9
+    for arch, backend in DENSE_RUNS:
+        runs[f"dense {arch} {backend}"] = phase(
+            f"serve {arch} [{backend}]", serve_dense, arch, backend)
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
 
@@ -1490,6 +1865,7 @@ def main() -> int:
               == (FA_SHAPE[1], FA_SHAPE[4], "bf16", 0),
               "B={b} S={sq} H={h} Hkv={hkv} D={d} bf16 causal"),
     ]
+    kernels += dense_kernel_entries(dense_rows, runs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

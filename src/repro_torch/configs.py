@@ -1,8 +1,10 @@
 """Architecture configs, JAX-free (counterpart of ``repro.models.lm.
 ArchConfig``, ``repro.models.vit.ViTConfig`` and ``repro.configs``). Of
-the LMs only the dense ``starcoder2-7b`` is ported so far (the other
-families are listed in ROADMAP.md); the paper's two vision workloads,
-``vit-b16`` and ``vit-l32``, are in ``VISION_ARCHS``."""
+the LMs the three dense ones are ported: ``starcoder2-7b`` (full
+attention), ``h2o-danube-1.8b`` (sliding window) and ``gemma3-1b`` (5:1
+local:global); the MoE, SSM, hybrid, vlm and audio families are listed in
+ROADMAP.md. The paper's two vision workloads, ``vit-b16`` and
+``vit-l32``, are in ``VISION_ARCHS``."""
 
 from __future__ import annotations
 
@@ -68,7 +70,29 @@ STARCODER2_7B = ArchConfig(
     subquadratic=False,
 )
 
-ARCHS: dict[str, ArchConfig] = {STARCODER2_7B.name: STARCODER2_7B}
+# h2o-danube-1.8b [arXiv:2401.16818]: llama+mistral mix with SWA.
+H2O_DANUBE_1_8B = ArchConfig(
+    name="h2o-danube-1.8b", family="dense",
+    n_layers=24, d_model=2560, n_heads=32, n_kv_heads=8, head_dim=80,
+    d_ff=6912, vocab_size=32000,
+    attn_pattern="swa", window=4096, rope_theta=1e4,
+    ffn_kind="swiglu", norm="rmsnorm",
+    subquadratic=True,  # sliding window => bounded KV; runs long_500k
+)
+
+# gemma3-1b [hf:google/gemma-3-1b-pt]: 5:1 local:global, kv=1, 262k vocab.
+GEMMA3_1B = ArchConfig(
+    name="gemma3-1b", family="dense",
+    n_layers=26, d_model=1152, n_heads=4, n_kv_heads=1, head_dim=256,
+    d_ff=6912, vocab_size=262144,
+    attn_pattern="local_global", lg_ratio=5, window=512,
+    rope_theta=1e4, rope_theta_global=1e6, qk_norm=True,
+    ffn_kind="geglu", norm="rmsnorm", tie_embeddings=True,
+    subquadratic=True,  # 5:1 local; the few global layers have kv=1
+)
+
+ARCHS: dict[str, ArchConfig] = {
+    c.name: c for c in (H2O_DANUBE_1_8B, STARCODER2_7B, GEMMA3_1B)}
 
 
 def tiny(cfg: ArchConfig, seq: int = 32) -> ArchConfig:

@@ -22,15 +22,17 @@
 // 67 TFLOP/s of f32 FMAs; the bytes take 0.009 ms.
 //
 // Route "fma" (`flash_attention_launch`): f32 q/k/v (rounding them would
-// change the function), bf16 with another D; all arithmetic f32 on the
-// CUDA cores.
+// change the function), bf16 with another D (h2o-danube-1.8b's 80,
+// gemma3-1b's 256); all arithmetic f32 on the CUDA cores. D <= 256.
 // - A block owns 64 query rows of one (batch, head) and walks the keys in
 //   tiles of 64. Q, K and V tiles sit in shared memory in their input type
 //   with a row stride of D + 2 elements (bank-conflict free per-key and
-//   per-row reads) and are widened to f32 as they are read.
+//   per-row reads) and are widened to f32 as they are read: up to 211 KB
+//   (f32, D 256) of the 227 KB a block may opt into.
 // - Scores: each thread computes a 4-row x 8-key register tile. Softmax:
 //   one warp per 16 rows, max and sum by shuffle. PV: each thread keeps an
-//   8-row x 8-column f32 accumulator in registers, rescaled per tile.
+//   8-row x NC-column f32 accumulator in registers (columns tx + 16c, NC =
+//   8 up to D 128, 16 up to D 256), rescaled per tile.
 //
 // Route "wgmma" (`flash_attention_tc_launch`): bf16 q/k/v with D in
 // {64, 128}; both products on the bf16 tensor cores, f32 accumulators.
@@ -121,7 +123,7 @@ struct Masks {
   }
 };
 
-template <typename T>
+template <typename T, int NC>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int H,
@@ -157,11 +159,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.0f;
   }
-  float acc[8][8];
+  float acc[8][NC];
 #pragma unroll
   for (int rr = 0; rr < 8; ++rr)
 #pragma unroll
-    for (int cc = 0; cc < 8; ++cc) acc[rr][cc] = 0.0f;
+    for (int cc = 0; cc < NC; ++cc) acc[rr][cc] = 0.0f;
 
   // absolute positions of the block's first and last real query rows
   const int first_q = mk.q_offset + q0;
@@ -235,21 +237,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int rr = 0; rr < 8; ++rr) {
         const float corr = corr_s[8 * ty + rr];
 #pragma unroll
-        for (int cc = 0; cc < 8; ++cc) acc[rr][cc] *= corr;
+        for (int cc = 0; cc < NC; ++cc) acc[rr][cc] *= corr;
       }
       for (int j = 0; j < BK; ++j) {
-        float pv[8], vv[8];
+        float pv[8], vv[NC];
 #pragma unroll
         for (int rr = 0; rr < 8; ++rr) pv[rr] = ps[(8 * ty + rr) * pstr + j];
 #pragma unroll
-        for (int cc = 0; cc < 8; ++cc) {
+        for (int cc = 0; cc < NC; ++cc) {
           const int c = tx + 16 * cc;
           vv[cc] = c < D ? to_f32(vs[j * ds + c]) : 0.0f;
         }
 #pragma unroll
         for (int rr = 0; rr < 8; ++rr)
 #pragma unroll
-          for (int cc = 0; cc < 8; ++cc) acc[rr][cc] = fmaf(pv[rr], vv[cc], acc[rr][cc]);
+          for (int cc = 0; cc < NC; ++cc) acc[rr][cc] = fmaf(pv[rr], vv[cc], acc[rr][cc]);
       }
     }
   }
@@ -264,7 +266,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = l_s[r];
     const float den = l == 0.0f ? 1.0f : l;
 #pragma unroll
-    for (int cc = 0; cc < 8; ++cc) {
+    for (int cc = 0; cc < NC; ++cc) {
       const int c = tx + 16 * cc;
       if (c < D) store(ob + (size_t)(q0 + r) * qrow_stride + c, acc[rr][cc] / den);
     }
@@ -276,17 +278,17 @@ int smem_bytes(int D) {
   return (BQ + 2 * BK) * (D + 2) * (int)sizeof(T) + (BQ * (BK + 1) + 3 * BQ) * 4;
 }
 
-template <typename T>
+template <typename T, int NC>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int Hkv, int D, float scale, int causal,
            int window, int q_offset, cudaStream_t stream) {
   const int smem = smem_bytes<T>(D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_attention_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   Masks mk{Sq, Sk, q_offset, window, causal != 0};
   dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
+  flash_attention_kernel<T, NC><<<grid, THREADS, smem, stream>>>(
       reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k),
       reinterpret_cast<const T*>(v), reinterpret_cast<T*>(out), H, Hkv, D,
       scale, mk);
@@ -557,8 +559,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // q [B, Sq, H, D], k / v [B, Sk, Hkv, D], out [B, Sq, H, D], all f32
-// (is_bf16 = 0) or all bf16 (is_bf16 = 1); H % Hkv == 0, D <= 128; scale
-// is D^-0.5 as the caller rounds it. Returns the launch's cudaError_t.
+// (is_bf16 = 0) or all bf16 (is_bf16 = 1); H % Hkv == 0, D <= 256; scale
+// is D^-0.5 as the caller rounds it. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue past D 256).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Sk, int H, int Hkv, int D,
@@ -566,11 +569,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int q_offset, int is_bf16,
                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (D > 256) return (int)cudaErrorInvalidValue;
+  if (D > 128) {
+    if (is_bf16)
+      return launch<__nv_bfloat16, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, D,
+                                       scale, causal, window, q_offset, st);
+    return launch<float, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, scale,
+                             causal, window, q_offset, st);
+  }
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, scale,
-                                 causal, window, q_offset, st);
-  return launch<float>(q, k, v, out, B, Sq, Sk, H, Hkv, D, scale, causal,
-                       window, q_offset, st);
+    return launch<__nv_bfloat16, 8>(q, k, v, out, B, Sq, Sk, H, Hkv, D, scale,
+                                    causal, window, q_offset, st);
+  return launch<float, 8>(q, k, v, out, B, Sq, Sk, H, Hkv, D, scale, causal,
+                          window, q_offset, st);
 }
 
 // The same in bf16 only, D in {64, 128}; q / k / v 16-byte aligned.

@@ -21,11 +21,15 @@
 //   page whose width is not a multiple of SW re-reads an overlap that the
 //   `live` mask drops. A split at or past the lane's length exits at once.
 // - The split's K and V rows and the group's q rows go to shared memory
-//   with 16-byte cp.async (at most (2 x 64 + 16) x 128 x 2 B = 36 KB); q
-//   is in flight while the lane's length and page row are read. 8 warps a
-//   block, so a 16-key split is one pass of the score loop.
-// - Scores: Dh/8 lanes share a key, each holding 8 bf16 of its K row; the
-//   G query heads' partial dots (G rounded up to 4, 8, 12 or 16, so they
+//   with 16-byte cp.async (at most (2 x 64 + 16) x Dh x 2 B: 36 KB at Dh
+//   128, 72 KB at Dh 256, which opts into more than the 48 KB a launch
+//   gets by default); q is in flight while the lane's length and page row
+//   are read. 8 warps a block, so a 16-key split is one pass of the score
+//   loop at Dh <= 128 (two at Dh 256).
+// - Scores: a key's row is Dh/8 chunks of 8 bf16 (16 B); LPK lanes share
+//   a key, LPK = Dh/8 rounded up to a power of two (16 at Dh 80, whose
+//   lanes 10..15 hold zeros), each holding one chunk of its K row; the G
+//   query heads' partial dots (G rounded up to 4, 8, 12 or 16, so they
 //   are independent chains) finish with xor shuffles inside the group.
 //   f32 times scale, dead slots at NEG_INF.
 // - Softmax per query head (one warp per head): the split's own max, P =
@@ -75,8 +79,12 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                           const int* __restrict__ lengths,
                           float* __restrict__ ml, float* __restrict__ acc,
                           int W, int Hkv, int G, int SW, float scale) {
-  constexpr int LPK = DH / 8;     // lanes per key (8 bf16 = 16 B each)
-  constexpr int KPW = 32 / LPK;   // keys per warp pass
+  constexpr int CH = DH / 8;  // 16-byte chunks of a row (8 bf16 each)
+  static_assert(DH % 8 == 0 && CH <= 32, "head_dim: a multiple of 8, <= 256");
+  // lanes per key: CH rounded up to a power of two (the shuffle tree)
+  constexpr int LPK = CH <= 1 ? 1 : CH <= 2 ? 2 : CH <= 4 ? 4 : CH <= 8 ? 8
+                    : CH <= 16 ? 16 : 32;
+  constexpr int KPW = 32 / LPK;  // keys per warp pass
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [SW][DH]
   __nv_bfloat16* vs = ks + SW * DH;                             // [SW][DH]
@@ -88,7 +96,7 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // the group's q rows are in flight while the lane's length is read
   const __nv_bfloat16* qh = q + (size_t)(li * Hkv + h) * G * DH;
-  for (int i = tid; i < G * LPK; i += THREADS)
+  for (int i = tid; i < G * CH; i += THREADS)
     hopper::cp_async16(qs + 8 * i, qh + 8 * i);
   hopper::cp_async_commit();
   const int len = min(max(lengths[li], 0), W);
@@ -101,8 +109,8 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t slot_stride = (size_t)2 * Hkv * DH;  // elements per slot
   const __nv_bfloat16* kbase =
       kv + ((size_t)rows[li] * W + offs) * slot_stride + (size_t)2 * h * DH;
-  for (int i = tid; i < SW * LPK; i += THREADS) {  // K and V rows, 16 B each
-    const int j = i / LPK, c = i % LPK;
+  for (int i = tid; i < SW * CH; i += THREADS) {  // K and V rows, 16 B each
+    const int j = i / CH, c = i % CH;
     const __nv_bfloat16* src = kbase + (size_t)j * slot_stride + 8 * c;
     hopper::cp_async16(ks + j * DH + 8 * c, src);
     hopper::cp_async16(vs + j * DH + 8 * c, src + DH);
@@ -111,12 +119,14 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   hopper::cp_async_wait<0>();
   __syncthreads();
 
-  // scores: lane group of LPK lanes per key, 8 dims a lane
+  // scores: lane group of LPK lanes per key, 8 dims a lane (lanes past
+  // the row's CH chunks hold zeros)
   const int part = lane % LPK;
+  const bool has = part < CH;
   for (int j0 = warp * KPW; j0 < SW; j0 += WARPS * KPW) {
     const int j = j0 + lane / LPK;
     float kf[8];
-    if (j < SW) {
+    if (j < SW && has) {
       const uint4 raw = *reinterpret_cast<const uint4*>(ks + j * DH + 8 * part);
       const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -135,14 +145,18 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
       const int gq = g < G ? g : G - 1;
-      const uint4 qraw = *reinterpret_cast<const uint4*>(qs + gq * DH + 8 * part);
-      const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&qraw);
       float d = 0.0f;
+      if (has) {
+        const uint4 qraw =
+            *reinterpret_cast<const uint4*>(qs + gq * DH + 8 * part);
+        const __nv_bfloat162* q2 =
+            reinterpret_cast<const __nv_bfloat162*>(&qraw);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(q2[e]);
-        d = fmaf(f.x, kf[2 * e], d);
-        d = fmaf(f.y, kf[2 * e + 1], d);
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(q2[e]);
+          d = fmaf(f.x, kf[2 * e], d);
+          d = fmaf(f.y, kf[2 * e + 1], d);
+        }
       }
       dots[g] = d;
     }
@@ -182,9 +196,11 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   // PV over bf16(P), f32 sums: a thread owns column d of the query heads
-  // g0, g0 + GPT, ... and reads each V value once
+  // g0, g0 + GPT, ... and reads each V value once (at Dh 80 the last 16
+  // threads have no column)
   constexpr int GPT = THREADS / DH;  // query heads side by side in a pass
   constexpr int GREG = (GB + GPT - 1) / GPT;
+  if (tid >= GPT * DH) return;
   const int d = tid % DH, g0 = tid / DH;
   float pv[GREG];
 #pragma unroll
@@ -276,12 +292,28 @@ __global__ void paged_decode_combine_kernel(const float* __restrict__ ml,
   }
 }
 
+// shared memory of a split block: K and V rows, q rows, scores
+constexpr int split_smem(int dh, int sw, int g) {
+  return (2 * sw + g) * dh * 2 + g * sw * 4;
+}
+
 template <int DH, int GB>
 int launch_split(const void* q, const void* kv, const int* rows,
                  const int* lengths, float* ml, float* acc, int L, int W,
                  int Hkv, int G, int SW, int NS, float scale,
                  cudaStream_t st) {
-  const int smem = (2 * SW + G) * DH * 2 + G * SW * 4;
+  const int smem = split_smem(DH, SW, G);
+  if (smem > 48 * 1024) {  // Dh 256 with wide splits: opt in, once
+    static bool opted = false;
+    if (!opted) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          paged_decode_split_kernel<DH, GB>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          split_smem(DH, 64, GMAX));
+      if (e != cudaSuccess) return (int)e;
+      opted = true;
+    }
+  }
   dim3 grid(NS, Hkv, L);
   paged_decode_split_kernel<DH, GB><<<grid, THREADS, smem, st>>>(
       reinterpret_cast<const __nv_bfloat16*>(q),
@@ -308,10 +340,11 @@ int launch_split_g(const void* q, const void* kv, const int* rows,
 
 // q bf16 [L, Hkv, G, Dh]; kv bf16 [P, W, 2Hkv, Dh]; rows / lengths i32
 // [L]; ml f32 [L, Hkv, NS, G, 2] and acc f32 [L, Hkv, NS, G, Dh] scratch;
-// out bf16 [L, Hkv, G, Dh]. G <= 16, Dh in {8, 16, 32, 64, 128}, SW <= 64
-// and SW <= W, NS = ceil(W / SW) <= 256; 16-byte aligned q and kv. Shared memory
-// stays under 48 KB ((2*64 + 16)*128*2 + 16*64*4 = 40 KB). Returns the
-// launches' cudaError_t.
+// out bf16 [L, Hkv, G, Dh]. G <= 16, Dh in {8, 16, 32, 64, 80, 128, 256},
+// SW <= 64 and SW <= W, NS = ceil(W / SW) <= 256; 16-byte aligned q and
+// kv. Shared memory: at most (2*64 + 16)*Dh*2 + 16*64*4 bytes, 40 KB at
+// Dh 128 and 76 KB at Dh 256 (18.3 KB at the 16-key splits of pages up to
+// 4096 slots with G = 4). Returns the launches' cudaError_t.
 extern "C" int paged_decode_launch(const void* q, const void* kv,
                                    const int* rows, const int* lengths,
                                    float* ml, float* acc, void* out, int L,
@@ -325,7 +358,9 @@ extern "C" int paged_decode_launch(const void* q, const void* kv,
     case 16: err = launch_split_g<16>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st); break;
     case 32: err = launch_split_g<32>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st); break;
     case 64: err = launch_split_g<64>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st); break;
+    case 80: err = launch_split_g<80>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st); break;
     case 128: err = launch_split_g<128>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st); break;
+    case 256: err = launch_split_g<256>(q, kv, rows, lengths, ml, acc, L, W, Hkv, G, SW, NS, scale, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;

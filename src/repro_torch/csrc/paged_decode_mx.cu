@@ -15,11 +15,16 @@
 // loads, products and softmax, twice at W = 256.
 //
 // Design:
-// - One block (4 warps) per (lane, KV head, group of `hg` query heads):
-//   each query head has its own softmax state and its own P quantization
-//   blocks, so splitting the heads over blocks computes the same function
-//   (the wrapper picks hg; a block's cost hardly depends on it, since its
-//   heads are the 16 rows of one mma tile).
+// - One block (4 warps) per (lane, KV head, group of `hg` query heads,
+//   128-column half of head_dim): each query head has its own softmax
+//   state and its own P quantization blocks, so splitting the heads over
+//   blocks computes the same function (the wrapper picks hg; a block's
+//   cost hardly depends on it, since its heads are the 16 rows of one mma
+//   tile). A block's P V covers at most 128 columns of V (a 16 x 128 f32
+//   accumulator a warp, 64 registers a lane); past Dh 128 (gemma3-1b's
+//   256) the columns are split over CB = ceil(Dh / 128) blocks, each of
+//   which computes the whole S and softmax (the same values, so the same
+//   function) and its own half of P V.
 // - The block walks its lane's valid length in bk-slot chunks,
 //   bk = pick_bk(W). The tail chunk is fetched at the clamped offset
 //   min(c*bk, W-bk), exactly as the Pallas kernel does, and the overlap is
@@ -27,9 +32,11 @@
 //   one of P's 32-key quantization blocks (aligned to the fetched offset).
 // - Products on the tensor cores, mma.sync m16n8k16 bf16 with f32 sums:
 //   S = Q K^T with the group's heads as the 16 rows (zero past hg) and K as
-//   B: lane t takes head_dim block t (32 values, one K exponent), so its K
-//   bytes of a key are one 16-byte load and each byte is one bf16x2 B
-//   register (table value times the block scale, exact in bf16). S's f32
+//   B: lane t takes head_dim blocks t + 4 kb, kb < KB (32 values and one K
+//   exponent each; KB = 1 up to dpad 128, 2 up to dpad 256; blocks past
+//   dpad / 32, as the fourth at dpad 96, are zeros), so its K bytes of a
+//   key are KB 16-byte loads and each byte is one bf16x2 B register (table
+//   value times the block scale, exact in bf16). S's f32
 //   accumulator fragment is P's A fragment for P V, as in FlashAttention-2;
 //   V is B again, each register two keys at one head_dim column, from two
 //   table values and a byte permute, times the two keys' 32-slot block
@@ -60,19 +67,25 @@ namespace {
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int HMAX = 16;   // query heads a block: one mma tile's rows
-constexpr int DMAX = 128;  // head_dim: 16 tiles of 8 columns
+constexpr int DCOLS = 128;  // V columns a block: 16 tiles of 8 columns
+constexpr int DMAX = 256;   // head_dim (and dpad): KB = 2, two column halves
 constexpr float NEG_INF = -1e30f;
+constexpr int RED_BYTES = WARPS * HMAX * DCOLS * 4;  // the warps' acc, 32 KB
 
-// a lane's cp.async items of one chunk, item-major so lanes are adjacent
-constexpr int K_OFF = 0;                               // 4 x 16 B K codes
-constexpr int VE_OFF = K_OFF + 4 * 16 * THREADS;       // 2 x 16 B V exps
-constexpr int V_OFF = VE_OFF + 2 * 16 * THREADS;       // 8 x 8 B V codes
-constexpr int STAGE_BYTES = V_OFF + 8 * 8 * THREADS;   // 20 KB
-constexpr int RED_BYTES = WARPS * HMAX * DMAX * 4;     // the warps' acc
-constexpr int MAIN_BYTES =
-    2 * STAGE_BYTES > RED_BYTES ? 2 * STAGE_BYTES : RED_BYTES;
-constexpr int SMEM_BYTES =
-    MAIN_BYTES + 256 * 4 + (2 * WARPS * HMAX + WARPS * HMAX) * 4;
+// a lane's cp.async items of one chunk, item-major so lanes are adjacent;
+// KB = K blocks of 32 head_dim values a lane takes (1: dpad <= 128, 2:
+// dpad <= 256)
+template <int KB>
+struct Smem {
+  static constexpr int K_OFF = 0;                          // 4KB x 16 B K
+  static constexpr int VE_OFF = K_OFF + 4 * KB * 16 * THREADS;  // 2 x 16 B
+  static constexpr int V_OFF = VE_OFF + 2 * 16 * THREADS;  // 8 x 8 B V codes
+  static constexpr int STAGE = V_OFF + 8 * 8 * THREADS;    // 20 / 28 KB
+  static constexpr int MAIN = 2 * STAGE > RED_BYTES ? 2 * STAGE : RED_BYTES;
+  // 42,752 bytes at KB 1; 59,136 at KB 2 (opted in past 48 KB)
+  static constexpr int BYTES =
+      MAIN + 256 * 4 + (2 * WARPS * HMAX + WARPS * HMAX) * 4;
+};
 
 __device__ __forceinline__ float f32_from_field(int f) {
   return __int_as_float(f << 23);
@@ -133,6 +146,7 @@ __device__ __forceinline__ float fake_quant(float p, float amax) {
   return qv * pow2_wide(ebf - 129);
 }
 
+template <int KB>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
                        const uint8_t* __restrict__ kv_codes,
@@ -144,13 +158,17 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
                        __nv_bfloat16* __restrict__ out, int W, int Hkv, int G,
                        int Dh, int dpad, int nwb, int bk, int hg,
                        float scale) {
+  using SM = Smem<KB>;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* stage = smem;  // 2 chunk stages, then the warps' acc
-  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + MAIN_BYTES);
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + SM::MAIN);
   float* red_max = reinterpret_cast<float*>(tab + 256);  // [2][WARPS][HMAX]
   float* red_l = red_max + 2 * WARPS * HMAX;             // [WARPS][HMAX]
 
-  const int li = blockIdx.x, h = blockIdx.y, h0 = blockIdx.z * hg;
+  const int CB = (Dh + DCOLS - 1) / DCOLS;  // column halves of head_dim
+  const int li = blockIdx.x, h = blockIdx.y;
+  const int h0 = (blockIdx.z / CB) * hg, cb = blockIdx.z % CB;
+  const int c0 = DCOLS * cb;  // this block's first V column
   const int hcount = min(hg, G - h0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -159,21 +177,22 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
   const int hb = dpad / 2, nbd = dpad / 32;
   const size_t slot_stride = (size_t)2 * Hkv * hb;  // bytes per slot
   const int nchunks = (len + bk - 1) / bk;
-  const bool d_ok = 16 * g < Dh;  // this lane's 16 head_dim columns of V
+  const bool d_ok = c0 + 16 * g < Dh;  // this lane's 16 V columns
 
   for (int i = tid; i < 256; i += THREADS) tab[i] = table[i];
 
   // q as the A operand: rows g, g + 8 are heads h0 + g, h0 + g + 8; lane
-  // t's k slots of step s are d = 32t + 4s + {0, 1} (a0, a1) and
-  // 32t + 4s + {2, 3} (a2, a3)
-  uint32_t qa[8][4];
+  // t's k slots of step s (block kb = s / 8, s8 = s % 8) are
+  // d = 32(t + 4kb) + 4s8 + {0, 1} (a0, a1) and + {2, 3} (a2, a3)
+  uint32_t qa[8 * KB][4];
   {
     const __nv_bfloat16* qb = q + ((size_t)(li * Hkv + h) * G + h0) * Dh;
 #pragma unroll
-    for (int s = 0; s < 8; ++s)
+    for (int s = 0; s < 8 * KB; ++s)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int head = g + 8 * (r & 1), d = 32 * t + 4 * s + 2 * (r >> 1);
+        const int head = g + 8 * (r & 1);
+        const int d = 32 * (t + 4 * (s >> 3)) + 4 * (s & 7) + 2 * (r >> 1);
         qa[s][r] = head < hcount && d < Dh
                        ? *reinterpret_cast<const uint32_t*>(qb + head * Dh + d)
                        : 0u;
@@ -181,26 +200,30 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // chunk c's copies into stage c % 2: K codes of keys 32w + 8i + g (head_dim
-  // block t), the V block exponents of the warp's first and last key (d
-  // 16g..16g+15), V codes of keys 32w + 16u + {2t, 2t+1, 2t+8, 2t+9}
+  // blocks t + 4kb), the V block exponents of the warp's first and last key
+  // (d = c0 + 16g..16g+15), V codes of keys 32w + 16u + {2t, 2t+1, 2t+8,
+  // 2t+9} (the same columns)
   auto issue = [&](int c) {
     const int offs = min(c * bk, W - bk);
-    unsigned char* st = stage + (c & 1) * STAGE_BYTES;
+    unsigned char* st = stage + (c & 1) * SM::STAGE;
     const uint8_t* base = kv_codes + ((size_t)row * W + offs) * slot_stride;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = 32 * warp + 8 * i + g;
-      const bool ok = j < bk && t < nbd;
-      hopper::cp_async16(
-          st + K_OFF + (i * THREADS + tid) * 16,
-          ok ? base + j * slot_stride + 2 * h * hb + 16 * t : kv_codes, ok);
-    }
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+        const int j = 32 * warp + 8 * i + g, bt = t + 4 * kb;
+        const bool ok = j < bk && bt < nbd;
+        hopper::cp_async16(
+            st + SM::K_OFF + ((i * KB + kb) * THREADS + tid) * 16,
+            ok ? base + j * slot_stride + 2 * h * hb + 16 * bt : kv_codes, ok);
+      }
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       const int vb = min((offs + 32 * warp + 31 * b) / 32, nwb - 1);
       hopper::cp_async16(
-          st + VE_OFF + (b * THREADS + tid) * 16,
-          d_ok ? v_exps + (((size_t)row * nwb + vb) * Hkv + h) * Dh + 16 * g
+          st + SM::VE_OFF + (b * THREADS + tid) * 16,
+          d_ok ? v_exps + (((size_t)row * nwb + vb) * Hkv + h) * Dh + c0 +
+                     16 * g
                : v_exps,
           d_ok);
     }
@@ -210,20 +233,25 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
                     (e & 1);
       const bool ok = j < bk && d_ok;
       hopper::cp_async8(
-          st + V_OFF + (e * THREADS + tid) * 8,
-          ok ? base + j * slot_stride + (2 * h + 1) * hb + 8 * g : kv_codes,
+          st + SM::V_OFF + (e * THREADS + tid) * 8,
+          ok ? base + j * slot_stride + (2 * h + 1) * hb + c0 / 2 + 8 * g
+             : kv_codes,
           ok);
     }
   };
   auto k_exp = [&](int c, int* ke) {
     const int offs = min(c * bk, W - bk);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = 32 * warp + 8 * i + g;
-      ke[i] = j < bk && t < nbd
-                  ? (int)k_exps[(((size_t)row * W + offs + j) * Hkv + h) * nbd + t]
-                  : 0;
-    }
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+        const int j = 32 * warp + 8 * i + g, bt = t + 4 * kb;
+        ke[i * KB + kb] =
+            j < bk && bt < nbd
+                ? (int)k_exps[(((size_t)row * W + offs + j) * Hkv + h) * nbd +
+                              bt]
+                : 0;
+      }
   };
 
   float acc[16][4];
@@ -233,7 +261,9 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
     for (int r = 0; r < 4; ++r) acc[n][r] = 0.0f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;  // heads g, g + 8
   const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  int ke[4] = {0, 0, 0, 0}, ke_next[4] = {0, 0, 0, 0};
+  int ke[4 * KB], ke_next[4 * KB];
+#pragma unroll
+  for (int i = 0; i < 4 * KB; ++i) ke[i] = ke_next[i] = 0;
   if (nchunks > 0) {
     issue(0);
     k_exp(0, ke_next);
@@ -244,20 +274,20 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
   for (int c = 0; c < nchunks; ++c) {
     const int offs = min(c * bk, W - bk);
     hopper::cp_async_wait<0>();
-    const unsigned char* st = stage + (c & 1) * STAGE_BYTES;
-    uint4 kc[4], ve[2];
+    const unsigned char* st = stage + (c & 1) * SM::STAGE;
+    uint4 kc[4 * KB], ve[2];
     uint2 vc[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      kc[i] = *reinterpret_cast<const uint4*>(st + K_OFF + (i * THREADS + tid) * 16);
+    for (int i = 0; i < 4 * KB; ++i)
+      kc[i] = *reinterpret_cast<const uint4*>(st + SM::K_OFF + (i * THREADS + tid) * 16);
 #pragma unroll
     for (int b = 0; b < 2; ++b)
-      ve[b] = *reinterpret_cast<const uint4*>(st + VE_OFF + (b * THREADS + tid) * 16);
+      ve[b] = *reinterpret_cast<const uint4*>(st + SM::VE_OFF + (b * THREADS + tid) * 16);
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      vc[e] = *reinterpret_cast<const uint2*>(st + V_OFF + (e * THREADS + tid) * 8);
+      vc[e] = *reinterpret_cast<const uint2*>(st + SM::V_OFF + (e * THREADS + tid) * 8);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) ke[i] = ke_next[i];
+    for (int i = 0; i < 4 * KB; ++i) ke[i] = ke_next[i];
     if (c + 1 < nchunks) {  // in flight while this chunk computes
       issue(c + 1);
       k_exp(c + 1, ke_next);
@@ -265,21 +295,28 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
     hopper::cp_async_commit();
 
     // S = Q K^T: tile i holds keys 32w + 8i + (0..7); B register pair of
-    // step s is bytes 2s, 2s + 1 of the lane's 16 K bytes times the scale
+    // step s of block kb is bytes 2s, 2s + 1 of the lane's 16 K bytes of
+    // that block times its scale
     float sc[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t ks = scale_bits(ke[i]) * 0x10001u;
-      const uint32_t words[4] = {kc[i].x, kc[i].y, kc[i].z, kc[i].w};
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const uint32_t b0 = bmul2(tab[byte_of(words[s >> 1], (2 * s) & 3)], ks);
-        const uint32_t b1 =
-            bmul2(tab[byte_of(words[s >> 1], (2 * s + 1) & 3)], ks);
-        hopper::mma_m16n8k16_bf16(sc[i], qa[s][0], qa[s][1], qa[s][2],
-                                  qa[s][3], b0, b1, s ? sc[i] : zero);
+      for (int kb = 0; kb < KB; ++kb) {
+        const uint4 k4 = kc[i * KB + kb];
+        const uint32_t ks = scale_bits(ke[i * KB + kb]) * 0x10001u;
+        const uint32_t words[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          const uint32_t b0 =
+              bmul2(tab[byte_of(words[s >> 1], (2 * s) & 3)], ks);
+          const uint32_t b1 =
+              bmul2(tab[byte_of(words[s >> 1], (2 * s + 1) & 3)], ks);
+          hopper::mma_m16n8k16_bf16(sc[i], qa[8 * kb + s][0],
+                                    qa[8 * kb + s][1], qa[8 * kb + s][2],
+                                    qa[8 * kb + s][3], b0, b1,
+                                    kb || s ? sc[i] : zero);
+        }
       }
-    }
     // scores: times scale, rounded to bf16; dead slots NEG_INF. sc[i][e]
     // is head g, sc[i][2 + e] head g + 8, key 32w + 8i + 2t + e
     float mx0 = NEG_INF, mx1 = NEG_INF;
@@ -398,15 +435,16 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
   hopper::cp_async_wait<0>();
   __syncthreads();  // the stages are free: they take the warps' acc
 
-  // acc[n][0..1]: head g, d = 32t + n and 32t + 16 + n; [2..3] head g + 8
-  float* red = reinterpret_cast<float*>(stage);  // [WARPS][HMAX][DMAX]
+  // acc[n][0..1]: head g, d = c0 + 32t + n and c0 + 32t + 16 + n; [2..3]
+  // head g + 8
+  float* red = reinterpret_cast<float*>(stage);  // [WARPS][HMAX][DCOLS]
 #pragma unroll
   for (int n = 0; n < 16; ++n) {
-    float* r0 = red + (warp * HMAX + g) * DMAX + 32 * t + n;
+    float* r0 = red + (warp * HMAX + g) * DCOLS + 32 * t + n;
     r0[0] = acc[n][0];
     r0[16] = acc[n][1];
-    r0[8 * DMAX] = acc[n][2];
-    r0[8 * DMAX + 16] = acc[n][3];
+    r0[8 * DCOLS] = acc[n][2];
+    r0[8 * DCOLS + 16] = acc[n][3];
   }
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
@@ -415,17 +453,43 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
     red_l[warp * HMAX + g + 8] = l1;
   }
   __syncthreads();
-  __nv_bfloat16* ob = out + ((size_t)(li * Hkv + h) * G + h0) * Dh;
-  for (int i = tid; i < hcount * Dh; i += THREADS) {
-    const int r = i / Dh, d = i % Dh;
+  __nv_bfloat16* ob = out + ((size_t)(li * Hkv + h) * G + h0) * Dh + c0;
+  const int ncol = min(DCOLS, Dh - c0);
+  for (int i = tid; i < hcount * ncol; i += THREADS) {
+    const int r = i / ncol, d = i % ncol;
     float a = 0.0f, l = 0.0f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      a += red[(w * HMAX + r) * DMAX + d];
+      a += red[(w * HMAX + r) * DCOLS + d];
       l += red_l[w * HMAX + r];
     }
     ob[r * Dh + d] = __float2bfloat16_rn(a / (l == 0.0f ? 1.0f : l));
   }
+}
+
+template <int KB>
+int launch(const void* q, const uint8_t* kv_codes, const int8_t* k_exps,
+           const int8_t* v_exps, const int* rows, const int* lengths,
+           const uint32_t* table, void* out, int L, int W, int Hkv, int G,
+           int Dh, int dpad, int nwb, int bk, int hg, float scale,
+           cudaStream_t st) {
+  constexpr int smem = Smem<KB>::BYTES;
+  if (smem > 48 * 1024) {
+    static bool opted = false;
+    if (!opted) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          paged_decode_mx_kernel<KB>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      opted = true;
+    }
+  }
+  dim3 grid(L, Hkv, (G + hg - 1) / hg * ((Dh + DCOLS - 1) / DCOLS));
+  paged_decode_mx_kernel<KB><<<grid, THREADS, smem, st>>>(
+      reinterpret_cast<const __nv_bfloat16*>(q), kv_codes, k_exps, v_exps,
+      rows, lengths, table, reinterpret_cast<__nv_bfloat16*>(out), W, Hkv, G,
+      Dh, dpad, nwb, bk, hg, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -433,17 +497,20 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
 // q bf16 [L, Hkv, G, Dh]; kv_codes u8 [P, W, 2Hkv, dpad/2]; k_exps i8
 // [P, W, Hkv, dpad/32]; v_exps i8 [P, nwb, Hkv, Dh]; rows / lengths i32
 // [L]; table u32 [256]; out bf16 [L, Hkv, G, Dh]. Dh % 16 == 0,
-// Dh <= dpad <= 128, 1 <= hg <= 16 query heads a block, bk <= min(128, W),
-// kv_codes / v_exps 16-byte aligned. Returns the launch's cudaError_t.
+// Dh <= dpad <= 256 (dpad a multiple of 32), 1 <= hg <= 16 query heads a
+// block, bk <= min(128, W), kv_codes / v_exps 16-byte aligned. Grid: L x
+// Hkv x ceil(G / hg) * ceil(Dh / 128). Returns the launch's cudaError_t.
 extern "C" int paged_decode_mx_launch(
     const void* q, const uint8_t* kv_codes, const int8_t* k_exps,
     const int8_t* v_exps, const int* rows, const int* lengths,
     const uint32_t* table, void* out, int L, int W, int Hkv, int G, int Dh,
     int dpad, int nwb, int bk, int hg, float scale, void* stream) {
-  dim3 grid(L, Hkv, (G + hg - 1) / hg);
-  paged_decode_mx_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q), kv_codes, k_exps, v_exps,
-      rows, lengths, table, reinterpret_cast<__nv_bfloat16*>(out), W, Hkv, G,
-      Dh, dpad, nwb, bk, hg, scale);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Dh > dpad || dpad > DMAX || dpad % 32 || Dh % 16)
+    return (int)cudaErrorInvalidValue;
+  if (dpad <= 128)
+    return launch<1>(q, kv_codes, k_exps, v_exps, rows, lengths, table, out,
+                     L, W, Hkv, G, Dh, dpad, nwb, bk, hg, scale, st);
+  return launch<2>(q, kv_codes, k_exps, v_exps, rows, lengths, table, out, L,
+                   W, Hkv, G, Dh, dpad, nwb, bk, hg, scale, st);
 }

@@ -21,7 +21,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.obs.profile import profiled_call
 
-D_MAX = 128  # head_dim the fma route holds per thread tile
+D_MAX = 256  # head_dim the fma route holds per thread tile
 TC_D = (64, 128)  # head_dims of the wgmma route (whole 64-value tiles)
 ROUTES = ("fma", "wgmma")
 # q, k, v, out, B, Sq, Sk, H, Hkv, D, scale, causal, window, q_offset, then

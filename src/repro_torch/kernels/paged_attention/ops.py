@@ -33,7 +33,10 @@ MAX_BK = 128
 G_MAX = 16  # query heads per KV head the kernels hold in registers
 SPLIT_WIDTHS = (16, 32, 64)  # keys per block of the float kernel
 MAX_SPLITS = 256  # splits per lane its combine takes (pages <= 16384 slots)
-FLOAT_DH = (8, 16, 32, 64, 128)  # head widths the float kernel takes
+# head widths the float kernel takes: the powers of two and the reference
+# archs' 80 (h2o-danube-1.8b) and 256 (gemma3-1b)
+FLOAT_DH = (8, 16, 32, 64, 80, 128, 256)
+DH_MAX = 256  # head_dim both kernels take at most
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
 _ARGTYPES_MX = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
@@ -85,7 +88,8 @@ def pick_heads(g: int) -> int:
 
 def _check_shape(name: str, q, w: int, bk: int, n_kv: int) -> None:
     L, hkv, g, hd = q.shape
-    if g > G_MAX or hd > 128 or hd % 2 or bk > min(MAX_BK, w) or hkv != n_kv:
+    if (g > G_MAX or hd > DH_MAX or hd % 2 or bk > min(MAX_BK, w)
+            or hkv != n_kv):
         raise ValueError(f"{name} kernel: unsupported shape G={g} Dh={hd} "
                          f"bk={bk} W={w} Hkv={hkv}/{n_kv}")
     if q.dtype != torch.bfloat16:

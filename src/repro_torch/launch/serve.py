@@ -101,19 +101,32 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+# serve_trace summary keys that hold data, not figures
+SUMMARY_DATA = ("ecfg", "prompts", "out")
+
+
+def page_budget(cfg, prompt_len: int, tokens: int) -> tuple[int, int]:
+    """(page_len, prefill_len) of a serve: a page takes the prompt and its
+    new tokens, but stays inside the narrowest attention window (no ring
+    wrap; gemma3-1b's 512-slot local layers cap it at 512), as in the
+    reference's launcher; the prefill gets what the new tokens leave."""
+    windows = [s.attn.window for s in lm.build_segments(cfg)
+               if s.attn.window > 0]
+    page_len = prompt_len + tokens
+    if windows:
+        page_len = min(page_len, min(windows))
+    return page_len, max(2, page_len - tokens)
+
+
 def serve_trace(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
     """A burst of staggered synthetic requests through the engine.
     Returns a summary: requests, tokens, wall, tokens/s, TTFT and
-    decode-step percentiles (host wall clock, steps end in a host read)."""
+    decode-step percentiles (host wall clock, steps end in a host read),
+    and the prompts and their tokens by request id."""
     from repro_torch.serving import Engine, EngineConfig
 
     log = obs_lib.get_logger("repro_torch.serve", args.log_level)
-    windows = [s.attn.window for s in lm.build_segments(cfg)
-               if s.attn.window > 0]
-    page_len = args.prompt_len + args.tokens
-    if windows:
-        page_len = min(page_len, min(windows))
-    prefill_len = max(2, page_len - args.tokens)
+    page_len, prefill_len = page_budget(cfg, args.prompt_len, args.tokens)
     ecfg = EngineConfig(lanes=args.lanes, num_slots=args.slots,
                         page_len=page_len, prefill_len=prefill_len,
                         policy=args.policy, kv_layout=args.kv_layout,
@@ -121,12 +134,14 @@ def serve_trace(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
                         prefix_cache=args.prefix_cache)
     eng = Engine(params, cfg, ctx, ecfg, obs=obs)
     rng = np.random.default_rng(args.seed)
+    prompts = {}
     _sync(device)
     t0 = time.perf_counter()
     for _ in range(args.requests):
         n = int(rng.integers(2, prefill_len + 1))
         prompt = rng.integers(0, cfg.vocab_size, size=n).tolist()
-        eng.add_request(prompt, max_new=min(args.tokens, page_len - n))
+        rid = eng.add_request(prompt, max_new=min(args.tokens, page_len - n))
+        prompts[rid] = prompt
         for _ in range(int(rng.integers(0, 3))):  # staggered arrivals
             eng.step()
     out = eng.run()
@@ -145,11 +160,11 @@ def serve_trace(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
         "ttft_ms_p50": host["ttft_s"]["p50"] * 1e3 if host["ttft_s"] else None,
         "ttft_ms_p99": host["ttft_s"]["p99"] * 1e3 if host["ttft_s"] else None,
         "slot_util": eng.slot_utilization, "prefix": eng.prefix_stats(),
-        "out": out,
+        "ecfg": ecfg, "prompts": prompts, "out": out,
     }
     log.info("%s [%s] serve-trace done: %s", cfg.name, args.backend,
              obs_lib.kv(**{k: v for k, v in summary.items()
-                           if k not in ("out", "prefix")}))
+                           if k not in SUMMARY_DATA + ("prefix",)}))
     if eng.prefix is not None:
         log.info("prefix-cache: %s", obs_lib.kv(**eng.prefix_stats()))
     return summary

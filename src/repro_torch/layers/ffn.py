@@ -24,8 +24,18 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     f32 GELU rounds once, and its bf16 outputs differ by an ulp often
     enough that the MXFP4 quantizer downstream flips codes."""
     c = torch.tensor(np.sqrt(2 / np.pi), dtype=x.dtype)
-    cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x))))
+    # in x's dtype, as jax.nn.gelu takes it (a Python float acts in f32)
+    a = torch.tensor(0.044715, dtype=x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x))))
     return x * cdf
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA lowers it, x * 1 / (1 + exp(-x)) op by op in
+    the input's dtype: in bf16 each op rounds, bitwise the reference's; a
+    fused ``F.silu`` rounds once and differs in about a third of bf16
+    outputs."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
@@ -35,7 +45,7 @@ def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
         r = F.relu(x)
         return r * r
     if kind == "swiglu":
-        return F.silu(x)
+        return _silu(x)
     raise ValueError(kind)
 
 

@@ -1,5 +1,7 @@
 """Decoder LM over segments of identical blocks (counterpart of
-``repro.models.lm``), dense attention + FFN blocks only.
+``repro.models.lm``), dense attention + FFN blocks only: full attention
+(starcoder2-7b), a sliding window (h2o-danube-1.8b) and runs of local and
+global layers (gemma3-1b's 5:1 pattern, one segment a run).
 
 The layer stack runs as a Python loop over unstacked layers: the
 reference's ``unroll_layers=True`` mode, the one in which it pins bitwise
@@ -38,24 +40,51 @@ class Segment:
     attn: attn_mod.AttnStatic | None = None
 
 
-def _attn_static(cfg: ArchConfig) -> attn_mod.AttnStatic:
+def _attn_static(cfg: ArchConfig, is_global: bool = False
+                 ) -> attn_mod.AttnStatic:
+    """A layer's attention: ``cfg.window`` for sliding-window and local
+    layers; a global layer of a local:global pattern attends to the whole
+    page at ``rope_theta_global``."""
+    window = 0
+    if cfg.attn_pattern == "swa":
+        window = cfg.window
+    elif cfg.attn_pattern == "local_global":
+        window = 0 if is_global else cfg.window
     return attn_mod.AttnStatic(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.hd, causal=cfg.causal,
-        window=cfg.window if cfg.attn_pattern == "swa" else 0,
-        rope_theta=cfg.rope_theta, use_rope=cfg.family != "audio",
-        mrope=cfg.mrope, qk_norm=cfg.qk_norm, use_bias=cfg.use_bias,
-        norm=cfg.norm,
+        head_dim=cfg.hd, causal=cfg.causal, window=window,
+        rope_theta=cfg.rope_theta_global if is_global else cfg.rope_theta,
+        use_rope=cfg.family != "audio", mrope=cfg.mrope,
+        qk_norm=cfg.qk_norm, use_bias=cfg.use_bias, norm=cfg.norm,
     )
 
 
 def build_segments(cfg: ArchConfig) -> list[Segment]:
-    if (cfg.family not in ("dense", "vlm") or cfg.n_experts
-            or cfg.attn_pattern == "local_global"):
+    """The reference's segments of a dense LM: one segment of every layer,
+    or, for ``local_global``, one a run of local or global layers (layer i
+    is global when ``i % (lg_ratio + 1) == lg_ratio``; gemma3-1b's 26
+    layers are L5 G1 L5 G1 L5 G1 L5 G1 L2)."""
+    if cfg.n_experts or cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: only dense full/sliding attention families are "
-            "ported (ROADMAP.md Queue 1)")
-    return [Segment("attn", cfg.n_layers, attn=_attn_static(cfg))]
+            f"{cfg.name}: the {cfg.family} family is not ported (ROADMAP.md "
+            "Queue 1 item 8); the dense families are")
+    if cfg.mrope:
+        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported "
+                                  "(ROADMAP.md Queue 1 item 8, vlm)")
+    if cfg.attn_pattern != "local_global":
+        return [Segment("attn", cfg.n_layers, attn=_attn_static(cfg))]
+    glob = [i % (cfg.lg_ratio + 1) == cfg.lg_ratio
+            for i in range(cfg.n_layers)]
+    segs: list[Segment] = []
+    i = 0
+    while i < cfg.n_layers:
+        j = i
+        while j < cfg.n_layers and glob[j] == glob[i]:
+            j += 1
+        segs.append(Segment("attn", j - i,
+                            attn=_attn_static(cfg, is_global=glob[i])))
+        i = j
+    return segs
 
 
 # ---------------------------------------------------------------- init
