@@ -48,6 +48,12 @@
    source). ``cim_linear`` launches by route must
    show both routes in the serve, ``wgmma`` in the prefill (M = 192 with
    N > 1024) and ``splitk`` only in the decode steps.
+   Every serve decodes through the captured CUDA graph of the decode step
+   (``serving/graphs.py``; phases 4-7 and 9). Each decode window runs
+   twice on the same requests, eager (``EngineConfig(cuda_graphs=False)``)
+   and captured: tokens and launches a step must be equal, and the
+   ``serve`` line carries both windows' wall and device ms a step, busy
+   share and tok/s, with the capture's seconds and graph pool bytes.
 5. Serve ``--backend mxfp4`` the same way at full width with the depth
    cut to 16 of 32 layers (the run's time limit): ``mxfp4_matmul`` (both
    routes) and ``paged_decode`` must have launched, ``cim_linear`` and
@@ -80,7 +86,10 @@
    flash kernel. Logits of 4 frames against ``impl="ref"`` (SQNR >= 30
    dB), the ViT-L/32 chain against the monolithic forward (bitwise), and
    one frame under the profiler (device ms by kernel and route, wall ms,
-   busy share). A ``serve vision`` line a run gives the card's own
+   busy share), eager and captured: ``WINDOW_FRAMES`` frames each way,
+   logits bitwise between the two (each chip's step one graph; the
+   chain's hidden state is the static buffer between them). A ``serve
+   vision`` line a run gives the card's own
    ``fps_host`` and frame times beside, apart and labelled as the
    analytical model's, the FWS pipeline's ``fws_model_fps``, the paper's
    Table 7 ``paper_fps`` and ``err_pct`` (which must stay under 5%).
@@ -88,10 +97,12 @@
    30 dB), and phase 3 also holds both matmul kernels at ViT-B/16's
    shapes (``VIT_CIM_SHAPES``, ``VIT_MM_SHAPES``).
 9. Serve the other dense families: gemma3-1b (26 layers, 5:1
-   local:global, head_dim 256, one KV head, tied head) and
+   local:global, head_dim 256, one KV head, tied head),
    h2o-danube-1.8b (24 layers, 4096-slot window, head_dim 80) at full
-   width and depth through the launcher's ``build_model`` and
-   ``serve_trace`` under ``mxfp4`` and ``cim`` (``DENSE_RUNS``): 8
+   width and depth, and nemotron-4-15b (squared ReLU, LayerNorm, head_dim
+   128, untied 256000-row head) at full width with the depth cut to 8 of
+   32 layers (``DENSE_LAYERS``), through the launcher's ``build_model``
+   and ``serve_trace`` under ``mxfp4`` and ``cim`` (``DENSE_RUNS``): 8
    staggered requests of up to 384-token prompts ([1, 384] prefills, past
    ``dense_attn_max``) and 64 new tokens, 4 lanes, 6 slots, page 448.
    Launch counts by kernel and route must be exactly those the code gives
@@ -100,21 +111,23 @@
    ``impl="ref"`` with the chunked plain decode (SQNR >= 30 dB; the dense
    ``impl="ref"`` figure is printed beside it); each request served alone
    gives its first 32 staggered tokens bitwise; the tied head timed; one
-   prefill and 8 decode steps profiled (one window each); a ``serve
-   dense`` line a run. First, the kernel rows at these archs' shapes
-   (``DENSE_SHAPES``): B and D at head widths 256 and 80 (page 448,
-   lengths 0, 1, W/2, W), E at the [1, 384] prefill shapes in bf16 and at
-   D 256 in f32, A and C at the new linear shapes at M = 4 and 384.
-10. Prints the kernels line (phase 9 adds B, D and E at head widths 256
-    and 80), then the card's name and power limit, then the device line,
-    as the last line.
+   prefill profiled and 8 decode steps eager and captured (one window
+   each); a ``serve dense`` line a run. First, the kernel rows at these
+   archs' shapes (``DENSE_SHAPES``): B and D at head widths 256, 80 and
+   128 (page 448, lengths 0, 1, W/2, W), E at the [1, 384] prefill shapes
+   in bf16 and at D 256 in f32, A and C at the new linear shapes at M = 4
+   and 384 (nemotron's head 6144 x 256000 among them).
+10. Prints the kernels line (phase 9 adds B, D and E at head widths
+    256, 80 and 128), then the card's name and power limit, then the
+    device line, as the last line.
 
 Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``paged_decode_mx {...}``, ``mxfp4_matmul {...}``, ``paged_decode {...}``,
 ``flash_attention {...}``, ``serve {...}``, ``prefill profile {...}``,
 ``decode profile {...}``, ``serve long {...}``, ``serve chunked {...}``,
-``frame profile <arch> {...}``, ``serve vision {...}``, ``serve dense
-{...}``).
+``decode eager vs captured {...}``, ``frame profile <arch> <mode>
+{...}``, ``frame eager vs captured {...}``, ``serve vision {...}``,
+``serve dense {...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
@@ -123,6 +136,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -196,6 +211,7 @@ VISION_ARGS = ["--no-tiny", "--frames", str(VISION_FRAMES),
                "--calib-batches", "2", "--batch", "2"]
 VISION_KERNEL = {"cim": "cim_linear", "mxfp4": "mxfp4_matmul"}
 VISION_CHECK_FRAMES = 4  # frames whose logits are held to impl="ref"
+WINDOW_FRAMES = 8  # frames a profiled window, eager and captured
 # ViT-B/16's linears at the shapes a frame gives them (PERF.md §6):
 # cim_linear (M, K, N) and mxfp4_matmul (M, K, N, x dtype)
 VIT_CIM_SHAPES = ((197, 768, 768), (197, 768, 3072))
@@ -207,7 +223,12 @@ VIT_MM_SHAPES = ((197, 768, 3072, torch.bfloat16),
 # prompts ([1, 384] prefills, past dense_attn_max) and 64 new tokens, page
 # 448 (inside gemma3-1b's 512-slot local window)
 DENSE_RUNS = (("gemma3-1b", "mxfp4"), ("gemma3-1b", "cim"),
-              ("h2o-danube-1.8b", "mxfp4"), ("h2o-danube-1.8b", "cim"))
+              ("h2o-danube-1.8b", "mxfp4"), ("h2o-danube-1.8b", "cim"),
+              ("nemotron-4-15b", "mxfp4"), ("nemotron-4-15b", "cim"))
+# depth cuts of phase 9 (width kept): nemotron-4-15b's f32 weights before
+# conversion are ~62 GB at 32 layers (390 M parameters a layer, 1.57 G in
+# each of the embedding and the untied head), ~25 GB at 8
+DENSE_LAYERS = {"nemotron-4-15b": 8}
 DENSE_PROMPT, DENSE_TOKENS, DENSE_PAGE = 384, 64, 448
 DENSE_ARGS = ["--no-tiny", "--serve-trace", "--requests", "8", "--lanes",
               "4", "--slots", "6", "--prompt-len", str(DENSE_PROMPT),
@@ -225,6 +246,10 @@ DENSE_SHAPES = {
     "h2o-danube-1.8b": ((4, 8, 4, 80), (1, DENSE_PROMPT, 32, 8, 80, 4096),
                         ((2560, 2560), (2560, 640), (2560, 6912),
                          (6912, 2560), (2560, 32000))),
+    # wq / wo, wk / wv, w1 (squared ReLU: no w3), w2, the untied head
+    "nemotron-4-15b": ((4, 8, 6, 128), (1, DENSE_PROMPT, 48, 8, 128, 0),
+                       ((6144, 6144), (6144, 1024), (6144, 24576),
+                        (24576, 6144), (6144, 256000))),
 }
 DENSE_LENGTHS = [0, 1, DENSE_PAGE // 2, DENSE_PAGE]
 # kernel function -> wrapper and route, for device time by route
@@ -418,7 +443,9 @@ def _cim_row(x, w, cal, cfg, extra: dict) -> dict:
         max_abs_err=float(err.max()), bitwise=bool(torch.equal(got, ref)),
         ms=_device_ms(lambda: cim_ops.cim_linear(x, w, cal, cfg=cfg), 20),
         call_ms=_time_ms(lambda: cim_ops.cim_linear(x, w, cal, cfg=cfg), 20),
-        plain_ms=_device_ms(lambda: cim_linear_ref(x, w, cal, cfg), 3),
+        # one traced call: at nemotron-4-15b's head the plain version
+        # takes ~0.9 s a call
+        plain_ms=_device_ms(lambda: cim_linear_ref(x, w, cal, cfg), 1),
         bound_ms=bound, bound_by=by, library_ms=None,
         align_floor_ms=_align_floor_ms(m, k, n))
     row["ok"] = row["bitwise"]
@@ -574,7 +601,7 @@ def _mxfp4_row(x, codes, exps, w_bf16, extra: dict) -> dict:
         max_abs_err=float(err.max()), sqnr_db=_sqnr_db(ref, got), ok=ok,
         ms=_device_ms(lambda: mm_ops.mxfp4_matmul(x, codes, exps), 20),
         call_ms=_time_ms(lambda: mm_ops.mxfp4_matmul(x, codes, exps), 20),
-        plain_ms=_device_ms(lambda: mxfp4_matmul_ref(x, codes, exps), 3),
+        plain_ms=_device_ms(lambda: mxfp4_matmul_ref(x, codes, exps), 1),
         bound_ms=bound, bound_by=by,
         library_ms=_device_ms(lambda: torch.matmul(x, w_lib), 20))
     print("mxfp4_matmul", json.dumps(row), flush=True)
@@ -866,16 +893,14 @@ def serve_full_width(backend: str) -> tuple[dict, tuple]:
     launches, routes = _read_counts()
     cim_routes = _cim_routes()
     peak = torch.cuda.max_memory_allocated()
-    print("serve", json.dumps({"backend": backend, "layers": cfg.n_layers}
-                              | {k: v for k, v in summary.items()
-                                 if k not in serve.SUMMARY_DATA}
-                              | {"launches": launches,
-                                 "mxfp4_matmul_routes": routes,
-                                 "cim_linear_routes": cim_routes,
-                                 "peak_mem_gib": peak / 2**30,
-                                 "build_peak_mem_gib": build_peak / 2**30,
-                                 "resident_params_gib": resident / 2**30,
-                                 "model_build_s": build_s}), flush=True)
+    line = ({"backend": backend, "layers": cfg.n_layers}
+            | {k: v for k, v in summary.items()
+               if k not in serve.SUMMARY_DATA}
+            | {"launches": launches, "mxfp4_matmul_routes": routes,
+               "cim_linear_routes": cim_routes, "peak_mem_gib": peak / 2**30,
+               "build_peak_mem_gib": build_peak / 2**30,
+               "resident_params_gib": resident / 2**30,
+               "model_build_s": build_s})
     own = OWN_KERNELS[backend]
     if any(launches[k] < 1 for k in own) or any(
             v for k, v in launches.items() if k not in own):
@@ -910,6 +935,8 @@ def serve_full_width(backend: str) -> tuple[dict, tuple]:
         raise AssertionError(f"[{backend}] full-width prefill logits disagree")
     prof = {"prefill": profile_prefill(cfg, params, ctx),
             "decode": profile_decode(cfg, params, ctx)}
+    print("serve", json.dumps(line | {"decode": _step_pair(prof["decode"])}),
+          flush=True)
     return ({"launches": launches, "summary": summary, "profile": prof},
             (cfg, params, ctx))
 
@@ -942,13 +969,12 @@ def serve_long(cfg, params, ctx) -> dict:
     launches, routes = _read_counts()
     fa_routes = dict(fa_ops.flash_attention.route_launches)
     peak = torch.cuda.max_memory_allocated()
-    print("serve long", json.dumps(
-        {"backend": "mxfp4", "layers": cfg.n_layers}
-        | {k: v for k, v in summary.items()
-           if k not in serve.SUMMARY_DATA + ("prefix",)}
-        | {"launches": launches, "mxfp4_matmul_routes": routes,
-           "flash_attention_routes": fa_routes,
-           "peak_mem_gib": peak / 2**30}), flush=True)
+    line = ({"backend": "mxfp4", "layers": cfg.n_layers}
+            | {k: v for k, v in summary.items()
+               if k not in serve.SUMMARY_DATA + ("prefix",)}
+            | {"launches": launches, "mxfp4_matmul_routes": routes,
+               "flash_attention_routes": fa_routes,
+               "peak_mem_gib": peak / 2**30})
     want = cfg.n_layers * LONG_REQUESTS  # one [1, 2048] prefill a request
     if launches["flash_attention"] != want or fa_routes["wgmma"] != want:
         raise AssertionError(f"[mxfp4 long] flash_attention launches "
@@ -977,8 +1003,12 @@ def serve_long(cfg, params, ctx) -> dict:
         raise AssertionError("[mxfp4 long] prefill logits disagree")
     prof = {"prefill": profile_prefill(cfg, params, ctx, LONG_PROMPT,
                                        LONG_PAGE),
+            # two attempts: 3 windows of 8 steps and the prefill's token
+            # fill the 32 slots the long page leaves a request
             "decode": profile_decode(cfg, params, ctx, prompt_len=LONG_PROMPT,
-                                     page_len=LONG_PAGE)}
+                                     page_len=LONG_PAGE, attempts=2)}
+    print("serve long", json.dumps(
+        line | {"decode": _step_pair(prof["decode"])}), flush=True)
     fa_prof = prof["prefill"]["launches"].get("flash_attention", 0)
     if fa_prof != cfg.n_layers:
         raise AssertionError(f"[mxfp4 long] the profiled prefill launched "
@@ -1195,6 +1225,7 @@ def serve_vision_full(arch: str, backend: str) -> dict:
     if summary["frames"] != VISION_FRAMES or not all(
             0 <= t < cfg.n_classes for t in summary["top1"]):
         raise AssertionError(f"[{backend} {arch}] served frames {summary}")
+    t1 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(21)
     frames = torch.randn((VISION_CHECK_FRAMES, cfg.image_size,
                           cfg.image_size, cfg.in_channels), generator=gen,
@@ -1213,9 +1244,10 @@ def serve_vision_full(arch: str, backend: str) -> dict:
           f"{bool(torch.equal(got, ref))}", flush=True)
     if not finite or sq < 30.0:
         raise AssertionError(f"[{backend} {arch}] logits disagree")
-    eng = VisionEngine(params, cfg, dataclasses.replace(ctx, obs=None))
     chain_bitwise = None
-    if cfg.chips > 1:
+    if cfg.chips > 1:  # the eager chain over a batch of two frames
+        eng = VisionEngine(params, cfg, dataclasses.replace(ctx, obs=None),
+                           cuda_graphs=False)
         with torch.no_grad():
             mono, _ = vit.forward(params, cfg, ctx, {"images": frames[:2]})
         chain_bitwise = bool(torch.equal(eng.logits(frames[:2]), mono))
@@ -1224,22 +1256,23 @@ def serve_vision_full(arch: str, backend: str) -> dict:
         if not chain_bitwise:
             raise AssertionError(f"[{backend} {arch}] the chip chain is not "
                                  "the monolithic forward")
-    eng.classify_frame(frames[0])  # warm, outside the window
-    prof = _profiled(f"frame profile {arch}", ctx, 1,
-                     lambda: eng.classify_frame(frames[0]))
+    check_s = time.perf_counter() - t1
+    prof = profile_frames(cfg, params, ctx, arch)
     fws = summary["fws"]
+    cap = prof["captured"]
     line = {"model": cfg.name, "backend": backend, "chips": cfg.chips,
             "layers": cfg.n_layers, "tokens_each": cfg.seq_len,
             "frames": summary["frames"], "fps_host": summary["fps_host"],
             "frame_ms_p50": summary["frame_ms_p50"],
-            "profiled_frame_wall_ms": prof["wall_ms_per_step"],
-            "device_ms_a_frame": prof["device_ms_per_step"],
-            "device_busy_share": prof["device_busy_share"],
-            "route_ms_a_frame": prof["route_ms_per_step"],
-            "timer": prof["timer"], "launches": launches,
+            "profiled_frame_wall_ms": cap["wall_ms_per_step"],
+            "device_ms_a_frame": cap["device_ms_per_step"],
+            "device_busy_share": cap["device_busy_share"],
+            "route_ms_a_frame": cap["route_ms_per_step"],
+            "timer": cap["timer"], "frame": _step_pair(prof),
+            "launches": launches,
             "routes": routes, "peak_mem_gib": peak / 2**30,
             "model_build_s": build_s, "logits_sqnr_db": sq,
-            "chain_bitwise": chain_bitwise,
+            "chain_bitwise": chain_bitwise, "logits_check_s": check_s,
             # the analytical model of the MXFormer chip, not this card
             "fws_model": {k: fws.get(k) for k in (
                 "fws_model_fps", "paper_fps", "err_pct", "chips",
@@ -1248,6 +1281,48 @@ def serve_vision_full(arch: str, backend: str) -> dict:
     if fws.get("err_pct") is None or fws["err_pct"] >= 5.0:
         raise AssertionError(f"[{backend} {arch}] FWS model {fws}")
     return {"launches": launches, "line": line}
+
+
+def profile_frames(cfg, params, ctx, arch: str) -> dict:
+    """``WINDOW_FRAMES`` single-stream frames under ``torch.profiler``,
+    eager (``cuda_graphs=False``) and captured (the first frame, outside
+    the window, captures the chain): device time, wall time and busy
+    share a frame, ``fps_host`` of the window, the capture's seconds and
+    the graphs' pool bytes (summed over the chain). The window's logits
+    must be bitwise equal between the two."""
+    from repro_torch.serving import VisionEngine
+
+    gen = torch.Generator(device=params["pos"].device).manual_seed(22)
+    frames = torch.randn((WINDOW_FRAMES, cfg.image_size, cfg.image_size,
+                          cfg.in_channels), generator=gen,
+                         device=params["pos"].device)
+    out, logits = {}, {}
+    for mode in ("eager", "captured"):
+        eng = VisionEngine(params, cfg, dataclasses.replace(ctx, obs=None),
+                           cuda_graphs=mode == "captured")
+        eng.classify_frame(frames[0])  # warm (and capture), not profiled
+        nxt = itertools.cycle(frames)
+        # one window each: every 8-frame window has traced a matmul
+        # launch or two fewer than counted, whatever the attempt (scaled,
+        # and ``timer`` says so)
+        prof = _profiled(f"frame profile {arch} {mode}", ctx, WINDOW_FRAMES,
+                         lambda: eng.classify_frame(next(nxt)), attempts=1)
+        _unprofiled(prof, WINDOW_FRAMES, lambda: eng.classify_frame(next(nxt)),
+                    1)
+        if eng.graphs:
+            chain = [g for c in eng.graphs.values() for g in c]
+            prof["capture_s"] = sum(g.capture_s for g in chain)
+            prof["graph_pool_bytes"] = sum(g.pool_bytes for g in chain)
+        logits[mode] = torch.stack([eng.logits(f[None])[0] for f in frames])
+        out[mode] = prof
+        del eng
+    if not torch.equal(logits["eager"], logits["captured"]):
+        raise AssertionError(f"[{ctx.quant} {arch}] captured frame logits "
+                             "are not the eager ones")
+    print("frame eager vs captured", json.dumps(
+        {"backend": ctx.quant, "model": cfg.name, "frames": WINDOW_FRAMES,
+         "logits_bitwise": True} | _step_pair(out)), flush=True)
+    return out
 
 
 def check_dense_kernels(dev) -> dict:
@@ -1400,31 +1475,38 @@ def _dense_decode(cfg, params, ctx, ids, caches) -> list:
 
 
 def serve_dense(arch: str, backend: str) -> dict:
-    """Phase 9, one run: ``arch`` at full width and depth through the
-    launcher's ``build_model`` and ``serve_trace`` (``DENSE_ARGS``). The
+    """Phase 9, one run: ``arch`` at full width, and at full depth unless
+    ``DENSE_LAYERS`` cuts it, through the launcher's ``build_model`` and
+    ``serve_trace`` (``DENSE_ARGS``), decode captured. The
     launches by kernel and route must be exactly ``_dense_launches``'s for
     the serve's prefills and decode steps. Then logits of a 384-token
     prefill and 4 decode steps against ``impl="ref"`` with the chunked
     plain decode (SQNR >= 30 dB; the dense ``impl="ref"`` figure is
     printed beside it), each request served alone giving its first
     ``SOLO_TOKENS`` staggered tokens bitwise, the tied head's time
-    (gemma3-1b), and one prefill and 8 decode steps under the profiler."""
+    (gemma3-1b), one prefill under the profiler and 8 decode steps under
+    it eager and captured (tokens bitwise between the two)."""
     from repro_torch import obs as obs_lib
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.serving import Engine
 
+    from repro_torch import configs as C
+
+    layers = DENSE_LAYERS.get(arch, 0)
     args = serve.build_parser().parse_args(
-        ["--arch", arch, "--backend", backend] + DENSE_ARGS)
+        ["--arch", arch, "--backend", backend, "--layers", str(layers)]
+        + DENSE_ARGS)
     obs = obs_lib.Obs()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg, params, ctx, dev = serve.build_model(args, obs=obs)
     build_s = time.perf_counter() - t0
     resident = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"[{backend}] {cfg.name}: full width and depth ({cfg.n_layers} "
-          f"layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+    print(f"[{backend}] {cfg.name}: full width, {cfg.n_layers} of "
+          f"{C.ARCHS[arch].n_layers} layers (d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/"
           f"{cfg.n_kv_heads}, head_dim {cfg.hd}, d_ff {cfg.d_ff} "
           f"{cfg.ffn_kind}, vocab {cfg.vocab_size}, segments "
           f"{[(s.n, s.attn.window) for s in lm.build_segments(cfg)]})",
@@ -1448,6 +1530,7 @@ def serve_dense(arch: str, backend: str) -> dict:
                                               for t in v):
             raise AssertionError(f"[{backend} {arch}] served tokens {v}")
     # logits: kernels vs impl="ref" with the chunked plain decode
+    t1 = time.perf_counter()
     ids = torch.randint(0, cfg.vocab_size, (1, DENSE_PROMPT + DENSE_STEPS),
                         device=dev,
                         generator=torch.Generator(device=dev).manual_seed(14))
@@ -1468,6 +1551,7 @@ def serve_dense(arch: str, backend: str) -> dict:
           f"decode): SQNR {sq} dB; vs impl=ref (dense decode) {sq_dense} dB;"
           f" finite {finite}", flush=True)
     del got, ref, dense
+    check_s = time.perf_counter() - t1
     # each request alone, through an engine of the serve's config: its
     # first SOLO_TOKENS greedy tokens, which a longer solo run repeats
     t1 = time.perf_counter()
@@ -1506,14 +1590,19 @@ def serve_dense(arch: str, backend: str) -> dict:
             "want_routes": want_routes, "launches_exact": exact,
             "logits_sqnr_db": sq, "logits_sqnr_vs_dense_ref_db": sq_dense,
             "staggered_equals_solo": not solo_diff, "solo_s": solo_s,
+            "logits_check_s": check_s,
             "tied_head": head, "peak_mem_gib": peak / 2**30,
             "resident_params_gib": resident / 2**30,
             "model_build_s": build_s,
             "prefill_device_ms": prof["prefill"]["device_ms_per_step"],
             "prefill_kernel_ms": prof["prefill"]["kernel_ms_per_step"],
-            "decode_device_ms": prof["decode"]["device_ms_per_step"],
-            "decode_kernel_ms": prof["decode"]["kernel_ms_per_step"],
-            "decode_busy_share": prof["decode"]["device_busy_share"]}
+            "decode_device_ms": prof["decode"]["captured"][
+                "device_ms_per_step"],
+            "decode_kernel_ms": prof["decode"]["captured"][
+                "kernel_ms_per_step"],
+            "decode_busy_share": prof["decode"]["captured"][
+                "device_busy_share"],
+            "decode": _step_pair(prof["decode"])}
     print("serve dense", json.dumps(line), flush=True)
     if not exact:
         raise AssertionError(f"[{backend} {arch}] launches {launches} "
@@ -1542,6 +1631,7 @@ def dense_kernel_entries(dense_rows: dict, runs: dict) -> list:
         for arch, (dims, _, _) in DENSE_SHAPES.items():
             width = dims[3]
             row = next(r for r in dense_rows[name] if r[key] == width
+                       and r["case"] == arch
                        and r.get("dtype", "bf16") == "bf16")
             shape = (f"L={row['lanes']} Hkv={row['hkv']} G={row['g']} "
                      f"Dh={width} W={row['w']} lengths {row['lengths']}"
@@ -1594,12 +1684,13 @@ def _cim_routes() -> dict:
 
 
 def _engine(params, cfg, ctx, prefill_len: int = M_PREFILL,
-            page_len: int = 256):
+            page_len: int = 256, cuda_graphs: bool = True):
     from repro_torch.serving import Engine, EngineConfig
 
     return Engine(params, cfg, dataclasses.replace(ctx, obs=None),
                   EngineConfig(lanes=4, num_slots=4, page_len=page_len,
-                               prefill_len=prefill_len))
+                               prefill_len=prefill_len,
+                               cuda_graphs=cuda_graphs))
 
 
 def _kernel_name(key: str) -> str:
@@ -1632,13 +1723,15 @@ def _profiled(label: str, ctx, steps: int, step, prepare=None,
     ``profile timer:`` line names them."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_start = time.perf_counter()
     for _ in range(attempts):
         if prepare is not None:
             prepare()
         torch.cuda.synchronize()
         _zero_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # the device's activity only: events of every CPU op add host time
+        # to each eager step and to the processing of the trace
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 step()
@@ -1693,7 +1786,8 @@ def _profiled(label: str, ctx, steps: int, step, prepare=None,
            "kernel_ms_per_step": {k: v / steps for k, v in by_wrapper.items()},
            "route_ms_per_step": by_route,
            "launches": {k: v for k, v in launches.items() if v},
-           "mxfp4_matmul_routes": routes}
+           "mxfp4_matmul_routes": routes,
+           "profile_s": time.perf_counter() - t_start}
     print(label, json.dumps({"backend": ctx.quant} | out), flush=True)
     return out
 
@@ -1729,28 +1823,90 @@ def profile_prefill(cfg, params, ctx, prompt_len: int = M_PREFILL,
 def profile_decode(cfg, params, ctx, steps: int = 8, prompt_len: int = 128,
                    page_len: int = 256,
                    attempts: int = PROFILE_ATTEMPTS) -> dict:
-    """A steady window of decode steps (4 live lanes, prompts of
-    ``prompt_len`` tokens) under ``torch.profiler`` (the requests outlast
-    every window it may take). Under ``mxfp4`` its linears (M = 4) must
-    take the mma route only."""
-    eng = _engine(params, cfg, ctx, max(M_PREFILL, prompt_len), page_len)
-    rng = np.random.default_rng(5)
-    for _ in range(4):
-        eng.add_request(rng.integers(0, cfg.vocab_size, prompt_len).tolist(),
-                        max_new=attempts * steps + 4)
-    while len(eng.sched.running) < 4:  # the four prefills
-        eng.step()
-    eng.step()  # one decode step outside the window
-    out = _profiled("decode profile", ctx, steps, eng.step, attempts=attempts)
-    routes = out["mxfp4_matmul_routes"]
-    if ctx.quant == "mxfp4_wonly" and (routes["wgmma"] or routes["fma"]
-                                       or not routes["mma"]):
-        raise AssertionError(f"[mxfp4] decode took the routes {routes}")
-    cim_routes = _cim_routes()
-    if ctx.quant == "cim" and (cim_routes["wgmma"]
-                               or not cim_routes["splitk"]):
-        raise AssertionError(f"[cim] decode took the routes {cim_routes}")
+    """A steady window of ``steps`` decode steps (4 live lanes, prompts of
+    ``prompt_len`` tokens) under ``torch.profiler``, run twice on the same
+    requests: eager (``cuda_graphs=False``) and captured (the default;
+    the first decode step, outside the window, captures the graph). The
+    requests outlast every window it may take. The tokens must be bitwise
+    equal between the two, and the launch counts of each window the same
+    (a replay counts what the captured step launches). Under ``mxfp4``
+    the linears (M = 4) must take the mma route only. Returns ``{"eager":
+    profile, "captured": profile + capture_s and graph_pool_bytes}``;
+    each profile also times ``steps`` steps unprofiled (:func:`_unprofiled`:
+    ``wall_ms``, ``busy_share``, ``tok_s``)."""
+    out, tokens = {}, {}
+    for mode in ("eager", "captured"):
+        eng = _engine(params, cfg, ctx, max(M_PREFILL, prompt_len), page_len,
+                      cuda_graphs=mode == "captured")
+        rng = np.random.default_rng(5)
+        for _ in range(4):
+            eng.add_request(
+                rng.integers(0, cfg.vocab_size, prompt_len).tolist(),
+                max_new=(attempts + 1) * steps + 4)
+        while len(eng.sched.running) < 4:  # the four prefills
+            eng.step()
+        eng.step()  # one decode step outside the window
+        prof = _profiled(f"decode profile {mode}", ctx, steps, eng.step,
+                         attempts=attempts)
+        _unprofiled(prof, steps, eng.step, 4)
+        routes = prof["mxfp4_matmul_routes"]
+        if ctx.quant == "mxfp4_wonly" and (routes["wgmma"] or routes["fma"]
+                                           or not routes["mma"]):
+            raise AssertionError(f"[mxfp4] decode took the routes {routes}")
+        cim_routes = _cim_routes()
+        if ctx.quant == "cim" and (cim_routes["wgmma"]
+                                   or not cim_routes["splitk"]):
+            raise AssertionError(f"[cim] decode took the routes {cim_routes}")
+        prof["launches_a_step"] = {k: v / steps
+                                   for k, v in prof["launches"].items()}
+        if eng.graph is not None:
+            prof["capture_s"] = eng.graph.capture_s
+            prof["graph_pool_bytes"] = eng.graph.pool_bytes
+        tokens[mode] = [list(r.out) for r in eng.requests.values()]
+        out[mode] = prof
+        del eng
+    n = min(len(t) for ts in tokens.values() for t in ts)
+    if [t[:n] for t in tokens["eager"]] != [t[:n] for t in tokens["captured"]]:
+        raise AssertionError(f"[{ctx.quant}] captured decode tokens are not "
+                             "the eager ones")
+    if out["eager"]["launches_a_step"] != out["captured"]["launches_a_step"]:
+        raise AssertionError(f"[{ctx.quant}] launches a step: eager "
+                             f"{out['eager']['launches_a_step']}, captured "
+                             f"{out['captured']['launches_a_step']}")
+    print("decode eager vs captured", json.dumps(
+        {"backend": ctx.quant, "tokens_compared": n * len(tokens["eager"]),
+         "tokens_bitwise": True} | _step_pair(out)), flush=True)
     return out
+
+
+# the eager and captured figures a serve line carries
+STEP_FIELDS = ("wall_ms", "device_ms_per_step", "busy_share", "tok_s",
+               "fps_host", "wall_ms_per_step", "device_busy_share",
+               "capture_s", "graph_pool_bytes", "timer")
+
+
+def _unprofiled(prof: dict, steps: int, step, per_step: int) -> None:
+    """Time ``steps`` more steps without the profiler (each ends in a host
+    read): ``wall_ms`` a step, ``busy_share`` (the profiled window's
+    device ms over it) and the rate, ``per_step`` tokens or frames a step
+    (``tok_s`` for 4 lanes, ``fps_host`` for one frame). The profiler's
+    own cost per traced kernel makes the profiled wall read high."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    prof["wall_ms"] = wall
+    prof["busy_share"] = (prof["device_ms_per_step"] / wall
+                          if prof["device_ms_per_step"] else None)
+    prof["tok_s" if per_step > 1 else "fps_host"] = per_step * 1e3 / wall
+
+
+def _step_pair(prof: dict) -> dict:
+    """``{"eager": {...}, "captured": {...}}`` of a profile pair, each cut
+    to ``STEP_FIELDS``."""
+    return {mode: {k: prof[mode][k] for k in STEP_FIELDS if k in prof[mode]}
+            for mode in ("eager", "captured")}
 
 
 def _leaves(tree):
@@ -1790,6 +1946,7 @@ def main() -> int:
     def phase(name, fn, *a):
         out = fn(*a)
         torch.cuda.synchronize()
+        gc.collect()  # the phase's engines, their graphs and pools
         torch.cuda.empty_cache()
         print(f"phase {name} done at {time.perf_counter() - t0:.1f} s",
               flush=True)

@@ -1,10 +1,10 @@
 """Architecture configs, JAX-free (counterpart of ``repro.models.lm.
 ArchConfig``, ``repro.models.vit.ViTConfig`` and ``repro.configs``). Of
-the LMs the three dense ones are ported: ``starcoder2-7b`` (full
-attention), ``h2o-danube-1.8b`` (sliding window) and ``gemma3-1b`` (5:1
-local:global); the MoE, SSM, hybrid, vlm and audio families are listed in
-ROADMAP.md. The paper's two vision workloads, ``vit-b16`` and
-``vit-l32``, are in ``VISION_ARCHS``."""
+the LMs the four dense ones are ported: ``starcoder2-7b`` and
+``nemotron-4-15b`` (full attention), ``h2o-danube-1.8b`` (sliding
+window) and ``gemma3-1b`` (5:1 local:global); the MoE, SSM, hybrid, vlm
+and audio families are listed in ROADMAP.md. The paper's two vision
+workloads, ``vit-b16`` and ``vit-l32``, are in ``VISION_ARCHS``."""
 
 from __future__ import annotations
 
@@ -91,8 +91,19 @@ GEMMA3_1B = ArchConfig(
     subquadratic=True,  # 5:1 local; the few global layers have kv=1
 )
 
+# nemotron-4-15b [arXiv:2402.16819]: GQA, squared-ReLU MLP.
+NEMOTRON4_15B = ArchConfig(
+    name="nemotron-4-15b", family="dense",
+    n_layers=32, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+    d_ff=24576, vocab_size=256000,
+    attn_pattern="full", rope_theta=1e4,
+    ffn_kind="relu2", norm="layernorm",
+    subquadratic=False,  # full attention => long_500k skipped
+)
+
 ARCHS: dict[str, ArchConfig] = {
-    c.name: c for c in (H2O_DANUBE_1_8B, STARCODER2_7B, GEMMA3_1B)}
+    c.name: c for c in (H2O_DANUBE_1_8B, STARCODER2_7B, GEMMA3_1B,
+                        NEMOTRON4_15B)}
 
 
 def tiny(cfg: ArchConfig, seq: int = 32) -> ArchConfig:

@@ -102,19 +102,20 @@ def quant_page_step(quant: dict, kv: torch.Tensor, rows: torch.Tensor,
     start = (slot // BLOCK) * BLOCK  # [L]
     idx = start[:, None] + torch.arange(BLOCK, device=kv.device)  # [L, 32]
     inside = idx < w
-    blk = kv[rows[:, None], torch.clamp(idx, max=w - 1)][..., 1::2, :]
+    last = torch.clamp(idx, max=w - 1)  # slots past the page -> slot W-1
+    blk = kv[rows[:, None], last][..., 1::2, :]
     zero = torch.zeros((), dtype=blk.dtype, device=blk.device)
     blk = torch.where(inside[:, :, None, None], blk, zero)  # past the page
     vq = mxlib.quantize_axis(blk.to(torch.float32), 1)  # [L, Hkv, Dh, 32]
     v_codes = _pad_d(torch.movedim(vq.codes, -1, 1), dpad)  # [L, 32, Hkv, Dpad]
     packed = mxlib.pack_codes(v_codes)
+    # a partial end block (W % 32 != 0): its slots past the page write
+    # slot W-1's own codes again, so every write to W-1 carries the same
+    # bytes and the scatter needs no data-dependent shape or host sync
+    packed = packed[torch.arange(len(rows), device=kv.device)[:, None],
+                    last - start[:, None]]
     odd = (even + 1)[None, None, :]
-    if w % BLOCK == 0:  # every block lies inside the page
-        quant["kv_codes"][rows[:, None, None], idx[:, :, None], odd] = packed
-    else:  # a partial end block: drop the slots past the page
-        li, ji = torch.nonzero(inside, as_tuple=True)
-        quant["kv_codes"][rows[li, None], idx[li, ji, None], odd[0]] = \
-            packed[li, ji]
+    quant["kv_codes"][rows[:, None, None], last[:, :, None], odd] = packed
     quant["v_exps"][rows, slot // BLOCK] = vq.exps[..., 0]
 
 

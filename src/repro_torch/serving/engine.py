@@ -14,6 +14,17 @@ Decode runs in place on the pool through ``RunCtx.paged_rows``: the
 attention layers write the new K/V row and its mirrors straight into the
 lanes' pool rows and run one ragged paged decode per layer.
 
+On CUDA the decode step is one CUDA graph (``serving/graphs.py``, the
+counterpart of the reference's jitted step): its rows, ids and positions
+are one static ``[3, lanes]`` device buffer, filled each step by one copy
+from a pinned host array, and its greedy argmax writes a static int64
+``[lanes]`` buffer whose host read ends the step. One graph serves every
+step, staggered or not (parked lanes keep their scratch rows), and holds
+the pool's tensors, which are only ever written in place.
+``EngineConfig(cuda_graphs=False)`` runs the step eagerly instead;
+``impl="ref"`` runs only so. The prefill, chunk and clone steps run
+eagerly (ROADMAP.md Queue 1).
+
 Chunked prefill (``chunk_len``) feeds long prompts through the chunk step
 one window at a time; under the ``chunked`` scheduler policy the windows
 interleave with decode steps. Admission clones or resets the request's
@@ -31,6 +42,7 @@ legacy split-page layout.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -39,6 +51,7 @@ from repro_torch.layers import attention as attn_mod
 from repro_torch.models import lm
 from repro_torch.obs import Obs
 from repro_torch.serving import pipeline as pipe_mod
+from repro_torch.serving.graphs import StepGraph
 from repro_torch.serving.kvcache import (
     PagedKVCache,
     PoolExhausted,
@@ -65,6 +78,9 @@ class EngineConfig:
     # radix prefix cache over the page pool (needs chunk_len: hits are
     # chunk-aligned so cached pages drop into the same chunk grid)
     prefix_cache: bool = False
+    # on CUDA, replay the decode step as a captured CUDA graph (False: run
+    # it eagerly, e.g. to compare the two); the CPU runs it eagerly
+    cuda_graphs: bool = True
 
 
 class Engine:
@@ -97,6 +113,23 @@ class Engine:
         self.requests: dict[int, Request] = {}
         self._next_rid = 0
         self._step_idx = 0
+        # the decode step's rows, ids and positions ([3, lanes] int64),
+        # written from one pinned host array a step on CUDA
+        self._step_in = torch.zeros((3, ecfg.lanes), dtype=torch.int64,
+                                    device=self.device)
+        self._step_host = self._step_in
+        self.graph: StepGraph | None = None
+        if self.device.type == "cuda":
+            self._step_host = torch.zeros_like(self._step_in,
+                                               device="cpu").pin_memory()
+            if ecfg.cuda_graphs:
+                if ctx.impl == "ref":
+                    raise ValueError("impl='ref' runs eagerly: pass "
+                                     "EngineConfig(cuda_graphs=False)")
+                self.graph = StepGraph(
+                    functools.partial(_decode_step, params, cfg, ctx,
+                                      self.kv.pool), self._step_in,
+                    obs=ctx.obs)
 
     # --------------------------------------------------------------- steps
 
@@ -136,12 +169,15 @@ class Engine:
         scatter_rows(self.kv.pool, self.kv.specs, rows, caches)
         return int(torch.argmax(logits[0, 0].float()))
 
-    @torch.no_grad()
-    def _decode(self, rows, ids, pos) -> np.ndarray:
-        dctx = dataclasses.replace(self.ctx, paged_rows=rows)
-        logits, _ = lm.decode_step(self.params, self.cfg, dctx, ids, pos,
-                                   self.kv.pool)
-        return torch.argmax(logits.float(), -1).cpu().numpy()
+    def _decode(self) -> np.ndarray:
+        """The decode step on ``_step_in``: replayed from its graph, or
+        eager; the host read of the next ids ends the step."""
+        if self.graph is not None:
+            next_ids = self.graph()
+        else:
+            next_ids = _decode_step(self.params, self.cfg, self.ctx,
+                                    self.kv.pool, self._step_in)
+        return next_ids.cpu().numpy()
 
     # ---------------------------------------------------------- public API
 
@@ -153,6 +189,12 @@ class Engine:
         if not prompt or len(prompt) > limit:
             raise ValueError(f"prompt length {len(prompt)} not in "
                              f"[1, {limit}]")
+        # an id past the embedding would fire a device-side assert on CUDA
+        # (the reference's jnp.take fills NaN rows instead)
+        bad = [t for t in prompt if not 0 <= t < self.cfg.vocab_size]
+        if bad:
+            raise ValueError(f"prompt ids {bad[:4]} not in [0, "
+                             f"{self.cfg.vocab_size})")
         if max_new < 1:
             raise ValueError("max_new must be >= 1 (prefill emits a token)")
         rid = self._next_rid
@@ -308,18 +350,17 @@ class Engine:
     def _run_decode(self) -> list:
         t0 = self.obs.clock()
         lanes = self.ecfg.lanes
-        rows = np.asarray([self.kv.scratch_row(i) for i in range(lanes)],
-                          np.int64)
-        ids = np.zeros((lanes, 1), np.int64)
-        pos = np.zeros((lanes,), np.int64)
+        step = self._step_host.numpy()  # rows, ids, pos of each lane
+        step[0] = [self.kv.scratch_row(i) for i in range(lanes)]
+        step[1:] = 0
         active = sorted(self.sched.running.items())
         for lane, req in active:
-            rows[lane] = req.slot
-            ids[lane, 0] = req.out[-1]
-            pos[lane] = req.pos
-        next_ids = self._decode(torch.from_numpy(rows).to(self.device),
-                                torch.from_numpy(ids).to(self.device),
-                                torch.from_numpy(pos).to(self.device))
+            step[:, lane] = (req.slot, req.out[-1], req.pos)
+        if self._step_host is not self._step_in:
+            # pinned: asynchronous; the previous step's host read has
+            # already waited for the previous copy
+            self._step_in.copy_(self._step_host, non_blocking=True)
+        next_ids = self._decode()
         t1 = self.obs.clock()
         for lane, req in active:
             req.out.append(int(next_ids[lane]))
@@ -341,3 +382,15 @@ class Engine:
                 self.obs.request_finished(req.rid, reason)
                 done.append(req)
         return done
+
+
+@torch.no_grad()
+def _decode_step(params, cfg, ctx, pool, step_in) -> torch.Tensor:
+    """The ``[lanes, 1]`` decode step on ``step_in`` ([3, lanes] int64:
+    pool rows, ids, positions): writes each lane's K/V row into ``pool``
+    in place and returns its greedy next id (int64 [lanes]). A function
+    of its arguments only, so a captured graph of it holds no engine."""
+    rows, ids, pos = step_in[0], step_in[1][:, None], step_in[2]
+    dctx = dataclasses.replace(ctx, paged_rows=rows)
+    logits, _ = lm.decode_step(params, cfg, dctx, ids, pos, pool)
+    return torch.argmax(logits.float(), -1)

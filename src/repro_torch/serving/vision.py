@@ -2,16 +2,20 @@
 (counterpart of ``repro.serving.vision``).
 
 A :class:`VisionEngine` streams frames one at a time through a chain of
-eager fixed-shape steps (an encoder has no KV cache and no decode step),
+fixed-shape steps (an encoder has no KV cache and no decode step),
 records each frame's stage traffic (token count = patch grid + CLS) as a
 ``frame`` step event, and maps that traffic onto the FWS pipeline model
-of ``serving/pipeline.py``.
+of ``serving/pipeline.py``. On CUDA each chip's step is a CUDA graph
+(``serving/graphs.py``), as the reference jits each chip, captured once
+for each input shape; ``cuda_graphs=False`` runs the chain eagerly, and
+``impl="ref"`` runs only so.
 
 Dual-chip workloads (vit-l32: 24 blocks split 12+12, paper §5.3) run the
 trunk as a chip chain on the one device: ``vit.split_chips`` slices the
 layers with ``stage_partition``, each chip is one step, and the bf16
 hidden state handed from one step to the next is the inter-chip hop that
-``pipeline.simulate(chips=2)`` bills as an extra link stage.
+``pipeline.simulate(chips=2)`` bills as an extra link stage. Captured,
+one chip's static output is the next chip's static input.
 
 Two kinds of figure come out, and they are not the same thing:
 
@@ -38,6 +42,7 @@ from repro_torch.hwmodel import specs as S
 from repro_torch.models import vit
 from repro_torch.obs import Obs
 from repro_torch.serving import pipeline as pipe_mod
+from repro_torch.serving.graphs import StepGraph
 
 _NOT_PORTED = ("the stage-parallel pipelined runner needs distributed/"
                "pipeline_exec.py, not ported yet (ROADMAP.md Queue 1 item 9)")
@@ -78,6 +83,10 @@ def _chip_step(cfg, ctx, n_layers, first, last, chip_params, x):
     return vit.forward_chip(chip_params, cfg, ctx, x, n_layers, first, last)
 
 
+def _whole_step(cfg, ctx, params, images):
+    return vit.forward(params, cfg, ctx, {"images": images})[0]
+
+
 class VisionEngine:
     """Fixed-shape single-stream frame engine over the backend registry:
     works under any linear backend (float, mxfp4, cim) with whatever
@@ -86,7 +95,7 @@ class VisionEngine:
 
     def __init__(self, params, cfg: vit.ViTConfig, ctx,
                  chips: int | None = None, obs: Obs | None = None,
-                 runner=None):
+                 runner=None, cuda_graphs: bool = True):
         if runner is not None:
             raise NotImplementedError(_NOT_PORTED)
         self.params = params
@@ -97,17 +106,37 @@ class VisionEngine:
         self.device = params["pos"].device
         self._next_fid = 0
         if self.chips == 1:
-            self._chain = [(self._whole, params, cfg.n_layers)]
+            self._chain = [functools.partial(_whole_step, cfg, ctx, params)]
         else:
             self._chain = []
             chip_trees = vit.split_chips(params, cfg, self.chips)
             for ci, (chip_params, n_layers) in enumerate(chip_trees):
-                step = functools.partial(_chip_step, cfg, ctx, n_layers,
-                                         ci == 0, ci == self.chips - 1)
-                self._chain.append((step, chip_params, n_layers))
+                self._chain.append(functools.partial(
+                    _chip_step, cfg, ctx, n_layers, ci == 0,
+                    ci == self.chips - 1, chip_params))
+        # {(input shape, dtype): one captured StepGraph a chip}
+        self.graphs: dict | None = None
+        if cuda_graphs and self.device.type == "cuda":
+            if ctx.impl == "ref":
+                raise ValueError("impl='ref' runs eagerly: pass "
+                                 "cuda_graphs=False")
+            self.graphs = {}
 
-    def _whole(self, params, images):
-        return vit.forward(params, self.cfg, self.ctx, {"images": images})[0]
+    def _captured_chain(self, x: torch.Tensor) -> list:
+        """The chain's graphs for ``x``'s shape, captured on first use:
+        chip 0's static input takes ``x``; each later chip's static input
+        is the previous chip's static output (the inter-chip hop)."""
+        key = (tuple(x.shape), x.dtype)
+        chain = self.graphs.get(key)
+        if chain is None:
+            inp, chain = x.clone(), []
+            for step in self._chain:
+                g = StepGraph(step, inp, obs=self.ctx.obs)
+                g.capture()  # its static output holds this input's result
+                chain.append(g)
+                inp = g.static_out
+            self.graphs[key] = chain
+        return chain
 
     # --------------------------------------------------------- execution
 
@@ -117,9 +146,15 @@ class VisionEngine:
         the hidden state handed from one step to the next is the
         inter-chip hop."""
         x = torch.as_tensor(images, device=self.device)
-        for step, chip_params, _ in self._chain:
-            x = step(chip_params, x)
-        return x
+        if self.graphs is None:
+            for step in self._chain:
+                x = step(x)
+            return x
+        chain = self._captured_chain(x)
+        chain[0].static_in.copy_(x)
+        for g in chain:
+            out = g()
+        return out.clone()  # the static output is the next frame's
 
     def classify_frame(self, image) -> int:
         """One frame [H, W, C] through the chip chain; returns the top-1

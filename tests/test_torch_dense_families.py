@@ -1,6 +1,8 @@
-"""The port's two other dense LM families against the JAX reference:
+"""The port's other dense LM families against the JAX reference:
 gemma3-1b (5:1 local:global, qk-norm, GeGLU, one KV head, tied head,
-head_dim 256) and h2o-danube-1.8b (sliding window, head_dim 80).
+head_dim 256), h2o-danube-1.8b (sliding window, head_dim 80) and
+nemotron-4-15b (full attention, squared-ReLU MLP without w3, LayerNorm,
+untied head).
 
 - Segments: ``build_segments`` of the full configs equals the
   reference's (kinds, layers, window and RoPE theta of each run); the
@@ -8,14 +10,15 @@ head_dim 256) and h2o-danube-1.8b (sliding window, head_dim 80).
   raise.
 - Models: tiny gemma3 cut to 8 layers in both packages (segments L5 G1
   L2, so stacked and single-layer segments both come up) and tiny danube,
-  on weights carried by ``from_reference``: a prefill into fused pages
-  against the reference's eager ``unroll_layers`` forward, then
-  teacher-forced decode steps against the reference running its Pallas
-  kernels in interpret mode, under float, mxfp4 and cim; logits SQNR >= 30
-  dB, the bound of ``tests/test_torch_lm.py``. Tiny gemma3's local layers
-  have 16-slot windows, so their pages are 16-slot rings that wrap during
-  the prompt. Row-Hist calibration of gemma3 gives the reference's paths
-  and values; the GLU activations round as the reference's do; the
+  and tiny danube and nemotron (2 layers), on weights carried by
+  ``from_reference``: a prefill into fused pages against the reference's
+  eager ``unroll_layers`` forward, then teacher-forced decode steps
+  against the reference running its Pallas kernels in interpret mode,
+  under float, mxfp4 and cim; logits SQNR >= 30 dB, the bound of
+  ``tests/test_torch_lm.py``. Tiny gemma3's local layers have 16-slot
+  windows, so their pages are 16-slot rings that wrap during the prompt.
+  Row-Hist calibration of gemma3 gives the reference's paths and values;
+  the GLU and squared-ReLU activations round as the reference's do; the
   engine's tokens of staggered requests equal each request's served
   alone.
 - Head widths: ``tiny`` sets head_dim 16, so the real widths 80 (danube;
@@ -69,7 +72,7 @@ from repro_torch.models import calibrate as tcalibrate  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serving import Engine, EngineConfig  # noqa: E402
 
-ARCHS = ("gemma3-1b", "h2o-danube-1.8b")
+ARCHS = ("gemma3-1b", "h2o-danube-1.8b", "nemotron-4-15b")
 # tiny configs, gemma3 cut to 8 layers: segments L5 G1 L2
 TINY = {name: dataclasses.replace(jconfigs.tiny(jconfigs.ARCHS[name]),
                                   **({"n_layers": 8} if name == "gemma3-1b"
@@ -111,11 +114,13 @@ def test_build_segments_match_reference(name):
         assert [(s.n, s.attn.window, s.attn.rope_theta) for s in tsegs] == (
             [(5, 512, 1e4), (1, 0, 1e6)] * 4 + [(2, 512, 1e4)])
     else:
-        assert [(s.n, s.attn.window) for s in tsegs] == [(24, 4096)]
+        assert [(s.n, s.attn.window) for s in tsegs] == {
+            "h2o-danube-1.8b": [(24, 4096)],
+            "nemotron-4-15b": [(32, 0)]}[name]
 
 
 @pytest.mark.parametrize("name", ("gemma3-1b", "h2o-danube-1.8b",
-                                  "starcoder2-7b"))
+                                  "starcoder2-7b", "nemotron-4-15b"))
 def test_page_budget_matches_reference(name):
     """The launcher's page rule is the reference launcher's
     (``src/repro/launch/serve.py``, ``serve_trace``): prompt + tokens,
@@ -149,8 +154,9 @@ def models():
     """Per arch: the reference's float, mxfp4 and Row-Hist cim trees and
     the port's carried copies. gemma3 calibrates in the reference (on the
     prompt's first SEQ tokens: eager JAX compiles each op, which takes most
-    of this file's time); danube's cim tree is the reference's conversion
-    under the port's own calibration of the same weights and tokens."""
+    of this file's time); danube's and nemotron's cim trees are the
+    reference's conversion under the port's own calibration of the same
+    weights and tokens."""
     out = {}
     jctx = jcommon.RunCtx(shd=jcommon.ShardingCtx(), dense_attn_max=256)
     to_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
@@ -226,14 +232,15 @@ def test_calibration_matches_reference(models):
         assert float(cal.adc_fs) == float(jcalibs[path].adc_fs), path
 
 
-@pytest.mark.parametrize("kind", ["swiglu", "geglu"])
+@pytest.mark.parametrize("kind", ["swiglu", "geglu", "relu2"])
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
 def test_glu_activations_match_reference(kind, dtype):
     """danube's SwiGLU and gemma3's GeGLU activations, op by op as the
-    reference's ``jax.nn.silu`` / ``jax.nn.gelu`` round them: bitwise in
-    bf16, the served dtype (a fused silu differs in about a third of
-    outputs, a gelu that takes 0.044715 as a Python float in 0.3%); in f32
-    within 1e-6 (XLA fuses the f32 chain: last-ulp differences)."""
+    reference's ``jax.nn.silu`` / ``jax.nn.gelu`` round them, and
+    nemotron's squared ReLU: bitwise in bf16, the served dtype (a fused
+    silu differs in about a third of outputs, a gelu that takes 0.044715
+    as a Python float in 0.3%); in f32 within 1e-6 (XLA fuses the f32
+    chain: last-ulp differences)."""
     x = (np.random.default_rng(0).standard_normal(4096) * 3).astype(
         np.float32)
     jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bf16"
