@@ -48,12 +48,15 @@
    source). ``cim_linear`` launches by route must
    show both routes in the serve, ``wgmma`` in the prefill (M = 192 with
    N > 1024) and ``splitk`` only in the decode steps.
-   Every serve decodes through the captured CUDA graph of the decode step
-   (``serving/graphs.py``; phases 4-7 and 9). Each decode window runs
-   twice on the same requests, eager (``EngineConfig(cuda_graphs=False)``)
-   and captured: tokens and launches a step must be equal, and the
-   ``serve`` line carries both windows' wall and device ms a step, busy
-   share and tok/s, with the capture's seconds and graph pool bytes.
+   Every serve runs its prefill, chunk, clone and decode steps through
+   captured CUDA graphs (``serving/graphs.py``; phases 4-7 and 9). Each
+   profiled prefill and decode window runs twice on the same requests,
+   eager (``EngineConfig(cuda_graphs=False)``) and captured: the ids (the
+   prefill's one id, the decode tokens) and the launches by kernel and
+   route must be equal, and the ``serve`` line carries both windows' wall
+   and device ms a step, busy share (and tok/s), with the capture's
+   seconds and graph pool bytes; a ``prefill eager vs captured`` line
+   gives the prefill's, unprofiled wall the median of ``PREFILL_WALLS``.
 5. Serve ``--backend mxfp4`` the same way at full width with the depth
    cut to 16 of 32 layers (the run's time limit): ``mxfp4_matmul`` (both
    routes) and ``paged_decode`` must have launched, ``cim_linear`` and
@@ -74,7 +77,16 @@
    requests (6 share a 512-token system prompt) with the prefix cache off
    and then on: bitwise equal tokens, hits and no verify failure, fewer
    prefill-chunk steps, and ``cim_linear`` and ``paged_decode_mx`` (only)
-   launched; a ``serve chunked`` line a run.
+   launched; a ``serve chunked`` line a run. Then one load replay of the
+   same model through the launcher's ``serve_load`` (``LOAD_ARGS``: 24
+   Poisson arrivals at 4 requests/s, chunked, prefix cache, metrics
+   written to a temporary directory, SLO targets scored) and the same
+   trace, saved and loaded, replayed on an eager engine: tokens bitwise
+   equal a request, the Prometheus file parsing back to the registry's
+   counters, ``kernel_calls_total`` counting every launch, only
+   ``cim_linear`` and ``paged_decode_mx`` launched; a ``serve load`` line
+   a replay (TTFT, token latency and queue wait p50/p99, wall tok/s,
+   steps, prefix hits, page evictions, the SLO verdict).
 8. Serve vision: the paper's Table 7 workloads at full width and depth
    through the launcher's ``build_vision_model`` and ``serve_vision``,
    ``VISION_FRAMES`` single-stream frames (B=1) each: ViT-B/16 (197
@@ -111,7 +123,7 @@
    ``impl="ref"`` with the chunked plain decode (SQNR >= 30 dB; the dense
    ``impl="ref"`` figure is printed beside it); each request served alone
    gives its first 32 staggered tokens bitwise; the tied head timed; one
-   prefill profiled and 8 decode steps eager and captured (one window
+   prefill and 8 decode steps profiled eager and captured (one window
    each); a ``serve dense`` line a run. First, the kernel rows at these
    archs' shapes (``DENSE_SHAPES``): B and D at head widths 256, 80 and
    128 (page 448, lengths 0, 1, W/2, W), E at the [1, 384] prefill shapes
@@ -125,6 +137,7 @@ Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``paged_decode_mx {...}``, ``mxfp4_matmul {...}``, ``paged_decode {...}``,
 ``flash_attention {...}``, ``serve {...}``, ``prefill profile {...}``,
 ``decode profile {...}``, ``serve long {...}``, ``serve chunked {...}``,
+``serve load {...}``, ``prefill eager vs captured {...}``,
 ``decode eager vs captured {...}``, ``frame profile <arch> <mode>
 {...}``, ``frame eager vs captured {...}``, ``serve vision {...}``,
 ``serve dense {...}``).
@@ -141,6 +154,7 @@ import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -177,6 +191,7 @@ MAIN_KERNELS = {
     "flash_attention": ("flash_attention_kernel", "flash_attention_tc_kernel"),
 }
 PROFILE_ATTEMPTS = 3  # profiler windows before their launch counts are used
+PREFILL_WALLS = 3  # prefills a mode timed without the profiler (median)
 # (K, N) of the static linears at starcoder2-7b width: wq/wo, wk/wv, w1,
 # w2, the LM head
 LINEAR_SHAPES = [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608),
@@ -195,6 +210,15 @@ LONG_PAGE = LONG_PROMPT + LONG_TOKENS
 CHUNK_ECFG = dict(lanes=4, num_slots=6, page_len=1088, prefill_len=256,
                   chunk_len=256, policy="chunked")
 SYS_PROMPT, CHUNK_TOKENS = 512, 32  # the shared prefix, new tokens a request
+# phase 7's load replay: phase 4's model through the launcher's serve_load,
+# 24 Poisson arrivals at 4 requests/s (~6 s of arrivals) of prompts up to
+# 1087 tokens (a 512-token system prompt on 3 in 4), up to 32 new tokens,
+# CHUNK_ECFG's engine (the page of 1056 + 32 slots). The SLO targets only
+# exercise the scoring: no cell sets an SLO yet (PERF.md §2).
+LOAD_ARGS = ["--arrivals", "poisson:4", "--requests", "24", "--chunk-len",
+             "256", "--policy", "chunked", "--prefix-cache", "--prompt-len",
+             "1056", "--tokens", "32", "--lanes", "4", "--slots", "6",
+             "--slo-ttft-ms", "2000", "--slo-token-ms", "100"]
 # each decode kernel also at the page width of the serve that runs it
 MX_PAGES = PAGES + ((CHUNK_ECFG["page_len"], [0, 545, 1000, 1088]),)
 FLOAT_PAGES = PAGES + ((LONG_PAGE, [0, 1029, 1900, LONG_PAGE]),)
@@ -935,7 +959,8 @@ def serve_full_width(backend: str) -> tuple[dict, tuple]:
         raise AssertionError(f"[{backend}] full-width prefill logits disagree")
     prof = {"prefill": profile_prefill(cfg, params, ctx),
             "decode": profile_decode(cfg, params, ctx)}
-    print("serve", json.dumps(line | {"decode": _step_pair(prof["decode"])}),
+    print("serve", json.dumps(line | {"prefill": _step_pair(prof["prefill"]),
+                                      "decode": _step_pair(prof["decode"])}),
           flush=True)
     return ({"launches": launches, "summary": summary, "profile": prof},
             (cfg, params, ctx))
@@ -1008,20 +1033,23 @@ def serve_long(cfg, params, ctx) -> dict:
             "decode": profile_decode(cfg, params, ctx, prompt_len=LONG_PROMPT,
                                      page_len=LONG_PAGE, attempts=2)}
     print("serve long", json.dumps(
-        line | {"decode": _step_pair(prof["decode"])}), flush=True)
-    fa_prof = prof["prefill"]["launches"].get("flash_attention", 0)
+        line | {"prefill": _step_pair(prof["prefill"]),
+                "decode": _step_pair(prof["decode"])}), flush=True)
+    fa_prof = prof["prefill"]["captured"]["launches"].get("flash_attention",
+                                                          0)
     if fa_prof != cfg.n_layers:
         raise AssertionError(f"[mxfp4 long] the profiled prefill launched "
                              f"flash_attention {fa_prof} times")
     s = LONG_PROMPT  # the kernel runs every row, pad rows too, causally
     bound, by = _flash_bound(1, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 2,
                              s * (s + 1) / 2)
-    fa_ms = prof["prefill"]["kernel_ms_per_step"].get("flash_attention")
+    fa_ms = prof["prefill"]["captured"]["kernel_ms_per_step"].get(
+        "flash_attention")
     print("flash_attention in the long prefill", json.dumps(
         {"launches_a_prefill": fa_prof, "device_ms_a_prefill": fa_ms,
          "device_ms_a_launch": fa_ms / fa_prof if fa_ms else None,
          "bound_ms_a_launch": bound, "bound_by": by,
-         "timer": prof["prefill"]["timer"]}), flush=True)
+         "timer": prof["prefill"]["captured"]["timer"]}), flush=True)
     return {"launches": launches, "summary": summary, "profile": prof,
             "logits_sqnr_db": sq}
 
@@ -1100,6 +1128,114 @@ def serve_chunked_prefix(cfg, params, ctx) -> dict:
                                              for t in v):
             raise AssertionError("[cim chunked] served tokens")
     return {"launches": launches, "off": off["line"], "on": on["line"]}
+
+
+def _load_line(mode: str, rep: dict, slo: dict, launches: dict,
+               graphs: dict | None = None) -> dict:
+    """The ``serve load`` line of one replay (host wall clock, ms)."""
+    def ms(key, q):
+        return (rep[key] or {}).get(q, 0) * 1e3
+
+    return {"mode": mode, "requests": rep["n_requests"],
+            "tokens": rep["tokens_generated"], "wall_s": rep["wall_s"],
+            "tok_s_wall": rep["tokens_per_s_wall"],
+            "ttft_ms_p50": ms("ttft_s", "p50"),
+            "ttft_ms_p99": ms("ttft_s", "p99"),
+            "token_ms_p50": ms("token_latency_s", "p50"),
+            "token_ms_p99": ms("token_latency_s", "p99"),
+            "queue_wait_ms_p50": ms("queue_wait_s", "p50"),
+            "queue_wait_ms_p99": ms("queue_wait_s", "p99"),
+            "prefill_steps": rep["steps"]["prefill"],
+            "decode_steps": rep["steps"]["decode"],
+            "prefix_hits": rep["prefix"].get("hits"),
+            "page_evictions": rep["page_evictions"],
+            "slo_pass": slo["pass"], "slo_observed": slo["observed"],
+            "launches": {k: v for k, v in launches.items() if v},
+            "graphs": graphs}
+
+
+def serve_load_replay(cfg, params, ctx) -> dict:
+    """Phase 7's load replay: phase 4's model through the launcher's
+    ``serve_load`` (``LOAD_ARGS``: Poisson arrivals, chunked prefill, the
+    prefix cache; every step captured, warmed up on a throwaway request),
+    writing its metrics under a temporary directory; then the same trace,
+    saved and loaded again, through ``load.replay`` on an engine of the
+    same config with ``cuda_graphs=False``, warmed up the same way. Each
+    request's tokens must be bitwise equal between the two (lane
+    isolation: admission order may differ), the Prometheus file must
+    parse back to the registry's counters, ``kernel_calls_total`` must
+    count every launch, and only ``cim_linear`` and ``paged_decode_mx``
+    may launch. A ``serve load`` line a replay."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.launch import serve
+    from repro_torch.serving import Engine
+    from repro_torch.serving import load as load_mod
+
+    dev = params["embed"]["emb"].device
+    lines, outs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        args = serve.build_parser().parse_args(
+            SERVE_ARGS["cim"] + LOAD_ARGS
+            + ["--metrics-out", f"{tmp}/metrics.json"])
+        obs = obs_lib.Obs()
+        _zero_counts()
+        res = serve.serve_load(args, cfg, params,
+                               dataclasses.replace(ctx, obs=obs), obs, dev)
+        launches, _ = _read_counts()
+        prom = obs_lib.parse_prometheus(Path(tmp, "metrics.prom").read_text())
+        calls = 0.0
+        for fam in obs.registry.families():
+            if fam.kind != "counter":
+                continue
+            for key, child in fam.children.items():
+                got = prom.get((fam.name, tuple((k, str(v)) for k, v in key)))
+                if got != child.value:
+                    raise AssertionError(f"[cim load] {fam.name}{key}: "
+                                         f"{child.value} in the registry, "
+                                         f"{got} in the Prometheus file")
+                if fam.name == "kernel_calls_total":
+                    calls += child.value
+        if calls != sum(launches.values()):
+            raise AssertionError(f"[cim load] kernel_calls_total {calls}, "
+                                 f"launches {launches}")
+        lines["captured"] = _load_line("captured", res["report"], res["slo"],
+                                       launches, res["graphs"])
+        outs["captured"] = res["out"]
+        load_mod.save_trace(f"{tmp}/trace.json", res["trace"])
+        trace = load_mod.load_trace(f"{tmp}/trace.json")
+    if trace != res["trace"]:
+        raise AssertionError("[cim load] the trace did not round-trip")
+    obs = obs_lib.Obs()
+    eng = Engine(params, cfg, dataclasses.replace(ctx, obs=obs),
+                 dataclasses.replace(res["ecfg"], cuda_graphs=False), obs=obs)
+    eng.add_request(list(trace[0].prompt), max_new=2)  # serve_load's warm-up
+    eng.run()
+    obs.reset()
+    _zero_counts()
+    rep = load_mod.replay(eng, trace)
+    eager_launches, _ = _read_counts()
+    targets = obs_lib.SLOTargets(ttft_p99_s=args.slo_ttft_ms / 1e3,
+                                 token_p99_s=args.slo_token_ms / 1e3)
+    lines["eager"] = _load_line(
+        "eager", load_mod.load_report(eng, wall_s=rep["wall_s"]),
+        obs_lib.evaluate_slo(obs.finished, targets), eager_launches)
+    outs["eager"] = rep["out"]
+    del eng
+    for mode in ("captured", "eager"):
+        print("serve load", json.dumps(lines[mode]), flush=True)
+    if outs["captured"] != outs["eager"]:
+        diff = [r for r in outs["eager"]
+                if outs["captured"].get(r) != outs["eager"][r]]
+        raise AssertionError(f"[cim load] requests {diff}: captured and "
+                             "eager replays gave other tokens")
+    for mode, line in lines.items():
+        if (set(line["launches"]) != {"cim_linear", "paged_decode_mx"}
+                or line["requests"] != len(trace)):
+            raise AssertionError(f"[cim load] {mode}: {line}")
+        for v in outs[mode].values():
+            if not v or not all(0 <= t < cfg.vocab_size for t in v):
+                raise AssertionError("[cim load] served tokens")
+    return {"launches": launches, "lines": lines}
 
 
 def check_vit_linears(dev) -> tuple[list, list]:
@@ -1558,9 +1694,9 @@ def serve_dense(arch: str, backend: str) -> dict:
     solo_diff = []
     for rid, prompt in summary["prompts"].items():
         eng = Engine(params, cfg, kctx, ecfg)
-        want = summary["out"][rid][:SOLO_TOKENS]
-        eng.add_request(prompt, max_new=len(want))
-        if eng.run()[0] != want:
+        first = summary["out"][rid][:SOLO_TOKENS]
+        eng.add_request(prompt, max_new=len(first))
+        if eng.run()[0] != first:
             solo_diff.append(rid)
     solo_s = time.perf_counter() - t1
     head = None
@@ -1594,8 +1730,11 @@ def serve_dense(arch: str, backend: str) -> dict:
             "tied_head": head, "peak_mem_gib": peak / 2**30,
             "resident_params_gib": resident / 2**30,
             "model_build_s": build_s,
-            "prefill_device_ms": prof["prefill"]["device_ms_per_step"],
-            "prefill_kernel_ms": prof["prefill"]["kernel_ms_per_step"],
+            "prefill_device_ms": prof["prefill"]["captured"][
+                "device_ms_per_step"],
+            "prefill_kernel_ms": prof["prefill"]["captured"][
+                "kernel_ms_per_step"],
+            "prefill": _step_pair(prof["prefill"]),
             "decode_device_ms": prof["decode"]["captured"][
                 "device_ms_per_step"],
             "decode_kernel_ms": prof["decode"]["captured"][
@@ -1796,27 +1935,88 @@ def profile_prefill(cfg, params, ctx, prompt_len: int = M_PREFILL,
                     page_len: int = 256,
                     attempts: int = PROFILE_ATTEMPTS) -> dict:
     """One ``prompt_len``-token prefill through the engine (the request's
-    first step) under ``torch.profiler``. Under ``mxfp4`` its linears must
-    take the tensor-core route."""
-    eng = _engine(params, cfg, ctx, prompt_len, page_len)
-    rng = np.random.default_rng(9)
-    eng.add_request(rng.integers(0, cfg.vocab_size, prompt_len // 3).tolist(),
-                    max_new=2)
-    eng.step()  # a warm prefill outside the window
+    first step) under ``torch.profiler``, run twice on the same prompt:
+    eager (``cuda_graphs=False``) and captured (the default; a warm
+    prefill outside the window captures the graph). Under ``mxfp4`` its
+    linears must take the tensor-core route, under ``cim`` ``wgmma`` must
+    run. The window's id must be bitwise equal between the two, and its
+    launches by kernel and route the same. Each mode also times
+    ``PREFILL_WALLS`` prefills without the profiler (``wall_ms``, the
+    median; ``busy_share``). Returns ``{"eager": profile, "captured":
+    profile + capture_s and graph_pool_bytes}`` and prints a ``prefill
+    eager vs captured`` line."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    def prepare():  # finish what runs, then queue the prompt of the window
-        while eng.sched.running or eng.sched.waiting:
-            eng.step()
-        eng.add_request(rng.integers(0, cfg.vocab_size, prompt_len).tolist(),
-                        max_new=2)
+    out, ids = {}, {}
+    for mode in ("eager", "captured"):
+        eng = _engine(params, cfg, ctx, prompt_len, page_len,
+                      cuda_graphs=mode == "captured")
+        rng = np.random.default_rng(9)
+        eng.add_request(
+            rng.integers(0, cfg.vocab_size, prompt_len // 3).tolist(),
+            max_new=2)
+        eng.step()  # a warm prefill outside the window (the capture)
+        prompt = rng.integers(0, cfg.vocab_size, prompt_len).tolist()
+        rids = []
 
-    out = _profiled("prefill profile", ctx, 1, eng.step, prepare, attempts)
-    if ctx.quant == "mxfp4_wonly" and not out["mxfp4_matmul_routes"]["wgmma"]:
-        raise AssertionError("[mxfp4] the prefill did not take the wgmma "
-                             f"route: {out['mxfp4_matmul_routes']}")
-    if ctx.quant == "cim" and not _cim_routes()["wgmma"]:
-        raise AssertionError("[cim] the prefill did not take the wgmma "
-                             f"route: {_cim_routes()}")
+        def prepare():  # finish what runs, then queue the window's prompt
+            while eng.sched.running or eng.sched.waiting:
+                eng.step()
+            rids.append(eng.add_request(prompt, max_new=2))
+
+        prof = _profiled(f"prefill profile {mode}", ctx, 1, eng.step,
+                         prepare, attempts)
+        prof["routes"] = {
+            "mxfp4_matmul": prof["mxfp4_matmul_routes"],
+            "cim_linear": _cim_routes(),
+            "flash_attention": dict(fa_ops.flash_attention.route_launches)}
+        if (ctx.quant == "mxfp4_wonly"
+                and not prof["mxfp4_matmul_routes"]["wgmma"]):
+            raise AssertionError("[mxfp4] the prefill did not take the wgmma "
+                                 f"route: {prof['mxfp4_matmul_routes']}")
+        if ctx.quant == "cim" and not _cim_routes()["wgmma"]:
+            raise AssertionError("[cim] the prefill did not take the wgmma "
+                                 f"route: {_cim_routes()}")
+        ids[mode] = eng.requests[rids[-1]].out[0]
+        walls = []
+        for _ in range(PREFILL_WALLS):
+            prepare()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()  # ends in the host read of the id
+            walls.append(time.perf_counter() - t0)
+        if any(eng.requests[r].out[0] != ids[mode] for r in rids):
+            raise AssertionError(f"[{ctx.quant}] {mode} prefills of one "
+                                 "prompt gave other ids")
+        prof["wall_ms"] = float(np.median(walls)) * 1e3
+        prof["busy_share"] = (prof["device_ms_per_step"] / prof["wall_ms"]
+                              if prof["device_ms_per_step"] else None)
+        graph = eng.graphs.get("prefill")
+        if graph is not None:
+            prof["capture_s"] = graph.capture_s
+            prof["graph_pool_bytes"] = graph.pool_bytes
+        out[mode] = prof
+        del eng
+    if ids["eager"] != ids["captured"]:
+        raise AssertionError(f"[{ctx.quant}] prefill id eager {ids['eager']}"
+                             f", captured {ids['captured']}")
+    for key in ("launches", "routes"):
+        if out["eager"][key] != out["captured"][key]:
+            raise AssertionError(f"[{ctx.quant}] prefill {key}: eager "
+                                 f"{out['eager'][key]}, captured "
+                                 f"{out['captured'][key]}")
+    print("prefill eager vs captured", json.dumps(
+        {"backend": ctx.quant, "prompt_len": prompt_len, "id": ids["eager"],
+         "id_bitwise": True, "launches": out["captured"]["launches"],
+         "routes": out["captured"]["routes"]} | {
+            mode: {"wall_ms": out[mode]["wall_ms"],
+                   "device_ms": out[mode]["device_ms_per_step"],
+                   "busy_share": out[mode]["busy_share"],
+                   "capture_s": out[mode].get("capture_s"),
+                   "pool_mib": (out[mode]["graph_pool_bytes"] / 2**20
+                                if "graph_pool_bytes" in out[mode] else None),
+                   "timer": out[mode]["timer"]}
+            for mode in ("eager", "captured")}), flush=True)
     return out
 
 
@@ -1859,9 +2059,10 @@ def profile_decode(cfg, params, ctx, steps: int = 8, prompt_len: int = 128,
             raise AssertionError(f"[cim] decode took the routes {cim_routes}")
         prof["launches_a_step"] = {k: v / steps
                                    for k, v in prof["launches"].items()}
-        if eng.graph is not None:
-            prof["capture_s"] = eng.graph.capture_s
-            prof["graph_pool_bytes"] = eng.graph.pool_bytes
+        graph = eng.graphs.get("decode")
+        if graph is not None:
+            prof["capture_s"] = graph.capture_s
+            prof["graph_pool_bytes"] = graph.pool_bytes
         tokens[mode] = [list(r.out) for r in eng.requests.values()]
         out[mode] = prof
         del eng
@@ -1968,15 +2169,17 @@ def main() -> int:
     for backend in ("cim", "mxfp4"):
         phase(f"tiny {backend}", check_tiny_agreement, dev, backend)
         phase(f"tiny_vit {backend}", check_tiny_vit_agreement, dev, backend)
-    # one backend's model at a time, each served twice: by the launcher
-    # (phases 4, 5) and then chunked with the prefix cache (cim, phase 7)
+    # one backend's model at a time, served by the launcher (phases 4, 5)
+    # and then chunked with the prefix cache and under load (cim, phase 7)
     # or with long prompts (mxfp4, phase 6); freed before the next
     runs = {}
-    for backend, name, again in (("cim", "chunked", serve_chunked_prefix),
-                                 ("mxfp4", "long", serve_long)):
+    for backend, agains in (("cim", (("chunked", serve_chunked_prefix),
+                                      ("load", serve_load_replay))),
+                            ("mxfp4", (("long", serve_long),))):
         runs[backend], model = phase(f"serve {backend}", serve_full_width,
                                      backend)
-        runs[name] = phase(f"serve {name} [{backend}]", again, *model)
+        for name, again in agains:
+            runs[name] = phase(f"serve {name} [{backend}]", again, *model)
         del model
     for arch, backend in VISION_RUNS:  # phase 8
         runs[f"vision {arch} {backend}"] = phase(

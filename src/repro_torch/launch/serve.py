@@ -24,6 +24,15 @@ not a speed of the device. ``--tiny`` (the default) keeps the token
 geometry and layer count and shrinks the width; ``--no-tiny`` runs the
 full model.
 
+``--arrivals poisson:RATE | burst:N:GAP_S | trace:FILE`` replays an
+arrival process on the host wall clock through the engine instead
+(``serving/load.py``): mixed prompt and output lengths, shared system
+prompts, the steps warmed up (and captured) on a throwaway request
+first. Telemetry: ``--metrics-out PATH`` writes the run's metrics as a
+JSON snapshot at PATH and the Prometheus text exposition beside it (a
+``.prom`` suffix); ``--slo-ttft-ms`` / ``--slo-token-ms`` score the
+finished requests against p99 targets (``obs/slo.py``).
+
 Runs on CUDA unless ``--device cpu`` is given (then the kernels' plain
 versions run); without a GPU and without ``--device cpu`` it raises.
 
@@ -37,6 +46,10 @@ versions run); without a GPU and without ``--device cpu`` it raises.
       --backend cim --frames 64             # full ViT-B/16 on the GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vit-l32 \\
       --backend mxfp4 --device cpu          # geometry-true tiny, CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --backend cim --arrivals burst:4:0.05 --chunk-len 4 \\
+      --policy chunked --prefix-cache --metrics-out /tmp/m.json \\
+      --slo-ttft-ms 60000                   # load replay, tiny, CPU
 """
 
 from __future__ import annotations
@@ -118,6 +131,29 @@ def page_budget(cfg, prompt_len: int, tokens: int) -> tuple[int, int]:
     return page_len, max(2, page_len - tokens)
 
 
+def _finish_metrics(args, obs: obs_lib.Obs, log) -> dict | None:
+    """Score SLOs (when targets are given) and write the metrics snapshot
+    (``--metrics-out``). Returns the SLO report, or None without
+    targets."""
+    targets = obs_lib.SLOTargets(
+        ttft_p99_s=args.slo_ttft_ms / 1e3 if args.slo_ttft_ms else None,
+        token_p99_s=args.slo_token_ms / 1e3 if args.slo_token_ms else None,
+    )
+    slo = None
+    if any(v is not None for v in targets.asdict().values()):
+        slo = obs_lib.evaluate_slo(obs.finished, targets)
+        log.info("slo: %s", obs_lib.kv(
+            ok=slo["pass"], **{k: v for k, v in slo["violations"].items()}))
+    if args.metrics_out:
+        extra = {"requests": obs.request_summary()}
+        if slo is not None:
+            extra["slo"] = slo
+        jp, pp = obs_lib.write_metrics(obs.registry, args.metrics_out,
+                                       extra=extra)
+        log.info("metrics written: %s", obs_lib.kv(json=jp, prom=pp))
+    return slo
+
+
 def serve_trace(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
     """A burst of staggered synthetic requests through the engine.
     Returns a summary: requests, tokens, wall, tokens/s, TTFT and
@@ -167,7 +203,79 @@ def serve_trace(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
                            if k not in SUMMARY_DATA + ("prefix",)}))
     if eng.prefix is not None:
         log.info("prefix-cache: %s", obs_lib.kv(**eng.prefix_stats()))
+    _finish_metrics(args, obs, log)
     return summary
+
+
+def serve_load(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
+    """``--arrivals``: the trace-driven load harness. Replays a Poisson,
+    scripted-burst or recorded arrival process with mixed prompt and
+    output lengths (and shared system prompts, what the prefix cache
+    deduplicates) through the engine on the host wall clock, then scores
+    SLOs and publishes the load report. Returns ``{"report": the load
+    report, "slo": the SLO report or None, "trace", "out": tokens by
+    request id, "ecfg", "graphs": each captured step's capture s and pool
+    MiB}``."""
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving import load as load_mod
+
+    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    page_len, prefill_len = page_budget(cfg, args.prompt_len, args.tokens)
+    chunk = args.chunk_len or None
+    ecfg = EngineConfig(lanes=args.lanes, num_slots=args.slots,
+                        page_len=page_len, prefill_len=prefill_len,
+                        policy=args.policy, kv_layout=args.kv_layout,
+                        chunk_len=chunk, prefix_cache=args.prefix_cache)
+    eng = Engine(params, cfg, ctx, ecfg, obs=obs)
+
+    kind, val = load_mod.parse_arrivals(args.arrivals)
+    rng = np.random.default_rng(args.seed)
+    if kind == "trace":
+        trace = load_mod.load_trace(val)
+    else:
+        max_prompt = (page_len if chunk else prefill_len) - 1
+        sys_len = max(2, min(2 * chunk if chunk else 4, max_prompt - 2))
+        spec = load_mod.WorkloadSpec(
+            vocab_size=cfg.vocab_size,
+            prompt_len=(2, max(2, max_prompt - sys_len)),
+            out_len=(2, max(2, args.tokens)),
+            system_len=sys_len, max_prompt=max_prompt)
+        reqs = load_mod.synth_requests(spec, args.requests, rng)
+        times = (load_mod.poisson_arrivals(val, len(reqs), rng)
+                 if kind == "poisson"
+                 else load_mod.burst_arrivals(len(reqs), *val))
+        trace = load_mod.make_trace(times, reqs)
+
+    # warm the steps up (on CUDA: capture their graphs) on a throwaway
+    # request, so the replay's arrival clock measures serving
+    eng.add_request(list(trace[0].prompt), max_new=2)
+    eng.run()
+    obs.reset()
+
+    log.info("load: replaying %s", obs_lib.kv(
+        arrivals=args.arrivals, requests=len(trace), chunk_len=chunk or 0,
+        prefix_cache=args.prefix_cache, policy=ecfg.policy))
+    res = load_mod.replay(eng, trace)
+    rep = load_mod.load_report(eng, wall_s=res["wall_s"])
+    eng.trace_report().publish(obs.registry)
+    ttft = rep["ttft_s"] or {}
+    tokl = rep["token_latency_s"] or {}
+    log.info("load done: %s", obs_lib.kv(
+        requests=rep["n_requests"], tokens=rep["tokens_generated"],
+        wall_s=rep["wall_s"], tok_s=rep["tokens_per_s_wall"],
+        ttft_p50_ms=ttft.get("p50", 0) * 1e3,
+        ttft_p99_ms=ttft.get("p99", 0) * 1e3,
+        token_p50_ms=tokl.get("p50", 0) * 1e3,
+        token_p99_ms=tokl.get("p99", 0) * 1e3,
+        page_evictions=rep["page_evictions"]))
+    if rep["prefix"]:
+        log.info("prefix-cache: %s", obs_lib.kv(**rep["prefix"]))
+    slo = _finish_metrics(args, obs, log)
+    graphs = {name: {"capture_s": g.capture_s,
+                     "pool_mib": (g.pool_bytes or 0) / 2**20}
+              for name, g in eng.graphs.items() if g.graph is not None}
+    return {"report": rep, "slo": slo, "trace": trace, "out": res["out"],
+            "ecfg": ecfg, "graphs": graphs}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -221,9 +329,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="radix prefix cache over the KV page pool: "
                          "shared prompt prefixes reuse refcounted, "
                          "content-addressed pages (requires --chunk-len)")
+    ap.add_argument("--arrivals", default=None,
+                    help="trace-driven load harness: replay this arrival "
+                         "process through the engine on the host wall "
+                         "clock (poisson:RATE | trace:FILE | "
+                         "burst:N:GAP_S) instead of the --serve-trace "
+                         "staggered run")
     ap.add_argument("--frames", type=int, default=4,
                     help="synthetic frames streamed (vision archs)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write a JSON metrics snapshot here (plus the "
+                         "Prometheus text exposition at the same path "
+                         "with a .prom suffix)")
     ap.add_argument("--log-level", default="info", choices=obs_lib.log.LEVELS)
+    ap.add_argument("--slo-ttft-ms", type=float, default=None,
+                    help="TTFT p99 SLO target in ms (host wall)")
+    ap.add_argument("--slo-token-ms", type=float, default=None,
+                    help="per-token latency p99 SLO target in ms")
     return ap
 
 
@@ -316,6 +438,7 @@ def serve_vision(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
     if rep.paper_fps:
         fws.update(paper_fps=rep.paper_fps, err_pct=100 * rep.fps_error)
     log.info("fws-pipeline: %s", obs_lib.kv(**fws))
+    _finish_metrics(args, obs, log)
     return summary | {"fws": fws}
 
 
@@ -325,11 +448,14 @@ def main(argv=None) -> dict:
         obs = obs_lib.Obs()
         cfg, params, ctx, device = build_vision_model(args, obs=obs)
         return serve_vision(args, cfg, params, ctx, obs, device)
-    if not args.serve_trace:
-        raise SystemExit("only --serve-trace is ported (the greedy "
-                         "legacy-cache decode is in ROADMAP.md Queue 1)")
+    if not (args.serve_trace or args.arrivals):
+        raise SystemExit("only --serve-trace and --arrivals are ported (the "
+                         "greedy legacy-cache decode is in ROADMAP.md "
+                         "Queue 1)")
     obs = obs_lib.Obs()
     cfg, params, ctx, device = build_model(args, obs=obs)
+    if args.arrivals:
+        return serve_load(args, cfg, params, ctx, obs, device)
     return serve_trace(args, cfg, params, ctx, obs, device)
 
 

@@ -4,8 +4,7 @@ Pure Python, no new dependencies — the serving stack runs on the host
 between jitted steps, so its telemetry is ordinary Python bookkeeping.
 Metric families follow Prometheus conventions (a family = name + type +
 help, holding one series per label set) so the text-exposition exporter
-of the JAX package (``repro.obs.export``, not ported yet) is a direct
-mapping.
+(``repro_torch.obs.export``) is a direct mapping.
 
 Histograms use fixed bucket boundaries (cumulative-free storage: one
 count per bucket plus sum/count/min/max) and extract p50/p90/p99 by

@@ -14,16 +14,26 @@ Decode runs in place on the pool through ``RunCtx.paged_rows``: the
 attention layers write the new K/V row and its mirrors straight into the
 lanes' pool rows and run one ragged paged decode per layer.
 
-On CUDA the decode step is one CUDA graph (``serving/graphs.py``, the
-counterpart of the reference's jitted step): its rows, ids and positions
-are one static ``[3, lanes]`` device buffer, filled each step by one copy
-from a pinned host array, and its greedy argmax writes a static int64
-``[lanes]`` buffer whose host read ends the step. One graph serves every
-step, staggered or not (parked lanes keep their scratch rows), and holds
-the pool's tensors, which are only ever written in place.
-``EngineConfig(cuda_graphs=False)`` runs the step eagerly instead;
-``impl="ref"`` runs only so. The prefill, chunk and clone steps run
-eagerly (ROADMAP.md Queue 1).
+On CUDA every step is one CUDA graph (``serving/graphs.py``, the
+counterpart of the reference's jitted steps): the prefill, the chunk, the
+clone at chunked admission and the decode step. Each step's inputs are
+one static int64 device buffer (ids, positions, pool rows, the last
+prompt index, ...), filled before each call by one copy from a pinned
+host array; the prefill, chunk and decode steps end in their greedy
+argmax, written to a static buffer whose host read ends the step. One
+graph serves every call of its step (parked decode lanes keep their
+scratch rows), and holds the pool's tensors, which are only ever written
+in place. ``EngineConfig(cuda_graphs=False)`` runs the steps eagerly
+instead; ``impl="ref"`` runs only so.
+
+Warm-up. A graph's first call runs its step eagerly twice before the
+capture and then replays it, all on the input of that call. Each step is
+idempotent on its input, so this writes what one call writes: the
+prefill and the clone overwrite the whole destination page row; the chunk
+writes its rows before its attention reads the page, and recomputes the
+mirrors from the whole page; decode writes its one row before it reads.
+``tests/test_torch_graphs.py`` runs each step twice and holds the pool to
+one run.
 
 Chunked prefill (``chunk_len``) feeds long prompts through the chunk step
 one window at a time; under the ``chunked`` scheduler policy the windows
@@ -78,8 +88,9 @@ class EngineConfig:
     # radix prefix cache over the page pool (needs chunk_len: hits are
     # chunk-aligned so cached pages drop into the same chunk grid)
     prefix_cache: bool = False
-    # on CUDA, replay the decode step as a captured CUDA graph (False: run
-    # it eagerly, e.g. to compare the two); the CPU runs it eagerly
+    # on CUDA, replay the prefill, chunk, clone and decode steps as
+    # captured CUDA graphs (False: run them eagerly, e.g. to compare the
+    # two); the CPU runs them eagerly
     cuda_graphs: bool = True
 
 
@@ -113,71 +124,54 @@ class Engine:
         self.requests: dict[int, Request] = {}
         self._next_rid = 0
         self._step_idx = 0
-        # the decode step's rows, ids and positions ([3, lanes] int64),
-        # written from one pinned host array a step on CUDA
-        self._step_in = torch.zeros((3, ecfg.lanes), dtype=torch.int64,
-                                    device=self.device)
-        self._step_host = self._step_in
-        self.graph: StepGraph | None = None
-        if self.device.type == "cuda":
-            self._step_host = torch.zeros_like(self._step_in,
-                                               device="cpu").pin_memory()
-            if ecfg.cuda_graphs:
-                if ctx.impl == "ref":
-                    raise ValueError("impl='ref' runs eagerly: pass "
-                                     "EngineConfig(cuda_graphs=False)")
-                self.graph = StepGraph(
-                    functools.partial(_decode_step, params, cfg, ctx,
-                                      self.kv.pool), self._step_in,
-                    obs=ctx.obs)
+        pool, specs = self.kv.pool, self.kv.specs
+        # each step: (its function of the static input, that input's
+        # shape); the inputs are int64 and written from one pinned host
+        # array a call on CUDA (layouts at the step functions)
+        steps = {
+            "prefill": (functools.partial(_prefill_step, params, cfg, ctx,
+                                          pool, specs),
+                        (2 * ecfg.prefill_len + 2,)),
+            "decode": (functools.partial(_decode_step, params, cfg, ctx,
+                                         pool), (3, ecfg.lanes)),
+        }
+        if ecfg.chunk_len is not None:
+            steps["chunk"] = (functools.partial(_chunk_step, params, cfg,
+                                                ctx, pool, specs),
+                              (2 * ecfg.chunk_len + 3,))
+            steps["clone"] = (functools.partial(_clone_step, pool, specs),
+                              (3,))
+        if (self.device.type == "cuda" and ecfg.cuda_graphs
+                and ctx.impl == "ref"):
+            raise ValueError("impl='ref' runs eagerly: pass "
+                             "EngineConfig(cuda_graphs=False)")
+        self._fn: dict = {}  # step name -> the eager step, or its graph
+        self._in: dict = {}  # step name -> its static device input
+        self._host: dict = {}  # step name -> the host array written to it
+        self.graphs: dict[str, StepGraph] = {}
+        for name, (fn, shape) in steps.items():
+            buf = torch.zeros(shape, dtype=torch.int64, device=self.device)
+            self._in[name] = self._host[name] = buf
+            self._fn[name] = functools.partial(fn, buf)
+            if self.device.type == "cuda":
+                self._host[name] = torch.zeros(shape,
+                                               dtype=torch.int64).pin_memory()
+                if ecfg.cuda_graphs:
+                    self.graphs[name] = self._fn[name] = StepGraph(
+                        fn, buf, obs=ctx.obs)
 
     # --------------------------------------------------------------- steps
 
-    @torch.no_grad()
-    def _prefill(self, ids, positions, row: int, last: int) -> int:
-        cfg, ecfg = self.cfg, self.ecfg
-        caches = lm.init_cache(cfg, 1, ecfg.page_len,
-                               mx_digital=self.kv.mx_digital, fused=True,
-                               device=self.device)
-        # positions are arange(n) and a KV_PAD tail: the flash kernel's
-        # layout (_run_prefill builds them so)
-        ctx = dataclasses.replace(self.ctx, arange_positions=True)
-        hidden, caches = lm.forward(
-            self.params, cfg, ctx, {"ids": ids, "positions": positions},
-            caches=caches, return_hidden=True)
-        # head over the real last position only (padded tail discarded)
-        logits = lm._head(self.ctx, cfg, self.params,
-                          hidden[:, last][:, None])
-        scatter_rows(self.kv.pool, self.kv.specs,
-                     torch.tensor([row], device=self.device), caches)
-        return int(torch.argmax(logits[0, 0].float()))
-
-    @torch.no_grad()
-    def _chunk(self, row: int, ids, positions, offset: int, last: int) -> int:
-        """One [1, chunk_len] window of a longer prompt, written into the
-        request's page at absolute positions (attention's chunked-prefill
-        branch, selected by ``pos=offset``). The page was cloned or zeroed
-        at admission, so rows past the written prefix are zeros."""
-        rows = torch.tensor([row], device=self.device)
-        caches = gather_rows(self.kv.pool, self.kv.specs, rows)
-        hidden, caches = lm.forward(
-            self.params, self.cfg, self.ctx,
-            {"ids": ids, "positions": positions}, caches=caches, pos=offset,
-            return_hidden=True)
-        logits = lm._head(self.ctx, self.cfg, self.params,
-                          hidden[:, last][:, None])
-        scatter_rows(self.kv.pool, self.kv.specs, rows, caches)
-        return int(torch.argmax(logits[0, 0].float()))
-
-    def _decode(self) -> np.ndarray:
-        """The decode step on ``_step_in``: replayed from its graph, or
-        eager; the host read of the next ids ends the step."""
-        if self.graph is not None:
-            next_ids = self.graph()
-        else:
-            next_ids = _decode_step(self.params, self.cfg, self.ctx,
-                                    self.kv.pool, self._step_in)
-        return next_ids.cpu().numpy()
+    def _call(self, name: str) -> torch.Tensor | None:
+        """Step ``name`` on what its host array holds: on CUDA one copy
+        into its static input, then its graph's replay or the eager step.
+        Returns the step's output, a device tensor (None for the clone)."""
+        host, buf = self._host[name], self._in[name]
+        if host is not buf:
+            # pinned: asynchronous; the host read that ended the previous
+            # step has waited for the previous copy from this array
+            buf.copy_(host, non_blocking=True)
+        return self._fn[name]()
 
     # ---------------------------------------------------------- public API
 
@@ -289,10 +283,12 @@ class Engine:
         req = self.sched.begin_prefill(slot, self._step_idx)
         self.obs.request_admitted(req.rid)
         # always clone: n = 0 zeroes the (maybe reused, stale) page so the
-        # mirrors' invariant holds; n > 0 is the prefix copy-on-write
-        clone_prefix(self.kv.pool, self.kv.specs,
-                     hit.slot if hit is not None else slot, slot,
-                     hit.n_tokens if hit is not None else 0)
+        # mirrors' invariant holds; n > 0 is the prefix copy-on-write. The
+        # first chunk step's host read ends it.
+        self._host["clone"].numpy()[:] = (
+            (hit.slot, slot, hit.n_tokens) if hit is not None
+            else (slot, slot, 0))
+        self._call("clone")
         if hit is not None:
             req.prefilled = req.prefix_hit = hit.n_tokens
             self.kv.allocator.release(hit.slot)
@@ -304,13 +300,10 @@ class Engine:
         req = self.sched.admit(slot, self._step_idx)
         self.obs.request_admitted(req.rid)
         n, p = len(req.prompt), self.ecfg.prefill_len
-        ids = np.zeros((1, p), np.int64)
-        ids[0, :n] = req.prompt
-        positions = np.full((1, p), attn_mod.KV_PAD, np.int64)
-        positions[0, :n] = np.arange(n)
-        tok = self._prefill(torch.from_numpy(ids).to(self.device),
-                            torch.from_numpy(positions).to(self.device),
-                            slot, n - 1)
+        step = self._host["prefill"].numpy()
+        _window(step, p, req.prompt, 0)
+        step[2 * p:] = (slot, n - 1)
+        tok = int(self._call("prefill")[0])
         req.out.append(tok)  # host read: the step is complete here
         t1 = self.obs.clock()
         # bill the executed width (the fixed-shape step runs all of it)
@@ -326,13 +319,10 @@ class Engine:
             req = self._admit_chunked()
         offs = req.prefilled
         take = min(L, len(req.prompt) - offs)
-        ids = np.zeros((1, L), np.int64)
-        ids[0, :take] = req.prompt[offs:offs + take]
-        positions = np.full((1, L), attn_mod.KV_PAD, np.int64)
-        positions[0, :take] = np.arange(offs, offs + take)
-        tok = self._chunk(req.slot, torch.from_numpy(ids).to(self.device),
-                          torch.from_numpy(positions).to(self.device), offs,
-                          take - 1)
+        step = self._host["chunk"].numpy()
+        _window(step, L, req.prompt[offs:offs + take], offs)
+        step[2 * L:] = (req.slot, take - 1, offs)
+        tok = int(self._call("chunk")[0])
         t1 = self.obs.clock()  # host read above: the step is complete
         self.obs.step_recorded("prefill", (req.rid,), L, t0, t1)
         req.prefilled = offs + take
@@ -350,17 +340,13 @@ class Engine:
     def _run_decode(self) -> list:
         t0 = self.obs.clock()
         lanes = self.ecfg.lanes
-        step = self._step_host.numpy()  # rows, ids, pos of each lane
+        step = self._host["decode"].numpy()  # rows, ids, pos of each lane
         step[0] = [self.kv.scratch_row(i) for i in range(lanes)]
         step[1:] = 0
         active = sorted(self.sched.running.items())
         for lane, req in active:
             step[:, lane] = (req.slot, req.out[-1], req.pos)
-        if self._step_host is not self._step_in:
-            # pinned: asynchronous; the previous step's host read has
-            # already waited for the previous copy
-            self._step_in.copy_(self._step_host, non_blocking=True)
-        next_ids = self._decode()
+        next_ids = self._call("decode").cpu().numpy()  # ends the step
         t1 = self.obs.clock()
         for lane, req in active:
             req.out.append(int(next_ids[lane]))
@@ -382,6 +368,79 @@ class Engine:
                 self.obs.request_finished(req.rid, reason)
                 done.append(req)
         return done
+
+
+def _window(step: np.ndarray, width: int, tokens, offset: int) -> None:
+    """Write a prompt window into a step's host array: ``tokens`` as ids
+    in ``step[:width]`` (zero-padded) and their absolute positions from
+    ``offset`` in ``step[width:2 * width]`` (``KV_PAD`` on pad columns)."""
+    n = len(tokens)
+    step[:width] = 0
+    step[:n] = tokens
+    step[width:2 * width] = attn_mod.KV_PAD
+    step[width:width + n] = np.arange(offset, offset + n)
+
+
+def _greedy(ctx, cfg, params, hidden, last) -> torch.Tensor:
+    """The head over row ``last`` (int64 [1]) of ``hidden`` [1, S, d]
+    only, the padded tail discarded, and its argmax: int64 [1]."""
+    logits = lm._head(ctx, cfg, params, hidden.index_select(1, last))
+    return torch.argmax(logits[0].float(), -1)
+
+
+@torch.no_grad()
+def _prefill_step(params, cfg, ctx, pool, specs, step_in) -> torch.Tensor:
+    """The ``[1, P]`` single-shot prefill on ``step_in`` (int64 [2P + 2]:
+    ids, positions (``arange(n)`` and a KV_PAD tail), the pool row, the
+    index of the last prompt token): the prompt's page is built in fresh
+    caches and written into its pool row in place; returns the greedy
+    next id (int64 [1]). A function of its arguments only, so a captured
+    graph of it holds no engine."""
+    p = (step_in.shape[0] - 2) // 2
+    ids, positions = step_in[:p][None], step_in[p:2 * p][None]
+    row, last = step_in[2 * p:2 * p + 1], step_in[2 * p + 1:]
+    kv = pool[0][0]["kv"]
+    caches = lm.init_cache(cfg, 1, kv.shape[1],
+                           mx_digital="kv_codes" in pool[0][0], fused=True,
+                           device=kv.device)
+    # positions are arange(n) and a KV_PAD tail: the flash kernel's layout
+    hidden, caches = lm.forward(
+        params, cfg, dataclasses.replace(ctx, arange_positions=True),
+        {"ids": ids, "positions": positions}, caches=caches,
+        return_hidden=True)
+    scatter_rows(pool, specs, row, caches)
+    return _greedy(ctx, cfg, params, hidden, last)
+
+
+@torch.no_grad()
+def _chunk_step(params, cfg, ctx, pool, specs, step_in) -> torch.Tensor:
+    """One ``[1, L]`` window of a longer prompt on ``step_in`` (int64
+    [2L + 3]: ids, absolute positions (KV_PAD on pad columns), the pool
+    row, the index of the window's last prompt token, the window's
+    offset), written into the request's page in place at its absolute
+    positions; returns the greedy next id (int64 [1]). ``pos`` only
+    selects attention's chunked-prefill branch, which reads the
+    positions, so the offset goes in as a device scalar nothing reads.
+    The page was cloned or zeroed at admission, so rows past the written
+    prefix are zeros."""
+    n = (step_in.shape[0] - 3) // 2
+    ids, positions = step_in[:n][None], step_in[n:2 * n][None]
+    row, last, offset = (step_in[2 * n:2 * n + 1],
+                         step_in[2 * n + 1:2 * n + 2], step_in[2 * n + 2])
+    caches = gather_rows(pool, specs, row)
+    hidden, caches = lm.forward(
+        params, cfg, ctx, {"ids": ids, "positions": positions},
+        caches=caches, pos=offset, return_hidden=True)
+    scatter_rows(pool, specs, row, caches)
+    return _greedy(ctx, cfg, params, hidden, last)
+
+
+@torch.no_grad()
+def _clone_step(pool, specs, step_in) -> None:
+    """The chunked admission's page clone or reset on ``step_in`` (int64
+    [3]: donor row, destination row, prefix rows kept), in place
+    (:func:`~repro_torch.serving.kvcache.clone_prefix`)."""
+    clone_prefix(pool, specs, step_in[0], step_in[1], step_in[2])
 
 
 @torch.no_grad()

@@ -1,18 +1,20 @@
 """CUDA graphs of the engines' fixed-shape steps: the port's counterpart
 of the reference's ``jax.jit`` of a step (``src/repro/serving/engine.py``
-jits the decode step, ``src/repro/serving/vision.py`` each chip's frame
-step).
+jits the prefill, decode, chunk and clone steps,
+``src/repro/serving/vision.py`` each chip's frame step).
 
 A :class:`StepGraph` owns one step's static input (a device tensor the
 caller writes before each call) and its static output (the tensor the
-captured step wrote; the next replay overwrites it). The first call warms
-the step up eagerly on a side stream, PyTorch's ``torch.cuda.graph``
-recipe, which triggers every lazy one-time setup before the capture: the
-kernel libraries and their typed launch functions, CUDA's lazy module
-loads, ``cim_linear``'s ``splitk`` workspace and ``guard_rows``,
-``mxfp4_matmul``'s ``mma`` arrival counters, the MXFP4 pair table and
-code tables and the RoPE frequencies. Then it captures the step; every
-call is one ``graph.replay()``.
+captured step wrote, or None for a step that only writes in place; the
+next replay overwrites it). Each graph has a private memory pool. The
+first call warms the step up eagerly on a side stream, PyTorch's
+``torch.cuda.graph`` recipe, which triggers every lazy one-time setup
+before the capture: the kernel libraries and their typed launch
+functions, CUDA's lazy module loads, ``cim_linear``'s ``splitk``
+workspace and ``guard_rows``, ``mxfp4_matmul``'s ``mma`` arrival
+counters, the MXFP4 pair table and code tables and the RoPE
+frequencies. Then it captures the step; every call is one
+``graph.replay()``.
 
 Launch counters. The kernel wrappers count in Python, and a graph's
 Python runs once, at capture. :func:`read_counts` takes every counter the
@@ -176,12 +178,13 @@ class StepGraph:
                 f"the step's warm-up launched {counts_delta(before, warm)}, "
                 f"its capture {delta}: not one fixed step")
         set_counts(before, self.obs)
-        out.copy_(warm_out)  # what a replay on this input gives
+        if out is not None:
+            out.copy_(warm_out)  # what a replay on this input gives
         self.graph, self.static_out, self.delta = graph, out, delta
         self._scratch = _shared_scratch()
         self.capture_s = time.perf_counter() - t0
 
-    def __call__(self) -> torch.Tensor:
+    def __call__(self) -> torch.Tensor | None:
         """Replay the step on what ``static_in`` holds (capturing it
         first); returns the static output, valid until the next call."""
         if self.graph is None:

@@ -91,7 +91,7 @@ def scatter_rows(pool, specs, rows, values) -> None:
                 v.index_copy_(spec[k].index("batch"), rows, val)
 
 
-def clone_prefix(pool, specs, src_row: int, dst_row: int, n: int) -> None:
+def clone_prefix(pool, specs, src_row, dst_row, n) -> None:
     """Copy the first ``n`` cache-sequence rows of page ``src_row`` into
     page ``dst_row`` in place and zero everything past them (the
     reference's ``clone_prefix``). With ``n == 0`` it resets the page: a
@@ -100,19 +100,30 @@ def clone_prefix(pool, specs, src_row: int, dst_row: int, n: int) -> None:
     prefix cache's copy-on-write at admission. Only raw K/V rows are
     copied, bit-exactly; the quantized mirror leaves are zeroed, because
     the first suffix chunk recomputes them from the raw page before
-    anything reads them."""
+    anything reads them.
+
+    ``src_row``, ``dst_row`` and ``n`` are one-element int64 tensors on
+    the pool's device. The copy is an ``arange(W) < n`` mask and index
+    ops, so no shape depends on them and nothing reads them back to the
+    host: the engine's clone step is one fixed CUDA graph."""
+    dev = pool[0][0]["kv"].device
+    src, dst = src_row.reshape(1), dst_row.reshape(1)
     for seg_pool, spec in zip(pool, specs):
         for layer in seg_pool:
             for name, v in layer.items():
                 ax = spec[name].index("batch")
                 if name == "kv":
-                    row = v.select(ax, src_row).clone()
                     sax = spec[name].index("cache_seq")
-                    sax -= sax > ax  # the batch axis is gone from row
-                    row.narrow(sax, n, row.shape[sax] - n).zero_()
-                    v.select(ax, dst_row).copy_(row)
+                    shape = [1] * v.ndim
+                    shape[sax] = v.shape[sax]
+                    keep = (torch.arange(v.shape[sax], device=dev)
+                            < n).reshape(shape)
+                    row = torch.where(keep, v.index_select(ax, src),
+                                      torch.zeros((), dtype=v.dtype,
+                                                  device=dev))
+                    v.index_copy_(ax, dst, row)
                 else:
-                    v.select(ax, dst_row).zero_()
+                    v.index_fill_(ax, dst, 0)
 
 
 class PagedKVCache:

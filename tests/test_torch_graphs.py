@@ -1,4 +1,4 @@
-"""The captured decode and frame steps (``repro_torch/serving/graphs.py``)
+"""The captured engine and frame steps (``repro_torch/serving/graphs.py``)
 and what capture needed of the code around them.
 
 On the CPU:
@@ -10,14 +10,23 @@ On the CPU:
 - ``quant_page_step`` writes a partial end block (W % 32 != 0) with no
   data-dependent shape: bitwise the reference's.
 - ``Engine.add_request`` rejects token ids outside the vocabulary.
+- The prefill step (``engine._prefill_step``, one int64 input: ids,
+  positions, row, last) gives the id and pool leaves of the eager path it
+  replaced, bitwise, under float, mxfp4 and cim; run twice on one input
+  it writes what one run writes (a graph's warm-up runs it so).
 - On the CPU the engines run their steps eagerly: ``cuda_graphs`` changes
   nothing there, and a ``StepGraph`` refuses a CPU tensor.
 
 On the card (``cuda`` marker): each of the five kernel wrappers captured
 alone and replayed bitwise its eager launch; a tiny engine's tokens
 captured == eager under cim, mxfp4 and float, staggered and solo, with
-launch counts exact; a tiny ViT frame and the two-chip chain captured ==
-eager; a capture that fails raises.
+launch counts exact; its prefill, chunk and clone steps captured == eager
+(ids and pool bytes; the prefill past ``dense_attn_max`` through
+``flash_attention``) with exact counts after replays, and none of the
+four steps syncs with the host; the decode graph still replays bitwise
+after a [1, 2048] prefill graph grew the kernels' scratch; a tiny ViT
+frame and the two-chip chain captured == eager; a capture that fails
+raises, a prefill step that syncs too.
 """
 
 import dataclasses
@@ -39,8 +48,11 @@ from repro_torch.kernels.paged_attention import layout as tlayout  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.layers import rope as trope  # noqa: E402
 from repro_torch.obs.profile import profiled_call  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import Engine, EngineConfig, graphs  # noqa: E402
 from repro_torch.serving import VisionEngine  # noqa: E402
+from repro_torch.serving import engine as eng_mod  # noqa: E402
+from repro_torch.serving.kvcache import scatter_rows  # noqa: E402
 
 ECFG = EngineConfig(lanes=2, num_slots=3, page_len=24, prefill_len=10)
 REQS = ((9, 6), (4, 7), (10, 5), (2, 8))  # (prompt length, new tokens)
@@ -201,7 +213,7 @@ def test_cpu_engines_run_eagerly():
     graph and the same tokens, and ``impl="ref"`` is accepted."""
     cfg, params, ctx = _tiny_lm("mxfp4")
     eng = Engine(params, cfg, dataclasses.replace(ctx, impl="ref"), ECFG)
-    assert eng.graph is None
+    assert eng.graphs == {}
     on = _serve(cfg, params, ctx, ECFG)
     off = _serve(cfg, params, ctx,
                  dataclasses.replace(ECFG, cuda_graphs=False))
@@ -210,6 +222,76 @@ def test_cpu_engines_run_eagerly():
     from repro_torch.models import vit
     vparams = vit.init_model(vcfg, torch.Generator().manual_seed(0))
     assert VisionEngine(vparams, vcfg, ctx).graphs is None
+
+
+# ------------------------------------------------------ the prefill step
+
+def _prompt_input(eng, prompt, row) -> torch.Tensor:
+    """The prefill step's input for ``prompt`` into pool row ``row``."""
+    p = eng.ecfg.prefill_len
+    step = np.zeros(2 * p + 2, np.int64)
+    eng_mod._window(step, p, prompt, 0)
+    step[2 * p:] = (row, len(prompt) - 1)
+    return torch.from_numpy(step).to(eng.device)
+
+
+@torch.no_grad()
+def _eager_prefill(eng, prompt, row) -> int:
+    """The engine's prefill before its steps took device inputs: Python
+    ``row`` and ``last``, ``hidden[:, last]`` and a host-built row index."""
+    cfg, p, n = eng.cfg, eng.ecfg.prefill_len, len(prompt)
+    ids = np.zeros((1, p), np.int64)
+    ids[0, :n] = prompt
+    positions = np.full((1, p), eng_mod.attn_mod.KV_PAD, np.int64)
+    positions[0, :n] = np.arange(n)
+    caches = lm.init_cache(cfg, 1, eng.ecfg.page_len,
+                           mx_digital=eng.kv.mx_digital, fused=True,
+                           device=eng.device)
+    hidden, caches = lm.forward(
+        eng.params, cfg, dataclasses.replace(eng.ctx, arange_positions=True),
+        {"ids": torch.from_numpy(ids).to(eng.device),
+         "positions": torch.from_numpy(positions).to(eng.device)},
+        caches=caches, return_hidden=True)
+    logits = lm._head(eng.ctx, cfg, eng.params, hidden[:, n - 1][:, None])
+    scatter_rows(eng.kv.pool, eng.kv.specs,
+                 torch.tensor([row], device=eng.device), caches)
+    return int(torch.argmax(logits[0, 0].float()))
+
+
+def _pool_bytes(pool) -> list:
+    return [v.view(torch.uint8).clone() if v.dtype != torch.bfloat16
+            else v.view(torch.int16).clone()
+            for seg in pool for layer in seg for v in layer.values()]
+
+
+def _pools_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("backend", ["float", "mxfp4", "cim"])
+def test_prefill_step_bitwise_the_eager_path(backend):
+    """``_prefill_step`` on one int64 input gives the id and pool leaves
+    of the eager path it replaced, bitwise; run twice on the same input it
+    leaves the pool as one run does (the graph's warm-up runs it so)."""
+    cfg, params, ctx = _tiny_lm(backend)
+    rng = np.random.default_rng(7)
+    ecfg = dataclasses.replace(ECFG, prefill_len=12)
+    old, new = (Engine(params, cfg, ctx, ecfg) for _ in range(2))
+    for n, row in ((12, 2), (5, 0), (1, 1)):
+        prompt = rng.integers(0, cfg.vocab_size, n).tolist()
+        want = _eager_prefill(old, prompt, row)
+        step = _prompt_input(new, prompt, row)
+        got = eng_mod._prefill_step(params, cfg, ctx, new.kv.pool,
+                                    new.kv.specs, step)
+        assert got.shape == (1,) and got.dtype == torch.int64
+        assert int(got[0]) == want
+        assert _pools_equal(_pool_bytes(new.kv.pool),
+                            _pool_bytes(old.kv.pool))
+    once = _pool_bytes(new.kv.pool)
+    again = eng_mod._prefill_step(params, cfg, ctx, new.kv.pool,
+                                  new.kv.specs, step)
+    assert int(again[0]) == int(got[0])
+    assert _pools_equal(_pool_bytes(new.kv.pool), once)
 
 
 # ------------------------------------------------ the card (cuda marker)
@@ -301,7 +383,7 @@ def test_cuda_engine_captured_tokens_equal_eager(backend):
     assert outs[0] == outs[1]
     assert counts[0] == counts[1] and counts[0]
     assert _serve(cfg, params, ctx, ECFG, staggered=False) == outs[0]
-    assert Engine(params, cfg, ctx, ECFG).graph is not None
+    assert Engine(params, cfg, ctx, ECFG).graphs["decode"] is not None
     with pytest.raises(ValueError, match="runs eagerly"):
         Engine(params, cfg, dataclasses.replace(ctx, impl="ref"), ECFG)
 
@@ -352,3 +434,139 @@ def test_cuda_failed_capture_raises():
     with pytest.raises(RuntimeError):
         g()
     assert g.graph is None
+
+
+STEP_ECFG = EngineConfig(lanes=2, num_slots=3, page_len=24, prefill_len=10,
+                         chunk_len=4, policy="chunked")
+
+
+def _step_inputs(cfg) -> list:
+    """(step, host input) calls over every step: a 10-token prefill into
+    row 0 (past ``dense_attn_max`` = 8), the clone of its first 4 rows
+    into row 1 and two chunks there, a reset of row 2 and a chunk into
+    it, a decode step over rows 1 and 2."""
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, cfg.vocab_size, 14).tolist()
+    pre = np.zeros(22, np.int64)
+    eng_mod._window(pre, 10, prompt[:10], 0)
+    pre[20:] = (0, 9)
+    calls = [("prefill", pre)]
+    for row, src, n, offs in ((1, 0, 4, (4, 8)), (2, 2, 0, (0,))):
+        calls.append(("clone", np.array([src, row, n], np.int64)))
+        for o in offs:
+            ch = np.zeros(11, np.int64)
+            take = min(4, len(prompt) - o)
+            eng_mod._window(ch, 4, prompt[o:o + take], o)
+            ch[8:] = (row, take - 1, o)
+            calls.append(("chunk", ch))
+    calls.append(("decode", np.array([[1, 2], [prompt[12], prompt[3]],
+                                      [12, 4]], np.int64)))
+    return calls
+
+
+def _run_calls(eng, calls, no_sync: bool = False) -> tuple[list, dict]:
+    """Each call through the engine's own path (host array, pinned copy,
+    graph or eager step), with ``no_sync`` under
+    ``set_sync_debug_mode("error")`` (a step that syncs raises); the
+    outputs, read after each call, and the launch counts it moved."""
+    before = graphs.read_counts(eng.ctx.obs)
+    outs = []
+    for name, host in calls:
+        eng._host[name].numpy()[:] = host
+        torch.cuda.synchronize()  # the previous copy from the host array
+        torch.cuda.set_sync_debug_mode("error" if no_sync else "default")
+        try:
+            out = eng._call(name)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append(None if out is None else out.cpu().clone())
+    return outs, graphs.counts_delta(before, graphs.read_counts(eng.ctx.obs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cim", "mxfp4", "float"])
+def test_cuda_steps_captured_equal_eager(backend):
+    """The prefill (past ``dense_attn_max``: ``flash_attention`` in its
+    graph under mxfp4 and float), clone, chunk and decode steps of a tiny
+    engine, captured == eager: ids and pool bytes bitwise, the launch
+    counts of every pass equal the eager pass's (replays included), the
+    obs's ``kernel_calls_total`` too. No step syncs with the host (each
+    eager step runs under ``set_sync_debug_mode("error")``, after a pass
+    that did the one-time setup). A pass rewrites every row it reads
+    first, so a second pass gives the first one's bytes."""
+    _cuda()
+    cfg, params, ctx = _tiny_lm(backend, "cuda")
+    ctx = dataclasses.replace(ctx, dense_attn_max=8, obs=obs_lib.Obs())
+    calls = _step_inputs(cfg)
+    eager = Engine(params, cfg, ctx,
+                   dataclasses.replace(STEP_ECFG, cuda_graphs=False))
+    _run_calls(eager, calls)  # one-time setup (tables, scratch) first
+    want, want_counts = _run_calls(eager, calls, no_sync=True)
+    if backend != "cim":
+        assert want_counts[("launches", "flash_attention")] == cfg.n_layers
+    capt = Engine(params, cfg, ctx, STEP_ECFG)
+    for _ in range(2):  # the captures, then replays only
+        got, counts = _run_calls(capt, calls)
+        assert counts == want_counts
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert _pools_equal(_pool_bytes(capt.kv.pool),
+                            _pool_bytes(eager.kv.pool))
+    assert sorted(n for n, g in capt.graphs.items() if g.graph is not None) \
+        == ["chunk", "clone", "decode", "prefill"]
+    for g in capt.graphs.values():
+        assert g.capture_s > 0 and g.pool_bytes >= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cim", "mxfp4"])
+def test_cuda_decode_graph_replays_after_long_prefill_graph(backend):
+    """A [1, 2048] prefill captured in another engine grows the kernels'
+    shared scratch (``cim_linear``'s workspaces, ``mxfp4_matmul``'s
+    arrival counters) past what a decode graph captured: the decode graph
+    still replays bitwise what it gave before, and the eager step's."""
+    _cuda()
+    cfg, params, ctx = _tiny_lm(backend, "cuda")
+    short = Engine(params, cfg, ctx, ECFG)
+    rng = np.random.default_rng(4)
+    for n, m in REQS:
+        short.add_request(rng.integers(0, cfg.vocab_size, n).tolist(),
+                          max_new=m)
+    short.run()
+    step = np.array([[0, 1], [5, 9], [12, 20]], np.int64)
+    short._host["decode"].numpy()[:] = step
+    before = short._call("decode").clone()
+    pool = _pool_bytes(short.kv.pool)
+    long = Engine(params, cfg, ctx, EngineConfig(
+        lanes=1, num_slots=1, page_len=2056, prefill_len=2048))
+    long.add_request(rng.integers(0, cfg.vocab_size, 2048).tolist(),
+                     max_new=1)
+    long.run()
+    assert long.graphs["prefill"].graph is not None
+    short._host["decode"].numpy()[:] = step
+    assert torch.equal(short._call("decode"), before)
+    assert _pools_equal(_pool_bytes(short.kv.pool), pool)
+    eager = eng_mod._decode_step(params, cfg, ctx, short.kv.pool,
+                                 torch.from_numpy(step).cuda())
+    assert torch.equal(eager, before)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_step_that_syncs_raises(monkeypatch):
+    """A host read inside the prefill step makes its capture raise; the
+    request gets no token from an eager run in its place."""
+    _cuda()
+    cfg, params, ctx = _tiny_lm("mxfp4", "cuda")
+    greedy = eng_mod._greedy
+
+    def syncing(ctx, cfg, params, hidden, last):
+        return greedy(ctx, cfg, params, hidden * float(hidden.sum() * 0 + 1),
+                      last)
+
+    monkeypatch.setattr(eng_mod, "_greedy", syncing)
+    eng = Engine(params, cfg, ctx, ECFG)
+    rid = eng.add_request([1, 2, 3], max_new=2)
+    with pytest.raises(RuntimeError):
+        eng.step()
+    assert eng.graphs["prefill"].graph is None
+    assert eng.requests[rid].out == []

@@ -16,6 +16,12 @@ reference's chunk step.
   under the digital SDPA (mirrors recomputed for the whole page every
   chunk): logits SQNR >= 30 dB (``tests/test_torch_lm.py``'s bound), and
   the first layer's raw page bitwise.
+- The engine's chunk step (``engine._chunk_step``, one int64 input: ids,
+  positions, row, last, offset) gives the ids and pool leaves of the
+  eager path it replaced, bitwise, and run twice on one input writes what
+  one run writes; ``clone_prefix`` on device scalars is bitwise the
+  reference's ``clone_prefix`` for n = 0, a partial V 32-block and the
+  full page.
 """
 
 import dataclasses
@@ -35,6 +41,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.layers import attention as jattn  # noqa: E402
 from repro.layers import common as jcommon  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
+from repro.serving import kvcache as jkvcache  # noqa: E402
 from repro_torch import configs as C  # noqa: E402
 from repro_torch.convert import from_reference  # noqa: E402
 from repro_torch.core import cim as tcim  # noqa: E402
@@ -43,10 +50,13 @@ from repro_torch.layers.common import RunCtx, convert_params_mxfp4  # noqa: E402
 from repro_torch.models import calibrate, lm  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
 from repro_torch.serving import Engine, EngineConfig, PrefixCache  # noqa: E402
+from repro_torch.serving import engine as eng_mod  # noqa: E402
 from repro_torch.serving.kvcache import (  # noqa: E402
     PoolExhausted,
     SlotAllocator,
     clone_prefix,
+    gather_rows,
+    scatter_rows,
 )
 from repro_torch.serving.prefix import page_fingerprint  # noqa: E402
 from repro_torch.serving.scheduler import Request, Scheduler  # noqa: E402
@@ -172,15 +182,120 @@ def test_clone_prefix_copies_raw_rows_and_zeroes_the_rest(models):
     for layer in eng.kv.pool[0]:
         for leaf in layer.values():
             leaf[dst].fill_(3)  # stale bytes in the other slot
-    clone_prefix(eng.kv.pool, eng.kv.specs, donor, dst, 6)
+    clone_prefix(eng.kv.pool, eng.kv.specs, torch.tensor(donor),
+                 torch.tensor(dst), torch.tensor(6))
     for layer in eng.kv.pool[0]:
         assert torch.equal(layer["kv"][dst, :6], layer["kv"][donor, :6])
         assert layer["kv"][donor, :9].float().abs().sum() > 0
         assert not layer["kv"][dst, 6:].float().any()
         for name in ("kv_codes", "k_exps", "v_exps"):
             assert not layer[name][dst].any(), name
-    clone_prefix(eng.kv.pool, eng.kv.specs, dst, dst, 0)  # a reset
+    clone_prefix(eng.kv.pool, eng.kv.specs, torch.tensor(dst),
+                 torch.tensor(dst), torch.tensor(0))  # a reset
     assert not eng.kv.pool[0][0]["kv"][dst].float().any()
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+@pytest.mark.parametrize("n", [0, 40, 48])
+def test_clone_prefix_device_scalars_bitwise_reference(n):
+    """``clone_prefix`` with device-scalar rows and length, on a pool of
+    random values (page 48: n = 40 ends inside the second V 32-block), is
+    bitwise the reference's ``clone_prefix``: the destination's first n
+    raw rows copied, the rest and its mirrors zeroed, every other row
+    untouched."""
+    jcfg = jconfigs.tiny(jconfigs.ARCHS["starcoder2-7b"])
+    jpool = jlm.init_cache(jcfg, 5, 48, mx_digital=True, fused=True)
+    jspecs = jlm.cache_specs(jcfg, mx_digital=True, fused=True)
+    rng = np.random.default_rng(n)
+    # finite bf16 K/V (XLA may rewrite a NaN's payload), any mirror bytes
+    leaves = [{k: (np.asarray(jnp.asarray(rng.standard_normal(v.shape),
+                                          v.dtype)) if k == "kv"
+                   else rng.integers(0, 256, v.shape, dtype=np.uint8).view(
+                       v.dtype))
+               for k, v in seg.items()} for seg in jpool]
+    jout = jax.jit(lambda p, s, d, m: jkvcache.clone_prefix(
+        p, jspecs, s, d, m))(
+        [{k: jnp.asarray(v) for k, v in seg.items()} for seg in leaves],
+        jnp.int32(3), jnp.int32(1), jnp.int32(n))
+
+    def port_pool():  # the layer axis unstacked, bf16 through int16 bits
+        return [[{k: (torch.from_numpy(v[j].view(np.int16).copy()).view(
+                      torch.bfloat16) if k == "kv"
+                      else torch.from_numpy(v[j].copy()))
+                  for k, v in seg.items()} for j in range(CFG.n_layers)]
+                for seg in leaves]
+
+    specs = lm.cache_specs(CFG, mx_digital=True, fused=True)
+    pool = port_pool()
+    clone_prefix(pool, specs, torch.tensor(3), torch.tensor(1),
+                 torch.tensor(n))
+    for seg, jseg in zip(pool, jout):
+        for j, layer in enumerate(seg):
+            for k, v in layer.items():
+                ref = np.asarray(jseg[k])[j]
+                if k == "kv":
+                    ref = ref.view(np.int16)
+                np.testing.assert_array_equal(_bits(v), ref, err_msg=k)
+
+
+def _chunk_input(prompt, offs, width, row) -> torch.Tensor:
+    take = min(width, len(prompt) - offs)
+    step = np.zeros(2 * width + 3, np.int64)
+    eng_mod._window(step, width, prompt[offs:offs + take], offs)
+    step[2 * width:] = (row, take - 1, offs)
+    return torch.from_numpy(step)
+
+
+@torch.no_grad()
+def _eager_chunk(eng, prompt, offs, row) -> int:
+    """The engine's chunk before its steps took device inputs: Python
+    ``row``, ``offset`` and ``last``."""
+    width = eng.ecfg.chunk_len
+    take = min(width, len(prompt) - offs)
+    ids = np.zeros((1, width), np.int64)
+    ids[0, :take] = prompt[offs:offs + take]
+    positions = np.full((1, width), tattn.KV_PAD, np.int64)
+    positions[0, :take] = np.arange(offs, offs + take)
+    rows = torch.tensor([row])
+    caches = gather_rows(eng.kv.pool, eng.kv.specs, rows)
+    hidden, caches = lm.forward(
+        eng.params, CFG, eng.ctx, {"ids": torch.from_numpy(ids),
+                                   "positions": torch.from_numpy(positions)},
+        caches=caches, pos=offs, return_hidden=True)
+    logits = lm._head(eng.ctx, CFG, eng.params,
+                      hidden[:, take - 1][:, None])
+    scatter_rows(eng.kv.pool, eng.kv.specs, rows, caches)
+    return int(torch.argmax(logits[0, 0].float()))
+
+
+@pytest.mark.parametrize("backend", ["float", "cim"])
+def test_chunk_step_bitwise_the_eager_path(backend, models):
+    """``_chunk_step`` over a 13-token prompt in windows of 4 (the last
+    one partial) gives the ids and pool leaves of the eager path it
+    replaced, bitwise; a window run twice leaves the pool as one run."""
+    params, ctx = models[backend]
+    old, new = (_engine(params, ctx) for _ in range(2))
+    prompt = np.random.default_rng(6).integers(0, CFG.vocab_size,
+                                               13).tolist()
+    pool = new.kv.pool
+    for offs in range(0, len(prompt), 4):
+        want = _eager_chunk(old, prompt, offs, 2)
+        step = _chunk_input(prompt, offs, 4, 2)
+        got = eng_mod._chunk_step(params, CFG, ctx, pool, new.kv.specs, step)
+        assert got.shape == (1,) and int(got[0]) == want, offs
+        for a, b in zip(_leaves(pool), _leaves(old.kv.pool)):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+        once = [_bits(a).copy() for a in _leaves(pool)]
+        eng_mod._chunk_step(params, CFG, ctx, pool, new.kv.specs, step)
+        for a, b in zip(_leaves(pool), once):
+            np.testing.assert_array_equal(_bits(a), b)
+
+
+def _leaves(pool):
+    return [v for seg in pool for layer in seg for v in layer.values()]
 
 
 # ------------------------------------------- content-addressable identity
