@@ -129,7 +129,25 @@
    128 (page 448, lengths 0, 1, W/2, W), E at the [1, 384] prefill shapes
    in bf16 and at D 256 in f32, A and C at the new linear shapes at M = 4
    and 384 (nemotron's head 6144 x 256000 among them).
-10. Prints the kernels line (phase 9 adds B, D and E at head widths
+10. Fidelity: the launcher's ``--fidelity`` pass at full width
+    (``FID_RUNS``). First the kernel level (``FID_LINEARS``: starcoder2-7b's
+    w1 at M=4 on ``splitk`` and M=192 on ``wgmma``, ViT-B/16's w1 at M=197),
+    each with a Row-Hist calibration taken on the card and at a quarter of
+    its full scale: ``cim_linear_fidelity``'s ``y`` ``torch.equal`` the
+    ``cim_linear`` kernel's, its counts (alignment, saturation, code
+    occupancy, ``live_e_max``) equal a CPU run on the same tensors, and
+    ``quant_health`` on the card equals its CPU run. Then ViT-B/16 (12
+    layers) and phase 4's starcoder2-7b (8 of 32 layers) under ``cim``,
+    calibrated on two batches and probed on the first, against the digital
+    MXFP4 reference: every calibrated path covered, ``cim_linear``
+    launched once an analog linear, no drift; the same with ``adc_fs / 4``
+    (drift tripped, output SQNR 3 dB lower or more); a lossless CIM (no
+    ADC, CM 64, one pass) with ``impl="ref"`` (output SQNR >= 60 dB: the
+    reference CI gate's three conditions); and ViT-B/16 ``mxfp4`` against
+    float through ``mxfp4_matmul``. A ``fidelity`` line a run: output and
+    smallest per-layer SQNR, drift, clip and saturation ratios, the pass's
+    wall against one plain eager forward.
+11. Prints the kernels line (phase 9 adds B, D and E at head widths
     256, 80 and 128), then the card's name and power limit, then the
     device line, as the last line.
 
@@ -140,7 +158,8 @@ Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``serve load {...}``, ``prefill eager vs captured {...}``,
 ``decode eager vs captured {...}``, ``frame profile <arch> <mode>
 {...}``, ``frame eager vs captured {...}``, ``serve vision {...}``,
-``serve dense {...}``).
+``serve dense {...}``, ``fidelity linear {...}``, ``fidelity quant_health
+{...}``, ``fidelity {...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
@@ -276,6 +295,23 @@ DENSE_SHAPES = {
                         (24576, 6144), (6144, 256000))),
 }
 DENSE_LENGTHS = [0, 1, DENSE_PAGE // 2, DENSE_PAGE]
+# the fidelity phase (phase 10): the launcher's --fidelity pass at full
+# width on ViT-B/16 (12 layers, the paper's workload) and phase 4's
+# starcoder2-7b at 8 of 32 layers, both cim, calibrated on their two
+# calibration batches and probed on the first; ViT-B/16 mxfp4 against
+# float through mxfp4_matmul
+FID_COMMON = ["--no-tiny", "--calib-batches", "2", "--batch", "2",
+              "--fidelity", "--log-level", "warning"]
+FID_RUNS = (("vit-b16", "cim"), ("starcoder2-7b", "cim"),
+            ("vit-b16", "mxfp4"))
+FID_ARGS = {"vit-b16": [], "starcoder2-7b": ["--layers", "8",
+                                             "--prompt-len", "192"]}
+FID_MISCAL = 0.25  # adc_fs scale of the mis-calibrated run
+FID_MIN_DROP_DB = 3.0  # its output SQNR drop, at least
+FID_LOSSLESS_MIN_DB = 60.0  # the reference CI gate's lossless bound
+# the kernel-level rows (M, K, N): starcoder2-7b's w1 at decode (splitk)
+# and prefill (wgmma), ViT-B/16's w1 at a frame's rows
+FID_LINEARS = ((4, 4608, 18432), (192, 4608, 18432), (197, 768, 3072))
 # kernel function -> wrapper and route, for device time by route
 KERNEL_ROUTES = {
     "cim_splitk_kernel": "cim_linear splitk",
@@ -1792,6 +1828,267 @@ def dense_kernel_entries(dense_rows: dict, runs: dict) -> list:
     return out
 
 
+def _converted_paths(tree, marker: str) -> list:
+    """Calibration paths (``segments/<i>/L<j>/...``) of the converted
+    linears of ``tree``: nodes holding ``marker`` (``e_n``: analog,
+    ``codes``: packed MXFP4)."""
+    from repro_torch.layers.backends import layer_paths
+
+    out = []
+
+    def rec(node, path):
+        if isinstance(node, dict):
+            if marker in node:
+                out.append(path)
+                return
+            for k, v in node.items():
+                rec(v, f"{path}/{k}" if path else k)
+        elif isinstance(node, list):
+            paths = (layer_paths(path, len(node))
+                     if path.startswith("segments/")
+                     else [f"{path}/{i}" if path else str(i)
+                           for i in range(len(node))])
+            for v, p in zip(node, paths):
+                rec(v, p)
+
+    rec(tree, "")
+    return out
+
+
+def check_fidelity_linears(dev) -> list:
+    """Phase 10's kernel level: on each of ``FID_LINEARS`` with a Row-Hist
+    calibration taken on the card, and again at ``FID_MISCAL`` times its
+    full scale, ``cim_linear_fidelity``'s ``y`` (torch ops on the card)
+    must be ``torch.equal`` to the ``cim_linear`` kernel's output on the
+    route the shape picks, and its statistics (alignment counts, both
+    passes' saturation and code occupancy, ``live_e_max``, ``live_fs``)
+    equal to a CPU run of the same function on the same tensors; then
+    ``quant_health`` on the card equals its CPU run. A ``fidelity linear``
+    line a row."""
+    from repro_torch.core import cim as cimlib
+    from repro_torch.core import mx as mxlib
+    from repro_torch.kernels.cim_linear import ops as cim_ops
+    from repro_torch.obs import EXP_BUCKETS, RATIO_BUCKETS
+    from repro_torch.obs.fidelity import _to_host
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    cfg = cimlib.CIMConfig()
+    cpu = torch.device("cpu")
+    rows, weights, xs = [], {}, []
+    for m, k, n in FID_LINEARS:
+        if (k, n) not in weights:
+            weights[(k, n)] = mxlib.quantize_w(
+                torch.randn((k, n), generator=gen, device=dev) * k ** -0.5)
+        w = weights[(k, n)]
+        w_cpu = mxlib.MXW(w.codes.to(cpu), w.exps.to(cpu))
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        xs.append(x)
+        cal = cimlib.calibrate_rowhist([x], w, cfg)
+        route = cim_ops.pick_route(m, k, n)
+        for scale in (1.0, FID_MISCAL):
+            c = cal._replace(adc_fs=cal.adc_fs * scale)
+            before = cim_ops.cim_linear.route_launches[route]
+            got = cim_ops.cim_linear(x, w, c, cfg=cfg)
+            if cim_ops.cim_linear.route_launches[route] != before + 1:
+                raise AssertionError(f"fidelity linear {(m, k, n)}: the "
+                                     f"kernel did not take {route}")
+            y, st = cimlib.cim_linear_fidelity(x, w, cfg, c, RATIO_BUCKETS)
+            t0 = time.perf_counter()
+            y_cpu, st_cpu = cimlib.cim_linear_fidelity(
+                x.to(cpu), w_cpu, cfg,
+                cimlib.LayerCalib(c.e_n.to(cpu), c.adc_fs.to(cpu)),
+                RATIO_BUCKETS)
+            cpu_s = time.perf_counter() - t0
+            st, st_cpu = _to_host(st), _to_host(st_cpu)
+            same = {key: bool(np.array_equal(st[key], st_cpu[key]))
+                    for key in ("counts", "live_e_max", "live_fs")}
+            for p in ("pass1", "pass2"):
+                for key in ("saturated", "occ_counts", "peak"):
+                    same[f"{p}.{key}"] = bool(np.array_equal(
+                        st[p][key], st_cpu[p][key]))
+            row = dict(
+                m=m, k=k, n=n, route=route, adc_fs_scale=scale,
+                y_equal_kernel=bool(torch.equal(y, got)),
+                y_equal_cpu=bool(torch.equal(y.to(cpu), y_cpu)),
+                stats_equal_cpu=all(same.values()),
+                counts=[int(v) for v in st["counts"]],
+                saturated=[int(st[p]["saturated"]) for p in ("pass1",
+                                                            "pass2")],
+                samples=int(st["pass1"]["total"]) * 2,
+                live_e_max=int(st["live_e_max"]), e_n=int(c.e_n),
+                live_fs=float(st["live_fs"]), adc_fs=float(c.adc_fs),
+                kernel_ms=_time_ms(lambda: cim_ops.cim_linear(
+                    x, w, c, cfg=cfg), 3, warm=1),
+                fidelity_ms=_time_ms(lambda: cimlib.cim_linear_fidelity(
+                    x, w, cfg, c, RATIO_BUCKETS), 3, warm=1),
+                cpu_s=cpu_s)
+            print("fidelity linear", json.dumps(row), flush=True)
+            if not (row["y_equal_kernel"] and row["y_equal_cpu"]
+                    and row["stats_equal_cpu"]):
+                raise AssertionError(f"fidelity linear {(m, k, n)} x "
+                                     f"{scale}: {row}, {same}")
+            if scale == 1.0 and sum(row["saturated"]):
+                raise AssertionError(f"fidelity linear {(m, k, n)}: "
+                                     "saturation on its calibration batch")
+            if scale != 1.0 and not sum(row["saturated"]):
+                raise AssertionError(f"fidelity linear {(m, k, n)}: no "
+                                     f"saturation at adc_fs x {scale}")
+            rows.append(row)
+    for x in xs + [xs[-1].float() * torch.exp2(torch.randint(
+            -60, 60, xs[-1].shape, generator=gen, device=dev).float())]:
+        h = _to_host(mxlib.quant_health(x, EXP_BUCKETS))
+        h_cpu = _to_host(mxlib.quant_health(x.to(cpu), EXP_BUCKETS))
+        equal = all(np.array_equal(h[key], h_cpu[key]) for key in h)
+        print("fidelity quant_health", json.dumps(
+            {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+             "equal_cpu": equal, "clipped": int(h["clipped"]),
+             "underflow": int(h["underflow"]), "total": h["total"],
+             "exp_min": int(h["exp_min"]), "exp_max": int(h["exp_max"])}),
+            flush=True)
+        if not equal:
+            raise AssertionError(f"quant_health on the card differs from "
+                                 f"the CPU at {tuple(x.shape)}")
+    return rows
+
+
+def _fidelity_digest(rep: dict) -> dict:
+    """A fidelity report's figures: output SQNR, the smallest per-layer
+    SQNR and its layer, drift, the largest clip and saturation ratios."""
+    per = {p: v for p, v in rep["sqnr_db"].items()
+           if p != "output" and np.isfinite(v)}
+    worst = min(per, key=per.get)
+    lay = rep["layers"].values()
+    return {"output_sqnr_db": rep["sqnr_db"]["output"],
+            "min_layer_sqnr_db": per[worst], "min_layer": worst,
+            "n_drifted": rep["drift"]["n_drifted"],
+            "max_clip_ratio": max(v.get("clip_ratio", 0.0) for v in lay),
+            "max_adc_saturation_ratio": max(
+                v.get("adc_saturation_ratio", 0.0) for v in lay)}
+
+
+def fidelity_model(arch: str, backend: str) -> dict:
+    """Phase 10's model level: ``arch`` at full width under ``backend``
+    through the launcher's ``--fidelity`` path (``init_lm`` / ``init_vit``,
+    ``build_backend``, ``run_fidelity``), probed on its first calibration
+    batch. Under ``cim``: every calibrated path covered, ``cim_linear``
+    launched once an analog linear and nothing else, no drift; then the
+    same pass with ``scale_adc_fs(conv, FID_MISCAL)`` (drift tripped,
+    output SQNR at least ``FID_MIN_DROP_DB`` lower) and a lossless CIM
+    (no ADC, CM 64, one pass) calibrated and run with ``impl="ref"``, the
+    kernel taking CM <= 24 only (output SQNR >= ``FID_LOSSLESS_MIN_DB``).
+    Under ``mxfp4``: against float, ``mxfp4_matmul`` launched once a packed
+    linear. The probe's cost: the pass's wall against one plain eager
+    forward. A ``fidelity`` line a run."""
+    import logging
+
+    from repro_torch import obs as obs_lib
+    from repro_torch.core import cim as cimlib
+    from repro_torch.launch import serve
+    from repro_torch.layers.common import RunCtx
+    from repro_torch.models import calibrate, lm, vit
+
+    args = serve.build_parser().parse_args(
+        ["--arch", arch, "--backend", backend] + FID_COMMON + FID_ARGS[arch])
+    obs = obs_lib.Obs()
+    t0 = time.perf_counter()
+    if arch == "vit-b16":
+        cfg, fparams, dev, batches = serve.init_vit(args)
+        batch, fwd = batches[0], vit.forward
+    else:
+        cfg, fparams, dev = serve.init_lm(args)
+        batches = calibrate.calibration_batches(
+            cfg, n_batches=args.calib_batches, batch=args.batch,
+            seq=args.prompt_len, device=dev)
+        batch, fwd = serve.fidelity_batch(args, cfg, dev), lm.forward
+        if not torch.equal(batch["ids"], batches[0]["ids"]):
+            raise AssertionError("the fidelity batch is not the first "
+                                 "calibration batch")
+    with torch.no_grad():
+        params, ctx = serve.build_backend(args, cfg, fparams, dev, obs=obs,
+                                          batches=batches, forward_fn=fwd)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    own = VISION_KERNEL[backend]
+    linears = _converted_paths(params, "e_n" if backend == "cim" else "codes")
+    _zero_counts()
+    rep = serve.run_fidelity(args, cfg, fparams, params, ctx, obs, batch,
+                             forward_fn=fwd)
+    launches, _ = _read_counts()
+    routes = _cim_routes() if backend == "cim" else _read_counts()[1]
+    want = {k: (len(linears) if k == own else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"fidelity {arch} [{backend}]: launches "
+                             f"{launches}, want {want}")
+    missing = [p for p in linears if p not in rep["sqnr_db"]
+               or (backend == "cim"
+                   and "adc_saturation_ratio" not in rep["layers"][p])]
+    if missing:
+        raise AssertionError(f"fidelity {arch} [{backend}]: paths not "
+                             f"covered: {missing[:8]}")
+    with torch.no_grad():  # the probe's cost: one plain eager forward
+        fwd(params, cfg, ctx, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd(params, cfg, ctx, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+    line = {"model": arch, "backend": backend, "layers": cfg.n_layers,
+            "d_model": cfg.d_model,
+            "batch_shape": list(batch[next(iter(batch))].shape),
+            "reference": "mxfp4_digital" if backend == "cim" else "none",
+            "linears_covered": len(linears), "launches": launches,
+            "routes": routes, "build_s": build_s, "pass_s": rep["wall_s"],
+            "plain_forward_s": plain_s,
+            "probe_cost_x": rep["wall_s"] / plain_s} | _fidelity_digest(rep)
+    ok = np.isfinite(line["output_sqnr_db"])
+    if backend == "cim":
+        ok = ok and line["n_drifted"] == 0
+        quiet = logging.getLogger("repro_torch.fidelity")
+        quiet.disabled = True  # one drift warning a layer otherwise
+        try:
+            t1 = time.perf_counter()
+            _, bad = obs_lib.run_fidelity_pass(
+                fparams, obs_lib.scale_adc_fs(params, FID_MISCAL), cfg, ctx,
+                batch, obs=obs_lib.Obs(), forward_fn=fwd,
+                min_n=args.cim_min_n)
+            bad_s = time.perf_counter() - t1
+        finally:
+            quiet.disabled = False
+        ll_cfg = cimlib.CIMConfig(adc_bits=None, cm_bits=64, two_pass=False)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            conv_ll, _ = calibrate.convert_model_cim(
+                fparams, cfg, RunCtx(dense_attn_max=256), batches,
+                cim_cfg=ll_cfg, min_n=args.cim_min_n, forward_fn=fwd)
+        ll_ctx = RunCtx(quant="cim", cim=ll_cfg, impl="ref",
+                        dense_attn_max=256)
+        _zero_counts()
+        _, ll = obs_lib.run_fidelity_pass(
+            fparams, conv_ll, cfg, ll_ctx, batch, obs=obs_lib.Obs(),
+            forward_fn=fwd, min_n=args.cim_min_n)
+        ll_launches = _read_counts()[0]
+        ll_s = time.perf_counter() - t1
+        del conv_ll
+        line |= {
+            "miscal": {"adc_fs_scale": FID_MISCAL, "pass_s": bad_s}
+            | _fidelity_digest(bad) | {"drifted": bad["drift"]["drifted"][:4]},
+            "lossless": {"impl": "ref", "cim": "adc_bits=None cm_bits=64 "
+                         "two_pass=False", "launches": ll_launches,
+                         "calibrate_and_pass_s": ll_s}
+            | _fidelity_digest(ll)}
+        ok = (ok and bad["drift"]["n_drifted"] > 0
+              and bad["sqnr_db"]["output"]
+              <= line["output_sqnr_db"] - FID_MIN_DROP_DB
+              and not any(ll_launches.values())
+              and ll["sqnr_db"]["output"] >= FID_LOSSLESS_MIN_DB)
+    line["ok"] = bool(ok)
+    print("fidelity", json.dumps(line), flush=True)
+    if not ok:
+        raise AssertionError(f"fidelity {arch} [{backend}] failed its "
+                             "checks")
+    return {"launches": launches, "line": line}
+
+
 def _zero_counts() -> None:
     from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -2189,6 +2486,10 @@ def main() -> int:
     for arch, backend in DENSE_RUNS:
         runs[f"dense {arch} {backend}"] = phase(
             f"serve {arch} [{backend}]", serve_dense, arch, backend)
+    phase("fidelity linears", check_fidelity_linears, dev)  # phase 10
+    for arch, backend in FID_RUNS:
+        runs[f"fidelity {arch} {backend}"] = phase(
+            f"fidelity {arch} [{backend}]", fidelity_model, arch, backend)
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
 

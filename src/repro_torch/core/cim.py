@@ -2,16 +2,21 @@
 
 PyTorch counterpart of ``repro.core.cim``: a CIM linear ``y = x @ w``
 with ``w`` resident as MXFP4 INT5 codes, ``x`` block-quantized per
-(row, 32-block), each block's exact integer partial aligned to the
-per-layer Row-Hist target exponent ``E_N`` under a ``CM``-bit mirror
-window (underflow to zero below, clamp above), the optional second pass
-at ``E_N - CM``, and an n-bit ADC per (pass, column) sum.
+(row, 32-block), each block's exact integer partial aligned to a target
+exponent ``E_N`` under a ``CM``-bit mirror window (underflow to zero
+below, clamp above), the optional second pass at ``E_N - CM``, and an
+n-bit ADC per (pass, column) sum.
 
-Only the offline-calibrated ``row_hist`` strategy (the serving hot path)
-is ported; the online ``row0`` / ``row_opt`` baselines are listed in
-ROADMAP.md. Blocks are taken in ascending order with one running f32 sum
-per pass, the accumulation order of the reference's scan, so the result
-is bitwise the reference's.
+Target-exponent strategies (Fig 5): the offline ``row_hist`` (per-layer
+``E_N`` from calibration; the serving hot path) walks the blocks in
+ascending order with one running f32 sum per pass, the accumulation order
+of the reference's scan, so the result is bitwise the reference's. The
+online ``row0`` / ``row_opt`` baselines need the whole block-exponent
+field and take the materialized composition; its per-block sums are
+multiples of ``2^-CM`` far below 2^24, so they are exact in any order.
+Also here: the fidelity probe's instrumented forward and ADC health
+(:func:`cim_linear_fidelity`, :func:`adc_health`), the unsigned-weight
+bias-column variant and the bit-plane dot.
 """
 
 from __future__ import annotations
@@ -40,12 +45,14 @@ class LayerCalib(NamedTuple):
     adc_fs: torch.Tensor  # [] f32 ADC full scale (aligned-integer units)
 
 
-def _check_strategy(cfg: CIMConfig) -> None:
-    if cfg.strategy != "row_hist":
-        raise NotImplementedError(
-            f"CIM strategy {cfg.strategy!r} is not ported (only the "
-            "offline row_hist strategy is; see ROADMAP.md Queue 1)"
-        )
+def _block_partials(x: torch.Tensor, w: MXW):
+    """Quantize activations and form the per-block integer partial sums:
+    (S [..., nb, N] exact integers in f32, es [..., nb, N] = E_X + E_W)."""
+    cx, ex, nb = _xq_blocks(x, w.codes.shape[0])
+    cw = w.codes.to(torch.float32).reshape(nb, BLOCK, -1)
+    s = torch.einsum("...bk,bkm->...bm", cx, cw)
+    es = ex[..., :, None] + w.exps.to(torch.int32)
+    return s, es
 
 
 def _adc(c: torch.Tensor, fs: torch.Tensor, bits: int | None) -> torch.Tensor:
@@ -57,9 +64,36 @@ def _adc(c: torch.Tensor, fs: torch.Tensor, bits: int | None) -> torch.Tensor:
     return q * delta
 
 
+def _target_exponent(cfg: CIMConfig, calib: LayerCalib | None,
+                     es: torch.Tensor):
+    if cfg.strategy == "row_hist":
+        if calib is None:
+            raise ValueError("row_hist needs offline calibration "
+                             "(calib=None)")
+        return calib.e_n
+    if cfg.strategy == "row0":
+        # the first block-row's exponent reused for all rows (per column)
+        return es[..., 0:1, :] + cfg.strategy_offset
+    if cfg.strategy == "row_opt":
+        # per-column median exponent: for an even block count the mean of
+        # the two middle values (jnp.median), truncated toward zero
+        srt = es.sort(dim=-2).values
+        n = srt.shape[-2]
+        hi = srt[..., n // 2:n // 2 + 1, :]
+        med = hi if n % 2 else (
+            srt[..., n // 2 - 1:n // 2, :].to(torch.float32)
+            + hi.to(torch.float32)) * 0.5
+        return med.to(torch.int32) + cfg.strategy_offset
+    raise ValueError(f"unknown strategy {cfg.strategy!r}")
+
+
 def _en_scale(e_n, delta: int = 0) -> torch.Tensor:
-    """2^(E_N - delta), exact."""
-    return mxlib.exp2i(torch.as_tensor(e_n).to(torch.int32) - delta)
+    """2^(E_N - delta), exact, broadcastable to [..., N] (the block axis
+    that online strategies carry is squeezed)."""
+    sc = mxlib.exp2i(torch.as_tensor(e_n).to(torch.int32) - delta)
+    if sc.ndim > 0:
+        sc = sc[..., 0, :]
+    return sc
 
 
 def _xq_blocks(x: torch.Tensor, k: int):
@@ -84,10 +118,11 @@ def _scan_blocks(cx, ex, w: MXW, e_n, cfg: CIMConfig):
     """
     cm = cfg.cm_bits
     nb = cx.shape[-2]
-    wc = w.codes.to(torch.float32).reshape(nb, BLOCK, -1)
+    # row-major copies: a block's rows of K-major codes are strided
+    wc = w.codes.contiguous().to(torch.float32).reshape(nb, BLOCK, -1)
     e_n = torch.as_tensor(e_n, device=cx.device).to(torch.int32)
     u = mxlib.exp2i(ex - e_n)  # [..., nb]
-    v = mxlib.exp2i(w.exps.to(torch.int32))  # [nb, N]
+    v = mxlib.exp2i(w.exps.contiguous().to(torch.int32))  # [nb, N]
     lo = 2.0 ** -cm
     lo2 = 2.0 ** -(2 * cm)
     c1 = torch.zeros(cx.shape[:-2] + (wc.shape[-1],), dtype=torch.float32,
@@ -116,8 +151,11 @@ def _scan_blocks(cx, ex, w: MXW, e_n, cfg: CIMConfig):
 
 def cim_linear(x: torch.Tensor, w: MXW, cfg: CIMConfig,
                calib: LayerCalib | None = None):
-    """Analog CIM forward. Returns (y [..., N] float32, stats dict)."""
-    _check_strategy(cfg)
+    """Analog CIM forward. Returns (y [..., N] float32, stats dict). The
+    offline ``row_hist`` strategy runs the blockwise walk; the online
+    ``row0`` / ``row_opt`` baselines the materialized composition."""
+    if cfg.strategy != "row_hist":
+        return _cim_linear_materialized(x, w, cfg, calib)
     if calib is None:
         raise ValueError("row_hist needs offline calibration (calib=None)")
     cx, ex, _ = _xq_blocks(x, w.codes.shape[0])
@@ -137,14 +175,50 @@ def cim_linear(x: torch.Tensor, w: MXW, cfg: CIMConfig,
     return y.to(torch.float32), stats
 
 
+def _cim_linear_materialized(x: torch.Tensor, w: MXW, cfg: CIMConfig,
+                             calib: LayerCalib | None = None):
+    """The composition over the materialized [..., nb, N] block partials,
+    which the online strategies need (their target exponent is a function
+    of the whole exponent field)."""
+    s, es = _block_partials(x, w)
+    e_n = _target_exponent(cfg, calib, es)
+    sh = es - e_n  # required shift; exact iff -CM <= sh <= 0
+    cm = cfg.cm_bits
+    over = sh > 0
+    under1 = sh < -cm
+    a1 = torch.where(under1, 0.0, s * mxlib.exp2i(torch.clamp(sh, -cm, 0)))
+    c1 = a1.sum(dim=-2)  # [..., N] in units of 2^E_N / 4
+    fs = (calib.adc_fs if calib is not None
+          else torch.zeros((), dtype=torch.float32, device=x.device))
+    y = _adc(c1, fs, cfg.adc_bits) * _en_scale(e_n) * 0.25
+    under2 = torch.zeros_like(under1)
+    if cfg.two_pass:
+        sh2 = sh + cm  # pass-2 target E_N2 = E_N - CM
+        under2 = sh2 < -cm
+        a2 = torch.where(under1 & ~under2,
+                         s * mxlib.exp2i(torch.clamp(sh2, -cm, 0)), 0.0)
+        y = y + _adc(a2.sum(dim=-2), fs, cfg.adc_bits) * _en_scale(e_n, cm) \
+            * 0.25
+    stats = {}
+    if cfg.collect_stats:
+        nz = s.abs() > 0  # only blocks with nonzero partials matter
+        tot = torch.clamp(nz.sum(), min=1)
+        stats = {
+            "overflow_rate": (over & nz).sum() / tot,
+            "underflow_rate_p1": (under1 & nz).sum() / tot,
+            "underflow_rate_p2": (under1 & under2 & nz).sum() / tot,
+        }
+    return y.to(torch.float32), stats
+
+
 # ------------------------------------------------------------ calibration
 
 def _calib_max_exponent(x: torch.Tensor, w: MXW) -> torch.Tensor:
     """Max live block-output exponent over one batch (int32 [] on the
     activations' device; no host read)."""
     cx, ex, nb = _xq_blocks(x, w.codes.shape[0])
-    wc = w.codes.to(torch.float32).reshape(nb, BLOCK, -1)
-    we = w.exps.to(torch.int32)
+    wc = w.codes.contiguous().to(torch.float32).reshape(nb, BLOCK, -1)
+    we = w.exps.contiguous().to(torch.int32)
     dead = torch.full((), -(10**6), dtype=torch.int32, device=x.device)
     m = dead
     for b in range(nb):
@@ -168,22 +242,150 @@ def _calib_full_scale(x: torch.Tensor, w: MXW, e_n, cfg: CIMConfig):
     return fs
 
 
+def _percentile_exponent(x: torch.Tensor, w: MXW,
+                         percentile: float) -> torch.Tensor:
+    """The reference's percentile of one batch's block-output exponents:
+    ``jnp.percentile`` (linear, f32) over the field with dead blocks
+    (``S == 0``) masked to NaN, then ``ceil`` and an int32 cast. That
+    percentile propagates NaN, and XLA casts NaN to 0, so a batch with
+    any dead block gives 0 (ROADMAP.md, the reference's caveats); the
+    port gives the same. Sorted, so no element limit applies."""
+    s, es = _block_partials(x, w)
+    if not bool((s.abs() > 0).all()):
+        return torch.zeros((), dtype=torch.int32, device=x.device)
+    a = es.reshape(-1).to(torch.float32).sort().values
+    n = a.numel()
+    q = torch.tensor(percentile, dtype=torch.float32) / 100.0
+    q = q * float(n - 1)
+    lo, hi = torch.floor(q), torch.ceil(q)
+    hw = q - lo
+    lw = 1.0 - hw
+    v = (a[int(lo.clamp(0, n - 1))] * lw.to(a.device)
+         + a[int(hi.clamp(0, n - 1))] * hw.to(a.device))
+    return torch.ceil(v).to(torch.int32)
+
+
 def calibrate_rowhist(batches, w: MXW, cfg: CIMConfig,
                       percentile: float = 100.0) -> LayerCalib:
     """Offline Row-Hist calibration (paper §3.2.1): the per-layer target
     exponent is the max live block-output exponent over the batches (zero
-    overflow), then the ADC full scale is calibrated at that E_N."""
-    if percentile < 100.0:
-        raise NotImplementedError(
-            "percentile Row-Hist calibration is not ported (ROADMAP.md "
-            "Queue 1)"
-        )
+    overflow) or, below 100, that percentile of the block exponents (see
+    :func:`_percentile_exponent`); then the ADC full scale is calibrated
+    at that E_N."""
     e_n = None
     for xb in batches:
-        m = _calib_max_exponent(xb, w)
+        m = (_calib_max_exponent(xb, w) if percentile >= 100.0
+             else _percentile_exponent(xb, w, percentile))
         e_n = m if e_n is None else torch.maximum(e_n, m)
     e_n = e_n.to(torch.int32)
     fs = torch.zeros((), dtype=torch.float32, device=e_n.device)
     for xb in batches:
         fs = torch.maximum(fs, _calib_full_scale(xb, w, e_n, cfg))
     return LayerCalib(e_n=e_n, adc_fs=fs)
+
+
+# ------------------------------------------------- fidelity observability
+
+def adc_health(c: torch.Tensor, fs, bits: int | None,
+               code_buckets: tuple = ()) -> dict:
+    """ADC occupancy of one pass's pre-ADC column sums ``c``:
+    ``saturated`` counts samples whose ideal code ``round(c / delta)``
+    falls outside ``[-half, half]`` (a sample at exactly +fs rounds to
+    ``half`` and is clipped one LSB by :func:`_adc`: quantization error,
+    not saturation); ``occ_*`` bucket |clipped code| / half in [0, 1] on
+    ``code_buckets`` (plus sum, min and max); ``peak`` is max |c|."""
+    peak = c.abs().amax()
+    n = c.numel()
+    if bits is None:  # no ADC model: nothing saturates, no codes
+        z = torch.zeros((), dtype=torch.int32, device=c.device)
+        zf = torch.zeros((), dtype=torch.float32, device=c.device)
+        return {"total": n, "saturated": z, "peak": peak,
+                "occ_counts": torch.zeros(len(code_buckets) + 1,
+                                          dtype=torch.int32, device=c.device),
+                "occ_sum": zf, "occ_n": 0, "occ_min": zf, "occ_max": zf}
+    half = 2.0 ** (bits - 1)
+    raw = torch.round(c / (fs / half))
+    occ = torch.clamp(raw, -half, half - 1.0).abs() / half
+    return {
+        "total": n,
+        "saturated": ((raw < -half) | (raw > half)).sum(),
+        "peak": peak,
+        "occ_counts": mxlib.bucket_counts(occ, code_buckets),
+        "occ_sum": occ.sum(),
+        "occ_n": n,
+        "occ_min": occ.amin(),
+        "occ_max": occ.amax(),
+    }
+
+
+def cim_linear_fidelity(x: torch.Tensor, w: MXW, cfg: CIMConfig,
+                        calib: LayerCalib, code_buckets: tuple = ()):
+    """Instrumented Row-Hist forward in torch ops on ``x``'s device: ``y``
+    is bitwise :func:`cim_linear` (the same walk, which only adds its
+    count accumulator) and so the ``cim_linear`` kernel's, plus the
+    probe's stats: ``counts`` int32 [4] (overflow, underflow_p1,
+    underflow_p2, live blocks), ``pass1`` / ``pass2`` (:func:`adc_health`
+    a pass), ``live_fs`` (max |column sum| over the passes: above
+    ``calib.adc_fs`` means traffic drifted past calibration) and
+    ``live_e_max`` (max live block-output exponent, against
+    ``calib.e_n``). The ``row_hist`` strategy only."""
+    if cfg.strategy != "row_hist" or calib is None:
+        raise ValueError("cim_linear_fidelity takes the row_hist strategy "
+                         "with its calibration")
+    cx, ex, _ = _xq_blocks(x, w.codes.shape[0])
+    c1, c2, cnt = _scan_blocks(
+        cx, ex, w, calib.e_n, dataclasses.replace(cfg, collect_stats=True))
+    y = _adc(c1, calib.adc_fs, cfg.adc_bits) * _en_scale(calib.e_n) * 0.25
+    if cfg.two_pass:
+        y = y + (_adc(c2, calib.adc_fs, cfg.adc_bits)
+                 * _en_scale(calib.e_n, cfg.cm_bits) * 0.25)
+    h1 = adc_health(c1, calib.adc_fs, cfg.adc_bits, code_buckets)
+    stats = {"counts": cnt, "pass1": h1, "live_fs": h1["peak"],
+             "live_e_max": _calib_max_exponent(x, w)}
+    if cfg.two_pass:
+        h2 = adc_health(c2, calib.adc_fs, cfg.adc_bits, code_buckets)
+        stats["pass2"] = h2
+        stats["live_fs"] = torch.maximum(h1["peak"], h2["peak"])
+    return y.to(torch.float32), stats
+
+
+# ------------------------------------------------- bias-column equivalence
+
+def cim_linear_unsigned(x: torch.Tensor, w: MXW, cfg: CIMConfig,
+                        calib: LayerCalib) -> torch.Tensor:
+    """Weights stored as unsigned [0, 24] codes (w + 12), the bias term
+    ``12 * sum_i x_i`` made by a bias column a block and subtracted before
+    the per-block alignment (paper eq. (2)): bitwise :func:`cim_linear`,
+    which proves the affine encoding and bias column exact."""
+    cx, ex, nb = _xq_blocks(x, w.codes.shape[0])
+    wu = (w.codes.to(torch.int16) + mxlib.WEIGHT_BIAS).to(torch.float32)
+    s_u = torch.einsum("...bk,bkm->...bm", cx, wu.reshape(nb, BLOCK, -1))
+    bias = cx.sum(dim=-1)[..., None] * float(mxlib.WEIGHT_BIAS)
+    s = s_u - bias  # per block, before the alignment
+    es = ex[..., :, None] + w.exps.to(torch.int32)
+    e_n = _target_exponent(cfg, calib, es)
+    cm = cfg.cm_bits
+    sh = es - e_n
+    a1 = torch.where(sh < -cm, 0.0,
+                     s * mxlib.exp2i(torch.clamp(sh, -cm, 0)))
+    y = _adc(a1.sum(dim=-2), calib.adc_fs, cfg.adc_bits) * _en_scale(e_n) \
+        * 0.25
+    if cfg.two_pass:
+        sh2 = sh + cm
+        a2 = torch.where((sh < -cm) & (sh2 >= -cm),
+                         s * mxlib.exp2i(torch.clamp(sh2, -cm, 0)), 0.0)
+        y = y + _adc(a2.sum(dim=-2), calib.adc_fs, cfg.adc_bits) \
+            * _en_scale(e_n, cm) * 0.25
+    return y.to(torch.float32)
+
+
+# --------------------------------------------------- bit-plane decomposition
+
+def bitplane_dot(cx: torch.Tensor, cw: torch.Tensor) -> torch.Tensor:
+    """Bit-serial ``sum_i cx_i * cw_i`` with ``cx`` in [-12, 12] streamed
+    as 5-bit two's-complement planes (paper eq. (1)), in f32."""
+    xi = cx.to(torch.int32) & 0x1F
+    cwf = cw.to(torch.float32)
+    t = [(((xi >> j) & 1).to(torch.float32) * cwf).sum(dim=-1)
+         for j in range(5)]
+    return sum(wj * tj for wj, tj in zip((1, 2, 4, 8, -16), t))

@@ -101,6 +101,18 @@ def _quant_scaled(xb: torch.Tensor):
     return 2.0 * q, ebf
 
 
+def quantize_e2m1(y: torch.Tensor) -> torch.Tensor:
+    """Round already-scaled ``y`` to the E2M1 grid (ties to even) and
+    return the codes ``2 * fp4`` as int8. The grid step comes from the
+    exponent field (0.5 below 2, 1 in [2, 4), 2 from 4) and the divide is
+    an exact power-of-two multiply; magnitudes clamp at 6."""
+    ay = y.abs()
+    e = torch.clamp(floor_ilog2(ay), 0, EMAX_ELEM)
+    q = torch.round(ay * exp2i(1 - e)) * exp2i(e - 1)
+    q = torch.clamp(q, max=FP4_MAX)
+    return (torch.sign(y) * (2.0 * q)).to(torch.int8)
+
+
 def quantize(x: torch.Tensor, axis: int = -1) -> MX:
     """Block-quantize ``x`` to MXFP4 along ``axis`` (padded to 32); the
     quantized axis ends up last in both ``codes`` and ``exps``."""
@@ -128,6 +140,15 @@ def dequantize(mx: MX, out_len: int | None = None,
     if out_len is not None and out_len != shp[-1]:
         v = v[..., :out_len]
     return v.to(dtype)
+
+
+def encode_weight_unsigned(mx: MX) -> torch.Tensor:
+    """INT5 affine map of weight codes into [0, 24] (uint8)."""
+    return (mx.codes.to(torch.int16) + WEIGHT_BIAS).to(torch.uint8)
+
+
+def decode_weight_unsigned(u: torch.Tensor) -> torch.Tensor:
+    return (u.to(torch.int16) - WEIGHT_BIAS).to(torch.int8)
 
 
 # ---------------------------------------------------------------- packing
@@ -269,6 +290,78 @@ def fake_quant(x: torch.Tensor) -> torch.Tensor:
 def fake_quant_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
     """:func:`fake_quant` along an arbitrary axis (STE gradient)."""
     return _FakeQuant.apply(x, axis)
+
+
+# ------------------------------------------------- fidelity observability
+
+def bucket_counts(v: torch.Tensor, buckets: tuple,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Bucket ``v`` on the boundaries ``buckets`` as ``Histogram.observe``
+    does (``bisect_left``: a value equal to a boundary lands in that
+    ``le`` bucket; the +Inf bucket takes the tail). Returns int32 counts
+    of length ``len(buckets) + 1`` on ``v``'s device, for
+    ``Histogram.merge_counts``; ``weights`` (0/1) masks elements out."""
+    b = torch.tensor(buckets, dtype=torch.float32, device=v.device)
+    idx = torch.searchsorted(b, v.to(torch.float32).reshape(-1), right=False)
+    w = (torch.ones_like(idx) if weights is None
+         else weights.reshape(-1).to(torch.int64))
+    out = torch.zeros(len(buckets) + 1, dtype=torch.int64, device=v.device)
+    return out.index_add_(0, idx, w).to(torch.int32)
+
+
+def quant_health(x: torch.Tensor, exp_buckets: tuple = ()) -> dict:
+    """MXFP4 quantizer health over one tensor (last-axis blocks), never
+    on the hot path. Over the unpadded elements: ``clipped`` (beyond the
+    top of the E2M1 grid, ``|x| > 6 * 2^E``), ``underflow`` (nonzero
+    values flushed to code 0 by the block exponent), ``total`` (a Python
+    int); and the shared exponents of live (nonzero) blocks bucketed on
+    ``exp_buckets``: ``exp_counts`` / ``exp_sum`` / ``exp_n`` /
+    ``exp_min`` / ``exp_max``. Tensors stay on ``x``'s device."""
+    xf = _pad_last(x.to(torch.float32))
+    shp = xf.shape
+    xb = xf.reshape(shp[:-1] + (shp[-1] // BLOCK, BLOCK))
+    code_mag, ebf = _quant_scaled(xb)
+    scale = exp2i(ebf - 129)  # 2^e_shared, exact
+    e = ebf[..., 0] - 129  # [..., nb] shared exponent a block
+    live = (xb != 0).any(dim=-1)  # zero-amax blocks sit on the floor
+    big = 10 ** 6
+    return {
+        "total": int(np.prod(x.shape)),
+        "clipped": (xb.abs() > FP4_MAX * scale).sum(),
+        "underflow": ((xb != 0) & (code_mag == 0)).sum(),
+        "exp_counts": bucket_counts(e, exp_buckets, weights=live),
+        "exp_sum": torch.where(live, e, 0).sum(),
+        "exp_n": live.sum(),
+        "exp_min": torch.where(live, e, big).amin(),
+        "exp_max": torch.where(live, e, -big).amax(),
+    }
+
+
+# ------------------------------------------------------------ bf16 helper
+
+def to_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16)
+
+
+def mx_dot_bf16(a: MX, b: MXW, bf16_partials: bool = False) -> torch.Tensor:
+    """Digital-path ``a @ b`` with MXFP4 operands (paper §4.5): ``a``
+    quantized along its last axis, ``b`` a [K, N] weight quantized along K.
+    With ``bf16_partials`` each 32-block's partial sum is rounded to bf16
+    before the cross-block sum (the systolic array's bf16 accumulator at
+    block granularity); otherwise one f32 matmul and a final bf16 round.
+    The products of two MXFP4 values are exact in f32, so the sums are
+    too while their span fits in 24 bits (model-scale K does)."""
+    va = dequantize(a)  # [..., K]
+    vb = dequantize_w(b)  # [K, N]
+    k = vb.shape[0]
+    if bf16_partials:
+        nb = k // BLOCK
+        vab = va[..., :k].reshape(va.shape[:-1] + (nb, BLOCK))
+        parts = torch.einsum("...bk,bkn->...bn", vab,
+                             vb.reshape(nb, BLOCK, -1))
+        parts = parts.to(torch.bfloat16).to(torch.float32)
+        return parts.sum(dim=-2).to(torch.bfloat16)
+    return torch.matmul(va[..., :k], vb).to(torch.bfloat16)
 
 
 def kmajor(t: torch.Tensor) -> torch.Tensor:

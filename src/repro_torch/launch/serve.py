@@ -31,7 +31,15 @@ prompts, the steps warmed up (and captured) on a throwaway request
 first. Telemetry: ``--metrics-out PATH`` writes the run's metrics as a
 JSON snapshot at PATH and the Prometheus text exposition beside it (a
 ``.prom`` suffix); ``--slo-ttft-ms`` / ``--slo-token-ms`` score the
-finished requests against p99 targets (``obs/slo.py``).
+finished requests against p99 targets (``obs/slo.py``); ``--profile``
+records each eager kernel call's wall time after a device synchronize
+(``kernel_wall_seconds``); ``--log-every N`` logs a progress line every N
+engine steps. ``--fidelity`` runs a numerical-fidelity pass over the
+freshly built serving tree before serving (``obs/fidelity.py``: per-layer
+SQNR against the float tree, MXFP4 clip / underflow counters, ADC
+saturation and code-utilization histograms, the calibration-drift check);
+its metrics land in the ``--metrics-out`` snapshot. ``--impl ref`` runs
+the reference's own compositions instead of the kernels, eagerly.
 
 Runs on CUDA unless ``--device cpu`` is given (then the kernels' plain
 versions run); without a GPU and without ``--device cpu`` it raises.
@@ -50,6 +58,9 @@ versions run); without a GPU and without ``--device cpu`` it raises.
       --backend cim --arrivals burst:4:0.05 --chunk-len 4 \\
       --policy chunked --prefix-cache --metrics-out /tmp/m.json \\
       --slo-ttft-ms 60000                   # load replay, tiny, CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --backend cim --serve-trace --fidelity \\
+      --metrics-out /tmp/f.json             # fidelity pass, tiny, CPU
 """
 
 from __future__ import annotations
@@ -86,11 +97,12 @@ def build_backend(args, cfg, params, device, obs=None, batches=None,
     ``lm.forward``; the vision path passes images and ``vit.forward``)."""
     conv_kw = conversion_args(args)
     log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    kw = dict(dense_attn_max=256, impl=args.impl, obs=obs)
     if args.backend == "float":
-        return params, RunCtx(dense_attn_max=256, obs=obs)
+        return params, RunCtx(**kw)
     if args.backend == "mxfp4":
         return (convert_params_mxfp4(params, min_n=conv_kw["min_n"]),
-                RunCtx(quant="mxfp4_wonly", dense_attn_max=256, obs=obs))
+                RunCtx(quant="mxfp4_wonly", **kw))
     if args.backend != "cim":
         raise SystemExit(f"unknown --backend {args.backend!r}")
     cim_cfg = cimlib.CIMConfig(adc_bits=conv_kw["adc_bits"],
@@ -106,7 +118,33 @@ def build_backend(args, cfg, params, device, obs=None, batches=None,
         min_n=conv_kw["min_n"], forward_fn=forward_fn)
     log.info("row-hist calibration: %s", obs_lib.kv(
         linears=len(calibs), wall_s=time.perf_counter() - t0))
-    return conv, RunCtx(quant="cim", cim=cim_cfg, dense_attn_max=256, obs=obs)
+    return conv, RunCtx(quant="cim", cim=cim_cfg, **kw)
+
+
+def run_fidelity(args, cfg, fparams, params, ctx, obs: obs_lib.Obs, batch,
+                 forward_fn=None) -> dict:
+    """``--fidelity``: one numerical-fidelity pass over the serving tree
+    (``obs.run_fidelity_pass``), published into the run's registry: per
+    layer SQNR against the float tree, quantizer / ADC health and the
+    calibration-drift check. Under ``cim`` the reference runs on the
+    digital MXFP4 path (the calibration-matched distribution, so the
+    analog stack's noise stands alone); under the other backends on bf16
+    float (all the quantization error). Returns the pass's report with
+    its wall seconds (``wall_s``, ending in a device synchronize)."""
+    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    device = batch[next(iter(batch))].device
+    ref_quant = "mxfp4_digital" if args.backend == "cim" else "none"
+    _sync(device)
+    t0 = time.perf_counter()
+    _, rep = obs_lib.run_fidelity_pass(
+        fparams, params, cfg, ctx, batch, obs=obs, forward_fn=forward_fn,
+        ref_quant=ref_quant, quant=ctx.quant, min_n=args.cim_min_n)
+    _sync(device)
+    rep["wall_s"] = time.perf_counter() - t0
+    log.info("fidelity: %s", obs_lib.kv(
+        layers=len(rep["layers"]), output_sqnr_db=rep["sqnr_db"]["output"],
+        drifted=rep["drift"]["n_drifted"], wall_s=rep["wall_s"]))
+    return rep
 
 
 def _sync(device) -> None:
@@ -167,20 +205,39 @@ def serve_trace(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
                         page_len=page_len, prefill_len=prefill_len,
                         policy=args.policy, kv_layout=args.kv_layout,
                         chunk_len=args.chunk_len or None,
-                        prefix_cache=args.prefix_cache)
+                        prefix_cache=args.prefix_cache,
+                        cuda_graphs=ctx.impl != "ref")
     eng = Engine(params, cfg, ctx, ecfg, obs=obs)
     rng = np.random.default_rng(args.seed)
     prompts = {}
     _sync(device)
     t0 = time.perf_counter()
+    tokens_done = 0
+
+    def step_logged():
+        nonlocal tokens_done
+        eng.step()
+        if not obs.steps:
+            return
+        ev = obs.steps[-1]
+        tokens_done += len(ev.rids) if ev.kind == "decode" else 1
+        if len(obs.steps) % args.log_every == 0:
+            log.info("progress %s", obs_lib.kv(
+                step=len(obs.steps), live=eng.sched.num_active,
+                free_slots=eng.kv.num_free, queued=len(eng.sched.waiting),
+                tokens=tokens_done,
+                tok_s=tokens_done / max(time.perf_counter() - t0, 1e-9)))
+
     for _ in range(args.requests):
         n = int(rng.integers(2, prefill_len + 1))
         prompt = rng.integers(0, cfg.vocab_size, size=n).tolist()
         rid = eng.add_request(prompt, max_new=min(args.tokens, page_len - n))
         prompts[rid] = prompt
         for _ in range(int(rng.integers(0, 3))):  # staggered arrivals
-            eng.step()
-    out = eng.run()
+            step_logged()
+    while eng.sched.has_work:
+        step_logged()
+    out = {rid: list(r.out) for rid, r in eng.requests.items()}
     _sync(device)
     wall = time.perf_counter() - t0
     n_tok = sum(len(v) for v in out.values())
@@ -225,7 +282,8 @@ def serve_load(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
     ecfg = EngineConfig(lanes=args.lanes, num_slots=args.slots,
                         page_len=page_len, prefill_len=prefill_len,
                         policy=args.policy, kv_layout=args.kv_layout,
-                        chunk_len=chunk, prefix_cache=args.prefix_cache)
+                        chunk_len=chunk, prefix_cache=args.prefix_cache,
+                        cuda_graphs=ctx.impl != "ref")
     eng = Engine(params, cfg, ctx, ecfg, obs=obs)
 
     kind, val = load_mod.parse_arrivals(args.arrivals)
@@ -308,6 +366,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cim-min-n", type=int, default=32)
     ap.add_argument("--adc-bits", type=int, default=10)
     ap.add_argument("--cm-bits", type=int, default=3)
+    ap.add_argument("--impl", default="auto", choices=("auto", "ref"),
+                    help="auto: the kernels (their plain versions on the "
+                         "CPU); ref: the reference's own compositions, "
+                         "eagerly")
     ap.add_argument("--serve-trace", action="store_true",
                     help="continuous-batching engine run over staggered "
                          "synthetic requests (the ported serving mode)")
@@ -341,7 +403,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write a JSON metrics snapshot here (plus the "
                          "Prometheus text exposition at the same path "
                          "with a .prom suffix)")
+    ap.add_argument("--fidelity", action="store_true",
+                    help="numerical-fidelity pass after the backend build: "
+                         "per-layer SQNR vs the float tree, MXFP4 clip/"
+                         "underflow + ADC saturation/code-utilization "
+                         "counters, calibration-drift check (eager; "
+                         "metrics land in --metrics-out)")
+    ap.add_argument("--profile", action="store_true",
+                    help="record each eager kernel call's wall time after a "
+                         "device synchronize (kernel_wall_seconds); off by "
+                         "default, it serializes dispatch")
     ap.add_argument("--log-level", default="info", choices=obs_lib.log.LEVELS)
+    ap.add_argument("--log-every", type=int, default=16,
+                    help="info-level progress line every N engine steps")
     ap.add_argument("--slo-ttft-ms", type=float, default=None,
                     help="TTFT p99 SLO target in ms (host wall)")
     ap.add_argument("--slo-token-ms", type=float, default=None,
@@ -349,20 +423,40 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build_model(args, obs=None):
-    """Config, converted parameters and RunCtx for the run: random weights
-    from ``--seed`` on the run's device, converted for ``--backend``.
-    Raises if CUDA is asked for (the default) and missing."""
+def init_lm(args):
+    """Config, float parameters and device of an LM: random weights from
+    ``--seed`` on the run's device. Raises if CUDA is asked for (the
+    default) and missing."""
     device = resolve_device(args.device)
     cfg = C.tiny(C.ARCHS[args.arch]) if args.tiny else C.ARCHS[args.arch]
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
-    t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with torch.no_grad():
-        fparams = lm.init_model(cfg, gen)
+        return cfg, lm.init_model(cfg, gen), device
+
+
+def fidelity_batch(args, cfg, device) -> dict:
+    """The batch ``--fidelity`` probes an LM on: the first calibration
+    batch (so ``cim`` calibration traffic)."""
+    return calibrate.calibration_batches(
+        cfg, n_batches=1, batch=args.batch, seq=args.prompt_len,
+        device=device)[0]
+
+
+def build_model(args, obs=None):
+    """Config, converted parameters and RunCtx for the run: random weights
+    from ``--seed`` on the run's device, converted for ``--backend``, and
+    with ``--fidelity`` the fidelity pass (:func:`run_fidelity`) while the
+    float tree is still there."""
+    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    t0 = time.perf_counter()
+    cfg, fparams, device = init_lm(args)
+    with torch.no_grad():
         params, ctx = build_backend(args, cfg, fparams, device, obs=obs)
+    if args.fidelity:
+        run_fidelity(args, cfg, fparams, params, ctx, obs,
+                     fidelity_batch(args, cfg, device))
     del fparams
     log.info("model ready: %s", obs_lib.kv(
         arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
@@ -370,26 +464,40 @@ def build_model(args, obs=None):
     return cfg, params, ctx, device
 
 
-def build_vision_model(args, obs=None):
-    """Config, converted parameters and RunCtx of a vision arch: random
-    weights from ``--seed``; ``cim`` calibrates on synthetic images
-    (``vit.calibration_images``). ``--tiny`` keeps the token geometry
-    (patch grid, layers, chips) and shrinks the width."""
+def init_vit(args):
+    """Config, float parameters, device and calibration images (under
+    ``cim`` or ``--fidelity``, else None) of a vision arch: random weights
+    from ``--seed``.
+    ``--tiny`` keeps the token geometry (patch grid, layers, chips) and
+    shrinks the width."""
     device = resolve_device(args.device)
     full = C.VISION_ARCHS[args.arch]
     cfg = C.geometry_tiny_vit(full) if args.tiny else full
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
-    t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with torch.no_grad():
         fparams = vit.init_model(cfg, gen)
-        batches = vit.calibration_images(
-            cfg, n_batches=args.calib_batches, batch=args.batch,
-            device=device) if args.backend == "cim" else None
+    batches = vit.calibration_images(
+        cfg, n_batches=args.calib_batches, batch=args.batch,
+        device=device) if args.backend == "cim" or args.fidelity else None
+    return cfg, fparams, device, batches
+
+
+def build_vision_model(args, obs=None):
+    """Config, converted parameters and RunCtx of a vision arch: random
+    weights from ``--seed``; ``cim`` calibrates on synthetic images
+    (``vit.calibration_images``); ``--fidelity`` probes the first of them
+    (:func:`run_fidelity`)."""
+    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    t0 = time.perf_counter()
+    cfg, fparams, device, batches = init_vit(args)
+    with torch.no_grad():
         params, ctx = build_backend(args, cfg, fparams, device, obs=obs,
                                     batches=batches, forward_fn=vit.forward)
+    if args.fidelity:
+        run_fidelity(args, cfg, fparams, params, ctx, obs, batches[0],
+                     forward_fn=vit.forward)
     del fparams, batches
     log.info("model ready: %s", obs_lib.kv(
         arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
@@ -408,7 +516,8 @@ def serve_vision(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
     from repro_torch.serving import VisionEngine
 
     log = obs_lib.get_logger("repro_torch.serve", args.log_level)
-    eng = VisionEngine(params, cfg, ctx, obs=obs)
+    eng = VisionEngine(params, cfg, ctx, obs=obs,
+                       cuda_graphs=ctx.impl != "ref")
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     frames = torch.randn((args.frames, cfg.image_size, cfg.image_size,
                           cfg.in_channels), generator=gen, device=device)
@@ -444,15 +553,14 @@ def serve_vision(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    obs = obs_lib.Obs(profile=args.profile)
     if args.arch in C.VISION_ARCHS:
-        obs = obs_lib.Obs()
         cfg, params, ctx, device = build_vision_model(args, obs=obs)
         return serve_vision(args, cfg, params, ctx, obs, device)
     if not (args.serve_trace or args.arrivals):
         raise SystemExit("only --serve-trace and --arrivals are ported (the "
                          "greedy legacy-cache decode is in ROADMAP.md "
                          "Queue 1)")
-    obs = obs_lib.Obs()
     cfg, params, ctx, device = build_model(args, obs=obs)
     if args.arrivals:
         return serve_load(args, cfg, params, ctx, obs, device)

@@ -14,7 +14,8 @@ counterpart of ``repro.layers.backends``.
 Aliases: ``none -> float_bf16``, ``cim -> cim_analog``, ``mxfp4_digital ->
 mxfp4_ste``. Unknown names raise ``ValueError``. ``mxfp4_ste_prequant``
 (training) is not ported yet and raises ``NotImplementedError``; it does
-not fall through to float.
+not fall through to float. :func:`register_backend` adds a backend under
+its ``name``.
 """
 
 from __future__ import annotations
@@ -86,6 +87,11 @@ _ALIASES = {"none": "float_bf16", "cim": "cim_analog",
 _NOT_PORTED = ("mxfp4_ste_prequant",)
 
 
+def register_backend(backend: LinearBackend) -> LinearBackend:
+    _REGISTRY[backend.name] = backend
+    return backend
+
+
 def backend_names() -> list[str]:
     return sorted(_REGISTRY)
 
@@ -119,7 +125,7 @@ def cim_config(ctx) -> cimlib.CIMConfig:
 
 
 def _register(cls):
-    _REGISTRY[cls.name] = cls()
+    register_backend(cls())
     return cls
 
 
@@ -214,28 +220,48 @@ class ActivationTap:
     param-tree path. Only static analog candidates are kept: 2-D weights
     with a 32-aligned contraction dim and at least ``min_n`` outputs. Rows
     are subsampled to ``max_rows`` per call, deterministically in shape.
-    Captures stay on the device."""
+    Captures stay on the device.
+
+    ``include_converted`` also captures at converted serving nodes: the
+    SQNR tracer runs the tap over the converted tree and compares
+    captures path by path with a float reference run. ``cim_analog``
+    codes are int8 [K, N] (K-major), ``mxfp4_wonly`` codes packed nibble
+    pairs [K // 2, N]. Calibration keeps the default (float only)."""
 
     min_n: int = 256
     max_rows: int = 512
     records: dict = dataclasses.field(default_factory=dict)
     weights: dict = dataclasses.field(default_factory=dict)
+    include_converted: bool = False
+
+    def _in_dim(self, params) -> int | None:
+        """Contraction dim of a capturable linear node, else None."""
+        if not isinstance(params, dict):
+            return None
+        w = params.get("w")
+        if w is not None and w.ndim == 2:
+            k, n = w.shape
+            return k if k % mxlib.BLOCK == 0 and n >= self.min_n else None
+        c = params.get("codes")
+        if not self.include_converted or c is None or c.ndim != 2:
+            return None
+        k = c.shape[0] * (1 if "e_n" in params else 2)
+        return k if c.shape[1] >= self.min_n else None
 
     def eligible(self, params) -> bool:
-        w = params.get("w") if isinstance(params, dict) else None
-        return (w is not None and w.ndim == 2
-                and w.shape[0] % mxlib.BLOCK == 0 and w.shape[1] >= self.min_n)
+        return self._in_dim(params) is not None
 
     def record(self, path: str, params: dict, x: torch.Tensor) -> None:
-        if not self.eligible(params):
+        k = self._in_dim(params)
+        if k is None:
             return
-        k = params["w"].shape[0]
         xf = x.to(torch.float32).reshape(-1, k)
         if xf.shape[0] > self.max_rows:
             idx = np.linspace(0, xf.shape[0] - 1, self.max_rows).astype(int)
             xf = xf[torch.as_tensor(idx, device=xf.device)]
         self.records.setdefault(path, []).append(xf)
-        self.weights[path] = params["w"]
+        if "w" in params:
+            self.weights[path] = params["w"]
 
 
 def calibrate_taps(tap: ActivationTap, cfg: cimlib.CIMConfig | None = None,

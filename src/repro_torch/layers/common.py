@@ -50,14 +50,20 @@ class RunCtx:
     # positions back to the host to check it
     arange_positions: bool = False
     obs: Any = None  # repro_torch.obs.Obs (kernel dispatch counters)
+    # numerical-fidelity probe (repro_torch.obs.FidelityProbe) during an
+    # eager instrumented run: per-layer MXFP4 / ADC health keyed by the
+    # same scoped paths as calibration. None (the default) leaves every
+    # forward and captured step as it is.
+    fidelity: Any = None
 
     def __post_init__(self):
         if self.impl not in ("auto", "ref"):
             raise ValueError(f"unknown impl {self.impl!r} (auto | ref)")
 
     def scoped(self, name: str) -> "RunCtx":
-        """Extend the capture scope; a no-op unless a tap is active."""
-        if self.tap is None:
+        """Extend the capture scope; a no-op unless a tap or a fidelity
+        probe is active."""
+        if self.tap is None and self.fidelity is None:
             return self
         return dataclasses.replace(
             self, scope=f"{self.scope}/{name}" if self.scope else name)
@@ -88,10 +94,14 @@ def linear_apply(ctx: RunCtx, params: dict, x: torch.Tensor,
     """Backend-dispatched linear, x [..., K] (bf16). Converted-param
     markers win, otherwise ``ctx.quant`` names the backend. ``name`` is the
     call site's param key; with an active tap it extends ``ctx.scope`` into
-    the param-tree path that keys Row-Hist calibration."""
+    the param-tree path that keys Row-Hist calibration; with an active
+    fidelity probe the linear's input is probed under the same path."""
     if ctx.tap is not None and name is not None:
         path = f"{ctx.scope}/{name}" if ctx.scope else name
         ctx.tap.record(path, params, x)
+    if ctx.fidelity is not None and name is not None:
+        path = f"{ctx.scope}/{name}" if ctx.scope else name
+        ctx.fidelity.observe_linear(path, ctx, params, x)
     y = backends_lib.resolve_backend(ctx, params).forward(ctx, params, x)
     if "b" in params:
         y = y + params["b"].to(y.dtype)

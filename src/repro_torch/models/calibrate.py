@@ -40,6 +40,35 @@ def capture_rowhist_calibration(params, cfg, ctx: RunCtx, batches, *,
                                        wq_cache=wq_cache)
 
 
+def capture_linear_inputs(params, cfg, ctx: RunCtx, batch, *,
+                          quant: str | None = None, min_n: int = 32,
+                          max_rows: int = 512, forward_fn=None,
+                          fidelity=None):
+    """One eager forward with an ``include_converted`` ActivationTap:
+    ``({param-tree path: f32 [rows, k] activations on the device},
+    output)``, the raw material of the per-layer SQNR tracer. Run it once
+    on a reference tree and backend and once on the instrumented one, then
+    compare the captures path by path (``obs.fidelity.sqnr_trace``): the
+    tap's row subsampling is deterministic in shape, so both runs keep the
+    same rows. A path visited more than once records each visit,
+    concatenated here in visit order.
+
+    ``quant=None`` keeps ``ctx.quant``; pass a ``FidelityProbe`` as
+    ``fidelity`` to collect quantizer / ADC health in the same forward."""
+    forward_fn = forward_fn or lm.forward
+    tap = backends.ActivationTap(min_n=min_n, max_rows=max_rows,
+                                 include_converted=True)
+    rep: dict = {"tap": tap, "scope": ""}
+    if quant is not None:
+        rep["quant"] = quant
+    if fidelity is not None:
+        rep["fidelity"] = fidelity
+    with torch.no_grad():
+        out = forward_fn(params, cfg, dataclasses.replace(ctx, **rep), batch)
+    caps = {path: torch.cat(xs, dim=0) for path, xs in tap.records.items()}
+    return caps, out
+
+
 def convert_model_cim(params, cfg, ctx: RunCtx, batches, *,
                       cim_cfg: cimlib.CIMConfig | None = None,
                       min_n: int = 256, max_rows: int = 512,

@@ -90,16 +90,20 @@ class Obs:
     """Telemetry handle threaded through the serving stack.
 
     Carries the metrics registry, the step-event record, per-request
-    spans. Engines accept one at
+    spans, and the kernel-profiling switch. Engines accept one at
     construction; ``None`` means "create a private enabled one", so
     telemetry is on by default without any caller changes.
     """
 
     def __init__(self, registry: reg_mod.MetricsRegistry | None = None,
-                 enabled: bool = True,
+                 enabled: bool = True, profile: bool = False,
                  clock=time.perf_counter):
         self.registry = registry or reg_mod.MetricsRegistry()
         self.enabled = enabled
+        # profile=True also records each eager kernel call's wall time
+        # after a device synchronize (obs/profile.py); off by default, it
+        # serializes dispatch
+        self.profile = profile
         self.clock = clock
         self.steps: list[StepEvent] = []
         self.live: dict[int, RequestMetrics] = {}

@@ -229,6 +229,13 @@ class Engine:
             raise RuntimeError(f"engine did not drain in {max_steps} steps")
         return {rid: list(r.out) for rid, r in self.requests.items()}
 
+    @property
+    def trace(self) -> list:
+        """The classic ``(kind, rids, n_tokens)`` tuple list the pipeline
+        model consumes, rebuilt from the typed step events
+        (``self.obs.steps``)."""
+        return self.obs.legacy_trace()
+
     def trace_report(self) -> pipe_mod.TraceReport:
         """The recorded step events mapped onto the FWS pipeline model."""
         return pipe_mod.simulate_trace(self.obs.steps, self.cfg.d_model,

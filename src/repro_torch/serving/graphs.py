@@ -23,7 +23,10 @@ and an ``Obs``'s ``kernel_calls_total``); the capture records how far
 they moved (:func:`counts_delta`), sets them back to where they stood
 before the warm-up, and every replay adds that delta (:func:`add_counts`).
 So the counts read as if the step had run eagerly once a call; the
-warm-up and capture launches are set-up and are not counted.
+warm-up and capture launches are set-up and are not counted. The capture
+counts ``kernel_calls_total`` under ``mode="traced"`` (the warm-up under
+``mode="eager"``), so a replay moves the traced series; where a count of
+launches is meant, :func:`sum_modes` sums the label out.
 
 Nothing falls back: a capture or replay that fails raises. A step on the
 CPU has nothing to capture, and the engines run it as it is.
@@ -83,6 +86,17 @@ def counts_delta(before: dict, after: dict) -> dict:
     counters that did not move are left out)."""
     return {k: v - before.get(k, 0) for k, v in after.items()
             if v != before.get(k, 0)}
+
+
+def sum_modes(counts: dict) -> dict:
+    """``counts`` of :func:`read_counts` with ``kernel_calls_total``'s
+    ``mode`` label summed out (eager calls and captured ones alike)."""
+    out: dict = {}
+    for key, n in counts.items():
+        if key[0] == "obs":
+            key = ("obs", tuple(kv for kv in key[1] if kv[0] != "mode"))
+        out[key] = out.get(key, 0) + n
+    return out
 
 
 def add_counts(delta: dict, obs=None) -> None:
@@ -172,8 +186,8 @@ class StepGraph:
             out = self.step(self.static_in)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         delta = counts_delta(warm, read_counts(self.obs))
-        if counts_delta(before, warm) != {k: WARMUP * n
-                                          for k, n in delta.items()}:
+        if sum_modes(counts_delta(before, warm)) != {
+                k: WARMUP * n for k, n in sum_modes(delta).items()}:
             raise RuntimeError(
                 f"the step's warm-up launched {counts_delta(before, warm)}, "
                 f"its capture {delta}: not one fixed step")

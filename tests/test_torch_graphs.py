@@ -114,7 +114,7 @@ def test_counter_bookkeeping_moves_every_counter_by_its_delta():
             profiled_call("cim_linear", obs, lambda: None)
         after = graphs.read_counts(obs)
         delta = graphs.counts_delta(before, after)
-        calls = ("obs", (("kernel", "cim_linear"),))
+        calls = ("obs", (("kernel", "cim_linear"), ("mode", "eager")))
         assert delta == {("launches", "cim_linear"): 3,
                          ("route", "cim_linear", "splitk"): 3,
                          ("launches", "paged_decode_mx"): 1, calls: 2.0}
@@ -126,7 +126,8 @@ def test_counter_bookkeeping_moves_every_counter_by_its_delta():
         assert graphs.counts_delta(before, now) == {
             k: 5 * v for k, v in delta.items()}
         snap = obs.registry.snapshot()["kernel_calls_total"]["series"]
-        assert snap == [{"labels": {"kernel": "cim_linear"}, "value": 10.0}]
+        assert snap == [{"labels": {"kernel": "cim_linear", "mode": "eager"},
+                         "value": 10.0}]
     finally:
         graphs.set_counts(saved, None)
 
@@ -480,7 +481,8 @@ def _run_calls(eng, calls, no_sync: bool = False) -> tuple[list, dict]:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         outs.append(None if out is None else out.cpu().clone())
-    return outs, graphs.counts_delta(before, graphs.read_counts(eng.ctx.obs))
+    return outs, graphs.sum_modes(
+        graphs.counts_delta(before, graphs.read_counts(eng.ctx.obs)))
 
 
 @pytest.mark.cuda
