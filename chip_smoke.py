@@ -147,9 +147,37 @@
     float through ``mxfp4_matmul``. A ``fidelity`` line a run: output and
     smallest per-layer SQNR, drift, clip and saturation ratios, the pass's
     wall against one plain eager forward.
-11. Prints the kernels line (phase 9 adds B, D and E at head widths
-    256, 80 and 128), then the card's name and power limit, then the
-    device line, as the last line.
+11. The MoE family and M-RoPE: mixtral-8x22b (8 experts, top-2, 4096
+    window) at 4 layers, qwen3-moe-235b-a22b (128 experts, top-8, G 16)
+    at 2 and qwen2-vl-7b (M-RoPE, G 7) at 4 of 28, all at full width
+    (``MOE_LAYERS``: a full-width MoE layer is ~10 GB of f32 weights,
+    1.3 GB packed), each under ``mxfp4`` and ``cim`` through phase 9's
+    serve (``MOE_RUNS``). The launches by kernel and route are exactly
+    ``_dense_launches``'s, which counts kernel C once an expert a bank an
+    MoE layer a step under both backends (3E: 24 for mixtral, 384 for
+    qwen3) at the step's capacity. Logits of a 384-token prefill and 2
+    decode steps against ``impl="ref"`` at SQNR >= 30 dB: for an MoE
+    model the ref run takes the kernel run's routing and the decisions
+    its own router makes otherwise are counted (``routing_flips``), its
+    prefill on its own routing is printed, and under ``cim`` its expert
+    products run on C as well (``_moe_hooks``; the hooks' calls and the
+    ref run's C launches must be exactly counted). A ``moe layer`` line
+    each MoE run: the first layer's MoE at a decode step through C (3E
+    launches exactly) against the reference's composition
+    (``impl="ref"``: the banks dequantized, one einsum) at SQNR >= 30
+    dB, both timed, with the composition's expert products alone, the
+    host wall of one eager call and the bound; a ``vision prefill`` line
+    for qwen2-vl-7b (``vis_emb`` [1, 64, 1176] through ``front_proj``
+    and ``lm.forward``, SQNR >= 30 dB against ``impl="ref"``); captured
+    prefill and decode logits bitwise the eager ones; peak memory of the
+    build and the serve. First, the kernel rows: C on one expert's slice
+    of a packed bank at the expert shapes (cap 2 / 120 for mixtral, 1 /
+    30 for qwen3), A at both MoE archs' analog linears, B and D at G 16
+    and G 7.
+12. Prints the kernels line (phase 9 adds B, D and E at head widths
+    256, 80 and 128; phase 11 C at the expert shapes, A at the MoE
+    linears and B and D at G 16 and 7), then the card's name and power limit, then the device line,
+    as the last line.
 
 Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``paged_decode_mx {...}``, ``mxfp4_matmul {...}``, ``paged_decode {...}``,
@@ -159,7 +187,8 @@ Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``decode eager vs captured {...}``, ``frame profile <arch> <mode>
 {...}``, ``frame eager vs captured {...}``, ``serve vision {...}``,
 ``serve dense {...}``, ``fidelity linear {...}``, ``fidelity quant_health
-{...}``, ``fidelity {...}``).
+{...}``, ``fidelity {...}``, ``moe layer {...}``, ``vision prefill
+{...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
@@ -295,6 +324,23 @@ DENSE_SHAPES = {
                         (24576, 6144), (6144, 256000))),
 }
 DENSE_LENGTHS = [0, 1, DENSE_PAGE // 2, DENSE_PAGE]
+# the MoE family and M-RoPE (phase 11): mixtral-8x22b, qwen3-moe-235b-a22b
+# and qwen2-vl-7b at full width through phase 9's serve (DENSE_ARGS), the
+# depth cut (width kept): a full-width MoE layer is ~2.5 G f32 parameters
+# (10 GB) before conversion, 1.3 GB packed; qwen3-moe (1553 launches a
+# step at 4 layers, ~30 ms a layer eager) and qwen2-vl at half of that
+# for the script's time limit
+MOE_RUNS = (("mixtral-8x22b", "mxfp4"), ("mixtral-8x22b", "cim"),
+            ("qwen3-moe-235b-a22b", "mxfp4"), ("qwen3-moe-235b-a22b", "cim"),
+            ("qwen2-vl-7b", "mxfp4"), ("qwen2-vl-7b", "cim"))
+MOE_LAYERS = {"mixtral-8x22b": 4, "qwen3-moe-235b-a22b": 2,
+              "qwen2-vl-7b": 4}
+MOE_STEPS = 2  # teacher-forced decode steps held to impl="ref"
+# the decode kernels at the new query groups: qwen3-moe's G 16 (the
+# kernels' G_MAX) and qwen2-vl's odd G 7 (lanes, Hkv, G, head_dim)
+MOE_DECODE_DIMS = {"qwen3-moe-235b-a22b": (4, 4, 16, 128),
+                   "qwen2-vl-7b": (4, 4, 7, 128)}
+VIS_TOKENS = 64  # qwen2-vl's vision prefill: vis_emb [1, 64, 1176]
 # the fidelity phase (phase 10): the launcher's --fidelity pass at full
 # width on ViT-B/16 (12 layers, the paper's workload) and phase 4's
 # starcoder2-7b at 8 of 32 layers, both cim, calibrated on their two
@@ -1549,25 +1595,34 @@ def check_dense_kernels(dev) -> dict:
 
 def _dense_launches(cfg, backend: str, prefills: int, decodes: int,
                     prefill_len: int, lanes: int, attn_max: int, min_n: int):
-    """Launches by kernel and the matmul kernel's launches by route that
-    ``prefills`` [1, prefill_len] prefills (the layers' linears at
-    prefill_len rows, an untied head at the last row) and ``decodes``
-    [lanes, 1] decode steps of ``cfg`` make: a linear is the kernel's where
-    the conversion packs it (K % 32 == 0, N >= ``min_n``); one paged decode
-    a layer a step, and, under mxfp4 past ``attn_max``, one
+    """Launches by kernel, the matmul kernels' launches by route (by
+    kernel: ``cim_linear`` and ``mxfp4_matmul``) and ``flash_attention``'s
+    by route that ``prefills`` [1, prefill_len] prefills (the layers'
+    linears at prefill_len rows, an untied head at the last row) and
+    ``decodes`` [lanes, 1] decode steps of ``cfg`` make: a linear is the
+    backend's kernel's where the conversion packs it (K % 32 == 0, N >=
+    ``min_n``); an MoE layer's expert products are ``mxfp4_matmul``'s
+    under both backends, one launch an expert a bank at M = the step's
+    capacity (``layers/moe.py::capacity`` of its rows); one paged decode a
+    layer a step, and, under mxfp4 past ``attn_max``, one
     ``flash_attention`` a layer a prefill (under cim the digital SDPA is
     torch ops)."""
     from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+    from repro_torch.layers import ffn
+    from repro_torch.layers import moe
 
     d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    glu = cfg.ffn_kind in ffn.GLU_KINDS
+    ffn_shapes = [(d, f)] * (1 + glu) + [(f, d)]
     layer = ([(d, cfg.n_heads * hd)] + [(d, cfg.n_kv_heads * hd)] * 2
-             + [(cfg.n_heads * hd, d), (d, f)]
-             + [(d, f)] * (cfg.ffn_kind in ("swiglu", "geglu")) + [(f, d)])
+             + [(cfg.n_heads * hd, d)]
+             + ([] if cfg.n_experts else ffn_shapes))
     head = [] if cfg.tie_embeddings else [(d, cfg.vocab_size)]
     body = layer * cfg.n_layers
-    routes: dict = {}
+    kern = VISION_KERNEL[backend]
+    routes: dict = {"cim_linear": {}, "mxfp4_matmul": {}}
     for m, times, shapes in ((prefill_len, prefills, body), (1, prefills, head),
                              (lanes, decodes, body + head)):
         for k, n in shapes:
@@ -1575,9 +1630,18 @@ def _dense_launches(cfg, backend: str, prefills: int, decodes: int,
                 continue
             r = (cim_ops.pick_route(m, k, n) if backend == "cim"
                  else mm_ops.pick_route(m, k, n, torch.bfloat16))
-            routes[r] = routes.get(r, 0) + times
+            routes[kern][r] = routes[kern].get(r, 0) + times
+        if cfg.n_experts and shapes is not head:
+            cap = moe.capacity(m, cfg.top_k, cfg.n_experts,
+                               cfg.capacity_factor)
+            for k, n in ffn_shapes:
+                r = mm_ops.pick_route(cap, k, n, torch.bfloat16)
+                routes["mxfp4_matmul"][r] = (routes["mxfp4_matmul"].get(r, 0)
+                                             + times * cfg.n_experts
+                                             * cfg.n_layers)
     launches = dict.fromkeys(_kernel_wrappers(), 0)
-    launches[VISION_KERNEL[backend]] = sum(routes.values())
+    for name, by_route in routes.items():
+        launches[name] = sum(by_route.values())
     launches["paged_decode_mx" if backend == "cim" else "paged_decode"] = (
         decodes * cfg.n_layers)
     fa_routes = dict.fromkeys(fa_ops.ROUTES, 0)
@@ -1630,8 +1694,9 @@ def _dense_prefill(cfg, params, ctx, ids):
     return lo.float(), caches
 
 
-def _dense_decode(cfg, params, ctx, ids, caches) -> list:
-    """Logits of ``DENSE_STEPS`` teacher-forced decode steps after
+def _dense_decode(cfg, params, ctx, ids, caches,
+                  steps: int = DENSE_STEPS) -> list:
+    """Logits of ``steps`` teacher-forced decode steps after
     :func:`_dense_prefill`, on a copy of its page."""
     from repro_torch.models import lm
 
@@ -1639,34 +1704,83 @@ def _dense_decode(cfg, params, ctx, ids, caches) -> list:
               for seg in caches]
     out = []
     with torch.no_grad():
-        for p in range(DENSE_PROMPT, DENSE_PROMPT + DENSE_STEPS):
+        for p in range(DENSE_PROMPT, DENSE_PROMPT + steps):
             lo, caches = lm.decode_step(params, cfg, ctx, ids[:, p:p + 1], p,
                                         caches)
             out.append(lo.float())
     return out
 
 
-def serve_dense(arch: str, backend: str) -> dict:
-    """Phase 9, one run: ``arch`` at full width, and at full depth unless
-    ``DENSE_LAYERS`` cuts it, through the launcher's ``build_model`` and
-    ``serve_trace`` (``DENSE_ARGS``), decode captured. The
-    launches by kernel and route must be exactly ``_dense_launches``'s for
-    the serve's prefills and decode steps. Then logits of a 384-token
-    prefill and 4 decode steps against ``impl="ref"`` with the chunked
-    plain decode (SQNR >= 30 dB; the dense ``impl="ref"`` figure is
-    printed beside it), each request served alone giving its first
-    ``SOLO_TOKENS`` staggered tokens bitwise, the tied head's time
-    (gemma3-1b), one prefill under the profiler and 8 decode steps under
-    it eager and captured (tokens bitwise between the two)."""
+@contextlib.contextmanager
+def _moe_hooks(log: list, follow: list | None = None,
+               experts_on_c: bool = False):
+    """Record every MoE routing decision (``layers/moe.py::route``'s
+    gates and expert ids) into ``log`` while the block runs; with
+    ``follow`` (another run's log, call for call) each call still records
+    its own decision but returns ``follow``'s, so two runs compare their
+    numerics on one routing. With ``experts_on_c`` the expert products of
+    a packed bank launch kernel C under ``impl="ref"`` too. The caller
+    holds the hooks to having run: ``log``'s length, and C's counter."""
+    from repro_torch.layers import moe
+
+    route, products = moe.route, moe.expert_matmul
+
+    def logged(xn, router_w, top_k):
+        out = route(xn, router_w, top_k)
+        log.append(out)
+        return out if follow is None else follow[len(log) - 1]
+
+    def on_c(ctx, h, bank):
+        return products(dataclasses.replace(ctx, impl="auto"), h, bank)
+
+    moe.route = logged
+    if experts_on_c:
+        moe.expert_matmul = on_c
+    try:
+        yield
+    finally:
+        moe.route, moe.expert_matmul = route, products
+
+
+def _routing_flips(a: list, b: list) -> tuple[int, int]:
+    """(rows whose chosen experts differ, rows) between two runs' logs."""
+    flips = sum(int((torch.sort(x[1], -1).values
+                     != torch.sort(y[1], -1).values).any(-1).sum())
+                for x, y in zip(a, b))
+    return flips, sum(x[1].shape[0] for x in a)
+
+
+def serve_dense(arch: str, backend: str, layers: int | None = None,
+                steps: int = DENSE_STEPS, dense_ref: bool = True,
+                extra=None) -> dict:
+    """Phase 9 and phase 11, one run: ``arch`` at full width, and at full
+    depth unless ``layers`` (phase 9: ``DENSE_LAYERS``) cuts it, through
+    the launcher's ``build_model`` and ``serve_trace`` (``DENSE_ARGS``),
+    every step captured. The launches by kernel and route must be exactly
+    ``_dense_launches``'s for the serve's prefills and decode steps. Then
+    logits of a 384-token prefill and ``steps`` decode steps against
+    ``impl="ref"`` with the chunked plain decode (SQNR >= 30 dB; with
+    ``dense_ref`` the dense ``impl="ref"`` figure is printed beside it; an
+    MoE model's ``impl="ref"`` run follows the kernel run's routing, the
+    decisions of its own that differ are counted, and its prefill on its
+    own routing is printed; under ``cim`` its expert products stay on
+    kernel C), each request served alone giving its first ``SOLO_TOKENS``
+    staggered tokens bitwise (not for an MoE model: a token's expert
+    slots depend on its step's other rows), the tied head's time
+    (gemma3-1b), ``extra(cfg, params, kernel ctx, ref ctx)``'s checks
+    (their dict joins the line), one prefill under the profiler and 8
+    decode steps under it eager and captured (tokens bitwise between the
+    two). Peak memory is printed for the build and for the serve."""
+    from repro_torch import configs as C
     from repro_torch import obs as obs_lib
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
     from repro_torch.launch import serve
+    from repro_torch.layers import ffn as ffn_mod
     from repro_torch.models import lm
     from repro_torch.serving import Engine
 
-    from repro_torch import configs as C
-
-    layers = DENSE_LAYERS.get(arch, 0)
+    layers = DENSE_LAYERS.get(arch, 0) if layers is None else layers
     args = serve.build_parser().parse_args(
         ["--arch", arch, "--backend", backend, "--layers", str(layers)]
         + DENSE_ARGS)
@@ -1675,20 +1789,26 @@ def serve_dense(arch: str, backend: str) -> dict:
     t0 = time.perf_counter()
     cfg, params, ctx, dev = serve.build_model(args, obs=obs)
     build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
     resident = sum(t.numel() * t.element_size() for t in _leaves(params))
+    moe_txt = (f", {cfg.n_experts} experts top-{cfg.top_k} capacity factor "
+               f"{cfg.capacity_factor}" if cfg.n_experts else "")
     print(f"[{backend}] {cfg.name}: full width, {cfg.n_layers} of "
           f"{C.ARCHS[arch].n_layers} layers (d_model {cfg.d_model}, heads "
           f"{cfg.n_heads}/"
           f"{cfg.n_kv_heads}, head_dim {cfg.hd}, d_ff {cfg.d_ff} "
-          f"{cfg.ffn_kind}, vocab {cfg.vocab_size}, segments "
-          f"{[(s.n, s.attn.window) for s in lm.build_segments(cfg)]})",
-          flush=True)
+          f"{cfg.ffn_kind}{moe_txt}, vocab {cfg.vocab_size}, M-RoPE "
+          f"{cfg.mrope}, segments "
+          f"{[(s.kind, s.n, s.attn.window) for s in lm.build_segments(cfg)]})"
+          f"; build peak {build_peak / 2**30:.2f} GiB, resident "
+          f"{resident / 2**30:.2f} GiB", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     summary = serve.serve_trace(args, cfg, params, ctx, obs, dev)
     launches, mm_routes = _read_counts()
-    routes = _cim_routes() if backend == "cim" else mm_routes
+    routes = {"cim_linear": _cim_routes(), "mxfp4_matmul": mm_routes}
+    routes = {k: {r: n for r, n in v.items() if n} for k, v in routes.items()}
     fa_routes = dict(fa_ops.flash_attention.route_launches)
     peak = torch.cuda.max_memory_allocated()
     ecfg = summary["ecfg"]
@@ -1696,44 +1816,85 @@ def serve_dense(arch: str, backend: str) -> dict:
         cfg, backend, len(summary["out"]), summary["decode_steps"],
         ecfg.prefill_len, ecfg.lanes, ctx.dense_attn_max, args.cim_min_n)
     exact = (launches == want and fa_routes == want_fa
-             and {r: n for r, n in routes.items() if n} == want_routes)
+             and routes == want_routes)
     for v in summary["out"].values():
         if len(v) != DENSE_TOKENS or not all(0 <= t < cfg.vocab_size
                                               for t in v):
             raise AssertionError(f"[{backend} {arch}] served tokens {v}")
     # logits: kernels vs impl="ref" with the chunked plain decode
     t1 = time.perf_counter()
-    ids = torch.randint(0, cfg.vocab_size, (1, DENSE_PROMPT + DENSE_STEPS),
+    ids = torch.randint(0, cfg.vocab_size, (1, DENSE_PROMPT + steps),
                         device=dev,
                         generator=torch.Generator(device=dev).manual_seed(14))
     kctx = dataclasses.replace(ctx, obs=None)
     rctx = dataclasses.replace(kctx, impl="ref")
-    lo, caches = _dense_prefill(cfg, params, kctx, ids)
-    got = [lo] + _dense_decode(cfg, params, kctx, ids, caches)
-    lo, caches = _dense_prefill(cfg, params, rctx, ids)
-    with _chunked_ref_decode():
-        ref = [lo] + _dense_decode(cfg, params, rctx, ids, caches)
-    dense = [lo] + _dense_decode(cfg, params, rctx, ids, caches)
-    del lo, caches
+    # an MoE model's impl="ref" run takes the kernel run's routing (its
+    # own decisions are counted): kernel C's f32 sums round other bf16
+    # outputs than the einsum's, and a near tie in a router then picks
+    # another expert for the token, which no tolerance of the numerics
+    # covers. Under cim its expert products stay on kernel C as well: the
+    # next layer's analog inputs are MXFP4 codes, and one bf16 ulp that
+    # moves a code grows through the layers (two roundings of the
+    # einsum itself land ~15 dB apart in the logits), so the run holds A,
+    # B and the rest of the path to 30 dB on C's products, and C is held
+    # to the composition by the `moe layer` check and its kernel rows
+    moe_layers = cfg.n_layers if cfg.n_experts else 0
+    on_c = moe_layers > 0 and backend == "cim"
+    banks = 3 if cfg.ffn_kind in ffn_mod.GLU_KINDS else 2
+    klog, rlog, olog = [], [], []
+    with _moe_hooks(klog):
+        lo, caches = _dense_prefill(cfg, params, kctx, ids)
+        got = [lo] + _dense_decode(cfg, params, kctx, ids, caches, steps)
+    c_before = mm_ops.mxfp4_matmul.launches
+    with _moe_hooks(rlog, follow=klog if moe_layers else None,
+                    experts_on_c=on_c):
+        lo, caches = _dense_prefill(cfg, params, rctx, ids)
+        with _chunked_ref_decode():
+            ref = [lo] + _dense_decode(cfg, params, rctx, ids, caches, steps)
+    ref_c = mm_ops.mxfp4_matmul.launches - c_before
+    flips, decisions = _routing_flips(klog, rlog)
+    own_routing = None
+    if moe_layers:  # the prefill on the impl="ref" run's own routing
+        with _moe_hooks(olog, experts_on_c=on_c):
+            own_routing = _sqnr_db(_dense_prefill(cfg, params, rctx, ids)[0],
+                                   got[0])
+    hooks = {"routes": [len(klog), len(rlog), len(olog)],
+             "want_routes": [moe_layers * (1 + steps)] * 2 + [moe_layers],
+             "ref_c_launches": ref_c,
+             "want_ref_c_launches": (banks * cfg.n_experts * moe_layers
+                                     * (1 + steps) if on_c else 0)}
+    hooked = (hooks["routes"] == hooks["want_routes"]
+              and (not moe_layers or ref_c == hooks["want_ref_c_launches"]))
+    dense = ([lo] + _dense_decode(cfg, params, rctx, ids, caches, steps)
+             if dense_ref else [])
+    del lo, caches, klog, rlog, olog
     sq = [_sqnr_db(r, g) for r, g in zip(ref, got)]
     sq_dense = [_sqnr_db(r, g) for r, g in zip(dense, got)]
     finite = all(bool(torch.isfinite(g).all()) for g in got)
+    routing = (", the kernels' routing" + (", experts on C" if on_c else "")
+               if moe_layers else "")
     print(f"[{backend} {arch}] logits of a {DENSE_PROMPT}-token prefill and "
-          f"{DENSE_STEPS} decode steps, kernels vs impl=ref (chunked plain "
-          f"decode): SQNR {sq} dB; vs impl=ref (dense decode) {sq_dense} dB;"
-          f" finite {finite}", flush=True)
+          f"{steps} decode steps, kernels vs impl=ref (chunked plain "
+          f"decode{routing}): "
+          f"SQNR {sq} dB; vs impl=ref (dense decode) "
+          f"{sq_dense or 'not run'} dB; routing decisions that differ "
+          f"{flips} of {decisions}; the prefill vs impl=ref on its own "
+          f"routing {own_routing} dB; hooks {hooks}; finite {finite}",
+          flush=True)
     del got, ref, dense
     check_s = time.perf_counter() - t1
     # each request alone, through an engine of the serve's config: its
     # first SOLO_TOKENS greedy tokens, which a longer solo run repeats
     t1 = time.perf_counter()
-    solo_diff = []
-    for rid, prompt in summary["prompts"].items():
-        eng = Engine(params, cfg, kctx, ecfg)
-        first = summary["out"][rid][:SOLO_TOKENS]
-        eng.add_request(prompt, max_new=len(first))
-        if eng.run()[0] != first:
-            solo_diff.append(rid)
+    solo_diff = None
+    if not cfg.n_experts:
+        solo_diff = []
+        for rid, prompt in summary["prompts"].items():
+            eng = Engine(params, cfg, kctx, ecfg)
+            first = summary["out"][rid][:SOLO_TOKENS]
+            eng.add_request(prompt, max_new=len(first))
+            if eng.run()[0] != first:
+                solo_diff.append(rid)
     solo_s = time.perf_counter() - t1
     head = None
     if cfg.tie_embeddings:  # the tied head at a decode step's 4 rows
@@ -1747,6 +1908,7 @@ def serve_dense(arch: str, backend: str) -> dict:
                                       "bf16")[0],
                 "f32_cast_ms": _device_ms(lambda: e32.to(torch.bfloat16), 5)}
         del e32
+    more = extra(cfg, params, kctx, rctx) if extra else {}
     # one profiler window each: in PR 20's runs every decode window traced
     # 3 matmul launches fewer than counted, whatever the attempt
     prof = {"prefill": profile_prefill(cfg, params, ctx, DENSE_PROMPT,
@@ -1761,9 +1923,14 @@ def serve_dense(arch: str, backend: str) -> dict:
             "flash_attention_routes": fa_routes, "want_launches": want,
             "want_routes": want_routes, "launches_exact": exact,
             "logits_sqnr_db": sq, "logits_sqnr_vs_dense_ref_db": sq_dense,
-            "staggered_equals_solo": not solo_diff, "solo_s": solo_s,
-            "logits_check_s": check_s,
-            "tied_head": head, "peak_mem_gib": peak / 2**30,
+            "routing_flips": flips, "routing_decisions": decisions,
+            "prefill_sqnr_own_routing_db": own_routing,
+            "ref_experts_on_c": on_c, "moe_hooks": hooks,
+            "staggered_equals_solo": (None if solo_diff is None
+                                      else not solo_diff),
+            "solo_s": solo_s, "logits_check_s": check_s,
+            "tied_head": head, **more, "peak_mem_gib": peak / 2**30,
+            "build_peak_mem_gib": build_peak / 2**30,
             "resident_params_gib": resident / 2**30,
             "model_build_s": build_s,
             "prefill_device_ms": prof["prefill"]["captured"][
@@ -1783,6 +1950,9 @@ def serve_dense(arch: str, backend: str) -> dict:
         raise AssertionError(f"[{backend} {arch}] launches {launches} "
                              f"routes {routes} flash {fa_routes}; want "
                              f"{want} {want_routes} {want_fa}")
+    if not hooked:
+        raise AssertionError(f"[{backend} {arch}] the MoE hooks did not run "
+                             f"as counted: {hooks}")
     if not finite or min(sq) < 30.0:
         raise AssertionError(f"[{backend} {arch}] logits disagree: {sq}")
     if solo_diff:
@@ -1825,6 +1995,281 @@ def dense_kernel_entries(dense_rows: dict, runs: dict) -> list:
                 "library_ms": row.get("library_ms"),
                 "call_ms": row["call_ms"], "kernel_route": row.get("route"),
                 "shape": f"{shape} ({arch})"})
+    return out
+
+
+def check_moe_kernels(dev) -> dict:
+    """Phase 11's kernel rows, each against its plain version as in phase
+    3: ``mxfp4_matmul`` on one expert's slice of a packed bank at the
+    expert products' shapes (mixtral-8x22b's w1 / w3 [cap, 6144] x [6144,
+    16384] and w2 [cap, 16384] x [16384, 6144], qwen3-moe-235b-a22b's
+    [cap, 4096] x [4096, 1536] and [cap, 1536] x [1536, 4096], at the
+    capacity of a 4-lane decode step and of a [1, 384] prefill), the
+    library call ``torch.matmul`` on the slice dequantized to bf16;
+    ``cim_linear`` at the two MoE archs' analog linears (wq, wk / wv, wo
+    at M = 4 and M = 384, the untied head at a decode step's 4 rows);
+    ``paged_decode_mx`` and ``paged_decode`` at G 16 and G 7
+    (``MOE_DECODE_DIMS``, page 448). Rows by kernel name; each names its
+    arch (``case``)."""
+    from repro_torch import configs as C
+    from repro_torch.core import cim as cimlib
+    from repro_torch.core import mx as mxlib
+    from repro_torch.layers import backends
+    from repro_torch.layers import moe
+
+    rows: dict = {"mxfp4_matmul": [], "cim_linear": [],
+                  "paged_decode_mx": [], "paged_decode": []}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ccfg = cimlib.CIMConfig()
+    for arch in ("mixtral-8x22b", "qwen3-moe-235b-a22b"):
+        cfg = C.ARCHS[arch]
+        caps = [moe.capacity(m, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+                for m in (4, DENSE_PROMPT)]
+        for bank, (k, n) in (("w1/w3", (cfg.d_model, cfg.d_ff)),
+                             ("w2", (cfg.d_ff, cfg.d_model))):
+            packed = backends.quantize_bank(
+                torch.randn((2, k, n), generator=gen, device=dev) * k ** -0.5)
+            codes, exps = packed["codes"][1], packed["exps"][1]
+            w_bf16 = backends._dequant_packed(codes, exps)  # library operand
+            for cap in caps:
+                x = torch.randn((cap, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                rows["mxfp4_matmul"].append(_mxfp4_row(
+                    x, codes, exps, w_bf16, {"case": arch, "bank": bank}))
+            del packed, codes, exps, w_bf16
+        d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+        linears = {"wq": (d, q), "wk/wv": (d, kv), "wo": (q, d),
+                   "head": (d, cfg.vocab_size)}
+        for name, (k, n) in linears.items():
+            if name == "wo" and (k, n) == linears["wq"]:
+                continue  # mixtral's wo is wq's shape
+            w = mxlib.quantize_w(torch.randn((k, n), generator=gen,
+                                             device=dev) * k ** -0.5)
+            for m in (4,) if name == "head" else (4, DENSE_PROMPT):
+                x = torch.randn((m, k), generator=gen, device=dev).to(
+                    torch.bfloat16).float()
+                rows["cim_linear"].append(_cim_row(
+                    x, w, cimlib.calibrate_rowhist([x], w, ccfg), ccfg,
+                    {"case": arch, "linear": name}))
+            del w
+    for arch, dims in MOE_DECODE_DIMS.items():
+        extra, pages = {"case": arch}, ((DENSE_PAGE, DENSE_LENGTHS),)
+        rows["paged_decode_mx"] += check_paged_decode(dev, dims, pages, extra)
+        rows["paged_decode"] += check_paged_decode_float(dev, dims, pages,
+                                                         extra)
+    return rows
+
+
+def _captured_logits(cfg, params, ctx) -> dict:
+    """A [1, 384] prefill into a fused page and one decode step after it,
+    each run eagerly and as a captured ``StepGraph`` on the same input:
+    whether the logits are bitwise equal (each step rewrites the page rows
+    it reads, so a replay sees what the eager run saw)."""
+    from repro_torch.models import lm
+    from repro_torch.serving import graphs
+
+    dev = params["final_ln"]["gamma"].device
+    ids = torch.randint(0, cfg.vocab_size, (1, DENSE_PROMPT + 1), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(21))
+    caches = lm.init_cache(cfg, 1, DENSE_PAGE, fused=True, device=dev,
+                           mx_digital=ctx.hybrid_digital_sdpa)
+    # positions on the device, as the engine's steps take them: a graph
+    # captures no copy from the host
+    positions = torch.arange(DENSE_PROMPT, device=dev)[None]
+    pos = torch.full((1,), DENSE_PROMPT, device=dev)
+    pctx = dataclasses.replace(ctx, arange_positions=True)
+
+    def prefill(t):
+        return lm.forward(params, cfg, pctx, {"ids": t, "positions": positions},
+                          caches=caches)[0]
+
+    def decode(t):
+        return lm.decode_step(params, cfg, ctx, t, pos, caches)[0]
+
+    out = {}
+    with torch.no_grad():
+        for name, fn, inp in (("prefill", prefill, ids[:, :DENSE_PROMPT]),
+                              ("decode", decode, ids[:, DENSE_PROMPT:])):
+            inp = inp.clone()
+            eager = fn(inp).clone()
+            out[name] = bool(torch.equal(graphs.StepGraph(fn, inp)(), eager))
+    if not all(out.values()):
+        raise AssertionError(f"[{ctx.quant} {cfg.name}] captured logits are "
+                             f"not the eager ones: {out}")
+    return out
+
+
+def moe_layer_check(cfg, params, kctx, rctx) -> dict:
+    """Phase 11, an MoE model: its first layer's MoE sublayer at a decode
+    step's 4 rows, timed two ways: through kernel C (``3E`` launches,
+    which must move its counter by exactly that; eagerly, and as one
+    captured graph, ``captured_ms``, bitwise the eager output) and as the
+    reference composes it (``impl="ref"``: each bank dequantized whole to bf16, then
+    the einsum), its output against the kernel's (SQNR >= 30 dB); the
+    composition's expert products alone (three banks dequantized, three
+    bf16 einsums, ``compose_ms``); the host wall of one eager call (the
+    ``3E`` launches' dispatch and the routing's torch ops,
+    ``eager_wall_ms``), beside the bound (the three packed banks read
+    once). Then the captured prefill and decode logits against the eager
+    ones (:func:`_captured_logits`). Prints a ``moe layer`` line."""
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+    from repro_torch.layers import backends
+    from repro_torch.layers import ffn
+    from repro_torch.layers import moe
+    from repro_torch.serving import graphs
+
+    p = params["segments"][0][0]["moe"]
+    dev = p["router"]["w"].device
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((4, 1, d), generator=gen, device=dev).to(torch.bfloat16)
+
+    def run(ctx):
+        return moe.moe_apply(ctx, cfg.ffn_kind, cfg.norm, p, x, cfg.top_k,
+                             cfg.capacity_factor)
+
+    with torch.no_grad():
+        before = mm_ops.mxfp4_matmul.launches
+        got = run(kctx)
+        per_call = mm_ops.mxfp4_matmul.launches - before
+        ref = run(rctx)
+        sq = _sqnr_db((ref - x).float(), (got - x).float())
+        names = [n for n in ("w1", "w3", "w2") if n in p]
+        cap = moe.capacity(4, cfg.top_k, e, cfg.capacity_factor)
+        buf = torch.randn((e, cap, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        hid = torch.randn((e, cap, f), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+        def compose():
+            for name in names:
+                w = backends._dequant_packed(p[name]["codes"],
+                                             p[name]["exps"])
+                torch.einsum("ecd,edf->ecf", hid if name == "w2" else buf, w)
+
+        kernel_ms = _device_ms(lambda: run(kctx), 10)
+        # the layer as a served step runs it: one captured graph, timed
+        # with events around each replay (no host dispatch between its
+        # launches)
+        graph = graphs.StepGraph(
+            lambda t: moe.moe_apply(kctx, cfg.ffn_kind, cfg.norm, p, t,
+                                    cfg.top_k, cfg.capacity_factor), x)
+        graph()
+        captured_ms = _time_ms(graph, 20)
+        if not torch.equal(graph(), got):
+            raise AssertionError(f"[{kctx.quant} {cfg.name}] the captured "
+                                 "MoE layer is not the eager one")
+        del graph
+        ref_ms = _device_ms(lambda: run(rctx), 3)
+        compose_ms = _device_ms(compose, 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run(kctx)
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+    bank_bytes = sum(p[n][leaf].numel() for n in names
+                     for leaf in ("codes", "exps"))
+    bound, by = _bound_ms(bank_bytes + 2 * 2 * x.numel(),
+                          2.0 * e * cap * d * f * len(names), "bf16")
+    line = {"model": cfg.name, "backend": kctx.quant, "rows": 4,
+            "experts": e, "top_k": cfg.top_k, "cap": cap,
+            "glu": cfg.ffn_kind in ffn.GLU_KINDS,
+            "kernel_launches": per_call, "want_launches": len(names) * e,
+            "sqnr_vs_ref_db": sq, "kernel_ms": kernel_ms,
+            "captured_ms": captured_ms, "ref_ms": ref_ms,
+            "compose_ms": compose_ms, "eager_host_ms": host_ms,
+            "eager_wall_ms": wall_ms, "bound_ms": bound, "bound_by": by,
+            "bank_gib": bank_bytes / 2**30}
+    print("moe layer", json.dumps(line), flush=True)
+    if per_call != len(names) * e or sq < 30.0:
+        raise AssertionError(f"[{kctx.quant} {cfg.name}] MoE layer: {line}")
+    return {"moe_layer": line,
+            "captured_logits_bitwise": _captured_logits(cfg, params, kctx)}
+
+
+def vlm_vision_check(cfg, params, kctx, rctx) -> dict:
+    """Phase 11, qwen2-vl-7b: a [1, 384] prefill whose first
+    ``VIS_TOKENS`` embeddings come from ``vis_emb`` [1, 64, 1176] through
+    ``front_proj`` (K = 1176, not 32-aligned: a float linear under every
+    backend), through ``lm.forward``: logits against ``impl="ref"`` (SQNR
+    >= 30 dB), finite, and unlike the text-only prefill's in the vision
+    rows. Then the captured prefill and decode logits against the eager
+    ones (:func:`_captured_logits`)."""
+    from repro_torch.models import lm
+
+    dev = params["final_ln"]["gamma"].device
+    gen = torch.Generator(device=dev).manual_seed(23)
+    ids = torch.randint(0, cfg.vocab_size, (1, DENSE_PROMPT), device=dev,
+                        generator=gen)
+    vis = torch.randn((1, VIS_TOKENS, cfg.frontend_dim), generator=gen,
+                      device=dev)
+    with torch.no_grad():
+        got = lm.forward(params, cfg, kctx, {"ids": ids, "vis_emb": vis})[0]
+        ref = lm.forward(params, cfg, rctx, {"ids": ids, "vis_emb": vis})[0]
+        text = lm.forward(params, cfg, kctx, {"ids": ids})[0]
+    out = {"vis_emb": list(vis.shape),
+           "front_proj": sorted(params["front_proj"]),
+           "sqnr_db": _sqnr_db(ref.float(), got.float()),
+           "finite": bool(torch.isfinite(got.float()).all()),
+           "vision_rows_differ": not torch.equal(got[:, :VIS_TOKENS],
+                                                 text[:, :VIS_TOKENS]),
+           "text_rows_sqnr_vs_text_only_db": _sqnr_db(
+               text[:, VIS_TOKENS:].float(), got[:, VIS_TOKENS:].float())}
+    print(f"[{kctx.quant} {cfg.name}] vision prefill", json.dumps(out),
+          flush=True)
+    if out["sqnr_db"] < 30.0 or not out["finite"] or not out[
+            "vision_rows_differ"]:
+        raise AssertionError(f"[{kctx.quant}] vision prefill: {out}")
+    return {"vision_prefill": out,
+            "captured_logits_bitwise": _captured_logits(cfg, params, kctx)}
+
+
+def serve_moe_vlm(arch: str, backend: str) -> dict:
+    """Phase 11, one run: phase 9's serve (:func:`serve_dense`) of ``arch``
+    at full width and ``MOE_LAYERS`` layers, ``MOE_STEPS`` decode steps
+    held to ``impl="ref"`` (routing flips counted), with the MoE layer's
+    or the vision prefill's checks."""
+    check = vlm_vision_check if arch == "qwen2-vl-7b" else moe_layer_check
+    return serve_dense(arch, backend, layers=MOE_LAYERS[arch],
+                       steps=MOE_STEPS, dense_ref=False, extra=check)
+
+
+def moe_kernel_entries(moe_rows: dict, runs: dict) -> list:
+    """The kernels line's entries of phase 11: ``mxfp4_matmul`` at the
+    expert shapes (launches: the mxfp4 serve of that arch), ``cim_linear``
+    at the MoE archs' analog linears and the decode kernels at G 16 and
+    G 7 (launches: the serve that runs them)."""
+    out = []
+    for name, replaces, run in (
+            ("mxfp4_matmul", "src/repro/kernels/mxfp4_matmul/kernel.py:69",
+             "mxfp4"),
+            ("cim_linear", "src/repro/kernels/cim_linear/kernel.py:127",
+             "cim"),
+            ("paged_decode_mx",
+             "src/repro/kernels/paged_attention/kernel.py:275", "cim"),
+            ("paged_decode",
+             "src/repro/kernels/paged_attention/kernel.py:228", "mxfp4")):
+        for row in moe_rows[name]:
+            shape = (f"M={row['m']} K={row['k']} N={row['n']} (expert "
+                     f"{row['bank']}, cap {row['m']})"
+                     if name == "mxfp4_matmul" else
+                     f"M={row['m']} K={row['k']} N={row['n']} "
+                     f"({row['linear']})" if name == "cim_linear" else
+                     f"L={row['lanes']} Hkv={row['hkv']} G={row['g']} "
+                     f"Dh={row['dh']} W={row['w']} lengths {row['lengths']}")
+            out.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": replaces,
+                "launches": runs[f"moe {row['case']} {run}"]["launches"][name],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms"),
+                "call_ms": row["call_ms"], "kernel_route": row.get("route"),
+                "shape": f"{shape} ({row['case']})"})
     return out
 
 
@@ -2490,6 +2935,10 @@ def main() -> int:
     for arch, backend in FID_RUNS:
         runs[f"fidelity {arch} {backend}"] = phase(
             f"fidelity {arch} [{backend}]", fidelity_model, arch, backend)
+    moe_rows = phase("moe kernels", check_moe_kernels, dev)  # phase 11
+    for arch, backend in MOE_RUNS:
+        runs[f"moe {arch} {backend}"] = phase(
+            f"serve {arch} [{backend}]", serve_moe_vlm, arch, backend)
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
 
@@ -2527,6 +2976,7 @@ def main() -> int:
               "B={b} S={sq} H={h} Hkv={hkv} D={d} bf16 causal"),
     ]
     kernels += dense_kernel_entries(dense_rows, runs)
+    kernels += moe_kernel_entries(moe_rows, runs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 """Architecture configs, JAX-free (counterpart of ``repro.models.lm.
 ArchConfig``, ``repro.models.vit.ViTConfig`` and ``repro.configs``). Of
-the LMs the four dense ones are ported: ``starcoder2-7b`` and
+the LMs seven are ported: the four dense ones, ``starcoder2-7b`` and
 ``nemotron-4-15b`` (full attention), ``h2o-danube-1.8b`` (sliding
-window) and ``gemma3-1b`` (5:1 local:global); the MoE, SSM, hybrid, vlm
-and audio families are listed in ROADMAP.md. The paper's two vision
+window) and ``gemma3-1b`` (5:1 local:global); the two MoE ones,
+``mixtral-8x22b`` (8 experts, top-2, sliding window) and
+``qwen3-moe-235b-a22b`` (128 experts, top-8, qk-norm); and the vlm
+``qwen2-vl-7b`` (M-RoPE, the vision front-end stub). The SSM, hybrid and
+audio families are listed in ROADMAP.md. The paper's two vision
 workloads, ``vit-b16`` and ``vit-l32``, are in ``VISION_ARCHS``."""
 
 from __future__ import annotations
@@ -101,9 +104,44 @@ NEMOTRON4_15B = ArchConfig(
     subquadratic=False,  # full attention => long_500k skipped
 )
 
+# mixtral-8x22b [arXiv:2401.04088]: 8 experts top-2, SWA.
+MIXTRAL_8X22B = ArchConfig(
+    name="mixtral-8x22b", family="moe",
+    n_layers=56, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+    d_ff=16384, vocab_size=32768,
+    n_experts=8, top_k=2, moe_shard="tp",
+    attn_pattern="swa", window=4096, rope_theta=1e6,
+    ffn_kind="swiglu", norm="rmsnorm",
+    subquadratic=True,
+)
+
+# qwen3-moe-235b-a22b [hf:Qwen/Qwen3-30B-A3B family]: 128 experts top-8.
+QWEN3_MOE_235B = ArchConfig(
+    name="qwen3-moe-235b-a22b", family="moe",
+    n_layers=94, d_model=4096, n_heads=64, n_kv_heads=4, head_dim=128,
+    d_ff=1536, vocab_size=151936,
+    n_experts=128, top_k=8, moe_shard="ep",
+    attn_pattern="full", rope_theta=1e6, qk_norm=True,
+    ffn_kind="swiglu", norm="rmsnorm",
+    subquadratic=False,
+)
+
+# qwen2-vl-7b [arXiv:2409.12191]: M-RoPE decoder; the vision front end is
+# a stub (precomputed patch embeddings through ``front_proj``).
+QWEN2_VL_7B = ArchConfig(
+    name="qwen2-vl-7b", family="vlm",
+    n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4, head_dim=128,
+    d_ff=18944, vocab_size=152064,
+    attn_pattern="full", rope_theta=1e6, mrope=True,
+    ffn_kind="swiglu", norm="rmsnorm",
+    frontend="vision", frontend_dim=1176, n_vis_tokens=64,
+    subquadratic=False,
+)
+
 ARCHS: dict[str, ArchConfig] = {
     c.name: c for c in (H2O_DANUBE_1_8B, STARCODER2_7B, GEMMA3_1B,
-                        NEMOTRON4_15B)}
+                        NEMOTRON4_15B, MIXTRAL_8X22B, QWEN3_MOE_235B,
+                        QWEN2_VL_7B)}
 
 
 def tiny(cfg: ArchConfig, seq: int = 32) -> ArchConfig:

@@ -5,7 +5,11 @@ dicts and lists of **numpy arrays** (float, or CIM-converted: ``codes``
 int8, ``exps`` int8, ``e_n`` int32, ``adc_fs`` f32, ``b``), for example
 ``jax.tree.map(np.asarray, params)``, and returns the port's tree: the
 same keys, tensors on ``device``, and each stacked segment (leading layer
-axis, ``repro.models.lm._stack``) unstacked into one dict per layer.
+axis, ``repro.models.lm._stack``) unstacked into one dict per layer. An
+MoE layer's expert banks unstack with it: a float bank [n, E, K, N]
+becomes [E, K, N] a layer, a packed one (``codes`` [n, E, K//2, N],
+``exps`` [n, E, K//32, N]) becomes [E, K//2, N] / [E, K//32, N], each
+expert's slice the ``mxfp4_matmul`` kernel's resident format.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ def _map(node, fn):
 
 def _n_stacked(seg: dict) -> int:
     """Layers in a reference segment: a stacked segment's attention norm
-    gamma is [n, d] instead of [d]."""
+    gamma is [n, d] instead of [d] (in ``attn`` and ``moe_attn`` segments
+    alike)."""
     gamma = seg["attn"]["ln"]["gamma"]
     return gamma.shape[0] if gamma.ndim == 2 else 0
 

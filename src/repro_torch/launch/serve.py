@@ -89,19 +89,23 @@ def conversion_args(args) -> dict:
 
 
 def build_backend(args, cfg, params, device, obs=None, batches=None,
-                  forward_fn=None):
+                  forward_fn=None, free_float: bool = False):
     """(converted_params, RunCtx) for ``--backend``: ``float`` serves the
-    parameters as they are, ``mxfp4`` packs the static linears, ``cim``
-    runs Row-Hist calibration and the analog conversion on ``batches``
-    through ``forward_fn`` (default: token batches through
-    ``lm.forward``; the vision path passes images and ``vit.forward``)."""
+    parameters as they are, ``mxfp4`` packs the static linears and the
+    MoE expert banks, ``cim`` runs Row-Hist calibration and the analog
+    conversion on ``batches`` through ``forward_fn`` (default: token
+    batches through ``lm.forward``; the vision path passes images and
+    ``vit.forward``).
+    With ``free_float`` the conversion drops each float layer of
+    ``params`` once it is converted (the conversions' ``free``)."""
     conv_kw = conversion_args(args)
     log = obs_lib.get_logger("repro_torch.serve", args.log_level)
     kw = dict(dense_attn_max=256, impl=args.impl, obs=obs)
     if args.backend == "float":
         return params, RunCtx(**kw)
     if args.backend == "mxfp4":
-        return (convert_params_mxfp4(params, min_n=conv_kw["min_n"]),
+        return (convert_params_mxfp4(params, min_n=conv_kw["min_n"],
+                                     free=free_float),
                 RunCtx(quant="mxfp4_wonly", **kw))
     if args.backend != "cim":
         raise SystemExit(f"unknown --backend {args.backend!r}")
@@ -115,7 +119,7 @@ def build_backend(args, cfg, params, device, obs=None, batches=None,
     t0 = time.perf_counter()
     conv, calibs = calibrate.convert_model_cim(
         params, cfg, base_ctx, batches, cim_cfg=cim_cfg,
-        min_n=conv_kw["min_n"], forward_fn=forward_fn)
+        min_n=conv_kw["min_n"], forward_fn=forward_fn, free=free_float)
     log.info("row-hist calibration: %s", obs_lib.kv(
         linears=len(calibs), wall_s=time.perf_counter() - t0))
     return conv, RunCtx(quant="cim", cim=cim_cfg, **kw)
@@ -448,12 +452,16 @@ def build_model(args, obs=None):
     """Config, converted parameters and RunCtx for the run: random weights
     from ``--seed`` on the run's device, converted for ``--backend``, and
     with ``--fidelity`` the fidelity pass (:func:`run_fidelity`) while the
-    float tree is still there."""
+    float tree is still there. Without ``--fidelity`` the conversion drops
+    each float layer once it is converted, so the float tree never sits
+    whole beside the converted one (a full-width MoE layer is ~10 GB in
+    float32)."""
     log = obs_lib.get_logger("repro_torch.serve", args.log_level)
     t0 = time.perf_counter()
     cfg, fparams, device = init_lm(args)
     with torch.no_grad():
-        params, ctx = build_backend(args, cfg, fparams, device, obs=obs)
+        params, ctx = build_backend(args, cfg, fparams, device, obs=obs,
+                                    free_float=not args.fidelity)
     if args.fidelity:
         run_fidelity(args, cfg, fparams, params, ctx, obs,
                      fidelity_batch(args, cfg, device))

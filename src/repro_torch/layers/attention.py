@@ -159,10 +159,16 @@ def _qkv(ctx: RunCtx, cfg: AttnStatic, p: dict, x, positions,
         q = rmsnorm_apply(p["qn"], q)
         k = rmsnorm_apply(p["kn"], k)
     if cfg.use_rope:
-        if cfg.mrope:
-            raise NotImplementedError("M-RoPE is not ported (ROADMAP.md)")
-        q = ropelib.apply_rope(q, positions, cfg.rope_theta, tables=rope_tables)
-        k = ropelib.apply_rope(k, positions, cfg.rope_theta, tables=rope_tables)
+        if cfg.mrope:  # text positions; the vision stub feeds the same layer
+            mp = ropelib.text_mrope_positions(positions)
+            sec = (hd // 8, hd * 3 // 16, hd * 3 // 16)
+            q = ropelib.apply_mrope(q, mp, cfg.rope_theta, sec)
+            k = ropelib.apply_mrope(k, mp, cfg.rope_theta, sec)
+        else:
+            q = ropelib.apply_rope(q, positions, cfg.rope_theta,
+                                   tables=rope_tables)
+            k = ropelib.apply_rope(k, positions, cfg.rope_theta,
+                                   tables=rope_tables)
     return q, k, v
 
 

@@ -34,29 +34,76 @@ from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
 # ----------------------------------------------------------- param packing
 
 def _dequant_packed(codes: torch.Tensor, exps: torch.Tensor) -> torch.Tensor:
-    """packed uint8 codes [K//2, N] + biased exps [K//32, N] -> bf16 [K, N]
-    through the pair table, bitwise the reference's. The scale 2^(b-128)
-    is exact in bf16; for ``b <= 1`` it is the subnormal that the
-    reference's platforms flush, so it is 0 here."""
+    """packed uint8 codes [..., K//2, N] + biased exps [..., K//32, N] ->
+    bf16 [..., K, N] through the pair table, bitwise the reference's (an
+    expert bank [E, K//2, N] dequantizes expert by expert alike). The
+    scale 2^(b-128) is exact in bf16; for ``b <= 1`` it is the subnormal
+    that the reference's platforms flush, so it is 0 here."""
     kp2, n = codes.shape[-2], codes.shape[-1]
-    k = 2 * kp2
-    pair = mxlib.pair_table(str(codes.device))[codes.long()]  # [K//2, N]
-    cb = pair.view(torch.int16).view(torch.bfloat16)  # [K//2, 2N]: lo, hi
-    cb = cb.reshape(kp2, n, 2).transpose(-1, -2).reshape(k, n)
+    lead, k = tuple(codes.shape[:-2]), 2 * kp2
+    pair = mxlib.pair_table(str(codes.device))[codes.long()]  # [.., K//2, N]
+    cb = pair.view(torch.int16).view(torch.bfloat16)  # [.., K//2, 2N]: lo, hi
+    cb = cb.reshape(lead + (kp2, n, 2)).transpose(-1, -2).reshape(
+        lead + (k, n))
     b = exps.to(torch.int32)
     scale = torch.where(b <= 1, torch.zeros((), device=b.device),
                         mxlib._f32_from_field(b - 1)).to(torch.bfloat16)
-    w = cb.reshape(k // mxlib.BLOCK, mxlib.BLOCK, n) * scale[:, None, :]
-    return w.reshape(k, n)
+    w = (cb.reshape(lead + (k // mxlib.BLOCK, mxlib.BLOCK, n))
+         * scale[..., :, None, :])
+    return w.reshape(lead + (k, n))
 
 
 def _quantize_packed(w: torch.Tensor) -> dict:
-    """[K, N] float -> packed MXFP4 {codes [K//2, N] uint8, exps [K//32, N]
-    uint8 biased} quantized along K."""
+    """[..., K, N] float -> packed MXFP4 {codes [..., K//2, N] uint8, exps
+    [..., K//32, N] uint8 biased} quantized along K."""
     mxq = mxlib.quantize(w.transpose(-1, -2))
     return {"codes": mxlib.pack_codes(mxq.codes).transpose(-1, -2).contiguous(),
             "exps": mxlib.exps_to_biased(mxq.exps).transpose(-1, -2)
             .contiguous()}
+
+
+def quantize_bank(w: torch.Tensor) -> dict:
+    """An expert bank [E, K, N] float -> packed MXFP4 {codes [E, K//2, N],
+    exps [E, K//32, N]}: each expert's ``[K//2, N]`` slice is the
+    resident format of the ``mxfp4_matmul`` kernel. Quantized one expert
+    at a time (the blocks run along K, so this is the whole bank's
+    quantization) to bound the f32 temporaries at a full-width bank."""
+    e, k, n = w.shape
+    codes = torch.empty((e, k // 2, n), dtype=torch.uint8, device=w.device)
+    exps = torch.empty((e, k // mxlib.BLOCK, n), dtype=torch.uint8,
+                       device=w.device)
+    for i in range(e):
+        q = _quantize_packed(w[i])
+        codes[i], exps[i] = q["codes"], q["exps"]
+    return {"codes": codes, "exps": exps}
+
+
+def is_expert_bank(key: str, v) -> bool:
+    """An MoE layer's ``w1`` / ``w2`` / ``w3`` float bank [E, K, N] with a
+    32-aligned contraction dim: the conversions pack it into digital
+    MXFP4 under every backend (``quantize_bank``)."""
+    return (key in ("w1", "w2", "w3") and torch.is_tensor(v) and v.ndim == 3
+            and v.shape[-2] % mxlib.BLOCK == 0)
+
+
+def expert_weight(ctx, w) -> torch.Tensor:
+    """Resolve a stacked [E, K, N] expert weight for the digital expert
+    product (the reference's ``expert_weight``). Expert banks stay on the
+    digital MXFP4 path under every backend: dispatch is dynamic, and the
+    paper's hybrid partition keeps only static-weight linears in the
+    analog array. A packed ``{codes, exps}`` bank dequantizes exactly;
+    under ``mxfp4_ste`` and ``cim_analog`` a float bank is fake-quantized
+    along K (one expert at a time, the same values); unknown backend
+    names raise. bf16 out."""
+    if isinstance(w, dict):  # serving-converted packed MXFP4
+        return _dequant_packed(w["codes"], w["exps"])
+    backend = get_backend(ctx.quant)  # raises on unknown backend names
+    if backend.name not in ("mxfp4_ste", "cim_analog"):
+        return w.to(torch.bfloat16)
+    out = torch.empty(w.shape, dtype=torch.bfloat16, device=w.device)
+    for i in range(w.shape[0]):
+        out[i] = mxlib.fake_quant_axis(w[i], 0).to(torch.bfloat16)
+    return out
 
 
 def quantize_linear_params(params: dict) -> dict:
@@ -286,11 +333,16 @@ def layer_paths(path: str, n: int) -> list[str]:
 
 
 def convert_params_cim(tree, calibs: dict, min_n: int = 256,
-                       wq_cache: dict | None = None):
+                       wq_cache: dict | None = None, free: bool = False):
     """Serving transform for the hybrid deployment: static linears with a
     Row-Hist calibration (keyed by param-tree path) become resident
-    ``cim_analog`` nodes; every other float leaf is cast to bf16. The
-    port's tree keeps one dict per layer under ``segments[i]``."""
+    ``cim_analog`` nodes; MoE expert banks become packed digital MXFP4
+    (dynamic dispatch stays digital: ``quantize_bank``); every other float
+    leaf is cast to bf16. The port's tree keeps one dict per layer under
+    ``segments[i]``. With ``free`` each layer's float dict is dropped from
+    ``tree`` once it is converted, so a full-width model never holds its
+    whole float tree beside the converted one (``tree`` is left with
+    ``None`` for each layer)."""
     cim = _REGISTRY["cim_analog"]
     wq_cache = wq_cache or {}
 
@@ -300,12 +352,17 @@ def convert_params_cim(tree, calibs: dict, min_n: int = 256,
             if (w is not None and w.ndim == 2 and w.shape[0] % mxlib.BLOCK == 0
                     and w.shape[1] >= min_n and path in calibs):
                 return cim.convert(node, calibs[path], wq=wq_cache.get(path))
-            return {k: rec(v, f"{path}/{k}" if path else k)
+            return {k: quantize_bank(v) if is_expert_bank(k, v)
+                    else rec(v, f"{path}/{k}" if path else k)
                     for k, v in node.items()}
         if isinstance(node, list):
             if path.startswith("segments/"):  # one segment's layers
-                return [rec(v, p) for v, p in
-                        zip(node, layer_paths(path, len(node)))]
+                out = []
+                for j, p in enumerate(layer_paths(path, len(node))):
+                    out.append(rec(node[j], p))
+                    if free:
+                        node[j] = None
+                return out
             return [rec(v, f"{path}/{i}" if path else str(i))
                     for i, v in enumerate(node)]
         if torch.is_tensor(node) and node.dtype == torch.float32:

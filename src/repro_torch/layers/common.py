@@ -159,25 +159,41 @@ def embed_apply(params: dict, ids: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------- serving conversion
 
-def convert_params_mxfp4(tree, min_n: int = 256):
+def convert_params_mxfp4(tree, min_n: int = 256, free: bool = False):
     """Serving transform: every static linear weight with a 32-aligned
     contraction dim and at least ``min_n`` outputs becomes packed MXFP4
     (4.25 b/param resident, the ``mxfp4_wonly`` node; its bias stays as it
-    is); every other float32 leaf is cast to bf16. The reference's gate,
-    over the port's tree of one dict per layer."""
+    is); MoE expert banks ``w1`` / ``w2`` / ``w3`` [E, K, N] become packed
+    banks [E, K//2, N] (``backends.quantize_bank``); every other float32
+    leaf is cast to bf16. The reference's gate, over the port's tree of
+    one dict per layer. An MoE router stays a bf16 leaf at any expert
+    count: the router is read as a raw weight (``layers/moe.py``), never
+    through ``linear_apply``. (The reference packs a router with E >=
+    ``min_n`` too, and its ``moe_apply`` then fails to find the router's
+    ``w``: qwen3-moe-235b-a22b's 128 experts at ``min_n`` 32.) With
+    ``free`` each layer's float dict is dropped from ``tree`` once it is
+    converted (``tree`` is left with ``None`` for each layer), as
+    ``backends.convert_params_cim`` does."""
 
-    def rec(node):
+    def rec(node, key=""):
         if isinstance(node, dict):
             w = node.get("w")
-            if (w is not None and w.ndim == 2 and w.shape[0] % 32 == 0
-                    and w.shape[1] >= min_n):
+            if (key != "router" and w is not None and w.ndim == 2
+                    and w.shape[0] % 32 == 0 and w.shape[1] >= min_n):
                 out = backends_lib.quantize_linear_params(node)
-                out.update({k: rec(v) for k, v in node.items()
+                out.update({k: rec(v, k) for k, v in node.items()
                             if k not in ("w", "b")})
                 return out
-            return {k: rec(v) for k, v in node.items()}
+            return {k: backends_lib.quantize_bank(v)
+                    if backends_lib.is_expert_bank(k, v) else rec(v, k)
+                    for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [rec(v) for v in node]
+            out = []
+            for j, v in enumerate(node):  # "segments": its lists of layers
+                out.append(rec(v, key))
+                if free and key == "segments" and isinstance(v, dict):
+                    node[j] = None
+            return out
         if torch.is_tensor(node) and node.dtype == torch.float32:
             return node.to(torch.bfloat16)
         return node

@@ -72,18 +72,22 @@ def capture_linear_inputs(params, cfg, ctx: RunCtx, batch, *,
 def convert_model_cim(params, cfg, ctx: RunCtx, batches, *,
                       cim_cfg: cimlib.CIMConfig | None = None,
                       min_n: int = 256, max_rows: int = 512,
-                      forward_fn=None):
+                      forward_fn=None, free: bool = False):
     """Capture -> Row-Hist calibrate -> convert. Returns
     ``(converted_params, calibs)``; serve with ``RunCtx(quant="cim",
     cim=cim_cfg)``. ``forward_fn`` selects the model family (default
-    ``lm.forward``, see :func:`capture_rowhist_calibration`)."""
+    ``lm.forward``, see :func:`capture_rowhist_calibration`). Taps see
+    only the 2-D static linears that run through ``linear_apply``: an MoE
+    layer's router and expert banks are not tapped (the banks become
+    packed digital MXFP4). ``free`` drops each float layer of ``params``
+    once it is converted (``backends.convert_params_cim``)."""
     cim_cfg = cim_cfg or cimlib.CIMConfig()
     wq_cache: dict = {}
     calibs = capture_rowhist_calibration(
         params, cfg, ctx, batches, cim_cfg=cim_cfg, min_n=min_n,
         max_rows=max_rows, wq_cache=wq_cache, forward_fn=forward_fn)
     conv = backends.convert_params_cim(params, calibs, min_n=min_n,
-                                       wq_cache=wq_cache)
+                                       wq_cache=wq_cache, free=free)
     return conv, calibs
 
 

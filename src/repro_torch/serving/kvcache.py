@@ -139,6 +139,10 @@ class PagedKVCache:
             raise NotImplementedError(f"KV layout {layout!r} is not ported "
                                       "(ROADMAP.md Queue 1); use 'fused'")
         for seg in lm.build_segments(cfg):
+            if seg.kind not in ("attn", "moe_attn"):
+                raise NotImplementedError(
+                    "paged serving requires attention-only segments "
+                    f"(recurrent state can't take padded prefill): {seg.kind}")
             if seg.attn.window and seg.attn.window < page_len:
                 raise NotImplementedError(
                     f"paged serving needs full pages (window "

@@ -58,12 +58,13 @@ ECFG = EngineConfig(lanes=2, num_slots=3, page_len=24, prefill_len=10)
 REQS = ((9, 6), (4, 7), (10, 5), (2, 8))  # (prompt length, new tokens)
 
 
-def _tiny_lm(backend: str, device: str = "cpu"):
-    """Tiny starcoder2-7b through the launcher's ``build_model`` on the
-    CPU, its parameters moved to ``device``."""
+def _tiny_lm(backend: str, device: str = "cpu",
+             arch: str = "starcoder2-7b"):
+    """A tiny LM (default starcoder2-7b) through the launcher's
+    ``build_model`` on the CPU, its parameters moved to ``device``."""
     args = tserve.build_parser().parse_args(
-        ["--serve-trace", "--backend", backend, "--device", "cpu",
-         "--log-level", "warning"])
+        ["--arch", arch, "--serve-trace", "--backend", backend, "--device",
+         "cpu", "--log-level", "warning"])
     cfg, params, ctx, _ = tserve.build_model(args)
     return cfg, _to(params, device), ctx
 
@@ -486,18 +487,21 @@ def _run_calls(eng, calls, no_sync: bool = False) -> tuple[list, dict]:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "qwen3-moe-235b-a22b"])
 @pytest.mark.parametrize("backend", ["cim", "mxfp4", "float"])
-def test_cuda_steps_captured_equal_eager(backend):
+def test_cuda_steps_captured_equal_eager(backend, arch):
     """The prefill (past ``dense_attn_max``: ``flash_attention`` in its
     graph under mxfp4 and float), clone, chunk and decode steps of a tiny
-    engine, captured == eager: ids and pool bytes bitwise, the launch
+    engine, dense and MoE (the dispatch's sort, capacity and gathers in
+    every step; under mxfp4 and cim one ``mxfp4_matmul`` launch an expert
+    a bank), captured == eager: ids and pool bytes bitwise, the launch
     counts of every pass equal the eager pass's (replays included), the
     obs's ``kernel_calls_total`` too. No step syncs with the host (each
     eager step runs under ``set_sync_debug_mode("error")``, after a pass
     that did the one-time setup). A pass rewrites every row it reads
     first, so a second pass gives the first one's bytes."""
     _cuda()
-    cfg, params, ctx = _tiny_lm(backend, "cuda")
+    cfg, params, ctx = _tiny_lm(backend, "cuda", arch)
     ctx = dataclasses.replace(ctx, dense_attn_max=8, obs=obs_lib.Obs())
     calls = _step_inputs(cfg)
     eager = Engine(params, cfg, ctx,
