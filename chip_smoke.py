@@ -174,10 +174,41 @@
     of a packed bank at the expert shapes (cap 2 / 120 for mixtral, 1 /
     30 for qwen3), A at both MoE archs' analog linears, B and D at G 16
     and G 7.
-12. Prints the kernels line (phase 9 adds B, D and E at head widths
+12. The recurrent families and the legacy cache: zamba2-1.2b (38
+    Mamba2 layers and six visits of the shared attention block) and
+    xlstm-125m (mLSTM and sLSTM, tied head) at full width and depth
+    through the launcher's ``build_model`` and greedy decode
+    (``serve_greedy``: a prefill into the legacy K/V cache and the
+    recurrent states, then each decode step two captured graphs) under
+    ``mxfp4`` and ``cim`` (``REC_RUNS``): 4 lanes, 512-token prompts, 64
+    new tokens; then zamba under ``mxfp4`` on one 2560-token prompt (16
+    new tokens); then hubert-xlarge's encoder (48 layers) on one emb batch
+    [1, 1500, 512] under both backends. The launches by kernel and route
+    are exactly ``_recurrent_launches``'s (A on the calibrated linears
+    only: the shared block, the heads and hubert's; C on every packed
+    one; E once a shared-block visit a prefill past 256 tokens under
+    ``mxfp4``; no paged decode; no kernel at all for xlstm under
+    ``cim``). The prefill's last-position logits and 4 decode steps
+    against ``impl="ref"`` at SQNR >= 30 dB: under ``mxfp4`` the ref run
+    keeps the packed linears on C (the model turns one bf16 ulp of a
+    linear's output into ~27 dB at the logits; the all-plain figure and
+    the reference's own spread, its composition with f32 sums, are
+    printed beside it, and the ref run's C launches counted), and each
+    segment kind's first layer alone holds kernels against the plain
+    ``impl="ref"`` at 30 dB (``recurrent block``); captured decode ids
+    bitwise the eager ones; the tiny model's logits on the card equal
+    the CPU's; one prefill and 8 decode steps profiled, eager and
+    captured. A ``serve recurrent`` line a run (tok/s, state bytes a
+    lane, peak memory) and an ``encode audio`` line a hubert run (launches,
+    logits against ``impl="ref"``, device ms and wall). First the kernel
+    rows (``REC_SHAPES``): C at every packed linear at M = 4 and the
+    prefill's rows, A at the calibrated ones, E at zamba's shared
+    attention over [4, 512] and [1, 2560].
+13. Prints the kernels line (phase 9 adds B, D and E at head widths
     256, 80 and 128; phase 11 C at the expert shapes, A at the MoE
-    linears and B and D at G 16 and 7), then the card's name and power limit, then the device line,
-    as the last line.
+    linears and B and D at G 16 and 7; phase 12 A, C and E at the
+    recurrent and audio archs' shapes), then the card's name and power
+    limit, then the device line, as the last line.
 
 Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``paged_decode_mx {...}``, ``mxfp4_matmul {...}``, ``paged_decode {...}``,
@@ -188,7 +219,8 @@ Every measured shape is printed on a line of its own (``cim_linear {...}``,
 {...}``, ``frame eager vs captured {...}``, ``serve vision {...}``,
 ``serve dense {...}``, ``fidelity linear {...}``, ``fidelity quant_health
 {...}``, ``fidelity {...}``, ``moe layer {...}``, ``vision prefill
-{...}``).
+{...}``, ``recurrent prefill profile {...}``, ``recurrent decode profile
+<mode> {...}``, ``serve recurrent {...}``, ``encode audio {...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
@@ -358,6 +390,44 @@ FID_LOSSLESS_MIN_DB = 60.0  # the reference CI gate's lossless bound
 # the kernel-level rows (M, K, N): starcoder2-7b's w1 at decode (splitk)
 # and prefill (wgmma), ViT-B/16's w1 at a frame's rows
 FID_LINEARS = ((4, 4608, 18432), (192, 4608, 18432), (197, 768, 3072))
+# the recurrent families and the audio encoder (phase 12): xlstm-125m and
+# zamba2-1.2b at full width and depth through the launcher's greedy
+# decode (4 lanes, 512-token prompts, 64 new tokens) under mxfp4 and cim,
+# zamba once more under mxfp4 on one 2560-token prompt (16 new tokens),
+# and hubert-xlarge's encoder on one emb batch [1, 1500, 512] (30 s of
+# audio at 50 frames a second) under both backends
+REC_RUNS = (("zamba2-1.2b", "mxfp4"), ("zamba2-1.2b", "cim"),
+            ("xlstm-125m", "mxfp4"), ("xlstm-125m", "cim"))
+REC_BATCH, REC_PROMPT, REC_TOKENS = 4, 512, 64
+REC_LONG_PROMPT, REC_LONG_TOKENS = 2560, 16
+REC_STEPS = 4  # decode steps held to impl="ref"
+AUDIO_FRAMES = 1500
+_BF, _F32 = torch.bfloat16, torch.float32
+_DEC_PRE = ((4, _BF), (REC_BATCH * REC_PROMPT, _BF))
+# per arch: (linear, K, N, (rows, x dtype) of its calls, calibrated under
+# cim); a shape shared by two linears is listed once
+REC_SHAPES = {
+    "zamba2-1.2b": (("mamba in_proj", 2048, 8384, _DEC_PRE, False),
+                    ("shared w_in, mamba out_proj", 4096, 2048, _DEC_PRE,
+                     True),
+                    ("shared wq/wk/wv/wo, w_out", 2048, 2048, _DEC_PRE, True),
+                    ("shared w1", 2048, 8192, _DEC_PRE, True),
+                    ("shared w2", 8192, 2048, _DEC_PRE, True),
+                    ("head", 2048, 32000, ((4, _BF),), True)),
+    "xlstm-125m": (("mLSTM w_up, sLSTM w_in", 768, 3072, _DEC_PRE, False),
+                   ("mLSTM wq/wk", 1536, 1536,
+                    ((4, _F32), (REC_BATCH * REC_PROMPT, _BF)), False),
+                   ("mLSTM w_down", 1536, 768, _DEC_PRE, False),
+                   ("sLSTM w_up", 768, 2048, _DEC_PRE, False),
+                   ("sLSTM w_down", 1024, 768, _DEC_PRE, False)),
+    "hubert-xlarge": (("front_proj", 512, 1280, ((AUDIO_FRAMES, _F32),),
+                       True),
+                      ("wq/wk/wv/wo", 1280, 1280, ((AUDIO_FRAMES, _BF),),
+                       True),
+                      ("w1", 1280, 5120, ((AUDIO_FRAMES, _BF),), True),
+                      ("w2", 5120, 1280, ((AUDIO_FRAMES, _BF),), True),
+                      ("head", 1280, 504, ((AUDIO_FRAMES, _BF),), True)),
+}
 # kernel function -> wrapper and route, for device time by route
 KERNEL_ROUTES = {
     "cim_splitk_kernel": "cim_linear splitk",
@@ -2534,6 +2604,603 @@ def fidelity_model(arch: str, backend: str) -> dict:
     return {"launches": launches, "line": line}
 
 
+# --------------------------------------------------------------- phase 12
+
+def _rec_linears(cfg, seg) -> list:
+    """A layer's static linears in call order as (K, N, x dtype at
+    prefill, x dtype at decode, calibrated): the reference's recurrent
+    blocks name none of theirs (no calibration, so under ``cim`` they run
+    on the digital MXFP4 W+A path, torch ops); mLSTM's ``wq`` / ``wk`` /
+    ``w_if`` take the conv output, f32 at a decode step (``wv`` is never
+    applied); the shared block and attention layers are calibrated."""
+    from repro_torch.layers import ffn
+
+    bf, f32 = torch.bfloat16, torch.float32
+    d = cfg.d_model
+    if seg.kind == "mamba":
+        m = seg.mamba
+        return [(d, 2 * m.d_inner + 2 * m.n_groups * m.d_state + m.n_heads,
+                 bf, bf, False), (m.d_inner, d, bf, bf, False)]
+    if seg.kind == "mlstm":
+        di, h = seg.xl.d_inner, seg.xl.n_heads
+        return [(d, 2 * di, bf, bf, False), (di, di, bf, f32, False),
+                (di, di, bf, f32, False), (di, 2 * h, bf, f32, False),
+                (di, d, bf, bf, False)]
+    if seg.kind == "slstm":
+        dff = int(d * seg.xl.ffn_factor)
+        return [(d, 4 * d, bf, bf, False), (d, 2 * dff, bf, bf, False),
+                (dff, d, bf, bf, False)]
+    hq, hkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    glu = cfg.ffn_kind in ffn.GLU_KINDS
+    attn = ([(d, hq)] + [(d, hkv)] * 2 + [(hq, d)]
+            + [(d, cfg.d_ff)] * (1 + glu) + [(cfg.d_ff, d)])
+    if seg.kind == "zshared":
+        attn = [(2 * d, d)] + attn + [(d, d)]
+    return [(k, n, bf, bf, True) for k, n in attn]
+
+
+def _recurrent_launches(cfg, backend: str, batch: int, prompt_len: int,
+                        decodes: int, min_n: int, attn_max: int,
+                        greedy: bool = True, emb: bool = False):
+    """Launches by kernel, the matmul kernels' launches by route and
+    ``flash_attention``'s by route of one [batch, prompt_len] prefill (the
+    layers' linears at batch * prompt_len rows; the head at the last row
+    of each lane under ``greedy``, else at every row) and ``decodes``
+    [batch, 1] decode steps: a linear is ``mxfp4_matmul``'s under
+    ``mxfp4`` where the conversion packs it (K % 32 == 0, N >= ``min_n``),
+    ``cim_linear``'s under ``cim`` where it is calibrated (a named
+    linear; the recurrent blocks' are not); an audio model's
+    ``front_proj`` takes the f32 frame embeddings (``emb``); one causal
+    ``flash_attention`` a shared-block visit a prefill past ``attn_max``
+    under ``mxfp4`` (under ``cim`` the digital SDPA is torch ops). No
+    paged decode: the greedy decode runs on the legacy cache."""
+    from repro_torch.kernels.cim_linear import ops as cim_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+    from repro_torch.models import lm
+
+    bf = torch.bfloat16
+    rows = batch * prompt_len
+    body = []
+    for seg in lm.build_segments(cfg):
+        body += _rec_linears(cfg, seg) * seg.n
+    head = ([] if cfg.tie_embeddings
+            else [(cfg.d_model, cfg.vocab_size, bf, bf, True)])
+    front = ([(cfg.frontend_dim, cfg.d_model, torch.float32, None, True)]
+             if emb else [])
+    kern = VISION_KERNEL[backend]
+    routes: dict = {"cim_linear": {}, "mxfp4_matmul": {}}
+    calls = [(rows, 1, front + body, 2), (batch if greedy else rows, 1, head,
+                                          2),
+             (batch, decodes, body + head, 3)]
+    for m, times, shapes, at in calls:
+        for lin in shapes:
+            k, n, dtype, calibrated = lin[0], lin[1], lin[at], lin[4]
+            if not times or k % 32 or n < min_n or (
+                    backend == "cim" and not calibrated):
+                continue
+            r = (cim_ops.pick_route(m, k, n) if backend == "cim"
+                 else mm_ops.pick_route(m, k, n, dtype))
+            routes[kern][r] = routes[kern].get(r, 0) + times
+    launches = dict.fromkeys(_kernel_wrappers(), 0)
+    for name, by_route in routes.items():
+        launches[name] = sum(by_route.values())
+    fa_routes = dict.fromkeys(fa_ops.ROUTES, 0)
+    visits = sum(s.kind == "zshared" for s in lm.build_segments(cfg))
+    if backend != "cim" and cfg.causal and prompt_len > attn_max and visits:
+        launches["flash_attention"] = visits
+        fa_routes[fa_ops.pick_route(prompt_len, prompt_len, cfg.hd,
+                                    torch.bfloat16)] = visits
+    return launches, routes, fa_routes
+
+
+def check_recurrent_kernels(dev) -> dict:
+    """Phase 12's kernel rows, each against its plain version as in phase
+    3 (``REC_SHAPES``): ``mxfp4_matmul`` at every packed linear of the
+    three archs at a decode step's rows (4; xlstm-125m's ``wq`` also with
+    the f32 x a decode gives it) and at the prefill's (2048: 4 lanes of
+    512; hubert's 1500 frames, its ``front_proj`` on f32 frame
+    embeddings), ``cim_linear`` at the calibrated ones (zamba2-1.2b's
+    shared block and head, hubert-xlarge's linears), ``flash_attention``
+    at zamba's shared attention over the two prefills that launch it
+    ([4, 512] and [1, 2560]; H 32, D 64, causal, bf16). Rows by kernel
+    name; each names its arch (``case``) and linear."""
+    from repro_torch.core import cim as cimlib
+    from repro_torch.core import mx as mxlib
+    from repro_torch.layers import backends
+
+    rows: dict = {"mxfp4_matmul": [], "cim_linear": [],
+                  "flash_attention": []}
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ccfg = cimlib.CIMConfig()
+    for arch, linears in REC_SHAPES.items():
+        for name, k, n, ms, analog in linears:
+            extra = {"case": arch, "linear": name}
+            w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+            packed = backends._quantize_packed(w)
+            w_bf16 = backends._dequant_packed(packed["codes"],
+                                              packed["exps"])
+            wq = mxlib.quantize_w(w) if analog else None
+            del w
+            for m, dtype in ms:
+                x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+                rows["mxfp4_matmul"].append(_mxfp4_row(
+                    x, packed["codes"], packed["exps"], w_bf16, extra))
+                if analog:  # the same values, as the wrapper takes them
+                    xf = x.float()
+                    rows["cim_linear"].append(_cim_row(
+                        xf, wq, cimlib.calibrate_rowhist([xf], wq, ccfg),
+                        ccfg, extra))
+            del packed, w_bf16, wq
+    for b, s in ((REC_BATCH, REC_PROMPT), (1, REC_LONG_PROMPT)):
+        q, k, v = (torch.randn((b, s, 32, 64), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        rows["flash_attention"].append(
+            {"case": "zamba2-1.2b"} | _flash_attention_row(q, k, v, 0, 0))
+        print("flash_attention", json.dumps(rows["flash_attention"][-1]),
+              flush=True)
+        if not rows["flash_attention"][-1]["ok"]:
+            raise AssertionError(f"flash_attention kernel disagrees at "
+                                 f"{rows['flash_attention'][-1]}")
+    return rows
+
+
+def check_tiny_recurrent(dev, arch: str, backend: str) -> dict:
+    """Tiny ``arch`` with the same weights on the card (kernels) and on the
+    CPU (plain versions): a prefill into ``init_cache`` (legacy cache,
+    states), its last position's logits, then teacher-forced decode steps;
+    logits SQNR >= 30 dB at every step."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    args = serve.build_parser().parse_args(
+        ["--arch", arch, "--backend", backend, "--device", "cpu",
+         "--calib-batches", "1", "--batch", "2", "--log-level", "warning"])
+    cfg, cpu_params, ctx, cpu = serve.build_model(args)
+    ids = torch.randint(0, cfg.vocab_size, (2, 20),
+                        generator=torch.Generator().manual_seed(4))
+    runs = []
+    with torch.no_grad():
+        for params, d in ((cpu_params, cpu), (_to(cpu_params, dev), dev)):
+            caches = lm.init_cache(cfg, 2, 24, device=d)
+            lo, caches = lm.forward(params, cfg, ctx, {"ids": ids[:, :16].to(
+                d)}, caches=caches)
+            steps = [lo[:, -1]]
+            for p in range(16, 20):
+                lo, caches = lm.decode_step(params, cfg, ctx,
+                                            ids[:, p:p + 1].to(d), p, caches)
+                steps.append(lo)
+            runs.append([t.float().cpu() for t in steps])
+    sq = [_sqnr_db(a, b) for a, b in zip(*runs)]
+    print(f"tiny {arch} [{backend}], card vs CPU plain versions, logits "
+          f"SQNR per step (prefill, 4 decode): {sq}", flush=True)
+    if min(sq) < 30.0:
+        raise AssertionError(f"tiny {arch} [{backend}]: card and CPU logits "
+                             "disagree")
+    return {"tiny_sqnr_db": sq}
+
+
+@contextlib.contextmanager
+def _packed_on_c(f32_sums: bool = False):
+    """``impl="ref"`` with every packed linear on kernel C, as the kernel
+    run has it (or, with ``f32_sums``, on the reference's composition
+    with its sums in f32: ``_dequant_packed`` and an f32 matmul of the
+    bf16-rounded x, rounded to bf16 once: another valid rounding of the
+    reference's ``jnp.matmul``, which gives the reference's own spread)."""
+    from repro_torch.layers import backends
+
+    be = backends.get_backend("mxfp4_wonly")
+    forward = be.forward
+
+    def patched(ctx, params, x):
+        if "codes" not in params or ctx.impl != "ref":
+            return forward(ctx, params, x)
+        if not f32_sums:
+            return forward(dataclasses.replace(ctx, impl="auto"), params, x)
+        w = backends._dequant_packed(params["codes"], params["exps"])
+        return torch.matmul(x.to(torch.bfloat16).float(), w.float()).to(
+            torch.bfloat16)
+
+    be.forward = patched  # the instance's attribute shadows the method
+    try:
+        yield
+    finally:
+        del be.forward
+
+
+def recurrent_block_check(cfg, params, kctx, rctx, batch: int,
+                          prompt_len: int) -> dict:
+    """The first layer of each segment kind of ``cfg`` (a Mamba layer and
+    a shared-block visit; an mLSTM and an sLSTM layer) alone, on injected
+    bf16 inputs: a ``prompt_len``-row prefill into empty caches and one
+    decode step, through the kernels and through ``impl="ref"`` (the
+    reference's compositions: the bf16 matmul of the dequantized weight,
+    the torch-op ``_flash_attn``); each output's residual delta at SQNR >=
+    30 dB. Returns ``{kind: [prefill dB, decode dB]}``."""
+    from repro_torch.models import lm
+
+    dev = params["final_ln"]["gamma"].device
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn((batch, prompt_len + 1, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    x0 = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(prompt_len + 1, device=dev)[None].expand(batch, -1)
+    out, seen = {}, set()
+    for i, seg in enumerate(lm.build_segments(cfg)):
+        if seg.kind in seen:
+            continue
+        seen.add(seg.kind)
+        layer = params["segments"][i][:1]
+        res = []
+        for ctx in (kctx, rctx):
+            cache = [lm.init_cache(cfg, batch, prompt_len + 1,
+                                   device=dev)[i][0]]
+            kw = dict(path=f"segments/{i}", shared=params.get("shared"))
+            with torch.no_grad():  # arange positions: E takes the prefill
+                y, cache = lm.run_segment(
+                    dataclasses.replace(ctx, arange_positions=True), cfg, seg,
+                    layer, x[:, :prompt_len],
+                    pos[:, :prompt_len], cache, x0=x0[:, :prompt_len],
+                    **kw)
+                y1, _ = lm.run_segment(
+                    ctx, cfg, seg, layer, x[:, prompt_len:],
+                    pos[:, prompt_len:], cache,
+                    torch.tensor(prompt_len, device=dev),
+                    x0=x0[:, prompt_len:], **kw)
+            res.append(((y - x[:, :prompt_len]).float(),
+                        (y1 - x[:, prompt_len:]).float()))
+        out[seg.kind] = [_sqnr_db(r, g) for r, g in zip(res[1], res[0])]
+    print(f"[{kctx.quant} {cfg.name}] recurrent block, kernels vs impl=ref "
+          f"(prefill, decode) dB:", json.dumps(out), flush=True)
+    if min(min(v) for v in out.values()) < 30.0:
+        raise AssertionError(f"[{kctx.quant} {cfg.name}] a block disagrees "
+                             f"with impl=ref: {out}")
+    return out
+
+
+def _rec_logits(cfg, params, ctx, prompt, ids, steps: int) -> list:
+    """Logits of the greedy decode's prefill (its last position) and of
+    ``steps`` decode steps teacher-forced on the served ``ids``, eagerly
+    on fresh caches."""
+    from repro_torch.models import lm
+
+    b, s = prompt.shape
+    caches = lm.init_cache(cfg, b, s + steps + 1, device=prompt.device)
+    with torch.no_grad():
+        hidden, caches = lm.forward(params, cfg, ctx, {"ids": prompt},
+                                    caches=caches, return_hidden=True)
+        out = [lm._head(ctx, cfg, params, hidden[:, -1:])[:, -1].float()]
+        del hidden
+        for t in range(steps):
+            lo, caches = lm.decode_step(params, cfg, ctx,
+                                        ids[:, t:t + 1].to(prompt.device),
+                                        s + t, caches)
+            out.append(lo.float())
+    return out
+
+
+def profile_greedy(cfg, params, ctx, batch: int, prompt_len: int,
+                   steps: int = 8) -> dict:
+    """One prefill under ``torch.profiler`` (eager: the greedy path
+    captures only its decode step), then ``steps`` decode steps profiled
+    eager (``cuda_graphs=False``) and captured (the first step, outside the
+    window, captures both graphs), each also timed unprofiled
+    (:func:`_unprofiled`); the windows' ids bitwise equal, their launches
+    a step equal. Returns ``{"prefill": profile, "eager": ...,
+    "captured": ... + capture_s and graph_pool_bytes}``."""
+    from repro_torch.launch import serve
+
+    dev = params["final_ln"]["gamma"].device
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               17))
+    kctx = dataclasses.replace(ctx, obs=None)
+    out, ids = {}, {}
+    for mode in ("eager", "captured"):
+        dec = serve.GreedyDecoder(params, cfg, kctx, batch,
+                                  prompt_len + 2 * steps + 4, dev,
+                                  cuda_graphs=mode == "captured")
+        if mode == "eager":
+            out["prefill"] = _profiled("recurrent prefill profile", kctx, 1,
+                                       lambda: dec.prefill(prompt),
+                                       attempts=1)
+        dec.prefill(prompt)
+        dec.step()  # outside the window (the capture)
+        got = []
+
+        def step():
+            got.append(dec.step().clone())
+
+        prof = _profiled(f"recurrent decode profile {mode}", kctx, steps,
+                         step, attempts=1)
+        # each step ends in a host read of its ids, as a served one does
+        _unprofiled(prof, steps, lambda: dec.step().cpu(), batch)
+        prof["launches_a_step"] = {k: v / steps
+                                   for k, v in prof["launches"].items()}
+        if dec.graphs:
+            prof["capture_s"] = dec.capture_s
+            prof["graph_pool_bytes"] = dec.pool_bytes
+        ids[mode] = torch.stack(got[:steps], 1).cpu()
+        out[mode] = prof
+        del dec
+    if not torch.equal(ids["eager"], ids["captured"]):
+        raise AssertionError(f"[{ctx.quant} {cfg.name}] captured decode ids "
+                             "are not the eager ones")
+    if out["eager"]["launches_a_step"] != out["captured"]["launches_a_step"]:
+        raise AssertionError(f"[{ctx.quant} {cfg.name}] launches a step: "
+                             f"{out['eager']['launches_a_step']} eager, "
+                             f"{out['captured']['launches_a_step']} captured")
+    return out
+
+
+def serve_recurrent(arch: str, backend: str, batch: int = REC_BATCH,
+                    prompt_len: int = REC_PROMPT, tokens: int = REC_TOKENS,
+                    profile: bool = True) -> dict:
+    """Phase 12, one run: ``arch`` at full width and depth through the
+    launcher's ``build_model`` and greedy decode (``serve_greedy``, its
+    decode step captured), ``batch`` prompts of ``prompt_len`` tokens and
+    ``tokens`` new ones. The launches by kernel and route must be exactly
+    ``_recurrent_launches``'s. Then: the prefill's last-position logits and
+    ``REC_STEPS`` decode steps against ``impl="ref"`` (SQNR >= 30 dB;
+    under ``mxfp4`` the ref run keeps its packed linears on C, its C
+    launches counted, and the all-plain figure and the reference's own
+    spread are printed beside it), the tiny model's logits on the card
+    against the CPU's and, with ``profile``, :func:`recurrent_block_check`
+    and :func:`profile_greedy` (whose windows hold captured == eager);
+    without it the serve's ids against an eager (``cuda_graphs=False``)
+    greedy decode's, bitwise. Prints a ``serve recurrent`` line."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    args = serve.build_parser().parse_args(
+        ["--arch", arch, "--no-tiny", "--backend", backend, "--batch",
+         str(batch), "--prompt-len", str(prompt_len), "--tokens",
+         str(tokens), "--calib-batches", "1", "--log-level", "warning"])
+    obs = obs_lib.Obs()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, ctx, dev = serve.build_model(args, obs=obs)
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    resident = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[{backend}] {cfg.name}: full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, segments "
+          f"{[(s.kind, s.n) for s in lm.build_segments(cfg)]}); build peak "
+          f"{build_peak / 2**30:.2f} GiB, resident {resident / 2**30:.2f} "
+          f"GiB", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    served = serve.serve_greedy(args, cfg, params, ctx, obs, dev)
+    launches, mm_routes = _read_counts()
+    routes = {"cim_linear": _cim_routes(), "mxfp4_matmul": mm_routes}
+    routes = {k: {r: n for r, n in v.items() if n} for k, v in routes.items()}
+    fa_routes = dict(fa_ops.flash_attention.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    want, want_routes, want_fa = _recurrent_launches(
+        cfg, backend, batch, prompt_len, tokens - 1, args.cim_min_n,
+        ctx.dense_attn_max)
+    exact = (launches == want and routes == want_routes
+             and fa_routes == want_fa)
+    ids = served["ids"]
+    if tuple(ids.shape) != (batch, tokens) or not bool(
+            ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+        raise AssertionError(f"[{backend} {arch}] served ids {ids.shape}")
+    t1 = time.perf_counter()
+    kctx = dataclasses.replace(ctx, obs=None)
+    rctx = dataclasses.replace(kctx, impl="ref")
+    steps = min(REC_STEPS, tokens - 1)
+    prompt = served["prompt"]
+    got = _rec_logits(cfg, params, kctx, prompt, ids[:, 1:], steps)
+    plain = _rec_logits(cfg, params, rctx, prompt, ids[:, 1:], steps)
+    sq_plain = [_sqnr_db(r, g) for r, g in zip(plain, got)]
+    sq_spread = ref_c = want_ref_c = None
+    if backend == "mxfp4":
+        # the model turns one bf16 ulp of a linear's output into ~27 dB at
+        # the logits (C's f32 sums in another order than cuBLAS's): the
+        # impl="ref" run keeps the packed linears on C, which its rows and
+        # the block check hold to the composition; the reference's own
+        # spread (its composition with f32 sums) is printed beside it
+        c0 = mm_ops.mxfp4_matmul.launches
+        with _packed_on_c():
+            ref = _rec_logits(cfg, params, rctx, prompt, ids[:, 1:], steps)
+        ref_c = mm_ops.mxfp4_matmul.launches - c0
+        want_ref_c = _recurrent_launches(
+            cfg, backend, batch, prompt_len, steps, args.cim_min_n,
+            ctx.dense_attn_max)[0]["mxfp4_matmul"]
+        with _packed_on_c(f32_sums=True):
+            spread = _rec_logits(cfg, params, rctx, prompt, ids[:, 1:], steps)
+        sq_spread = [_sqnr_db(r, g) for r, g in zip(plain, spread)]
+        del spread
+    else:
+        ref = plain
+    sq = [_sqnr_db(r, g) for r, g in zip(ref, got)]
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    del got, ref, plain
+    blocks = (recurrent_block_check(cfg, params, kctx, rctx, batch,
+                                    prompt_len) if profile else None)
+    check_s = time.perf_counter() - t1
+    if profile:  # the profile's windows hold captured == eager
+        prof = profile_greedy(cfg, params, ctx, batch, prompt_len)
+        bitwise = True
+        eager_tok_s = prof["eager"]["tok_s"]
+    else:
+        prof = None
+        eager = serve.greedy_decode(params, cfg, kctx, prompt, tokens,
+                                    cuda_graphs=False)
+        bitwise = bool(torch.equal(eager["ids"], ids))
+        eager_tok_s = (tokens - 1) * batch / eager["decode_s"]
+    tiny = check_tiny_recurrent(dev, arch, backend)
+    gaps = served["token_s"]
+    line = {"model": cfg.name, "backend": backend, "layers": cfg.n_layers,
+            "batch": batch, "prompt_len": prompt_len, "tokens": tokens,
+            "tok_s": served["tok_s"], "eager_tok_s": eager_tok_s,
+            "token_ms_p50": float(np.median(gaps)) * 1e3,
+            "prefill_s": served["prefill_s"],
+            "capture_s": served["capture_s"],
+            "graph_pool_mib": (served["pool_bytes"] or 0) / 2**20,
+            "state_bytes_a_lane": served["state_bytes"],
+            "state_mib_a_lane": served["state_bytes"] / 2**20,
+            "launches": launches, "routes": routes,
+            "flash_attention_routes": fa_routes, "want_launches": want,
+            "want_routes": want_routes, "launches_exact": exact,
+            "logits_sqnr_db": sq, "logits_ref": (
+                "impl=ref, packed linears on C" if backend == "mxfp4"
+                else "impl=ref"),
+            "logits_sqnr_vs_plain_ref_db": sq_plain,
+            "reference_spread_db": sq_spread, "ref_c_launches": ref_c,
+            "want_ref_c_launches": want_ref_c, "block_sqnr_db": blocks,
+            "finite": finite, "captured_equals_eager": bitwise, **tiny,
+            "logits_check_s": check_s, "peak_mem_gib": peak / 2**30,
+            "build_peak_mem_gib": build_peak / 2**30,
+            "resident_params_gib": resident / 2**30, "model_build_s": build_s}
+    if prof is not None:
+        line |= {"prefill_device_ms": prof["prefill"]["device_ms_per_step"],
+                 "prefill_kernel_ms": prof["prefill"]["kernel_ms_per_step"],
+                 "prefill_wall_ms": prof["prefill"]["wall_ms_per_step"],
+                 "decode_kernel_ms": prof["captured"]["kernel_ms_per_step"],
+                 "decode_route_ms": prof["captured"]["route_ms_per_step"],
+                 "decode": _step_pair(prof)}
+    print("serve recurrent", json.dumps(line), flush=True)
+    if not exact:
+        raise AssertionError(f"[{backend} {arch}] launches {launches} routes "
+                             f"{routes} flash {fa_routes}; want {want} "
+                             f"{want_routes} {want_fa}")
+    if not finite or min(sq) < 30.0:
+        raise AssertionError(f"[{backend} {arch}] logits disagree: {sq}")
+    if ref_c != want_ref_c:
+        raise AssertionError(f"[{backend} {arch}] the impl=ref run launched "
+                             f"C {ref_c} times, not {want_ref_c}")
+    if not bitwise:
+        raise AssertionError(f"[{backend} {arch}] captured greedy ids are "
+                             "not the eager ones")
+    return {"launches": launches, "line": line}
+
+
+def encode_audio(backend: str) -> dict:
+    """Phase 12, hubert-xlarge (48 layers, full width) under ``backend``
+    through the launcher's ``build_model`` (``cim``: calibrated on one
+    ``emb`` batch) and ``lm.forward`` on one ``emb`` batch [1, 1500, 512]
+    (30 s of audio at 50 frames a second): launches exactly
+    ``_recurrent_launches``'s (one a linear a layer, ``front_proj`` and the
+    head; no attention kernel: non-causal), logits against ``impl="ref"``
+    (SQNR >= 30 dB), device ms and wall of the forward. Prints an ``encode
+    audio`` line."""
+    from repro_torch import obs as obs_lib
+    from repro_torch import resolve_device
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    args = serve.build_parser().parse_args(
+        ["--arch", "hubert-xlarge", "--no-tiny", "--backend", backend,
+         "--batch", "1", "--calib-batches", "1", "--log-level", "warning"])
+    dev = resolve_device(args.device)
+    fdim = serve.lm_config(args).frontend_dim
+    gen = torch.Generator(device=dev).manual_seed(32)
+    emb, calib = (torch.randn((1, AUDIO_FRAMES, fdim), generator=gen,
+                              device=dev) for _ in range(2))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, ctx, dev = serve.build_model(
+        args, obs=obs_lib.Obs(), batches=[{"emb": calib}])
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    kctx = dataclasses.replace(ctx, obs=None)
+    rctx = dataclasses.replace(kctx, impl="ref")
+
+    def forward(c=kctx):
+        return lm.forward(params, cfg, c, {"emb": emb})[0]
+
+    with torch.no_grad():
+        _zero_counts()
+        got = forward()
+        torch.cuda.synchronize()
+        launches, mm_routes = _read_counts()
+        routes = {"cim_linear": _cim_routes(), "mxfp4_matmul": mm_routes}
+        routes = {k: {r: n for r, n in v.items() if n}
+                  for k, v in routes.items()}
+        fa_routes = dict(fa_ops.flash_attention.route_launches)
+        want, want_routes, want_fa = _recurrent_launches(
+            cfg, backend, 1, AUDIO_FRAMES, 0, args.cim_min_n,
+            ctx.dense_attn_max, greedy=False, emb=True)
+        exact = (launches == want and routes == want_routes
+                 and fa_routes == want_fa)
+        ref = forward(rctx)
+        sq = _sqnr_db(ref.float(), got.float())
+        finite = bool(torch.isfinite(got.float()).all())
+        del ref
+        device_ms = _device_ms(forward, 2)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+    wall_ms = float(np.median(walls)) * 1e3
+    line = {"model": cfg.name, "backend": backend, "layers": cfg.n_layers,
+            "emb": list(emb.shape), "logits": list(got.shape),
+            "launches": launches, "routes": routes,
+            "flash_attention_routes": fa_routes, "want_launches": want,
+            "want_routes": want_routes, "launches_exact": exact,
+            "logits_sqnr_db": sq, "finite": finite, "device_ms": device_ms,
+            "wall_ms": wall_ms, "busy_share": device_ms / wall_ms,
+            "frames_s": AUDIO_FRAMES / wall_ms * 1e3,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "build_peak_mem_gib": build_peak / 2**30, "model_build_s": build_s}
+    print("encode audio", json.dumps(line), flush=True)
+    if not exact:
+        raise AssertionError(f"[{backend} hubert] launches {launches} routes "
+                             f"{routes} flash {fa_routes}; want {want} "
+                             f"{want_routes} {want_fa}")
+    if not finite or sq < 30.0:
+        raise AssertionError(f"[{backend} hubert] logits disagree: {sq}")
+    return {"launches": launches, "line": line}
+
+
+def recurrent_kernel_entries(rec_rows: dict, runs: dict) -> list:
+    """The kernels line's entries of phase 12: ``mxfp4_matmul`` and
+    ``cim_linear`` at the three archs' linears and ``flash_attention`` at
+    zamba's shared attention, each with its launches in the run that ran
+    it (the arch's ``mxfp4`` or ``cim`` run; for E, the long zamba
+    prefill)."""
+    out = []
+    for name, replaces, run in (
+            ("mxfp4_matmul", "src/repro/kernels/mxfp4_matmul/kernel.py:69",
+             "mxfp4"),
+            ("cim_linear", "src/repro/kernels/cim_linear/kernel.py:127",
+             "cim"),
+            ("flash_attention",
+             "src/repro/kernels/flash_attention/kernel.py:90", "long")):
+        for row in rec_rows[name]:
+            if name == "flash_attention":
+                shape = (f"B={row['b']} S={row['sq']} H={row['h']} "
+                         f"Hkv={row['hkv']} D={row['d']} bf16 causal")
+                key = ("rec zamba2-1.2b long" if row["sq"] == REC_LONG_PROMPT
+                       else "rec zamba2-1.2b mxfp4")
+            else:
+                shape = (f"M={row['m']} K={row['k']} N={row['n']} "
+                         f"{row['x_dtype']} ({row['linear']})")
+                key = f"rec {row['case']} {run}"
+            out.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": replaces,
+                "launches": runs[key]["launches"][name],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms"),
+                "call_ms": row["call_ms"], "kernel_route": row.get("route"),
+                "shape": f"{shape} ({row['case']})"})
+    return out
+
+
 def _zero_counts() -> None:
     from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -2939,6 +3606,17 @@ def main() -> int:
     for arch, backend in MOE_RUNS:
         runs[f"moe {arch} {backend}"] = phase(
             f"serve {arch} [{backend}]", serve_moe_vlm, arch, backend)
+    rec_rows = phase("recurrent kernels", check_recurrent_kernels,
+                     dev)  # phase 12
+    for arch, backend in REC_RUNS:
+        runs[f"rec {arch} {backend}"] = phase(
+            f"serve {arch} [{backend}]", serve_recurrent, arch, backend)
+    runs["rec zamba2-1.2b long"] = phase(
+        "serve zamba2-1.2b long [mxfp4]", serve_recurrent, "zamba2-1.2b",
+        "mxfp4", 1, REC_LONG_PROMPT, REC_LONG_TOKENS, False)
+    for backend in ("mxfp4", "cim"):
+        runs[f"rec hubert-xlarge {backend}"] = phase(
+            f"encode hubert-xlarge [{backend}]", encode_audio, backend)
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
 
@@ -2977,6 +3655,7 @@ def main() -> int:
     ]
     kernels += dense_kernel_entries(dense_rows, runs)
     kernels += moe_kernel_entries(moe_rows, runs)
+    kernels += recurrent_kernel_entries(rec_rows, runs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
 """Architecture configs, JAX-free (counterpart of ``repro.models.lm.
 ArchConfig``, ``repro.models.vit.ViTConfig`` and ``repro.configs``). Of
-the LMs seven are ported: the four dense ones, ``starcoder2-7b`` and
+the LMs all ten are ported: the four dense ones, ``starcoder2-7b`` and
 ``nemotron-4-15b`` (full attention), ``h2o-danube-1.8b`` (sliding
 window) and ``gemma3-1b`` (5:1 local:global); the two MoE ones,
 ``mixtral-8x22b`` (8 experts, top-2, sliding window) and
-``qwen3-moe-235b-a22b`` (128 experts, top-8, qk-norm); and the vlm
-``qwen2-vl-7b`` (M-RoPE, the vision front-end stub). The SSM, hybrid and
-audio families are listed in ROADMAP.md. The paper's two vision
-workloads, ``vit-b16`` and ``vit-l32``, are in ``VISION_ARCHS``."""
+``qwen3-moe-235b-a22b`` (128 experts, top-8, qk-norm); the vlm
+``qwen2-vl-7b`` (M-RoPE, the vision front-end stub); the recurrent
+``xlstm-125m`` (mLSTM and sLSTM blocks) and ``zamba2-1.2b`` (Mamba2 with a
+shared attention block); and the encoder-only ``hubert-xlarge`` (the
+audio front-end stub). The paper's two vision workloads, ``vit-b16`` and
+``vit-l32``, are in ``VISION_ARCHS``."""
 
 from __future__ import annotations
 
@@ -138,9 +140,46 @@ QWEN2_VL_7B = ArchConfig(
     subquadratic=False,
 )
 
+# hubert-xlarge [arXiv:2106.07447]: encoder-only audio transformer; the
+# front end is a stub (precomputed frame embeddings through
+# ``front_proj``).
+HUBERT_XLARGE = ArchConfig(
+    name="hubert-xlarge", family="audio",
+    n_layers=48, d_model=1280, n_heads=16, n_kv_heads=16, head_dim=80,
+    d_ff=5120, vocab_size=504,
+    causal=False, attn_pattern="full",
+    ffn_kind="gelu", norm="layernorm", use_bias=True,
+    frontend="audio", frontend_dim=512,
+    supports_decode=False,
+    subquadratic=False,
+)
+
+# zamba2-1.2b [arXiv:2411.15242]: Mamba2 backbone + shared attention.
+ZAMBA2_1_2B = ArchConfig(
+    name="zamba2-1.2b", family="hybrid",
+    n_layers=38, d_model=2048, n_heads=32, n_kv_heads=32, head_dim=64,
+    d_ff=8192, vocab_size=32000,
+    ssm_state=64, ssm_head_dim=64, shared_attn_every=6,
+    attn_pattern="full", rope_theta=1e4,
+    ffn_kind="gelu", norm="rmsnorm",
+    subquadratic=True,
+)
+
+# xlstm-125m [arXiv:2405.04517]: sLSTM + mLSTM blocks (d_ff 0: the blocks
+# carry their own projections).
+XLSTM_125M = ArchConfig(
+    name="xlstm-125m", family="ssm",
+    n_layers=12, d_model=768, n_heads=4, n_kv_heads=4,
+    d_ff=0, vocab_size=50304,
+    slstm_at=(3, 9),
+    norm="rmsnorm", tie_embeddings=True,
+    subquadratic=True,
+)
+
 ARCHS: dict[str, ArchConfig] = {
     c.name: c for c in (H2O_DANUBE_1_8B, STARCODER2_7B, GEMMA3_1B,
                         NEMOTRON4_15B, MIXTRAL_8X22B, QWEN3_MOE_235B,
+                        HUBERT_XLARGE, ZAMBA2_1_2B, XLSTM_125M,
                         QWEN2_VL_7B)}
 
 

@@ -4,8 +4,10 @@
 dicts and lists of **numpy arrays** (float, or CIM-converted: ``codes``
 int8, ``exps`` int8, ``e_n`` int32, ``adc_fs`` f32, ``b``), for example
 ``jax.tree.map(np.asarray, params)``, and returns the port's tree: the
-same keys, tensors on ``device``, and each stacked segment (leading layer
-axis, ``repro.models.lm._stack``) unstacked into one dict per layer. An
+same keys (the Zamba shared block's top-level ``shared`` among them),
+tensors on ``device``, and each stacked segment (leading layer axis,
+``repro.models.lm._stack``) unstacked into one dict per layer; a
+single-layer segment stays one dict. An
 MoE layer's expert banks unstack with it: a float bank [n, E, K, N]
 becomes [E, K, N] a layer, a packed one (``codes`` [n, E, K//2, N],
 ``exps`` [n, E, K//32, N]) becomes [E, K//2, N] / [E, K//32, N], each
@@ -38,10 +40,15 @@ def _map(node, fn):
 
 
 def _n_stacked(seg: dict) -> int:
-    """Layers in a reference segment: a stacked segment's attention norm
-    gamma is [n, d] instead of [d] (in ``attn`` and ``moe_attn`` segments
-    alike)."""
-    gamma = seg["attn"]["ln"]["gamma"]
+    """Layers in a reference segment, from the segment's own norm gamma,
+    [n, d] when stacked and [d] for a single layer: the attention norm of
+    ``attn`` and ``moe_attn`` segments, the block norm ``ln`` of
+    ``mamba`` / ``mlstm`` / ``slstm`` ones. A ``zshared`` segment is
+    ``{}`` (its weights are the top-level ``shared``): one visit."""
+    ln = seg["attn"]["ln"] if "attn" in seg else seg.get("ln")
+    if ln is None:
+        return 0
+    gamma = ln["gamma"]
     return gamma.shape[0] if gamma.ndim == 2 else 0
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mxfp4_matmul.ref import mxfp4_matmul_ref
@@ -219,6 +220,14 @@ def mxfp4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
     if x.device.type == "cpu":
         out = profiled_call("mxfp4_matmul.ref", obs,
                             lambda: mxfp4_matmul_ref(xm, codes, exps))
+    elif x.device.type == "cuda" and n % 4:
+        # the kernel stores four columns at a time: zero columns (scale 0)
+        # pad N, and the product drops them (tiny xlstm-125m's sLSTM FFN is
+        # 170 wide; the reference's conversion packs it); the route is N's
+        pad = -n % 4
+        out = profiled_call("mxfp4_matmul", obs, lambda: _launch(
+            xm, F.pad(codes, (0, pad)), F.pad(exps, (0, pad)),
+            route=pick_route(xm.shape[0], k, n, xm.dtype)))[:, :n]
     elif x.device.type == "cuda":
         out = profiled_call("mxfp4_matmul", obs,
                             lambda: _launch(xm, codes, exps))

@@ -1,5 +1,10 @@
-"""Serving launcher for the port: the LM served by the continuous-batching
-engine on the fused paged KV pool.
+"""Serving launcher for the port. Without ``--serve-trace`` or
+``--arrivals`` (the reference's default) the LM greedy-decodes a batch of
+random prompts from the legacy split K/V cache and the recurrent states
+(:func:`greedy_decode`, the only way the recurrent archs xlstm-125m and
+zamba2-1.2b are served; hubert-xlarge is encoder-only and exits); with
+them it is served by the continuous-batching engine on the fused paged KV
+pool.
 
 ``--backend mxfp4`` (default): every static linear is resident as packed
 MXFP4 (4.25 bits/param) and runs through the hand-written
@@ -44,6 +49,10 @@ the reference's own compositions instead of the kernels, eagerly.
 Runs on CUDA unless ``--device cpu`` is given (then the kernels' plain
 versions run); without a GPU and without ``--device cpu`` it raises.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --device cpu                          # greedy decode, tiny, CPU
+  python -m repro_torch.launch.serve --arch xlstm-125m --no-tiny \\
+      --batch 4 --prompt-len 512 --tokens 64  # greedy decode, full width
   python -m repro_torch.launch.serve --no-tiny --serve-trace \\
       --backend mxfp4 --kv-layout fused     # full width, 32 layers
   python -m repro_torch.launch.serve --serve-trace --backend cim \\
@@ -67,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -166,7 +176,7 @@ def page_budget(cfg, prompt_len: int, tokens: int) -> tuple[int, int]:
     wrap; gemma3-1b's 512-slot local layers cap it at 512), as in the
     reference's launcher; the prefill gets what the new tokens leave."""
     windows = [s.attn.window for s in lm.build_segments(cfg)
-               if s.attn.window > 0]
+               if s.attn is not None and s.attn.window > 0]
     page_len = prompt_len + tokens
     if windows:
         page_len = min(page_len, min(windows))
@@ -340,6 +350,206 @@ def serve_load(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
             "ecfg": ecfg, "graphs": graphs}
 
 
+def _copy_into(dst, src) -> None:
+    """Copy each tensor leaf of ``src`` into ``dst``'s (a ``None`` on
+    either side skips that subtree)."""
+    if dst is None or src is None:
+        return
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            _copy_into(v, src[k])
+    elif isinstance(dst, list):
+        for d, t in zip(dst, src):
+            _copy_into(d, t)
+    else:
+        dst.copy_(src)
+
+
+@torch.no_grad()
+def _greedy_step(params, cfg, ctx, caches, nxt, step_in) -> torch.Tensor:
+    """One ``[B, 1]`` decode step on ``step_in`` (int64 [B + 1]: the ids,
+    then the position): K/V rows are written into ``caches`` in place,
+    the new recurrent states into ``nxt``; returns the greedy ids (int64
+    [B]). It reads the states of ``caches`` and writes only what the same
+    input writes again, so a rerun gives the same result, which a graph
+    capture's warm-up needs."""
+    b = step_in.shape[0] - 1
+    logits, new = lm.decode_step(params, cfg, ctx, step_in[:b, None],
+                                 step_in[b], caches)
+    _copy_into(nxt, new)
+    return torch.argmax(logits.float(), -1)
+
+
+@torch.no_grad()
+def _commit_step(caches, nxt, step_in) -> None:
+    """Make the states :func:`_greedy_step` wrote the current ones."""
+    _copy_into(caches, nxt)
+
+
+class GreedyDecoder:
+    """The reference launcher's greedy decode on one batch: the caches of
+    ``lm.init_cache(cfg, batch, max_len)`` (the legacy split K/V cache and
+    the recurrent states), a :meth:`prefill` and one :meth:`step` a token.
+    On CUDA with ``cuda_graphs`` a step is two captured graphs
+    (``serving/graphs.py::StepGraph``): the decode step, which writes the
+    new states beside the current ones, and the commit that copies them
+    over; the caches stay static buffers written in place. The prefill
+    runs eagerly (the reference jits only its step)."""
+
+    def __init__(self, params, cfg, ctx, batch: int, max_len: int, device,
+                 cuda_graphs: bool = True):
+        self.params, self.cfg, self.ctx = params, cfg, ctx
+        self._shape = (batch, max_len, device)
+        self.caches = lm.init_cache(cfg, batch, max_len, device=device)
+        # the recurrent layers' next states (attention layers write in
+        # place)
+        nxt = [[None if seg.kind in lm.ATTN_KINDS
+                else {k: torch.empty_like(v) for k, v in c.items()}
+                for c in seg_caches]
+               for seg, seg_caches in zip(lm.build_segments(cfg),
+                                          self.caches)]
+        self.step_in = torch.zeros((batch + 1,), dtype=torch.int64,
+                                   device=device)
+        decode = functools.partial(_greedy_step, params, cfg, ctx,
+                                   self.caches, nxt)
+        commit = functools.partial(_commit_step, self.caches, nxt)
+        self.graphs: list = []
+        if torch.device(device).type == "cuda" and cuda_graphs:
+            from repro_torch.serving.graphs import StepGraph
+
+            self.graphs = [StepGraph(decode, self.step_in, obs=ctx.obs),
+                           StepGraph(commit, self.step_in, obs=ctx.obs)]
+            self._decode, self._commit = self.graphs
+        else:
+            self._decode = functools.partial(decode, self.step_in)
+            self._commit = functools.partial(commit, self.step_in)
+        self.ids: torch.Tensor | None = None
+        self.pos = 0
+
+    @property
+    def state_bytes(self) -> int:
+        """The caches' bytes a lane."""
+        return sum(t.numel() * t.element_size()
+                   for t in _tensors(self.caches)) // (
+            self.step_in.shape[0] - 1)
+
+    @torch.no_grad()
+    def prefill(self, prompt: torch.Tensor) -> torch.Tensor:
+        """Prompt ``prompt`` (int64 [B, S]) into empty caches (an mLSTM or
+        sLSTM prefill continues from the state it is given), copied into
+        the static ones; the head on the last position only, argmax in
+        f32. Returns the ids [B]."""
+        b, max_len, device = self._shape
+        hidden, new = lm.forward(self.params, self.cfg, self.ctx,
+                                 {"ids": prompt},
+                                 caches=lm.init_cache(self.cfg, b, max_len,
+                                                      device=device),
+                                 return_hidden=True)
+        _copy_into(self.caches, new)
+        logits = lm._head(self.ctx, self.cfg, self.params, hidden[:, -1:])
+        self.ids = torch.argmax(logits[:, -1].float(), -1)
+        self.pos = prompt.shape[1]
+        return self.ids
+
+    def step(self) -> torch.Tensor:
+        """One decode step from the last ids at the next position; returns
+        the new ids [B] (on CUDA a graph's static output: valid until the
+        next step)."""
+        b = self.step_in.shape[0] - 1
+        self.step_in[:b].copy_(self.ids)
+        self.step_in[b].fill_(self.pos)
+        self.ids = self._decode()
+        self._commit()
+        self.pos += 1
+        return self.ids
+
+    @property
+    def capture_s(self) -> float | None:
+        return (sum(g.capture_s or 0.0 for g in self.graphs)
+                if self.graphs else None)
+
+    @property
+    def pool_bytes(self) -> int | None:
+        return (sum(g.pool_bytes or 0 for g in self.graphs)
+                if self.graphs else None)
+
+
+def greedy_decode(params, cfg, ctx, prompt: torch.Tensor, tokens: int, *,
+                  obs: obs_lib.Obs | None = None,
+                  cuda_graphs: bool = True) -> dict:
+    """The reference launcher's greedy decode (its default path) through a
+    :class:`GreedyDecoder`: ``prompt`` (int64 [B, S] on the run's device)
+    prefilled into caches of ``S + tokens`` positions, then ``tokens - 1``
+    decode steps at a scalar position. With ``obs`` each inter-token gap
+    (host wall, each step ends in a device synchronize) lands in its
+    ``serve_token_latency_seconds`` histogram. Returns ``{"ids": int64
+    [B, tokens] on the host, "token_s": the gaps, "prefill_s",
+    "decode_s", "capture_s", "pool_bytes", "state_bytes": the caches'
+    bytes a lane}``."""
+    dev = prompt.device
+    b, plen = prompt.shape
+    dec = GreedyDecoder(params, cfg, ctx, b, plen + tokens, dev,
+                        cuda_graphs=cuda_graphs)
+    _sync(dev)
+    t0 = time.perf_counter()
+    outs = [dec.prefill(prompt).clone()]
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    hist = (obs.registry.histogram("serve_token_latency_seconds",
+                                   "inter-token decode gap (host wall)")
+            if obs is not None else None)
+    gaps = []
+    t0 = t_prev = time.perf_counter()
+    for _ in range(tokens - 1):
+        outs.append(dec.step().clone())
+        _sync(dev)
+        now = time.perf_counter()
+        gaps.append(now - t_prev)
+        if hist is not None:
+            hist.observe(now - t_prev)
+        t_prev = now
+    return {"ids": torch.stack(outs, dim=1).cpu(), "token_s": gaps,
+            "prefill_s": prefill_s, "decode_s": time.perf_counter() - t0,
+            "capture_s": dec.capture_s, "pool_bytes": dec.pool_bytes,
+            "state_bytes": dec.state_bytes}
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    elif torch.is_tensor(tree):
+        yield tree
+
+
+def serve_greedy(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
+    """The launcher's default path: ``--batch`` random prompts of
+    ``--prompt-len`` tokens (from ``--seed``) greedy-decoded for
+    ``--tokens`` tokens (:func:`greedy_decode`), logged with the first
+    lane's ids as the reference logs them; then the metrics
+    (``--metrics-out``, SLO targets). Returns :func:`greedy_decode`'s
+    dict with the ``prompt``, ``wall_s`` (the decode steps) and
+    ``tok_s``."""
+    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=device)
+    out = greedy_decode(params, cfg, ctx, prompt, args.tokens, obs=obs,
+                        cuda_graphs=ctx.impl != "ref")
+    n = (args.tokens - 1) * args.batch
+    out.update(prompt=prompt, wall_s=out["decode_s"],
+               tok_s=n / out["decode_s"] if out["decode_s"] else None)
+    p50 = float(np.median(out["token_s"])) * 1e3 if out["token_s"] else None
+    log.info("%s [%s] greedy decode: %s", cfg.name, args.backend, obs_lib.kv(
+        tokens=n, wall_s=out["decode_s"], token_p50_ms=p50,
+        ids0=out["ids"][0].tolist()))
+    _finish_metrics(args, obs, log)
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", "--model", dest="arch", default="starcoder2-7b",
@@ -359,7 +569,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and requests")
     ap.add_argument("--batch", type=int, default=4,
-                    help="calibration batch size")
+                    help="calibration batch size; the greedy decode's lanes")
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--backend", default="mxfp4",
@@ -432,12 +642,19 @@ def init_lm(args):
     ``--seed`` on the run's device. Raises if CUDA is asked for (the
     default) and missing."""
     device = resolve_device(args.device)
-    cfg = C.tiny(C.ARCHS[args.arch]) if args.tiny else C.ARCHS[args.arch]
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    cfg = lm_config(args)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with torch.no_grad():
         return cfg, lm.init_model(cfg, gen), device
+
+
+def lm_config(args):
+    """The LM config of ``--arch``, tiny under ``--tiny``, its depth cut to
+    ``--layers`` when given."""
+    cfg = C.tiny(C.ARCHS[args.arch]) if args.tiny else C.ARCHS[args.arch]
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
 
 
 def fidelity_batch(args, cfg, device) -> dict:
@@ -448,22 +665,26 @@ def fidelity_batch(args, cfg, device) -> dict:
         device=device)[0]
 
 
-def build_model(args, obs=None):
+def build_model(args, obs=None, batches=None):
     """Config, converted parameters and RunCtx for the run: random weights
     from ``--seed`` on the run's device, converted for ``--backend``, and
     with ``--fidelity`` the fidelity pass (:func:`run_fidelity`) while the
     float tree is still there. Without ``--fidelity`` the conversion drops
     each float layer once it is converted, so the float tree never sits
     whole beside the converted one (a full-width MoE layer is ~10 GB in
-    float32)."""
+    float32). ``batches`` are the ``cim`` calibration batches (default:
+    ``calibration_batches``' token ids; an audio arch needs ``emb``
+    batches)."""
     log = obs_lib.get_logger("repro_torch.serve", args.log_level)
     t0 = time.perf_counter()
     cfg, fparams, device = init_lm(args)
     with torch.no_grad():
         params, ctx = build_backend(args, cfg, fparams, device, obs=obs,
+                                    batches=batches,
                                     free_float=not args.fidelity)
     if args.fidelity:
         run_fidelity(args, cfg, fparams, params, ctx, obs,
+                     batches[0] if batches else
                      fidelity_batch(args, cfg, device))
     del fparams
     log.info("model ready: %s", obs_lib.kv(
@@ -565,14 +786,15 @@ def main(argv=None) -> dict:
     if args.arch in C.VISION_ARCHS:
         cfg, params, ctx, device = build_vision_model(args, obs=obs)
         return serve_vision(args, cfg, params, ctx, obs, device)
-    if not (args.serve_trace or args.arrivals):
-        raise SystemExit("only --serve-trace and --arrivals are ported (the "
-                         "greedy legacy-cache decode is in ROADMAP.md "
-                         "Queue 1)")
+    cfg = lm_config(args)
+    if not cfg.supports_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only; no decode")
     cfg, params, ctx, device = build_model(args, obs=obs)
     if args.arrivals:
         return serve_load(args, cfg, params, ctx, obs, device)
-    return serve_trace(args, cfg, params, ctx, obs, device)
+    if args.serve_trace:
+        return serve_trace(args, cfg, params, ctx, obs, device)
+    return serve_greedy(args, cfg, params, ctx, obs, device)
 
 
 if __name__ == "__main__":

@@ -2,12 +2,16 @@
 the fused paged KV cache (counterpart of ``repro.layers.attention``).
 
 Ported branches of :func:`attn_apply`: prefill without a cache, prefill
-into a fused cache, chunked prefill into a fused page, and the fused paged
-decode, over float pages or (under a digital-SDPA backend) the
-quantized-resident mirrors. Prefill past ``RunCtx.dense_attn_max`` takes
-the online-softmax ``_flash_attn``; on CUDA, without the digital SDPA,
-that is the ``flash_attention`` kernel. The legacy split cache raises
-``NotImplementedError`` (ROADMAP.md Queue 1).
+into a fused or a legacy split cache, chunked prefill into a fused page,
+the fused paged decode, over float pages or (under a digital-SDPA
+backend) the quantized-resident mirrors, and the legacy decode (torch
+ops, as the reference's einsums), at a scalar or per-lane position, float
+or on the digital MXFP4 SDPA from the resident mirrors or by
+requantizing the cache each step. Prefill past ``RunCtx.dense_attn_max``
+takes the online-softmax ``_flash_attn``; on CUDA, without the digital
+SDPA, that is the ``flash_attention`` kernel. Chunked prefill into a
+legacy page (the engine's legacy layout) raises ``NotImplementedError``
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.core import mx as mxlib
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import layout as paged_layout
@@ -119,6 +124,70 @@ def _mx_pv(p, v):
     vq = (mxlib.fake_quant_axis(v, 1) if v.dtype == torch.bfloat16
           else mxlib.fake_quant_axis(v.to(torch.float32), 1))
     return p, vq, den
+
+
+# Quantized-resident mirrors of the legacy split cache (digital-SDPA
+# decode): K codes [B, W, Hkv, Dh_pad] quantized along head_dim (exps
+# [B, W, Hkv, Dh_pad // 32]); V codes [B, Hkv, Dh, W_pad] with the key
+# axis last (exps [B, Hkv, Dh, W_pad // 32]). A decode step re-quantizes
+# the written K row and the active 32-block of V only, bitwise a full
+# requant of the cache.
+
+def _quant_cache_sizes(w: int, hd: int) -> tuple[int, int]:
+    dpad = -(-hd // mxlib.BLOCK) * mxlib.BLOCK
+    wpad = -(-w // mxlib.BLOCK) * mxlib.BLOCK
+    return dpad, wpad
+
+
+def quant_cache_init(batch: int, w: int, n_kv: int, hd: int,
+                     device=None) -> dict:
+    """Mirrors of a zero K/V cache: zero codes, E8M0 floor exponents."""
+    dev = resolve_device(device)
+    dpad, wpad = _quant_cache_sizes(w, hd)
+    i8 = torch.int8
+    return {
+        "k_codes": torch.zeros((batch, w, n_kv, dpad), dtype=i8, device=dev),
+        "k_exps": torch.full((batch, w, n_kv, dpad // mxlib.BLOCK),
+                             mxlib.E8M0_MIN, dtype=i8, device=dev),
+        "v_codes": torch.zeros((batch, n_kv, hd, wpad), dtype=i8, device=dev),
+        "v_exps": torch.full((batch, n_kv, hd, wpad // mxlib.BLOCK),
+                             mxlib.E8M0_MIN, dtype=i8, device=dev),
+    }
+
+
+def _quant_cache_full(kw: torch.Tensor, vw: torch.Tensor) -> dict:
+    """Quantize a whole cache-shaped K/V pair (prefill into a cache): K a
+    row along head_dim, V along the key axis in 32-blocks."""
+    kq = mxlib.quantize(kw.to(torch.float32))
+    vq = mxlib.quantize_axis(vw.to(torch.float32), 1)  # key axis last
+    return {"k_codes": kq.codes, "k_exps": kq.exps,
+            "v_codes": vq.codes, "v_exps": vq.exps}
+
+
+def _quant_cache_step(cache: dict, ck: torch.Tensor, cv: torch.Tensor,
+                      lanes: torch.Tensor, slot: torch.Tensor) -> None:
+    """In-place per-step update of the mirrors in ``cache`` from the
+    just-written raw caches ``ck`` / ``cv``: the written K row of each
+    lane and the V block holding its slot (a partial end block reads 0
+    past the cache), the reference's ``_quant_cache_step``."""
+    b, w = cv.shape[0], cv.shape[1]
+    kq = mxlib.quantize(ck[lanes, slot].to(torch.float32))  # [B, Hkv, *]
+    cache["k_codes"][lanes, slot] = kq.codes
+    cache["k_exps"][lanes, slot] = kq.exps
+    start = (slot // mxlib.BLOCK) * mxlib.BLOCK  # [B]
+    idx = start[:, None] + torch.arange(mxlib.BLOCK, device=cv.device)
+    blk = cv[lanes[:, None], torch.clamp(idx, max=w - 1)]  # [B, 32, Hkv, Dh]
+    blk = torch.where((idx < w)[:, :, None, None], blk,
+                      torch.zeros((), dtype=blk.dtype, device=blk.device))
+    vq = mxlib.quantize_axis(blk.to(torch.float32), 1)  # [B, Hkv, Dh, 32]
+    vc = cache["v_codes"]
+    cache["v_codes"].scatter_(
+        3, idx[:, None, None, :].expand(b, vc.shape[1], vc.shape[2],
+                                        mxlib.BLOCK), vq.codes)
+    ve = cache["v_exps"]
+    cache["v_exps"].scatter_(
+        3, (slot // mxlib.BLOCK)[:, None, None, None].expand(
+            b, ve.shape[1], ve.shape[2], 1), vq.exps)
 
 
 def _dense_attn(q, k, v, q_pos, k_pos, cfg: AttnStatic,
@@ -292,6 +361,10 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
       ``ctx.paged_rows`` (default: lane i -> row i), then one ragged paged
       decode over the pool. The reference returns new arrays that the
       engine donates; writing in place has the same effect.
+    - Legacy decode (S == 1, ``cache={"k", "v"}`` and, under the digital
+      SDPA, optionally the resident mirrors): the new row is written in
+      place at slot ``pos % W`` of each lane, then attention over the
+      lane's valid slots (:func:`_legacy_decode`).
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -307,32 +380,43 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
         k = torch.where(kvm, k, torch.zeros((), dtype=k.dtype, device=k.device))
         v = torch.where(kvm, v, torch.zeros((), dtype=v.dtype, device=v.device))
     q = q.reshape(b, s, kv, g, hd)
-    if cache is not None and "kv" not in cache:
-        raise NotImplementedError("the legacy split K/V cache is not ported "
-                                  "(ROADMAP.md Queue 1); use fused=True")
+    fused = cache is not None and "kv" in cache
 
     if cache is not None and s > 1 and pos is not None:
+        if not fused:
+            raise NotImplementedError(
+                "chunked prefill into a legacy split K/V page (the engine's "
+                "legacy layout) is not ported (ROADMAP.md Queue 1)")
         o, cache = _chunk_prefill(cfg, q, k, v, positions, cache, mx_dig)
     elif cache is not None and s > 1:
         # prefill into a page: ring convention, slot = pos % W
-        w = cache["kv"].shape[1]
+        w = (cache["kv"] if fused else cache["k"]).shape[1]
         if s < w:
-            kw = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, w - s))
-            vw = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, w - s))
+            kw = F.pad(k, (0, 0, 0, 0, 0, w - s))
+            vw = F.pad(v, (0, 0, 0, 0, 0, w - s))
         else:
             kw, vw = k[:, -w:], v[:, -w:]
             if s % w:
                 kw = torch.roll(kw, s % w, dims=1)
                 vw = torch.roll(vw, s % w, dims=1)
-        dt = cache["kv"].dtype
-        kcast, vcast = kw.to(dt), vw.to(dt)
-        resident = "kv_codes" in cache
-        cache = {"kv": paged_layout.fuse_kv(kcast, vcast)}
-        if resident:
-            cache.update(paged_layout.quant_page_full(kcast, vcast))
+        if fused:
+            dt = cache["kv"].dtype
+            kcast, vcast = kw.to(dt), vw.to(dt)
+            resident = "kv_codes" in cache
+            cache = {"kv": paged_layout.fuse_kv(kcast, vcast)}
+            if resident:
+                cache.update(paged_layout.quant_page_full(kcast, vcast))
+        else:
+            resident = "k_codes" in cache
+            cache = {"k": kw.to(cache["k"].dtype),
+                     "v": vw.to(cache["v"].dtype)}
+            if resident:  # from the cache-dtype pages, as a requant sees them
+                cache.update(_quant_cache_full(cache["k"], cache["v"]))
         o = _prefill_attn(ctx, cfg, q, k, v, positions, mx_dig)
-    elif cache is not None:
+    elif fused:
         o = _fused_decode(ctx, cfg, q, k, v, cache, pos, mx_dig)
+    elif cache is not None:
+        o = _legacy_decode(cfg, q, k, v, cache, pos, mx_dig)
     else:
         o = _prefill_attn(ctx, cfg, q, k, v, positions, mx_dig)
 
@@ -406,17 +490,75 @@ def _fused_decode(ctx, cfg, q, k, v, cache, pos, mx_dig):
     return o[:, None]
 
 
+def _legacy_decode(cfg, q, k, v, cache, pos, mx_dig):
+    """One decode step over the legacy split cache, the reference's
+    einsum decode: each lane's new K/V row is written in place at slot
+    ``pos % W`` (``pos`` an int or an int tensor, 0-d or [B]), and its
+    query attends over slots ``<= pos`` (all W once the ring has wrapped).
+    Under the digital SDPA, Q and K are quantized along head_dim (K read
+    back from the resident mirrors, updated in place, or requantized whole
+    each step), the scores get the BF16 round, P is quantized along the
+    key axis and V along its key axis (resident or requantized), and the
+    output is divided by the quantized P's sum."""
+    b, hd = q.shape[0], cfg.head_dim
+    ck, cv = cache["k"], cache["v"]
+    w = ck.shape[1]
+    dev = q.device
+    pos_b = torch.as_tensor(pos, device=dev).to(torch.long).expand(b)
+    slot = pos_b % w
+    lanes = torch.arange(b, device=dev)
+    ck[lanes, slot] = k[:, 0].to(ck.dtype)
+    cv[lanes, slot] = v[:, 0].to(cv.dtype)
+    resident = "k_codes" in cache
+    if resident:
+        _quant_cache_step(cache, ck, cv, lanes, slot)
+    idx = torch.arange(w, device=dev)
+    valid = (idx[None, :] <= pos_b[:, None]) | (pos_b[:, None] >= w)
+    qd, kd = q, ck
+    if mx_dig:
+        qd = _mx_fq(q)
+        if resident:  # O(1) a step: K read back from its codes
+            kd = mxlib.dequantize(mxlib.MX(cache["k_codes"], cache["k_exps"]),
+                                  out_len=hd)
+        else:  # the requant-per-step reference
+            kd = _mx_fq(ck)
+        qd, kd = qd.to(torch.bfloat16), kd.to(torch.bfloat16)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qd.float(), kd.float()) * cfg.scale
+    if mx_dig:
+        sc = _mx_score_round(sc)
+    sc = torch.where(valid[:, None, None, None, :], sc, float("-inf"))
+    if not mx_dig:
+        pr = torch.softmax(sc, dim=-1).to(cv.dtype)
+        return torch.einsum("bhgqk,bkhd->bqhgd", pr, cv)
+    pr, den = _mx_p(torch.softmax(sc, dim=-1))
+    if resident:
+        vd = torch.movedim(mxlib.dequantize(
+            mxlib.MX(cache["v_codes"], cache["v_exps"]), out_len=w), -1, 1)
+    else:
+        vd = mxlib.fake_quant_axis(cv, 1)  # bf16-native chain
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pr.to(torch.bfloat16).float(),
+                     vd.to(torch.bfloat16).float())
+    return (o / torch.movedim(den, -2, 1)).to(cv.dtype)
+
+
 def attn_cache_init(cfg: AttnStatic, batch: int, max_len: int,
                     dtype=torch.bfloat16, mx_digital: bool = False,
                     fused: bool = False, device=None) -> dict:
-    """Fused paged K/V cache on ``device`` (default ``cuda``; raises
-    without a GPU unless ``device="cpu"`` is given); with ``mx_digital`` it
-    also carries the quantized-resident code mirrors for the digital-SDPA
-    decode."""
-    if not fused:
-        raise NotImplementedError("the legacy split K/V cache is not ported "
-                                  "(ROADMAP.md Queue 1); use fused=True")
+    """K/V decode cache on ``device`` (default ``cuda``; raises without a
+    GPU unless ``device="cpu"`` is given): the fused paged layout
+    (``fused``) or the legacy split ``{"k", "v"}`` [B, W, Hkv, Dh]; with
+    ``mx_digital`` it also carries the quantized-resident code mirrors for
+    the digital-SDPA decode."""
     w = min(cfg.window, max_len) if cfg.window > 0 else max_len
+    if not fused:
+        dev = resolve_device(device)
+        shape = (batch, w, cfg.n_kv, cfg.head_dim)
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if mx_digital:
+            cache.update(quant_cache_init(batch, w, cfg.n_kv, cfg.head_dim,
+                                          dev))
+        return cache
     cache = paged_layout.fused_cache_init(batch, w, cfg.n_kv, cfg.head_dim,
                                           dtype, device)
     if mx_digital:
@@ -425,6 +567,17 @@ def attn_cache_init(cfg: AttnStatic, batch: int, max_len: int,
     return cache
 
 
+ATTN_CACHE_SPECS = {
+    "k": ("batch", "cache_seq", None, None),
+    "v": ("batch", "cache_seq", None, None),
+}
+ATTN_QUANT_CACHE_SPECS = {
+    **ATTN_CACHE_SPECS,
+    "k_codes": ("batch", "cache_seq", None, None),
+    "k_exps": ("batch", "cache_seq", None, None),
+    "v_codes": ("batch", None, None, "cache_seq"),
+    "v_exps": ("batch", None, None, None),
+}
 FUSED_ATTN_CACHE_SPECS = {"kv": ("batch", "cache_seq", None, None)}
 FUSED_ATTN_QUANT_CACHE_SPECS = {
     **FUSED_ATTN_CACHE_SPECS,
@@ -436,5 +589,5 @@ FUSED_ATTN_QUANT_CACHE_SPECS = {
 
 def attn_cache_specs(mx_digital: bool = False, fused: bool = False) -> dict:
     if not fused:
-        raise NotImplementedError("the legacy split K/V cache is not ported")
+        return ATTN_QUANT_CACHE_SPECS if mx_digital else ATTN_CACHE_SPECS
     return FUSED_ATTN_QUANT_CACHE_SPECS if mx_digital else FUSED_ATTN_CACHE_SPECS

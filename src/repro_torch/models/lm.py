@@ -4,16 +4,22 @@ MoE blocks (``moe_attn``: mixtral-8x22b, qwen3-moe-235b-a22b) under full
 attention (starcoder2-7b), a sliding window (h2o-danube-1.8b, mixtral)
 or runs of local and global layers (gemma3-1b's 5:1 pattern, one segment
 a run), with RoPE or M-RoPE (qwen2-vl-7b, whose vision front end is the
-reference's stub: ``front_proj`` on precomputed patch embeddings). The
-recurrent families (SSM, xLSTM, the Zamba hybrid) and the audio front end
-are not ported.
+reference's stub: ``front_proj`` on precomputed patch embeddings); the
+recurrent families: xLSTM (``mlstm`` / ``slstm`` runs, xlstm-125m) and
+the Zamba hybrid (``mamba`` runs, each followed by a visit of the shared
+attention block, ``zshared``, whose weights sit once under the top-level
+``shared``: zamba2-1.2b); and the encoder-only audio family
+(hubert-xlarge: non-causal, no RoPE, the reference's front-end stub of
+``front_proj`` on frame embeddings plus sinusoidal positions).
 
 The layer stack runs as a Python loop over unstacked layers: the
 reference's ``unroll_layers=True`` mode, the one in which it pins bitwise
 MXFP4 identity. Parameters keep the reference's tree (``embed``,
-``segments``, ``final_ln``, ``lm_head``) with one dict per layer under
-``segments[i]`` where the reference stacks a leading layer axis. Caches
-are likewise one dict per layer.
+``segments``, ``shared``, ``final_ln``, ``lm_head``) with one dict per
+layer under ``segments[i]`` where the reference stacks a leading layer
+axis (a ``zshared`` segment holds one empty dict). Caches are likewise
+one dict per layer: a fused page or a legacy split K/V cache for the
+attention kinds, conv tails and states for the recurrent ones.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from repro_torch.layers import attention as attn_mod
 from repro_torch.layers import ffn as ffn_mod
 from repro_torch.layers import moe as moe_mod
 from repro_torch.layers import rope as ropelib
+from repro_torch.layers import ssm as ssm_mod
+from repro_torch.layers import xlstm as xl_mod
 from repro_torch.layers.backends import layer_paths
 from repro_torch.layers.common import (
     RunCtx,
@@ -41,9 +49,16 @@ from repro_torch.layers.common import (
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str  # "attn" | "moe_attn" (the recurrent kinds are not ported)
+    kind: str  # attn | moe_attn | mamba | mlstm | slstm | zshared
     n: int
     attn: attn_mod.AttnStatic | None = None
+    mamba: ssm_mod.MambaStatic | None = None
+    xl: xl_mod.XLSTMStatic | None = None
+
+
+# segment kinds whose cache is K/V (a decode writes it in place); the
+# others carry recurrent state (a decode returns new tensors)
+ATTN_KINDS = ("attn", "moe_attn", "zshared")
 
 
 def _attn_static(cfg: ArchConfig, is_global: bool = False
@@ -65,31 +80,56 @@ def _attn_static(cfg: ArchConfig, is_global: bool = False
     )
 
 
-def build_segments(cfg: ArchConfig) -> list[Segment]:
-    """The reference's segments of an attention LM (the dense, MoE and vlm
-    families): one segment of every layer, or, for ``local_global``, one a
-    run of local or global layers (layer i is global when ``i % (lg_ratio
-    + 1) == lg_ratio``; gemma3-1b's 26 layers are L5 G1 L5 G1 L5 G1 L5 G1
-    L2). A config with experts gets ``moe_attn`` segments."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported (ROADMAP.md "
-            "Queue 1 item 7); the dense, MoE and vlm families are")
-    kind = "moe_attn" if cfg.n_experts else "attn"
-    if cfg.attn_pattern != "local_global":
-        return [Segment(kind, cfg.n_layers, attn=_attn_static(cfg))]
-    glob = [i % (cfg.lg_ratio + 1) == cfg.lg_ratio
-            for i in range(cfg.n_layers)]
-    segs: list[Segment] = []
-    i = 0
-    while i < cfg.n_layers:
+def _runs(kinds: list) -> list:
+    """(kind, length) of each maximal run of equal kinds."""
+    out, i = [], 0
+    while i < len(kinds):
         j = i
-        while j < cfg.n_layers and glob[j] == glob[i]:
+        while j < len(kinds) and kinds[j] == kinds[i]:
             j += 1
-        segs.append(Segment(kind, j - i,
-                            attn=_attn_static(cfg, is_global=glob[i])))
+        out.append((kinds[i], j - i))
         i = j
-    return segs
+    return out
+
+
+def build_segments(cfg: ArchConfig) -> list[Segment]:
+    """The reference's segments. Attention LMs (the dense, MoE, audio and
+    vlm families): one segment of every layer, or, for ``local_global``,
+    one a run of local or global layers (layer i is global when ``i %
+    (lg_ratio + 1) == lg_ratio``; gemma3-1b's 26 layers are L5 G1 L5 G1
+    L5 G1 L5 G1 L2); a config with experts gets ``moe_attn`` segments.
+    xLSTM (``ssm``): a run of ``mlstm`` or ``slstm`` layers each
+    (``slstm_at``). The Zamba hybrid: runs of ``shared_attn_every`` Mamba
+    layers, each followed by a ``zshared`` visit, except after a shorter
+    last run."""
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
+        kind = "moe_attn" if cfg.n_experts else "attn"
+        if cfg.attn_pattern != "local_global":
+            return [Segment(kind, cfg.n_layers, attn=_attn_static(cfg))]
+        glob = [i % (cfg.lg_ratio + 1) == cfg.lg_ratio
+                for i in range(cfg.n_layers)]
+        return [Segment(kind, n, attn=_attn_static(cfg, is_global=g))
+                for g, n in _runs(glob)]
+    if cfg.family == "ssm":
+        xl = xl_mod.XLSTMStatic(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                                norm=cfg.norm)
+        kinds = ["slstm" if i in cfg.slstm_at else "mlstm"
+                 for i in range(cfg.n_layers)]
+        return [Segment(k, n, xl=xl) for k, n in _runs(kinds)]
+    if cfg.family == "hybrid":
+        mst = ssm_mod.MambaStatic(
+            d_model=cfg.d_model, n_heads=2 * cfg.d_model // cfg.ssm_head_dim,
+            head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state, norm=cfg.norm)
+        segs: list[Segment] = []
+        left, k = cfg.n_layers, cfg.shared_attn_every
+        while left > 0:
+            take = min(k, left)
+            segs.append(Segment("mamba", take, mamba=mst))
+            left -= take
+            if left > 0 or take == k:
+                segs.append(Segment("zshared", 1, attn=_attn_static(cfg)))
+        return segs
+    raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------- init
@@ -99,8 +139,11 @@ def init_model(cfg: ArchConfig, gen: torch.Generator) -> dict:
     params: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model)}
     if cfg.frontend != "none":
         params["front_proj"] = linear_init(gen, cfg.frontend_dim, cfg.d_model)
+    segs = build_segments(cfg)
     params["segments"] = [[block_init(gen, cfg, seg) for _ in range(seg.n)]
-                          for seg in build_segments(cfg)]
+                          for seg in segs]
+    if any(seg.kind == "zshared" for seg in segs):
+        params["shared"] = zshared_init(gen, cfg)
     params["final_ln"] = norm_init(cfg.norm, cfg.d_model, gen.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size)
@@ -108,10 +151,20 @@ def init_model(cfg: ArchConfig, gen: torch.Generator) -> dict:
 
 
 def block_init(gen: torch.Generator, cfg, seg: Segment) -> dict:
-    """One layer's parameters: the attention sublayer, then the FFN or,
-    in a ``moe_attn`` segment, the MoE (``cfg`` needs ``d_model``,
-    ``d_ff``, ``ffn_kind``, ``norm`` and ``use_bias``, and ``n_experts``
-    for MoE: an ``ArchConfig`` or a ``ViTConfig``)."""
+    """One layer's parameters: a recurrent block (``mamba``, ``mlstm``,
+    ``slstm``), nothing for a ``zshared`` visit (its weights are the
+    top-level ``shared``), or the attention sublayer, then the FFN or, in
+    a ``moe_attn`` segment, the MoE (``cfg`` needs ``d_model``, ``d_ff``,
+    ``ffn_kind``, ``norm`` and ``use_bias``, and ``n_experts`` for MoE: an
+    ``ArchConfig`` or a ``ViTConfig``)."""
+    if seg.kind == "mamba":
+        return ssm_mod.mamba_init(gen, seg.mamba)
+    if seg.kind == "mlstm":
+        return xl_mod.mlstm_init(gen, seg.xl)
+    if seg.kind == "slstm":
+        return xl_mod.slstm_init(gen, seg.xl)
+    if seg.kind == "zshared":
+        return {}
     p = {"attn": attn_mod.attn_init(gen, seg.attn)}
     if seg.kind == "moe_attn":
         p["moe"] = moe_mod.moe_init(gen, cfg.d_model, cfg.d_ff,
@@ -122,36 +175,69 @@ def block_init(gen: torch.Generator, cfg, seg: Segment) -> dict:
     return p
 
 
+def zshared_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """The Zamba shared block, once for all its visits: ``w_in`` [2d, d]
+    over ``concat[x, x0]``, attention, the FFN and ``w_out`` [d, d]."""
+    return {"w_in": linear_init(gen, 2 * cfg.d_model, cfg.d_model),
+            "attn": attn_mod.attn_init(gen, _attn_static(cfg)),
+            "ffn": ffn_mod.ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
+                                    cfg.norm),
+            "w_out": linear_init(gen, cfg.d_model, cfg.d_model)}
+
+
 # --------------------------------------------------------------- caches
+
+def _block_cache(seg: Segment, batch: int, max_len: int, mx_digital: bool,
+                 fused: bool, device) -> dict:
+    if seg.kind in ATTN_KINDS:
+        return attn_mod.attn_cache_init(seg.attn, batch, max_len,
+                                        mx_digital=mx_digital, fused=fused,
+                                        device=device)
+    if seg.kind == "mamba":
+        return ssm_mod.mamba_cache_init(seg.mamba, batch, device)
+    if seg.kind == "mlstm":
+        return xl_mod.mlstm_cache_init(seg.xl, batch, device)
+    if seg.kind == "slstm":
+        return xl_mod.slstm_cache_init(seg.xl, batch, device)
+    raise ValueError(seg.kind)
+
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                mx_digital: bool = False, fused: bool = False,
                device=None) -> list:
-    """Decode caches: per segment, one fused page dict per layer, on
-    ``device`` (default ``cuda``; raises without a GPU unless
-    ``device="cpu"`` is given)."""
-    return [
-        [attn_mod.attn_cache_init(seg.attn, batch, max_len,
-                                  mx_digital=mx_digital, fused=fused,
-                                  device=device)
-         for _ in range(seg.n)]
-        for seg in build_segments(cfg)
-    ]
+    """Decode caches, per segment one dict per layer, on ``device``
+    (default ``cuda``; raises without a GPU unless ``device="cpu"`` is
+    given): for the attention kinds a fused page (``fused``) or the legacy
+    split K/V cache, with the quantized-resident mirrors under
+    ``mx_digital``; for the recurrent kinds their conv tails and
+    states."""
+    return [[_block_cache(seg, batch, max_len, mx_digital, fused, device)
+             for _ in range(seg.n)]
+            for seg in build_segments(cfg)]
+
+
+def _block_cache_specs(seg: Segment, mx_digital: bool, fused: bool) -> dict:
+    if seg.kind in ATTN_KINDS:
+        return attn_mod.attn_cache_specs(mx_digital, fused=fused)
+    return {"mamba": ssm_mod.MAMBA_CACHE_SPECS,
+            "mlstm": xl_mod.MLSTM_CACHE_SPECS,
+            "slstm": xl_mod.SLSTM_CACHE_SPECS}[seg.kind]
 
 
 def cache_specs(cfg: ArchConfig, mx_digital: bool = False,
                 fused: bool = False) -> list:
     """Logical axes of each cache leaf, per segment (shared by its
     layers; no stacked layer axis)."""
-    return [dict(attn_mod.attn_cache_specs(mx_digital, fused=fused))
-            for _ in build_segments(cfg)]
+    return [dict(_block_cache_specs(seg, mx_digital, fused))
+            for seg in build_segments(cfg)]
 
 
 # -------------------------------------------------------------- forward
 
 def forward(params, cfg: ArchConfig, ctx: RunCtx, batch: dict, caches=None,
             pos=None, return_hidden: bool = False):
-    """batch: {'ids', optional 'positions', optional 'vis_emb'}. Returns
+    """batch: {'ids' | 'emb', optional 'positions', optional 'vis_emb'}.
+    Returns
     (logits or hidden, caches). ``pos`` (decode): int or int [B], the
     position of the token; with ``positions`` and caches, the start of a
     prefill chunk. Without either, row i sits at position i and
@@ -166,12 +252,13 @@ def forward(params, cfg: ArchConfig, ctx: RunCtx, batch: dict, caches=None,
     else:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         ctx = dataclasses.replace(ctx, arange_positions=True)
+    x0 = x  # the Zamba shared block reads the embeddings again
     new_caches = []
     for i, seg in enumerate(build_segments(cfg)):
         x, seg_caches = run_segment(
             ctx, cfg, seg, params["segments"][i], x, positions,
             caches[i] if caches is not None else None, pos,
-            path=f"segments/{i}")
+            path=f"segments/{i}", shared=params.get("shared"), x0=x0)
         new_caches.append(seg_caches)
     x = norm_apply(cfg.norm, params["final_ln"], x)
     if return_hidden:
@@ -180,45 +267,93 @@ def forward(params, cfg: ArchConfig, ctx: RunCtx, batch: dict, caches=None,
 
 
 def run_segment(ctx: RunCtx, cfg, seg: Segment, layers: list, x, positions,
-                caches: list | None = None, pos=None, *, path: str):
-    """Run one segment's layers (attention, then FFN, each pre-norm with
-    its residual) over ``x``: the counterpart of the reference's
-    ``lm._run_segment`` in its unrolled mode. ``cfg`` needs ``ffn_kind``
-    and ``norm`` (an ``ArchConfig`` or a ``ViTConfig``; and ``top_k`` and
-    ``capacity_factor`` for a ``moe_attn`` segment, whose MoE runs under
-    the capture scope ``moe``). Each layer's
-    capture scope is ``<path>/L<j>``, or ``<path>`` for a single layer
-    (``layers/backends.py::layer_paths``). Returns (x, the layers' new
-    caches, None each without ``caches``)."""
+                caches: list | None = None, pos=None, *, path: str,
+                shared: dict | None = None, x0=None):
+    """Run one segment's layers over ``x``: the counterpart of the
+    reference's ``lm._run_segment`` in its unrolled mode. An attention
+    layer is attention, then the FFN, each pre-norm with its residual
+    (``cfg`` needs ``ffn_kind`` and ``norm``: an ``ArchConfig`` or a
+    ``ViTConfig``; and ``top_k`` and ``capacity_factor`` for a
+    ``moe_attn`` segment, whose MoE runs under the capture scope ``moe``).
+    A recurrent layer is its block; a ``zshared`` visit runs the
+    ``shared`` block on ``concat[x, x0]`` (``x0``: the embeddings) with
+    its residual. Each layer's capture scope is ``<path>/L<j>``, or
+    ``<path>`` for a single layer (``layers/backends.py::layer_paths``); a
+    ``zshared`` visit's is ``shared`` (its weights live there, so every
+    visit records under the same paths, as in the reference). Returns (x,
+    the layers' new caches, None each without ``caches``)."""
     a = seg.attn
     tables = (ropelib.rope_tables(positions, a.head_dim, a.rope_theta)
-              if a.use_rope and not a.mrope else None)
+              if a is not None and a.use_rope and not a.mrope else None)
     new_caches = []
     for j, (pj, lpath) in enumerate(zip(layers,
                                         layer_paths(path, len(layers)))):
         lctx = ctx.scoped(lpath)
         cj = caches[j] if caches is not None else None
-        x, nc = attn_mod.attn_apply(lctx.scoped("attn"), a, pj["attn"], x,
-                                    positions, cj, pos, rope_tables=tables)
-        if seg.kind == "moe_attn":
-            x = moe_mod.moe_apply(lctx.scoped("moe"), cfg.ffn_kind,
-                                  cfg.norm, pj["moe"], x, cfg.top_k,
-                                  cfg.capacity_factor)
+        if seg.kind == "mamba":
+            x, nc = ssm_mod.mamba_apply(lctx, seg.mamba, pj, x, cj)
+        elif seg.kind == "mlstm":
+            x, nc = xl_mod.mlstm_apply(lctx, seg.xl, pj, x, cj)
+        elif seg.kind == "slstm":
+            x, nc = xl_mod.slstm_apply(lctx, seg.xl, pj, x, cj)
+        elif seg.kind == "zshared":
+            x, nc = _zshared_apply(ctx, cfg, a, shared, x, x0, positions, cj,
+                                   pos, tables)
         else:
-            x = ffn_mod.ffn_apply(lctx.scoped("ffn"), cfg.ffn_kind, cfg.norm,
-                                  pj["ffn"], x)
+            x, nc = attn_mod.attn_apply(lctx.scoped("attn"), a, pj["attn"],
+                                        x, positions, cj, pos,
+                                        rope_tables=tables)
+            if seg.kind == "moe_attn":
+                x = moe_mod.moe_apply(lctx.scoped("moe"), cfg.ffn_kind,
+                                      cfg.norm, pj["moe"], x, cfg.top_k,
+                                      cfg.capacity_factor)
+            else:
+                x = ffn_mod.ffn_apply(lctx.scoped("ffn"), cfg.ffn_kind,
+                                      cfg.norm, pj["ffn"], x)
         new_caches.append(nc)
     return x, new_caches
+
+
+def _zshared_apply(ctx, cfg, a, shared, x, x0, positions, cache, pos,
+                   tables):
+    """One visit of the Zamba shared block. Under a tap or a fidelity
+    probe the capture scope is reset to ``shared`` (not appended)."""
+    sctx = (ctx if ctx.tap is None and ctx.fidelity is None
+            else dataclasses.replace(ctx, scope="shared"))
+    h = linear_apply(sctx, shared["w_in"], torch.cat([x, x0], dim=-1),
+                     name="w_in")
+    h, nc = attn_mod.attn_apply(sctx.scoped("attn"), a, shared["attn"], h,
+                                positions, cache, pos, rope_tables=tables)
+    h = ffn_mod.ffn_apply(sctx.scoped("ffn"), cfg.ffn_kind, cfg.norm,
+                          shared["ffn"], h)
+    y = linear_apply(sctx, shared["w_out"], h, name="w_out")
+    return x + y.to(x.dtype), nc
+
+
+def _sinusoid_table(s: int, dim: int, device) -> torch.Tensor:
+    """The audio stub's sinusoidal positions [s, dim] in f32, as the
+    reference computes them: ``inv = 1 / 10000 ** (arange(0, dim, 2) /
+    dim)``, then ``[sin(pos * inv), cos(pos * inv)]``."""
+    pos = torch.arange(s, dtype=torch.int32, device=device)
+    ex = torch.arange(0, dim, 2, dtype=torch.int32, device=device) / dim
+    inv = 1.0 / torch.pow(torch.tensor(10000.0, device=device), ex)
+    ang = pos[:, None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def embed_inputs(ctx: RunCtx, cfg: ArchConfig, params, batch: dict):
     """Token embeddings (bf16); for the vision front end with
     ``batch["vis_emb"]`` [B, nv, frontend_dim], ``front_proj`` of the patch
     embeddings replaces the first ``nv`` token embeddings (the reference's
-    stub). The audio front end is not ported."""
+    stub). The audio front end (the reference's stub) takes
+    ``batch["emb"]`` [B, S, frontend_dim] through ``front_proj`` and adds
+    the sinusoidal positions (f32, cast to the projection's dtype), in
+    bf16."""
     if cfg.frontend == "audio":
-        raise NotImplementedError(f"{cfg.name}: the audio front end is not "
-                                  "ported (ROADMAP.md Queue 1 item 7)")
+        x = linear_apply(ctx, params["front_proj"], batch["emb"],
+                         name="front_proj")
+        pe = _sinusoid_table(x.shape[1], cfg.d_model, x.device)
+        return (x + pe[None].to(x.dtype)).to(torch.bfloat16)
     x = embed_apply(params["embed"], batch["ids"])
     if cfg.frontend == "vision" and "vis_emb" in batch:
         v = linear_apply(ctx, params["front_proj"], batch["vis_emb"],

@@ -6,8 +6,8 @@ untied head).
 
 - Segments: ``build_segments`` of the full configs equals the
   reference's (kinds, layers, window and RoPE theta of each run); the
-  launcher's page rule equals the reference's; the unported families
-  raise.
+  launcher's page rule equals the reference's; so do the segments of the
+  recurrent and audio configs (xlstm-125m, zamba2-1.2b, hubert-xlarge).
 - Models: tiny gemma3 cut to 8 layers in both packages (segments L5 G1
   L2, so stacked and single-layer segments both come up) and tiny danube,
   and tiny danube and nemotron (2 layers), on weights carried by
@@ -142,10 +142,28 @@ def test_page_budget_matches_reference(name):
 
 @pytest.mark.parametrize("name", ("xlstm-125m", "zamba2-1.2b",
                                   "hubert-xlarge"))
-def test_unported_families_raise(name):
-    cfg = tconfigs.ArchConfig(**dataclasses.asdict(jconfigs.ARCHS[name]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tlm.build_segments(cfg)
+def test_recurrent_and_audio_segments_match_reference(name):
+    """The families ported last: the port's full config is the
+    reference's, and its segments are the reference's, kind, length and
+    each block's static shape (xlstm-125m: mLSTM x3, sLSTM, mLSTM x5,
+    sLSTM, mLSTM x2; zamba2-1.2b: six runs of 6 Mamba layers, each followed
+    by a shared-block visit, then 2 Mamba layers and no visit; hubert-xlarge:
+    one non-causal run without RoPE)."""
+    jcfg, tcfg = jconfigs.ARCHS[name], tconfigs.ARCHS[name]
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    jsegs, tsegs = jlm.build_segments(jcfg), tlm.build_segments(tcfg)
+    assert [(s.kind, s.n) for s in tsegs] == [(s.kind, s.n) for s in jsegs]
+    for t, j in zip(tsegs, jsegs):
+        for field in ("attn", "mamba", "xl"):
+            tv, jv = getattr(t, field), getattr(j, field)
+            assert (tv is None) == (jv is None), field
+            if tv is not None:
+                assert dataclasses.asdict(tv) == dataclasses.asdict(jv), field
+    assert [(s.kind, s.n) for s in tsegs] == {
+        "xlstm-125m": [("mlstm", 3), ("slstm", 1), ("mlstm", 5),
+                       ("slstm", 1), ("mlstm", 2)],
+        "zamba2-1.2b": [("mamba", 6), ("zshared", 1)] * 6 + [("mamba", 2)],
+        "hubert-xlarge": [("attn", 48)]}[name]
 
 
 # --------------------------------------------------------------- models

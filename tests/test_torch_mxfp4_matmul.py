@@ -312,12 +312,14 @@ def test_dequant_values_are_exact_in_bf16():
 @pytest.mark.parametrize("m,k,n", [(1, 4608, 512), (4, 2048, 1024),
                                    (33, 96, 48), (192, 512, 640),
                                    (192, 4608, 512), (100, 512, 640),
-                                   (192, 18432, 256)])
+                                   (192, 18432, 256), (4, 64, 170),
+                                   (24, 64, 174)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_kernel_matches_plain_version(m, k, n, dtype):
     """The CUDA kernel against its plain version on the card: ragged M,
-    split K on both routes, and a floor block; f32 sums in another order.
-    The route the shape and dtype pick is the one that launched."""
+    split K on both routes, and a floor block; f32 sums in another order;
+    N not a multiple of 4 (the wrapper pads it). The route the shape and
+    dtype pick is the one that launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     _, codes, exps = _packed(m + k, k, n)
