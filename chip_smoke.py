@@ -62,7 +62,13 @@
    routes) and ``paged_decode`` must have launched, ``cim_linear`` and
    ``paged_decode_mx`` not; the same output checks and profiles, where the
    prefill's linears must take the ``wgmma`` route and the decode step's
-   the ``mma`` route only.
+   the ``mma`` route only. Then the reference launcher's default
+   invocation, ``--serve-trace --kv-layout legacy``, of the same requests
+   on the same model (split K/V pages, each decode step a gather, the
+   legacy decode and a scatter): ``mxfp4_matmul`` only, exactly 6L + 1
+   launches a step, every token in the vocabulary, and one decode window
+   eager and captured on a legacy pool (tokens bitwise, launches equal);
+   a ``serve legacy`` line (tok/s, the decode step's device ms).
 6. Serve long [``mxfp4``]: phase 5's model through the launcher's
    ``serve_trace`` with 4 prompts of up to 2048 tokens (every prefill
    [1, 2048], past ``dense_attn_max``) and 32 new tokens: ``flash_attention``
@@ -75,9 +81,18 @@
 7. Serve chunked + prefix [``cim``]: phase 4's model in an engine with
    256-token chunks, the ``chunked`` policy and 1088-slot pages serves 8
    requests (6 share a 512-token system prompt) with the prefix cache off
-   and then on: bitwise equal tokens, hits and no verify failure, fewer
-   prefill-chunk steps, and ``cim_linear`` and ``paged_decode_mx`` (only)
-   launched; a ``serve chunked`` line a run. Then one load replay of the
+   and then on, on a fused pool and then on a legacy one (the reference's
+   default layout; there also on again with ``cuda_graphs=False``): per
+   layout bitwise equal tokens, hits and no verify failure, fewer
+   prefill-chunk steps, the eager legacy run's tokens the captured ones,
+   and only ``cim_linear`` and ``paged_decode_mx`` launched (fused) or
+   only ``cim_linear`` (legacy); a ``serve chunked`` line a run. One
+   legacy decode step's logits on four of the last run's pages against
+   ``impl="ref"`` (SQNR >= 30 dB; a ``legacy decode vs impl=ref`` line),
+   and a ``layout steps`` line: the decode step (4 lanes at 545..1000
+   slots) and the chunk step of both layouts at the 1088-slot page,
+   device and wall ms, profiled in this call, with the bytes the legacy
+   step's gather and scatter move. Then one load replay of the
    same model through the launcher's ``serve_load`` (``LOAD_ARGS``: 24
    Poisson arrivals at 4 requests/s, chunked, prefix cache, metrics
    written to a temporary directory, SLO targets scored) and the same
@@ -108,12 +123,12 @@
    ``tiny_vit`` gives the same logits on the card as on the CPU (SQNR >=
    30 dB), and phase 3 also holds both matmul kernels at ViT-B/16's
    shapes (``VIT_CIM_SHAPES``, ``VIT_MM_SHAPES``).
-9. Serve the other dense families: gemma3-1b (26 layers, 5:1
-   local:global, head_dim 256, one KV head, tied head),
-   h2o-danube-1.8b (24 layers, 4096-slot window, head_dim 80) at full
-   width and depth, and nemotron-4-15b (squared ReLU, LayerNorm, head_dim
-   128, untied 256000-row head) at full width with the depth cut to 8 of
-   32 layers (``DENSE_LAYERS``), through the launcher's ``build_model``
+9. Serve the other dense families at full width with the depth cut
+   (``DENSE_LAYERS``, the script's time limit): gemma3-1b (12 of 26
+   layers: two 5:1 local:global groups, head_dim 256, one KV head, tied
+   head), h2o-danube-1.8b (8 of 24 layers, 4096-slot window, head_dim 80)
+   and nemotron-4-15b (squared ReLU, LayerNorm, head_dim 128, untied
+   256000-row head; 8 of 32 layers), through the launcher's ``build_model``
    and ``serve_trace`` under ``mxfp4`` and ``cim`` (``DENSE_RUNS``): 8
    staggered requests of up to 384-token prompts ([1, 384] prefills, past
    ``dense_attn_max``) and 64 new tokens, 4 lanes, 6 slots, page 448.
@@ -213,10 +228,11 @@
 Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``paged_decode_mx {...}``, ``mxfp4_matmul {...}``, ``paged_decode {...}``,
 ``flash_attention {...}``, ``serve {...}``, ``prefill profile {...}``,
-``decode profile {...}``, ``serve long {...}``, ``serve chunked {...}``,
-``serve load {...}``, ``prefill eager vs captured {...}``,
-``decode eager vs captured {...}``, ``frame profile <arch> <mode>
-{...}``, ``frame eager vs captured {...}``, ``serve vision {...}``,
+``decode profile {...}``, ``serve legacy {...}``, ``serve long {...}``,
+``serve chunked {...}``, ``legacy decode vs impl=ref {...}``, ``layout
+steps {...}``, ``serve load {...}``, ``prefill eager vs captured
+{...}``, ``decode eager vs captured {...}``, ``frame profile <arch>
+<mode> {...}``, ``frame eager vs captured {...}``, ``serve vision {...}``,
 ``serve dense {...}``, ``fidelity linear {...}``, ``fidelity quant_health
 {...}``, ``fidelity {...}``, ``moe layer {...}``, ``vision prefill
 {...}``, ``recurrent prefill profile {...}``, ``recurrent decode profile
@@ -288,8 +304,11 @@ LONG_PROMPT, LONG_TOKENS, LONG_REQUESTS = 2048, 32, 4
 LONG_PAGE = LONG_PROMPT + LONG_TOKENS
 # the chunked serve with the prefix cache (phase 7), cim, 8 layers
 CHUNK_ECFG = dict(lanes=4, num_slots=6, page_len=1088, prefill_len=256,
-                  chunk_len=256, policy="chunked")
+                  chunk_len=256, policy="chunked", kv_layout="fused")
 SYS_PROMPT, CHUNK_TOKENS = 512, 32  # the shared prefix, new tokens a request
+# phase 7's step timing on both pool layouts at CHUNK_ECFG's page: the
+# decode lanes' prompt lengths, and the offset of the timed chunk
+LAYOUT_LENGTHS, LAYOUT_CHUNK_AT = (545, 1000, 1000, 800), 768
 # phase 7's load replay: phase 4's model through the launcher's serve_load,
 # 24 Poisson arrivals at 4 requests/s (~6 s of arrivals) of prompts up to
 # 1087 tokens (a 512-token system prompt on 3 in 4), up to 32 new tokens,
@@ -322,8 +341,8 @@ VIT_CIM_SHAPES = ((197, 768, 768), (197, 768, 3072))
 VIT_MM_SHAPES = ((197, 768, 3072, torch.bfloat16),
                  (196, 768, 768, torch.float32),
                  (1, 768, 1000, torch.bfloat16))
-# the two other dense families (phase 9) at full width and depth through
-# the launcher's serve_trace: 8 staggered requests of up to 384-token
+# the three other dense families (phase 9) at full width through the
+# launcher's serve_trace: 8 staggered requests of up to 384-token
 # prompts ([1, 384] prefills, past dense_attn_max) and 64 new tokens, page
 # 448 (inside gemma3-1b's 512-slot local window)
 DENSE_RUNS = (("gemma3-1b", "mxfp4"), ("gemma3-1b", "cim"),
@@ -331,13 +350,16 @@ DENSE_RUNS = (("gemma3-1b", "mxfp4"), ("gemma3-1b", "cim"),
               ("nemotron-4-15b", "mxfp4"), ("nemotron-4-15b", "cim"))
 # depth cuts of phase 9 (width kept): nemotron-4-15b's f32 weights before
 # conversion are ~62 GB at 32 layers (390 M parameters a layer, 1.57 G in
-# each of the embedding and the untied head), ~25 GB at 8
-DENSE_LAYERS = {"nemotron-4-15b": 8}
+# each of the embedding and the untied head), ~25 GB at 8; gemma3-1b (two
+# local:global groups) and h2o-danube-1.8b for the script's time limit
+# (at full depth their cim runs took 116 s and 125 s of the script's 1064 s
+# on one H100)
+DENSE_LAYERS = {"nemotron-4-15b": 8, "gemma3-1b": 12, "h2o-danube-1.8b": 8}
 DENSE_PROMPT, DENSE_TOKENS, DENSE_PAGE = 384, 64, 448
-DENSE_ARGS = ["--no-tiny", "--serve-trace", "--requests", "8", "--lanes",
-              "4", "--slots", "6", "--prompt-len", str(DENSE_PROMPT),
-              "--tokens", str(DENSE_TOKENS), "--calib-batches", "2",
-              "--batch", "2"]
+DENSE_ARGS = ["--no-tiny", "--serve-trace", "--kv-layout", "fused",
+              "--requests", "8", "--lanes", "4", "--slots", "6",
+              "--prompt-len", str(DENSE_PROMPT), "--tokens",
+              str(DENSE_TOKENS), "--calib-batches", "2", "--batch", "2"]
 DENSE_STEPS = 4  # teacher-forced decode steps held to impl="ref"
 SOLO_TOKENS = 32  # each request alone: its first tokens of the serve
 # per arch: decode dims (lanes, KV heads, heads per KV head, head_dim),
@@ -1114,8 +1136,54 @@ def serve_full_width(backend: str) -> tuple[dict, tuple]:
     print("serve", json.dumps(line | {"prefill": _step_pair(prof["prefill"]),
                                       "decode": _step_pair(prof["decode"])}),
           flush=True)
-    return ({"launches": launches, "summary": summary, "profile": prof},
-            (cfg, params, ctx))
+    run = {"launches": launches, "summary": summary, "profile": prof}
+    if backend == "mxfp4":
+        run["legacy"] = serve_legacy_trace(cfg, params, ctx)
+    return run, (cfg, params, ctx)
+
+
+def serve_legacy_trace(cfg, params, ctx) -> dict:
+    """Phase 5, the reference launcher's default invocation: the same
+    ``mxfp4`` model through ``serve_trace`` with ``--kv-layout legacy``
+    (split K/V pages; each decode step gathers the lanes' pages, decodes
+    and scatters them back). ``mxfp4_matmul`` must be the only kernel, at
+    exactly 6L + 1 launches a step (prefill or decode); every token in the
+    vocabulary. Then one decode window eager and captured
+    (:func:`profile_decode` on a legacy pool): its device ms a step."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.launch import serve
+
+    args = serve.build_parser().parse_args(SERVE_ARGS["mxfp4"]
+                                           + ["--kv-layout", "legacy"])
+    obs = obs_lib.Obs()
+    dev = params["embed"]["emb"].device
+    _zero_counts()
+    summary = serve.serve_trace(args, cfg, params,
+                                dataclasses.replace(ctx, obs=obs), obs, dev)
+    launches, routes = _read_counts()
+    steps = len(obs.steps)
+    want = (6 * cfg.n_layers + 1) * steps
+    if summary["ecfg"].kv_layout != "legacy" or launches["mxfp4_matmul"] \
+            != want or any(v for k, v in launches.items()
+                           if k != "mxfp4_matmul"):
+        raise AssertionError(f"[mxfp4 legacy] launches {launches}, want "
+                             f"mxfp4_matmul only, {want} over {steps} steps")
+    for v in summary["out"].values():
+        if not v or not all(0 <= t < cfg.vocab_size for t in v):
+            raise AssertionError("[mxfp4 legacy] served tokens out of the "
+                                 "vocabulary")
+    if summary["tokens"] != 8 * args.tokens:
+        raise AssertionError(f"[mxfp4 legacy] {summary['tokens']} tokens")
+    prof = profile_decode(cfg, params, ctx, kv_layout="legacy")
+    print("serve legacy", json.dumps(
+        {"backend": "mxfp4", "layers": cfg.n_layers, "kv_layout": "legacy"}
+        | {k: v for k, v in summary.items()
+           if k not in serve.SUMMARY_DATA + ("prefix",)}
+        | {"steps": steps, "launches": launches,
+           "launches_a_step": launches["mxfp4_matmul"] / steps,
+           "mxfp4_matmul_routes": routes,
+           "decode": _step_pair(prof)}), flush=True)
+    return {"launches": launches, "summary": summary, "profile": prof}
 
 
 def serve_long(cfg, params, ctx) -> dict:
@@ -1218,36 +1286,32 @@ def _chunked_prompts(vocab: int) -> list:
     return [prompts[i] for i in rng.permutation(len(prompts))]
 
 
-def serve_chunked_prefix(cfg, params, ctx) -> dict:
-    """Phase 7: the 8-layer ``cim`` model of phase 4 in an engine with
-    ``CHUNK_ECFG`` (chunked prefill, 256-token chunks, 1088-slot pages)
-    serves :func:`_chunked_prompts` with the prefix cache off, then on.
-    The tokens must be bitwise equal, the cache must hit with no verify
-    failure and save prefill-chunk steps, and ``cim_linear`` and
-    ``paged_decode_mx`` must launch (and no other kernel)."""
+def _chunked_run(cfg, params, ctx, prompts, layout: str, cached: bool,
+                 cuda_graphs: bool = True) -> dict:
+    """One serve of ``prompts`` through a ``CHUNK_ECFG`` engine on a
+    ``layout`` pool: its tokens, its ``serve chunked`` line, and the
+    engine (for a look at its pool after the run)."""
     from repro_torch import obs as obs_lib
     from repro_torch.serving import Engine, EngineConfig
 
-    prompts = _chunked_prompts(cfg.vocab_size)
-    runs = {}
-    _zero_counts()
-    for cached in (False, True):
-        obs = obs_lib.Obs()
-        eng = Engine(params, cfg, dataclasses.replace(ctx, obs=obs),
-                     EngineConfig(**CHUNK_ECFG, prefix_cache=cached), obs=obs)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        rids = [eng.add_request(p, max_new=CHUNK_TOKENS) for p in prompts]
-        out = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        chunks = [e.wall_s for e in obs.steps if e.kind == "prefill"]
-        decodes = [e.wall_s for e in obs.steps if e.kind == "decode"]
-        ttft = obs.request_summary()["ttft_s"]
-        n_tok = sum(len(v) for v in out.values())
-        runs[cached] = {"tokens": [out[r] for r in rids], "line": {
-            "backend": "cim", "layers": cfg.n_layers, "prefix_cache": cached,
+    obs = obs_lib.Obs()
+    eng = Engine(params, cfg, dataclasses.replace(ctx, obs=obs),
+                 EngineConfig(**(CHUNK_ECFG | {"kv_layout": layout}),
+                              prefix_cache=cached, cuda_graphs=cuda_graphs),
+                 obs=obs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new=CHUNK_TOKENS) for p in prompts]
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    chunks = [e.wall_s for e in obs.steps if e.kind == "prefill"]
+    decodes = [e.wall_s for e in obs.steps if e.kind == "decode"]
+    ttft = obs.request_summary()["ttft_s"]
+    n_tok = sum(len(v) for v in out.values())
+    line = {"backend": "cim", "layers": cfg.n_layers, "kv_layout": layout,
+            "cuda_graphs": cuda_graphs, "prefix_cache": cached,
             "requests": len(out), "tokens": n_tok, "wall_s": wall,
             "tok_s": n_tok / wall, "prefill_chunk_steps": len(chunks),
             "chunk_step_ms_p50": float(np.median(chunks)) * 1e3,
@@ -1255,31 +1319,191 @@ def serve_chunked_prefix(cfg, params, ctx) -> dict:
             "decode_step_ms_p50": float(np.median(decodes)) * 1e3,
             "ttft_ms_p50": ttft["p50"] * 1e3, "ttft_ms_p99": ttft["p99"] * 1e3,
             "prefix": eng.prefix_stats(),
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}}
-        print("serve chunked", json.dumps(runs[cached]["line"]), flush=True)
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("serve chunked", json.dumps(line), flush=True)
+    return {"tokens": [out[r] for r in rids], "line": line, "engine": eng}
+
+
+def serve_chunked_prefix(cfg, params, ctx) -> dict:
+    """Phase 7: the 8-layer ``cim`` model of phase 4 in an engine with
+    ``CHUNK_ECFG`` (chunked prefill, 256-token chunks, 1088-slot pages)
+    serves :func:`_chunked_prompts` on a fused pool with the prefix cache
+    off, then on; then on a legacy pool (the reference's default layout)
+    off and on, captured, and on again eagerly (``cuda_graphs=False``).
+    On each layout the tokens must be bitwise equal off and on, the cache
+    must hit with no verify failure and save prefill-chunk steps; the
+    eager legacy run must give the captured tokens. Launches: on the
+    fused pool ``cim_linear`` and ``paged_decode_mx`` (and no other
+    kernel), on the legacy pool ``cim_linear`` only. Then one legacy
+    decode step's logits on the last run's pages against ``impl="ref"``
+    (:func:`_legacy_decode_vs_ref`) and the two layouts' decode and chunk
+    steps timed in this call (:func:`profile_layout_steps`)."""
+    prompts = _chunked_prompts(cfg.vocab_size)
+    runs, launches = {}, {}
+    for layout, modes in (("fused", ((False, True), (True, True))),
+                          ("legacy", ((False, True), (True, True),
+                                      (True, False)))):
+        _zero_counts()
+        for cached, graphs in modes:
+            run = _chunked_run(cfg, params, ctx, prompts, layout, cached,
+                               graphs)
+            if (layout, cached, graphs) != ("legacy", True, False):
+                del run["engine"]
+            runs[layout, cached, graphs] = run
+        launches[layout], _ = _read_counts()
+        print("serve chunked launches", json.dumps(
+            {"kv_layout": layout, "launches": launches[layout],
+             "cim_linear_routes": _cim_routes()}), flush=True)
+    own = {"fused": {"cim_linear", "paged_decode_mx"},
+           "legacy": {"cim_linear"}}
+    for layout in ("fused", "legacy"):
+        off, on = runs[layout, False, True], runs[layout, True, True]
+        stats = on["line"]["prefix"]
+        if on["tokens"] != off["tokens"]:
+            raise AssertionError(f"[cim chunked {layout}] prefix cache on "
+                                 "and off give other tokens")
+        if not stats["hits"] or stats["verify_failures"]:
+            raise AssertionError(f"[cim chunked {layout}] prefix stats "
+                                 f"{stats}")
+        if (on["line"]["prefill_chunk_steps"]
+                >= off["line"]["prefill_chunk_steps"]):
+            raise AssertionError(f"[cim chunked {layout}] the prefix cache "
+                                 "saved no chunk")
+        if {k for k, v in launches[layout].items() if v} != own[layout]:
+            raise AssertionError(f"[cim chunked {layout}] launches "
+                                 f"{launches[layout]}, want {own[layout]}")
+        for v in on["tokens"]:
+            if len(v) != CHUNK_TOKENS or not all(0 <= t < cfg.vocab_size
+                                                 for t in v):
+                raise AssertionError(f"[cim chunked {layout}] served tokens")
+    eager = runs["legacy", True, False]
+    if eager["tokens"] != runs["legacy", True, True]["tokens"]:
+        raise AssertionError("[cim chunked legacy] eager and captured runs "
+                             "give other tokens")
+    ref = _legacy_decode_vs_ref(cfg, params, ctx, eager.pop("engine"))
+    steps = profile_layout_steps(cfg, params, ctx)
+    return {"launches": launches["fused"], "legacy_launches":
+            launches["legacy"],
+            "lines": {f"{lay} {'on' if c else 'off'}"
+                      f"{'' if g else ' eager'}": r["line"]
+                      for (lay, c, g), r in runs.items()},
+            "legacy_vs_ref": ref, "steps": steps}
+
+
+def _legacy_decode_vs_ref(cfg, params, ctx, eng) -> dict:
+    """One decode step through ``lm.decode_step`` on four pages of a legacy
+    pool after its serve (each slot's last request: its last token at its
+    next position), gathered twice: the kernels' run against
+    ``impl="ref"`` (the reference's compositions; ``cim_linear`` is
+    bitwise its plain version and the legacy decode is torch ops either
+    way). SQNR >= 30 dB; printed with whether the logits are bitwise."""
+    from repro_torch.models import lm
+    from repro_torch.serving.kvcache import gather_rows
+
+    lanes, seen = [], set()
+    for rid in sorted(eng.requests, reverse=True):  # the latest a slot
+        req = eng.requests[rid]
+        if req.slot not in seen and len(lanes) < 4:
+            seen.add(req.slot)
+            lanes.append(req)
+    dev = params["embed"]["emb"].device
+    rows = torch.tensor([r.slot for r in lanes], device=dev)
+    ids = torch.tensor([[r.out[-1]] for r in lanes], device=dev)
+    pos = torch.tensor([len(r.prompt) + len(r.out) - 1 for r in lanes],
+                       device=dev)
+    logits = {}
+    with torch.no_grad():
+        for impl in ("auto", "ref"):
+            caches = gather_rows(eng.kv.pool, eng.kv.specs, rows)
+            logits[impl], _ = lm.decode_step(
+                params, cfg, dataclasses.replace(ctx, impl=impl, obs=None),
+                ids, pos, caches)
+    sq = _sqnr_db(logits["ref"].float(), logits["auto"].float())
+    line = {"backend": "cim", "kv_layout": "legacy", "lanes": len(lanes),
+            "positions": pos.tolist(), "sqnr_db": sq,
+            "bitwise": bool(torch.equal(logits["auto"], logits["ref"])),
+            "finite": bool(torch.isfinite(logits["auto"].float()).all())}
+    print("legacy decode vs impl=ref", json.dumps(line), flush=True)
+    if not line["finite"] or sq < 30.0:
+        raise AssertionError(f"[cim legacy] decode logits vs impl=ref: {line}")
+    return line
+
+
+def profile_layout_steps(cfg, params, ctx, steps: int = 8) -> dict:
+    """The decode and chunk steps of a captured ``CHUNK_ECFG`` engine on a
+    fused and on a legacy pool, in this call: 4 requests whose prompts
+    fill the page to ``LAYOUT_LENGTHS`` slots decode under the profiler
+    (``steps`` steps, then as many unprofiled for the wall), then the
+    chunk step (a 256-token window at ``LAYOUT_CHUNK_AT`` of a free page,
+    replayed on one input: idempotent) likewise. Prints a ``layout steps`` line
+    with device and wall ms a step by layout, and the bytes a legacy
+    decode step's gather and scatter move (the lanes' page rows read and
+    written twice) over 3.35 TB/s."""
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving import engine as eng_mod
+
+    lens, at = LAYOUT_LENGTHS, LAYOUT_CHUNK_AT
+    L = CHUNK_ECFG["chunk_len"]
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    window = rng.integers(0, cfg.vocab_size, L).tolist()
+    out = {}
+    for layout in ("fused", "legacy"):
+        eng = Engine(params, cfg, dataclasses.replace(ctx, obs=None),
+                     EngineConfig(**(CHUNK_ECFG | {"kv_layout": layout})))
+        for p in prompts:
+            eng.add_request(p, max_new=CHUNK_ECFG["page_len"] - max(lens))
+        while len(eng.sched.running) < len(lens):
+            eng.step()
+        eng.step()  # a decode step outside the window
+        page = CHUNK_ECFG["page_len"]
+        dec = _profiled(f"decode profile {layout} W={page}", ctx, steps,
+                        eng.step, attempts=2)
+        _unprofiled(dec, steps, eng.step, len(lens))
+        row = eng.kv.allocator.alloc()  # a free page for the chunk
+        host = eng._host["chunk"].numpy()
+        eng_mod._window(host, L, window, at)
+        host[2 * L:] = (row, L - 1, at)
+
+        def chunk():
+            eng._call("chunk").cpu()  # ends in the host read, as a step
+
+        chunk()  # replays of the captured chunk graph from here
+        ch = _profiled(f"chunk profile {layout} W={page}", ctx, 4, chunk,
+                       attempts=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            chunk()
+        ch["wall_ms"] = (time.perf_counter() - t0) * 1e3 / 4
+        rows_bytes = sum(v[0].numel() * v.element_size() * len(lens)
+                         for seg in eng.kv.pool for layer in seg
+                         for v in layer.values())
+        out[layout] = {
+            "decode": {k: dec.get(k) for k in (
+                "device_ms_per_step", "wall_ms", "busy_share", "tok_s",
+                "timer")} | {"launches_a_step": {
+                    k: v / steps for k, v in dec["launches"].items()}},
+            "chunk": {"device_ms": ch["device_ms_per_step"],
+                      "wall_ms": ch["wall_ms"], "timer": ch["timer"],
+                      "launches": {k: v / 4 for k, v in
+                                   ch["launches"].items()}},
+            "lane_pages_mib": rows_bytes / 2**20}
+        if layout == "legacy":
+            moved = 4 * rows_bytes  # gather: read + write; scatter: same
+            out[layout]["gather_scatter_bytes"] = moved
+            out[layout]["gather_scatter_bound_ms"] = moved / HBM_BYTES_S * 1e3
         del eng
-    launches, _ = _read_counts()
-    cim_routes = _cim_routes()
-    print("serve chunked launches", json.dumps(
-        {"launches": launches, "cim_linear_routes": cim_routes}), flush=True)
-    off, on = runs[False], runs[True]
-    stats = on["line"]["prefix"]
-    if on["tokens"] != off["tokens"]:
-        raise AssertionError("[cim chunked] prefix cache on and off give "
-                             "other tokens")
-    if not stats["hits"] or stats["verify_failures"]:
-        raise AssertionError(f"[cim chunked] prefix stats {stats}")
-    if on["line"]["prefill_chunk_steps"] >= off["line"]["prefill_chunk_steps"]:
-        raise AssertionError("[cim chunked] the prefix cache saved no chunk")
-    if (not launches["cim_linear"] or not launches["paged_decode_mx"]
-            or any(launches[k] for k in ("mxfp4_matmul", "paged_decode",
-                                         "flash_attention"))):
-        raise AssertionError(f"[cim chunked] launches {launches}")
-    for v in on["tokens"]:
-        if len(v) != CHUNK_TOKENS or not all(0 <= t < cfg.vocab_size
-                                             for t in v):
-            raise AssertionError("[cim chunked] served tokens")
-    return {"launches": launches, "off": off["line"], "on": on["line"]}
+    print("layout steps", json.dumps({"backend": "cim",
+                                      "layers": cfg.n_layers,
+                                      "page_len": CHUNK_ECFG["page_len"],
+                                      "lengths": list(lens)} | out),
+          flush=True)
+    if out["legacy"]["decode"]["launches_a_step"] != {
+            "cim_linear": 6 * cfg.n_layers + 1}:
+        raise AssertionError(f"[cim legacy] a decode step launched "
+                             f"{out['legacy']['decode']['launches_a_step']}")
+    return out
 
 
 def _load_line(mode: str, rep: dict, slo: dict, launches: dict,
@@ -3232,12 +3456,13 @@ def _cim_routes() -> dict:
 
 
 def _engine(params, cfg, ctx, prefill_len: int = M_PREFILL,
-            page_len: int = 256, cuda_graphs: bool = True):
+            page_len: int = 256, cuda_graphs: bool = True,
+            kv_layout: str = "fused"):
     from repro_torch.serving import Engine, EngineConfig
 
     return Engine(params, cfg, dataclasses.replace(ctx, obs=None),
                   EngineConfig(lanes=4, num_slots=4, page_len=page_len,
-                               prefill_len=prefill_len,
+                               prefill_len=prefill_len, kv_layout=kv_layout,
                                cuda_graphs=cuda_graphs))
 
 
@@ -3430,8 +3655,8 @@ def profile_prefill(cfg, params, ctx, prompt_len: int = M_PREFILL,
 
 
 def profile_decode(cfg, params, ctx, steps: int = 8, prompt_len: int = 128,
-                   page_len: int = 256,
-                   attempts: int = PROFILE_ATTEMPTS) -> dict:
+                   page_len: int = 256, attempts: int = PROFILE_ATTEMPTS,
+                   kv_layout: str = "fused") -> dict:
     """A steady window of ``steps`` decode steps (4 live lanes, prompts of
     ``prompt_len`` tokens) under ``torch.profiler``, run twice on the same
     requests: eager (``cuda_graphs=False``) and captured (the default;
@@ -3442,11 +3667,12 @@ def profile_decode(cfg, params, ctx, steps: int = 8, prompt_len: int = 128,
     the linears (M = 4) must take the mma route only. Returns ``{"eager":
     profile, "captured": profile + capture_s and graph_pool_bytes}``;
     each profile also times ``steps`` steps unprofiled (:func:`_unprofiled`:
-    ``wall_ms``, ``busy_share``, ``tok_s``)."""
+    ``wall_ms``, ``busy_share``, ``tok_s``). ``kv_layout`` picks the
+    engine's pool (``legacy``: the gather, decode and scatter step)."""
     out, tokens = {}, {}
     for mode in ("eager", "captured"):
         eng = _engine(params, cfg, ctx, max(M_PREFILL, prompt_len), page_len,
-                      cuda_graphs=mode == "captured")
+                      cuda_graphs=mode == "captured", kv_layout=kv_layout)
         rng = np.random.default_rng(5)
         for _ in range(4):
             eng.add_request(
@@ -3455,8 +3681,9 @@ def profile_decode(cfg, params, ctx, steps: int = 8, prompt_len: int = 128,
         while len(eng.sched.running) < 4:  # the four prefills
             eng.step()
         eng.step()  # one decode step outside the window
-        prof = _profiled(f"decode profile {mode}", ctx, steps, eng.step,
-                         attempts=attempts)
+        prof = _profiled(f"decode profile {kv_layout} {mode}"
+                         if kv_layout != "fused" else f"decode profile {mode}",
+                         ctx, steps, eng.step, attempts=attempts)
         _unprofiled(prof, steps, eng.step, 4)
         routes = prof["mxfp4_matmul_routes"]
         if ctx.quant == "mxfp4_wonly" and (routes["wgmma"] or routes["fma"]
@@ -3484,7 +3711,8 @@ def profile_decode(cfg, params, ctx, steps: int = 8, prompt_len: int = 128,
                              f"{out['eager']['launches_a_step']}, captured "
                              f"{out['captured']['launches_a_step']}")
     print("decode eager vs captured", json.dumps(
-        {"backend": ctx.quant, "tokens_compared": n * len(tokens["eager"]),
+        {"backend": ctx.quant, "kv_layout": kv_layout,
+         "tokens_compared": n * len(tokens["eager"]),
          "tokens_bitwise": True} | _step_pair(out)), flush=True)
     return out
 

@@ -3,19 +3,21 @@
 random prompts from the legacy split K/V cache and the recurrent states
 (:func:`greedy_decode`, the only way the recurrent archs xlstm-125m and
 zamba2-1.2b are served; hubert-xlarge is encoder-only and exits); with
-them it is served by the continuous-batching engine on the fused paged KV
-pool.
+them it is served by the continuous-batching engine on a paged KV pool,
+``--kv-layout legacy`` (the default, as in the reference: split K/V
+pages, gathered and scattered around each decode step) or ``fused``
+(decoded in place by the paged decode kernels).
 
 ``--backend mxfp4`` (default): every static linear is resident as packed
 MXFP4 (4.25 bits/param) and runs through the hand-written
-``mxfp4_matmul`` kernel; decode runs over float pages through the
-``paged_flash_decode`` kernel. ``--backend cim``: the hybrid analog/digital
-model; static linears are calibrated offline (Row-Hist) on synthetic
-token batches, converted to resident INT5 codes and run on the analog
-CTT-CIM arrays (``cim_linear`` kernel), SDPA runs on the digital MXFP4
-path, decode through ``paged_flash_decode_mx`` over quantized-resident
-pages. ``--backend float``: bf16 linears, float pages. Weights are random
-from a seed.
+``mxfp4_matmul`` kernel; decode runs over float pages (on a fused pool
+through the ``paged_flash_decode`` kernel). ``--backend cim``: the
+hybrid analog/digital model; static linears are calibrated offline
+(Row-Hist) on synthetic token batches, converted to resident INT5 codes
+and run on the analog CTT-CIM arrays (``cim_linear`` kernel), SDPA runs
+on the digital MXFP4 path, decode over quantized-resident pages (on a
+fused pool through ``paged_flash_decode_mx``). ``--backend float``: bf16
+linears, float pages. Weights are random from a seed.
 
 ``--arch vit-b16`` / ``--arch vit-l32`` (or ``--model``) serve the
 paper's vision workloads instead: ``--frames`` synthetic frames stream one
@@ -55,8 +57,11 @@ versions run); without a GPU and without ``--device cpu`` it raises.
       --batch 4 --prompt-len 512 --tokens 64  # greedy decode, full width
   python -m repro_torch.launch.serve --no-tiny --serve-trace \\
       --backend mxfp4 --kv-layout fused     # full width, 32 layers
-  python -m repro_torch.launch.serve --serve-trace --backend cim \\
-      --kv-layout fused                     # tiny starcoder2-7b on the GPU
+  python -m repro_torch.launch.serve --serve-trace \\
+      --backend cim                         # tiny, GPU, legacy pool
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve-trace \\
+      --device cpu --kv-layout legacy --chunk-len 4 --policy chunked \\
+      --prefix-cache                        # legacy pool, chunked, CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --serve-trace \\
       --backend float --device cpu          # tiny, CPU plain versions
   python -m repro_torch.launch.serve --arch vit-b16 --no-tiny \\
@@ -590,7 +595,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--lanes", type=int, default=4)
     ap.add_argument("--slots", type=int, default=6)
-    ap.add_argument("--kv-layout", default="fused", choices=("fused",))
+    ap.add_argument("--kv-layout", default="legacy",
+                    choices=("legacy", "fused"),
+                    help="KV pool layout: legacy split K/V pages, or the "
+                         "fused head-interleaved paged layout decoded by "
+                         "the ragged paged flash-decode path")
     ap.add_argument("--policy", default="prefill",
                     choices=("prefill", "decode", "chunked"),
                     help="admission policy; 'chunked' interleaves prefill "

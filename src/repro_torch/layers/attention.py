@@ -9,9 +9,8 @@ ops, as the reference's einsums), at a scalar or per-lane position, float
 or on the digital MXFP4 SDPA from the resident mirrors or by
 requantizing the cache each step. Prefill past ``RunCtx.dense_attn_max``
 takes the online-softmax ``_flash_attn``; on CUDA, without the digital
-SDPA, that is the ``flash_attention`` kernel. Chunked prefill into a
-legacy page (the engine's legacy layout) raises ``NotImplementedError``
-(ROADMAP.md Queue 1).
+SDPA, that is the ``flash_attention`` kernel. Chunked prefill runs into
+a fused page or a legacy split page (the engine's two layouts).
 """
 
 from __future__ import annotations
@@ -383,10 +382,6 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
     fused = cache is not None and "kv" in cache
 
     if cache is not None and s > 1 and pos is not None:
-        if not fused:
-            raise NotImplementedError(
-                "chunked prefill into a legacy split K/V page (the engine's "
-                "legacy layout) is not ported (ROADMAP.md Queue 1)")
         o, cache = _chunk_prefill(cfg, q, k, v, positions, cache, mx_dig)
     elif cache is not None and s > 1:
         # prefill into a page: ring convention, slot = pos % W
@@ -426,31 +421,44 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
 
 
 def _chunk_prefill(cfg, q, k, v, positions, cache, mx_dig):
-    """One window of a longer prompt into an existing page (the engine's
-    ``chunk_len`` step): ``positions`` carry absolute prompt offsets
-    (KV_PAD on pad columns). Fresh K/V rows land at their absolute slots,
-    pad columns are dropped, and this chunk's queries attend over the
-    whole page: rows past the written prefix are zero (the engine clones
-    or resets the page at admission) and carry k_pos > q_pos, so the
-    causal mask drops them. Under the digital SDPA the quantized mirrors
-    are recomputed for the whole page every chunk: blockwise V exponents
-    near the chunk's edge depend on rows outside it, and mirrors equal to
-    a full requant of the raw page make pages content-addressable
+    """One window of a longer prompt into an existing page, fused or
+    legacy (the engine's ``chunk_len`` step): ``positions`` carry
+    absolute prompt offsets (KV_PAD on pad columns). Fresh K/V rows land
+    at their absolute slots, pad columns are dropped, and this chunk's
+    queries attend over the whole page: rows past the written prefix are
+    zero (the engine clones or resets the page at admission) and carry
+    k_pos > q_pos, so the causal mask drops them. Under the digital SDPA
+    the quantized mirrors are recomputed for the whole page every chunk
+    (O(page) a chunk, as in the reference): blockwise V exponents near
+    the chunk's edge depend on rows outside it, and mirrors equal to a
+    full requant of the raw page make pages content-addressable
     (``serving/prefix.py``). Returns (o, the new page dict)."""
     b = q.shape[0]
-    kv = cache["kv"]
-    w, dt = kv.shape[1], kv.dtype
-    rows = torch.arange(b, device=kv.device)[:, None]
+    fused = "kv" in cache
+    raw = cache["kv"] if fused else cache["k"]
+    w, dev = raw.shape[1], raw.device
+    rows = torch.arange(b, device=dev)[:, None]
     # pad columns go to an extra slot W, cut off again
     slot = torch.where(positions > _KV_PAD_MIN, positions, w)
-    page = F.pad(kv, (0, 0, 0, 0, 0, 1))
-    page[rows, slot] = paged_layout.fuse_kv(k.to(dt), v.to(dt))
-    page = page[:, :w]
-    new_cache = {"kv": page}
-    kpage, vpage = paged_layout.split_kv(page)
-    if "kv_codes" in cache:
-        new_cache.update(paged_layout.quant_page_full(kpage, vpage))
-    k_pos = torch.arange(w, device=kv.device)[None].expand(b, w)
+
+    def write(page, new):
+        page = F.pad(page, (0, 0, 0, 0, 0, 1))
+        page[rows, slot] = new.to(page.dtype)
+        return page[:, :w]
+
+    if fused:
+        dt = raw.dtype
+        page = write(raw, paged_layout.fuse_kv(k.to(dt), v.to(dt)))
+        new_cache = {"kv": page}
+        kpage, vpage = paged_layout.split_kv(page)
+        if "kv_codes" in cache:
+            new_cache.update(paged_layout.quant_page_full(kpage, vpage))
+    else:
+        kpage, vpage = write(cache["k"], k), write(cache["v"], v)
+        new_cache = {"k": kpage, "v": vpage}
+        if "k_codes" in cache:
+            new_cache.update(_quant_cache_full(kpage, vpage))
+    k_pos = torch.arange(w, device=dev)[None].expand(b, w)
     o = _dense_attn(q, kpage, vpage, positions, k_pos, cfg, mx_digital=mx_dig)
     return o, new_cache
 

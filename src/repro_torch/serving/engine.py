@@ -1,5 +1,6 @@
 """Continuous-batching inference engine (counterpart of
-``repro.serving.engine``) on the fused paged KV pool.
+``repro.serving.engine``) on a paged KV pool, legacy (the default, as in
+the reference) or fused.
 
 Every step is fixed-shape, as in the reference:
 
@@ -10,9 +11,12 @@ Every step is fixed-shape, as in the reference:
 
 Prompts are right-padded with ``KV_PAD`` positions; idle decode lanes
 park on their scratch rows and their outputs are dropped on the host.
-Decode runs in place on the pool through ``RunCtx.paged_rows``: the
+On a fused pool decode runs in place through ``RunCtx.paged_rows``: the
 attention layers write the new K/V row and its mirrors straight into the
-lanes' pool rows and run one ragged paged decode per layer.
+lanes' pool rows and run one ragged paged decode per layer. On a legacy
+pool (split ``{k, v}`` pages) the decode step gathers the lanes' pages,
+runs ``lm.decode_step`` on them (the legacy decode, torch ops) and
+scatters them back, as the reference's ``decode`` does.
 
 On CUDA every step is one CUDA graph (``serving/graphs.py``, the
 counterpart of the reference's jitted steps): the prefill, the chunk, the
@@ -31,7 +35,9 @@ capture and then replays it, all on the input of that call. Each step is
 idempotent on its input, so this writes what one call writes: the
 prefill and the clone overwrite the whole destination page row; the chunk
 writes its rows before its attention reads the page, and recomputes the
-mirrors from the whole page; decode writes its one row before it reads.
+mirrors from the whole page; decode writes its one row (and, on a
+legacy pool, recomputes the V block that holds it) before it reads, and
+the legacy decode scatters back the pages it gathered.
 ``tests/test_torch_graphs.py`` runs each step twice and holds the pool to
 one run.
 
@@ -45,8 +51,7 @@ zeroes the page, whose stale rows would otherwise corrupt the V blocks'
 shared exponents of the quantized-resident mirrors.
 
 ``trace_report`` maps the recorded step events onto the FWS pipeline
-model (``serving/pipeline.py``). Not ported yet (ROADMAP.md Queue 1): the
-legacy split-page layout.
+model (``serving/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -80,7 +85,10 @@ class EngineConfig:
     page_len: int = 48  # positions per page (prompt + generated)
     prefill_len: int = 16  # fixed prefill shape; prompts pad up to this
     policy: str = "prefill"  # admission policy (see scheduler.py)
-    kv_layout: str = "fused"
+    # "legacy": split K/V pages, gathered and scattered around each decode
+    # step; "fused": head-interleaved pages decoded in place through the
+    # paged decode kernels (RunCtx.paged_rows)
+    kv_layout: str = "legacy"
     # chunked prefill: prompts run through a fixed [1, chunk_len] step in
     # absolute-position windows, lifting the prompt cap from prefill_len
     # to page_len (None: the single-shot padded prefill)
@@ -132,8 +140,11 @@ class Engine:
             "prefill": (functools.partial(_prefill_step, params, cfg, ctx,
                                           pool, specs),
                         (2 * ecfg.prefill_len + 2,)),
-            "decode": (functools.partial(_decode_step, params, cfg, ctx,
-                                         pool), (3, ecfg.lanes)),
+            "decode": ((functools.partial(_decode_step, params, cfg, ctx,
+                                          pool) if self.kv.fused else
+                        functools.partial(_legacy_decode_step, params, cfg,
+                                          ctx, pool, specs)),
+                       (3, ecfg.lanes)),
         }
         if ecfg.chunk_len is not None:
             steps["chunk"] = (functools.partial(_chunk_step, params, cfg,
@@ -400,16 +411,18 @@ def _prefill_step(params, cfg, ctx, pool, specs, step_in) -> torch.Tensor:
     """The ``[1, P]`` single-shot prefill on ``step_in`` (int64 [2P + 2]:
     ids, positions (``arange(n)`` and a KV_PAD tail), the pool row, the
     index of the last prompt token): the prompt's page is built in fresh
-    caches and written into its pool row in place; returns the greedy
-    next id (int64 [1]). A function of its arguments only, so a captured
-    graph of it holds no engine."""
+    caches of the pool's layout and written into its pool row in place;
+    returns the greedy next id (int64 [1]). A function of its arguments
+    only, so a captured graph of it holds no engine."""
     p = (step_in.shape[0] - 2) // 2
     ids, positions = step_in[:p][None], step_in[p:2 * p][None]
     row, last = step_in[2 * p:2 * p + 1], step_in[2 * p + 1:]
-    kv = pool[0][0]["kv"]
-    caches = lm.init_cache(cfg, 1, kv.shape[1],
-                           mx_digital="kv_codes" in pool[0][0], fused=True,
-                           device=kv.device)
+    leaves = pool[0][0]
+    fused = "kv" in leaves
+    raw = leaves["kv"] if fused else leaves["k"]
+    caches = lm.init_cache(cfg, 1, raw.shape[1],
+                           mx_digital=("kv_codes" if fused else "k_codes")
+                           in leaves, fused=fused, device=raw.device)
     # positions are arange(n) and a KV_PAD tail: the flash kernel's layout
     hidden, caches = lm.forward(
         params, cfg, dataclasses.replace(ctx, arange_positions=True),
@@ -452,11 +465,29 @@ def _clone_step(pool, specs, step_in) -> None:
 
 @torch.no_grad()
 def _decode_step(params, cfg, ctx, pool, step_in) -> torch.Tensor:
-    """The ``[lanes, 1]`` decode step on ``step_in`` ([3, lanes] int64:
-    pool rows, ids, positions): writes each lane's K/V row into ``pool``
-    in place and returns its greedy next id (int64 [lanes]). A function
-    of its arguments only, so a captured graph of it holds no engine."""
+    """The ``[lanes, 1]`` decode step on a fused pool, on ``step_in``
+    ([3, lanes] int64: pool rows, ids, positions): writes each lane's K/V
+    row into ``pool`` in place and returns its greedy next id (int64
+    [lanes]). A function of its arguments only, so a captured graph of it
+    holds no engine."""
     rows, ids, pos = step_in[0], step_in[1][:, None], step_in[2]
     dctx = dataclasses.replace(ctx, paged_rows=rows)
     logits, _ = lm.decode_step(params, cfg, dctx, ids, pos, pool)
+    return torch.argmax(logits.float(), -1)
+
+
+@torch.no_grad()
+def _legacy_decode_step(params, cfg, ctx, pool, specs,
+                        step_in) -> torch.Tensor:
+    """The ``[lanes, 1]`` decode step on a legacy pool, on ``step_in`` as
+    :func:`_decode_step`'s; the reference's ``decode``: the lanes' pages
+    (rows ``step_in[0]``) gathered, one ``lm.decode_step`` on them (each
+    lane's K/V row and mirrors written at ``pos % W``) and scattered back
+    in place; returns the greedy next id (int64 [lanes]). Run again on
+    the same input it rewrites the same row and V block before it reads
+    them, so the pool ends as one run leaves it."""
+    rows, ids, pos = step_in[0], step_in[1][:, None], step_in[2]
+    caches = gather_rows(pool, specs, rows)
+    logits, caches = lm.decode_step(params, cfg, ctx, ids, pos, caches)
+    scatter_rows(pool, specs, rows, caches)
     return torch.argmax(logits.float(), -1)

@@ -6,7 +6,9 @@ allocated once with ``num_slots + lanes`` rows along the batch axis and
 ``page_len`` positions. Rows ``0 .. num_slots-1`` are request pages handed
 out by :class:`SlotAllocator`; row ``num_slots + i`` is lane ``i``'s
 scratch row, where an idle decode lane parks, so the lane -> row vector
-is always injective. Only the fused layout is ported.
+is always injective. A pool is in one of the reference's two layouts:
+``legacy`` (split ``{k, v}`` pages, gathered and scattered around each
+decode step) or ``fused`` (head-interleaved pages decoded in place).
 """
 
 from __future__ import annotations
@@ -97,47 +99,48 @@ def clone_prefix(pool, specs, src_row, dst_row, n) -> None:
     reference's ``clone_prefix``). With ``n == 0`` it resets the page: a
     reused slot carries stale rows, and one inside the active V 32-block
     would corrupt that block's shared exponent. With ``n > 0`` it is the
-    prefix cache's copy-on-write at admission. Only raw K/V rows are
-    copied, bit-exactly; the quantized mirror leaves are zeroed, because
-    the first suffix chunk recomputes them from the raw page before
-    anything reads them.
+    prefix cache's copy-on-write at admission. Only the raw K/V rows
+    (``kv``, or ``k`` and ``v``) are copied, bit-exactly; the quantized
+    mirror leaves are zeroed, because the first suffix chunk recomputes
+    them from the raw page before anything reads them.
 
     ``src_row``, ``dst_row`` and ``n`` are one-element int64 tensors on
     the pool's device. The copy is an ``arange(W) < n`` mask and index
     ops, so no shape depends on them and nothing reads them back to the
     host: the engine's clone step is one fixed CUDA graph."""
-    dev = pool[0][0]["kv"].device
     src, dst = src_row.reshape(1), dst_row.reshape(1)
     for seg_pool, spec in zip(pool, specs):
         for layer in seg_pool:
             for name, v in layer.items():
                 ax = spec[name].index("batch")
-                if name == "kv":
+                if "cache_seq" in spec[name] and name in ("k", "v", "kv"):
                     sax = spec[name].index("cache_seq")
                     shape = [1] * v.ndim
                     shape[sax] = v.shape[sax]
-                    keep = (torch.arange(v.shape[sax], device=dev)
+                    keep = (torch.arange(v.shape[sax], device=v.device)
                             < n).reshape(shape)
                     row = torch.where(keep, v.index_select(ax, src),
                                       torch.zeros((), dtype=v.dtype,
-                                                  device=dev))
+                                                  device=v.device))
                     v.index_copy_(ax, dst, row)
                 else:
                     v.index_fill_(ax, dst, 0)
 
 
 class PagedKVCache:
-    """Fixed pool of fused KV pages + slot allocator for one served model,
-    on ``device`` (default ``cuda``; raises without a GPU unless
-    ``device="cpu"`` is given); ``mx_digital`` pools carry the
-    quantized-resident code mirrors, float pools carry none."""
+    """Fixed pool of KV pages + slot allocator for one served model, on
+    ``device`` (default ``cuda``; raises without a GPU unless
+    ``device="cpu"`` is given). ``layout="legacy"`` allocates split
+    ``{k, v}`` pages, which the engine gathers and scatters around each
+    decode step; ``layout="fused"`` the head-interleaved pages that
+    decode runs on in place (``RunCtx.paged_rows``). ``mx_digital`` pools
+    carry the quantized-resident code mirrors, float pools carry none."""
 
     def __init__(self, cfg, num_slots: int, lanes: int, page_len: int,
-                 mx_digital: bool = False, layout: str = "fused",
+                 mx_digital: bool = False, layout: str = "legacy",
                  device=None):
-        if layout != "fused":
-            raise NotImplementedError(f"KV layout {layout!r} is not ported "
-                                      "(ROADMAP.md Queue 1); use 'fused'")
+        if layout not in ("legacy", "fused"):
+            raise ValueError(f"unknown KV layout {layout!r}")
         for seg in lm.build_segments(cfg):
             if seg.kind not in ("attn", "moe_attn"):
                 raise NotImplementedError(
@@ -153,9 +156,11 @@ class PagedKVCache:
         self.page_len = page_len
         self.mx_digital = mx_digital
         self.layout = layout
-        self.specs = lm.cache_specs(cfg, mx_digital=mx_digital, fused=True)
+        self.fused = layout == "fused"
+        self.specs = lm.cache_specs(cfg, mx_digital=mx_digital,
+                                    fused=self.fused)
         self.pool = lm.init_cache(cfg, num_slots + lanes, page_len,
-                                  mx_digital=mx_digital, fused=True,
+                                  mx_digital=mx_digital, fused=self.fused,
                                   device=device)
         self.allocator = SlotAllocator(num_slots)
 

@@ -68,22 +68,33 @@ def page_rows(kv, slot: int) -> dict:
 def rows_fingerprint(kv, rows: dict, n: int) -> bytes:
     """SHA-1 over the prefix-determined bytes of the first ``n`` rows of a
     host page copy (:func:`page_rows`): every leaf's prefix slice, with the
-    blockwise V codes and exponents cut to whole 32-blocks."""
+    blockwise V codes and exponents cut to whole 32-blocks. The header
+    names the pool's layout, as the reference's does."""
     h = hashlib.sha1()
-    h.update(struct.pack("<ii", n, kv.page_len))
+    h.update(struct.pack("<iii", n, kv.page_len, int(kv.fused)))
     nb = (n // BLOCK) * BLOCK
-    for si, seg_pool in enumerate(kv.pool):
+    for si, (seg_pool, spec) in enumerate(zip(kv.pool, kv.specs)):
         for li, layer in enumerate(seg_pool):
             for name in sorted(layer):
                 arr = rows[(si, li, name)]
-                if name == "v_exps":  # [ceil(W/32), Hkv, Dh], block axis first
-                    parts = [arr[:n // BLOCK]]
+                ax = spec[name].index("batch")
+                sub = spec[name][:ax] + spec[name][ax + 1:]
+                if name == "v_exps":
+                    # one exponent a 32-block of keys: legacy [Hkv, Dh,
+                    # Wpad/32] (block axis last), fused [ceil(W/32), Hkv,
+                    # Dh] (block axis first)
+                    parts = [np.take(arr, np.arange(n // BLOCK),
+                                     axis=0 if kv.fused else arr.ndim - 1)]
+                elif name == "v_codes":  # legacy [Hkv, Dh, Wpad]
+                    parts = [np.take(arr, np.arange(nb),
+                                     axis=sub.index("cache_seq"))]
                 elif name == "kv_codes":
                     # [W, 2Hkv, Dpad/2]: even head rows are K codes (per
                     # position, to n), odd ones V codes (whole blocks only)
                     parts = [arr[:n, 0::2], arr[:nb, 1::2]]
-                else:  # kv, k_exps: per position
-                    parts = [arr[:n]]
+                else:  # k, v, kv, k_codes, k_exps: per position
+                    parts = [np.take(arr, np.arange(n),
+                                     axis=sub.index("cache_seq"))]
                 h.update(name.encode())
                 for p in parts:
                     p = np.ascontiguousarray(p)

@@ -38,6 +38,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
@@ -312,7 +314,8 @@ def test_engine_staggered_equals_solo(name, backend, models):
     it gets alone (page 16: within tiny gemma3's 16-slot window)."""
     cfg, params = _tcfg(name), models[name]["t"][backend]
     _, ctx = _ctxs(backend)
-    ecfg = EngineConfig(lanes=2, num_slots=3, page_len=16, prefill_len=10)
+    ecfg = EngineConfig(lanes=2, num_slots=3, page_len=16, prefill_len=10,
+                        kv_layout="fused")
     rng = np.random.default_rng(3)
     reqs = [(rng.integers(0, cfg.vocab_size, int(n)).tolist(), int(m))
             for n, m in ((9, 6), (4, 7), (10, 5), (2, 8))]

@@ -39,6 +39,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -400,7 +402,8 @@ def _tiny_engine(obs):
         ["--device", "cpu", "--backend", "mxfp4", "--log-level", "warning"])
     cfg, params, ctx, _ = tserve.build_model(args, obs=obs)
     eng = Engine(params, cfg, ctx, EngineConfig(lanes=2, num_slots=3,
-                                                page_len=24, prefill_len=12),
+                                                page_len=24, prefill_len=12,
+                                                kv_layout="fused"),
                  obs=obs)
     rng = np.random.default_rng(1)
     for n in (3, 7, 5):

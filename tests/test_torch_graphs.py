@@ -12,18 +12,21 @@ On the CPU:
 - ``Engine.add_request`` rejects token ids outside the vocabulary.
 - The prefill step (``engine._prefill_step``, one int64 input: ids,
   positions, row, last) gives the id and pool leaves of the eager path it
-  replaced, bitwise, under float, mxfp4 and cim; run twice on one input
-  it writes what one run writes (a graph's warm-up runs it so).
+  replaced, bitwise, under float, mxfp4 and cim, into a fused or a legacy
+  pool; run twice on one input it writes what one run writes (a graph's
+  warm-up runs it so).
 - On the CPU the engines run their steps eagerly: ``cuda_graphs`` changes
   nothing there, and a ``StepGraph`` refuses a CPU tensor.
 
 On the card (``cuda`` marker): each of the five kernel wrappers captured
-alone and replayed bitwise its eager launch; a tiny engine's tokens
-captured == eager under cim, mxfp4 and float, staggered and solo, with
-launch counts exact; its prefill, chunk and clone steps captured == eager
-(ids and pool bytes; the prefill past ``dense_attn_max`` through
-``flash_attention``) with exact counts after replays, and none of the
-four steps syncs with the host; the decode graph still replays bitwise
+alone and replayed bitwise its eager launch; a tiny engine's tokens, on
+a fused and on a legacy pool, captured == eager under cim, mxfp4 and
+float, staggered and solo, with launch counts exact; its prefill, chunk,
+clone and decode steps (the legacy decode: gather, decode, scatter)
+captured == eager (ids and pool bytes; the prefill past
+``dense_attn_max`` through ``flash_attention``) with exact counts after
+replays, and none of the four steps syncs with the host; the decode
+graph still replays bitwise
 after a [1, 2048] prefill graph grew the kernels' scratch; a tiny ViT
 frame and the two-chip chain captured == eager; a capture that fails
 raises, a prefill step that syncs too.
@@ -35,6 +38,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -54,7 +59,8 @@ from repro_torch.serving import VisionEngine  # noqa: E402
 from repro_torch.serving import engine as eng_mod  # noqa: E402
 from repro_torch.serving.kvcache import scatter_rows  # noqa: E402
 
-ECFG = EngineConfig(lanes=2, num_slots=3, page_len=24, prefill_len=10)
+ECFG = EngineConfig(lanes=2, num_slots=3, page_len=24, prefill_len=10,
+                    kv_layout="fused")
 REQS = ((9, 6), (4, 7), (10, 5), (2, 8))  # (prompt length, new tokens)
 
 
@@ -247,7 +253,7 @@ def _eager_prefill(eng, prompt, row) -> int:
     positions = np.full((1, p), eng_mod.attn_mod.KV_PAD, np.int64)
     positions[0, :n] = np.arange(n)
     caches = lm.init_cache(cfg, 1, eng.ecfg.page_len,
-                           mx_digital=eng.kv.mx_digital, fused=True,
+                           mx_digital=eng.kv.mx_digital, fused=eng.kv.fused,
                            device=eng.device)
     hidden, caches = lm.forward(
         eng.params, cfg, dataclasses.replace(eng.ctx, arange_positions=True),
@@ -270,14 +276,16 @@ def _pools_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("layout", ["fused", "legacy"])
 @pytest.mark.parametrize("backend", ["float", "mxfp4", "cim"])
-def test_prefill_step_bitwise_the_eager_path(backend):
+def test_prefill_step_bitwise_the_eager_path(backend, layout):
     """``_prefill_step`` on one int64 input gives the id and pool leaves
-    of the eager path it replaced, bitwise; run twice on the same input it
-    leaves the pool as one run does (the graph's warm-up runs it so)."""
+    of the eager path it replaced, bitwise, on either pool layout; run
+    twice on the same input it leaves the pool as one run does (the
+    graph's warm-up runs it so)."""
     cfg, params, ctx = _tiny_lm(backend)
     rng = np.random.default_rng(7)
-    ecfg = dataclasses.replace(ECFG, prefill_len=12)
+    ecfg = dataclasses.replace(ECFG, prefill_len=12, kv_layout=layout)
     old, new = (Engine(params, cfg, ctx, ecfg) for _ in range(2))
     for n, row in ((12, 2), (5, 0), (1, 1)):
         prompt = rng.integers(0, cfg.vocab_size, n).tolist()
@@ -367,27 +375,35 @@ def test_cuda_each_wrapper_captured_bitwise():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["fused", "legacy"])
 @pytest.mark.parametrize("backend", ["cim", "mxfp4", "float"])
-def test_cuda_engine_captured_tokens_equal_eager(backend):
-    """Tiny starcoder2-7b on the card: captured tokens == eager tokens,
-    bitwise, for staggered requests and each request alone; the launch
-    counts of a captured run equal the eager run's; ``impl="ref"`` with
-    graphs raises."""
+def test_cuda_engine_captured_tokens_equal_eager(backend, layout):
+    """Tiny starcoder2-7b on the card, either pool layout: captured tokens
+    == eager tokens, bitwise, for staggered requests and each request
+    alone; the launch counts of a captured run equal the eager run's (no
+    paged decode kernel on a legacy pool, so none at all under float
+    there); ``impl="ref"`` with graphs raises."""
     _cuda()
     cfg, params, ctx = _tiny_lm(backend, "cuda")
-    eager_cfg = dataclasses.replace(ECFG, cuda_graphs=False)
+    capt_cfg = dataclasses.replace(ECFG, kv_layout=layout)
+    eager_cfg = dataclasses.replace(capt_cfg, cuda_graphs=False)
     counts = []
     outs = []
-    for ecfg in (eager_cfg, ECFG):
+    for ecfg in (eager_cfg, capt_cfg):
         before = graphs.read_counts()
         outs.append(_serve(cfg, params, ctx, ecfg))
         counts.append(graphs.counts_delta(before, graphs.read_counts()))
     assert outs[0] == outs[1]
-    assert counts[0] == counts[1] and counts[0]
-    assert _serve(cfg, params, ctx, ECFG, staggered=False) == outs[0]
-    assert Engine(params, cfg, ctx, ECFG).graphs["decode"] is not None
+    assert counts[0] == counts[1]
+    paged = sum(n for key, n in counts[0].items()
+                if key[0] == "launches" and key[1].startswith("paged_decode"))
+    assert (paged > 0) == (layout == "fused")
+    # float on a legacy pool: bf16 linears, short prompts, torch-op decode
+    assert bool(counts[0]) == (backend != "float" or layout == "fused")
+    assert _serve(cfg, params, ctx, capt_cfg, staggered=False) == outs[0]
+    assert Engine(params, cfg, ctx, capt_cfg).graphs["decode"] is not None
     with pytest.raises(ValueError, match="runs eagerly"):
-        Engine(params, cfg, dataclasses.replace(ctx, impl="ref"), ECFG)
+        Engine(params, cfg, dataclasses.replace(ctx, impl="ref"), capt_cfg)
 
 
 @pytest.mark.cuda
@@ -439,6 +455,7 @@ def test_cuda_failed_capture_raises():
 
 
 STEP_ECFG = EngineConfig(lanes=2, num_slots=3, page_len=24, prefill_len=10,
+                         kv_layout="fused",
                          chunk_len=4, policy="chunked")
 
 
@@ -487,9 +504,10 @@ def _run_calls(eng, calls, no_sync: bool = False) -> tuple[list, dict]:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["fused", "legacy"])
 @pytest.mark.parametrize("arch", ["starcoder2-7b", "qwen3-moe-235b-a22b"])
 @pytest.mark.parametrize("backend", ["cim", "mxfp4", "float"])
-def test_cuda_steps_captured_equal_eager(backend, arch):
+def test_cuda_steps_captured_equal_eager(backend, arch, layout):
     """The prefill (past ``dense_attn_max``: ``flash_attention`` in its
     graph under mxfp4 and float), clone, chunk and decode steps of a tiny
     engine, dense and MoE (the dispatch's sort, capacity and gathers in
@@ -499,18 +517,24 @@ def test_cuda_steps_captured_equal_eager(backend, arch):
     obs's ``kernel_calls_total`` too. No step syncs with the host (each
     eager step runs under ``set_sync_debug_mode("error")``, after a pass
     that did the one-time setup). A pass rewrites every row it reads
-    first, so a second pass gives the first one's bytes."""
+    first, so a second pass gives the first one's bytes. On a legacy pool
+    the decode step gathers, decodes and scatters the lanes' pages: no
+    paged decode kernel launches."""
     _cuda()
     cfg, params, ctx = _tiny_lm(backend, "cuda", arch)
     ctx = dataclasses.replace(ctx, dense_attn_max=8, obs=obs_lib.Obs())
     calls = _step_inputs(cfg)
+    step_ecfg = dataclasses.replace(STEP_ECFG, kv_layout=layout)
     eager = Engine(params, cfg, ctx,
-                   dataclasses.replace(STEP_ECFG, cuda_graphs=False))
+                   dataclasses.replace(step_ecfg, cuda_graphs=False))
     _run_calls(eager, calls)  # one-time setup (tables, scratch) first
     want, want_counts = _run_calls(eager, calls, no_sync=True)
     if backend != "cim":
         assert want_counts[("launches", "flash_attention")] == cfg.n_layers
-    capt = Engine(params, cfg, ctx, STEP_ECFG)
+    paged = sum(n for key, n in want_counts.items()
+                if key[0] == "launches" and key[1].startswith("paged_decode"))
+    assert (paged > 0) == (layout == "fused")
+    capt = Engine(params, cfg, ctx, step_ecfg)
     for _ in range(2):  # the captures, then replays only
         got, counts = _run_calls(capt, calls)
         assert counts == want_counts
@@ -544,7 +568,8 @@ def test_cuda_decode_graph_replays_after_long_prefill_graph(backend):
     before = short._call("decode").clone()
     pool = _pool_bytes(short.kv.pool)
     long = Engine(params, cfg, ctx, EngineConfig(
-        lanes=1, num_slots=1, page_len=2056, prefill_len=2048))
+        lanes=1, num_slots=1, page_len=2056, prefill_len=2048,
+        kv_layout="fused"))
     long.add_request(rng.integers(0, cfg.vocab_size, 2048).tolist(),
                      max_new=1)
     long.run()

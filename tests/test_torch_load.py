@@ -23,6 +23,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
+
 from repro import obs as jobs  # noqa: E402
 from repro.serving import load as jload  # noqa: E402
 from repro_torch import configs as C  # noqa: E402
@@ -180,7 +182,8 @@ def test_replay_matches_batch_run_and_reports():
     params = lm.init_model(CFG, torch.Generator().manual_seed(0))
     ctx = RunCtx(dense_attn_max=256)
     ecfg = EngineConfig(lanes=2, num_slots=4, page_len=24, prefill_len=8,
-                        policy="chunked", chunk_len=4, prefix_cache=True)
+                        policy="chunked", chunk_len=4, prefix_cache=True,
+                        kv_layout="fused")
     spec = tload.WorkloadSpec(vocab_size=CFG.vocab_size, prompt_len=(2, 6),
                               out_len=(2, 4), n_system=1, system_len=6,
                               p_shared=0.75, max_prompt=16)

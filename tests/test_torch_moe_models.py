@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -41,7 +43,8 @@ TINY = {name: jconfigs.tiny(jconfigs.ARCHS[name]) for name in ARCHS}
 SEQ, PAGE, STEPS = 12, 16, 2  # tiny mixtral's window is 16 slots
 IDS = np.random.default_rng(0).integers(0, 128, (1, SEQ + STEPS))
 QUANT = {"float": "none", "mxfp4": "mxfp4_wonly", "cim": "cim"}
-ECFG = EngineConfig(lanes=2, num_slots=3, page_len=16, prefill_len=10)
+ECFG = EngineConfig(lanes=2, num_slots=3, page_len=16, prefill_len=10,
+                    kv_layout="fused")
 REQS = ((9, 6), (4, 7), (10, 5), (2, 8))  # (prompt length, new tokens)
 
 

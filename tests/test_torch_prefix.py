@@ -14,14 +14,15 @@ reference's chunk step.
   keeps its invariants under random interleavings.
 - Chunk steps of the port against the reference's on the same weights
   under the digital SDPA (mirrors recomputed for the whole page every
-  chunk): logits SQNR >= 30 dB (``tests/test_torch_lm.py``'s bound), and
-  the first layer's raw page bitwise.
+  chunk), into a fused and into a legacy split page: logits, raw rows and
+  mirrors of every layer bitwise.
+- The prefix cache and the fingerprints on either pool layout.
 - The engine's chunk step (``engine._chunk_step``, one int64 input: ids,
   positions, row, last, offset) gives the ids and pool leaves of the
   eager path it replaced, bitwise, and run twice on one input writes what
   one run writes; ``clone_prefix`` on device scalars is bitwise the
   reference's ``clone_prefix`` for n = 0, a partial V 32-block and the
-  full page.
+  full page, on either layout.
 """
 
 import dataclasses
@@ -33,6 +34,8 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
+
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -65,14 +68,6 @@ CFG = C.tiny(C.STARCODER2_7B)
 SYS = [5, 6, 7, 8, 9, 10, 11, 12]  # 8-token shared system prompt
 
 
-def _sqnr_db(ref, got) -> float:
-    ref = np.asarray(ref, np.float64)
-    got = np.asarray(got, np.float64)
-    err = np.sum((ref - got) ** 2)
-    return float("inf") if err == 0 else float(
-        10 * np.log10(np.sum(ref ** 2) / err))
-
-
 @pytest.fixture(scope="module")
 def models():
     params = lm.init_model(CFG, torch.Generator().manual_seed(0))
@@ -90,7 +85,7 @@ def models():
 
 def _engine(params, ctx, obs_on=False, **kw):
     base = dict(lanes=3, num_slots=4, page_len=24, prefill_len=8,
-                policy="chunked", chunk_len=4)
+                policy="chunked", chunk_len=4, kv_layout="fused")
     base.update(kw)
     return Engine(params, CFG, ctx, EngineConfig(**base),
                   obs=Obs(enabled=obs_on))
@@ -135,7 +130,8 @@ def test_single_shot_rejects_long_prompt_chunked_accepts(models):
     params, ctx = models["float"]
     long_prompt = list(range(1, 15))  # 14 > prefill_len=8
     eng = Engine(params, CFG, ctx, EngineConfig(lanes=1, num_slots=1,
-                                                page_len=24, prefill_len=8))
+                                                page_len=24, prefill_len=8,
+                                                kv_layout="fused"))
     with pytest.raises(ValueError, match="prompt length"):
         eng.add_request(long_prompt, max_new=2)
     eng_c = _engine(params, ctx, lanes=1, num_slots=1)
@@ -145,14 +141,16 @@ def test_single_shot_rejects_long_prompt_chunked_accepts(models):
 
 # ------------------------------------------------ bitwise prefix-cache reuse
 
+@pytest.mark.parametrize("layout", ["fused", "legacy"])
 @pytest.mark.parametrize("backend", ["float", "mxfp4", "cim"])
-def test_prefix_cache_outputs_bitwise_equal(backend, models):
-    """Cache-on tokens equal cache-off tokens with a nonzero hit rate; the
-    reused pages carry the quantized mirrors under cim."""
+def test_prefix_cache_outputs_bitwise_equal(backend, layout, models):
+    """Cache-on tokens equal cache-off tokens with a nonzero hit rate, on
+    either pool layout; the reused pages carry the quantized mirrors
+    under cim."""
     params, ctx = models[backend]
     prompts = _shared_prompts(4 if backend == "cim" else 5)
-    _, off = _run(params, ctx, prompts, prefix_cache=False)
-    eng, on = _run(params, ctx, prompts, prefix_cache=True)
+    _, off = _run(params, ctx, prompts, prefix_cache=False, kv_layout=layout)
+    eng, on = _run(params, ctx, prompts, prefix_cache=True, kv_layout=layout)
     assert on == off
     st_ = eng.prefix_stats()
     assert st_["hits"] > 0 and st_["hit_tokens"] > 0, st_
@@ -199,20 +197,22 @@ def _bits(t: torch.Tensor) -> np.ndarray:
     return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
 
 
+@pytest.mark.parametrize("layout", ["fused", "legacy"])
 @pytest.mark.parametrize("n", [0, 40, 48])
-def test_clone_prefix_device_scalars_bitwise_reference(n):
+def test_clone_prefix_device_scalars_bitwise_reference(n, layout):
     """``clone_prefix`` with device-scalar rows and length, on a pool of
     random values (page 48: n = 40 ends inside the second V 32-block), is
-    bitwise the reference's ``clone_prefix``: the destination's first n
-    raw rows copied, the rest and its mirrors zeroed, every other row
-    untouched."""
+    bitwise the reference's ``clone_prefix`` on either layout: the
+    destination's first n raw rows (``kv``, or ``k`` and ``v``) copied,
+    the rest and its mirrors zeroed, every other row untouched."""
+    fused = layout == "fused"
     jcfg = jconfigs.tiny(jconfigs.ARCHS["starcoder2-7b"])
-    jpool = jlm.init_cache(jcfg, 5, 48, mx_digital=True, fused=True)
-    jspecs = jlm.cache_specs(jcfg, mx_digital=True, fused=True)
+    jpool = jlm.init_cache(jcfg, 5, 48, mx_digital=True, fused=fused)
+    jspecs = jlm.cache_specs(jcfg, mx_digital=True, fused=fused)
     rng = np.random.default_rng(n)
     # finite bf16 K/V (XLA may rewrite a NaN's payload), any mirror bytes
     leaves = [{k: (np.asarray(jnp.asarray(rng.standard_normal(v.shape),
-                                          v.dtype)) if k == "kv"
+                                          v.dtype)) if v.dtype == jnp.bfloat16
                    else rng.integers(0, 256, v.shape, dtype=np.uint8).view(
                        v.dtype))
                for k, v in seg.items()} for seg in jpool]
@@ -221,22 +221,23 @@ def test_clone_prefix_device_scalars_bitwise_reference(n):
         [{k: jnp.asarray(v) for k, v in seg.items()} for seg in leaves],
         jnp.int32(3), jnp.int32(1), jnp.int32(n))
 
-    def port_pool():  # the layer axis unstacked, bf16 through int16 bits
-        return [[{k: (torch.from_numpy(v[j].view(np.int16).copy()).view(
-                      torch.bfloat16) if k == "kv"
-                      else torch.from_numpy(v[j].copy()))
-                  for k, v in seg.items()} for j in range(CFG.n_layers)]
-                for seg in leaves]
+    def port_leaf(v):  # bf16 through its int16 bits
+        if v.dtype == jnp.bfloat16:
+            return torch.from_numpy(v.view(np.int16).copy()).view(
+                torch.bfloat16)
+        return torch.from_numpy(v.copy())
 
-    specs = lm.cache_specs(CFG, mx_digital=True, fused=True)
-    pool = port_pool()
+    pool = [[{k: port_leaf(v[j]) for k, v in seg.items()}
+             for j in range(CFG.n_layers)] for seg in leaves]
+    specs = lm.cache_specs(CFG, mx_digital=True, fused=fused)
     clone_prefix(pool, specs, torch.tensor(3), torch.tensor(1),
                  torch.tensor(n))
     for seg, jseg in zip(pool, jout):
+        assert sorted(seg[0]) == sorted(jseg)
         for j, layer in enumerate(seg):
             for k, v in layer.items():
                 ref = np.asarray(jseg[k])[j]
-                if k == "kv":
+                if ref.dtype == jnp.bfloat16:
                     ref = ref.view(np.int16)
                 np.testing.assert_array_equal(_bits(v), ref, err_msg=k)
 
@@ -300,9 +301,13 @@ def _leaves(pool):
 
 # ------------------------------------------- content-addressable identity
 
-def test_fingerprint_deterministic_across_donors(models):
+@pytest.mark.parametrize("layout", ["fused", "legacy"])
+def test_fingerprint_deterministic_across_donors(layout, models):
+    """Two donors of one prefix with other tails: equal fingerprints at
+    the prefix (the V blocks cut to whole 32-blocks, on either layout's
+    mirrors), other ones past it."""
     params, ctx = models["cim"]
-    eng = _engine(params, ctx, lanes=2, num_slots=4)
+    eng = _engine(params, ctx, lanes=2, num_slots=4, kv_layout=layout)
     pa, pb = SYS + [101, 102], SYS + [111, 112]
     # both stay live until the second admits, so the LIFO allocator
     # cannot give the first page to the second request
@@ -474,20 +479,33 @@ def test_control_plane_invariants_under_random_interleaving(seed):
 
 # ---------------------------------------- against the reference's chunk step
 
-def test_chunk_steps_match_reference():
-    """Three [1, 8] chunks of a 20-token prompt into one 32-slot page
-    under ``mxfp4_digital`` (the digital SDPA over quantized-resident
-    mirrors, float weights): each chunk's logits against the reference's
-    chunk step, then the raw page."""
+@pytest.fixture(scope="module")
+def ref_model():
+    """The reference's tiny starcoder2-7b (float weights) and the port's
+    copy of it, shared by the layouts of the chunk-step check."""
     jcfg = jconfigs.tiny(jconfigs.ARCHS["starcoder2-7b"])
     jparams, _ = jlm.init_model(jax.random.PRNGKey(2), jcfg)
     tparams = from_reference(jax.tree.map(np.asarray, jparams), device="cpu")
+    return jcfg, jparams, tparams
+
+
+@pytest.mark.parametrize("layout", ["fused", "legacy"])
+def test_chunk_steps_match_reference(layout, ref_model):
+    """Three [1, 8] chunks of a 20-token prompt into one 32-slot page, fused
+    or legacy, under ``mxfp4_digital`` (the digital SDPA over
+    quantized-resident mirrors, float weights): each chunk's logits
+    bitwise the reference's chunk step's, then every leaf of the page
+    (raw rows and the mirrors recomputed for the whole page) of each
+    layer bitwise."""
+    jcfg, jparams, tparams = ref_model
+    fused = layout == "fused"
     jctx = jcommon.RunCtx(shd=jcommon.ShardingCtx(), quant="mxfp4_digital",
                           unroll_layers=True, dense_attn_max=256)
     tctx = RunCtx(quant="mxfp4_digital", dense_attn_max=256)
     prompt = np.random.default_rng(4).integers(0, CFG.vocab_size, 20)
-    jc = jlm.init_cache(jcfg, 1, 32, mx_digital=True, fused=True)
-    tc = lm.init_cache(CFG, 1, 32, mx_digital=True, fused=True, device="cpu")
+    jc = jlm.init_cache(jcfg, 1, 32, mx_digital=True, fused=fused)
+    tc = lm.init_cache(CFG, 1, 32, mx_digital=True, fused=fused,
+                       device="cpu")
     for offs in (0, 8, 16):
         take = min(8, len(prompt) - offs)
         ids = np.zeros((1, 8), np.int64)
@@ -504,9 +522,13 @@ def test_chunk_steps_match_reference():
                                  {"ids": torch.from_numpy(ids),
                                   "positions": torch.from_numpy(positions)},
                                  caches=tc, pos=offs)
-        ref = np.asarray(ref, np.float32)[0, :take]
-        assert _sqnr_db(ref, got[0, :take].float()) >= 30.0, offs
-    page = np.asarray(jax.tree.map(lambda a: a[0], jc[0])["kv"])
-    assert tc[0][0]["kv"].shape == page.shape
-    got = tc[0][0]["kv"].view(torch.int16).numpy()
-    np.testing.assert_array_equal(got, page.view(np.int16))
+        np.testing.assert_array_equal(got[0, :take].float().numpy(),
+                                      np.asarray(ref, np.float32)[0, :take],
+                                      err_msg=f"chunk at {offs}")
+    for j, layer in enumerate(tc[0]):
+        assert sorted(layer) == sorted(jc[0])
+        for k, v in layer.items():
+            ref = np.asarray(jc[0][k])[j]
+            if ref.dtype == jnp.bfloat16:
+                ref = ref.view(np.int16)
+            np.testing.assert_array_equal(_bits(v), ref, err_msg=k)

@@ -4,6 +4,7 @@ isolation from JAX.
 - A staggered multi-request run through ``Engine`` on the fused
   quantized-resident pool produces, token for token, what each request
   produces alone (the reference's isolation invariant, inside the port).
+  (The legacy pool: ``tests/test_torch_legacy_pool.py``.)
 - Allocator and scheduler behave as the reference's (same host code).
   (The FWS pipeline model behind ``trace_report`` is held to the
   reference in ``tests/test_torch_vision.py``.)
@@ -23,6 +24,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 from repro.serving.scheduler import Scheduler as JScheduler  # noqa: E402
 from repro_torch import configs as C  # noqa: E402
@@ -44,7 +47,8 @@ from repro_torch.serving.scheduler import Request, Scheduler  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = C.tiny(C.STARCODER2_7B)
-ECFG = EngineConfig(lanes=3, num_slots=4, page_len=40, prefill_len=16)
+ECFG = EngineConfig(lanes=3, num_slots=4, page_len=40, prefill_len=16,
+                    kv_layout="fused")
 
 
 @pytest.fixture(scope="module")
@@ -93,17 +97,17 @@ def test_staggered_batching_equals_solo_runs(backend, request):
 
 
 def test_engine_rejects_unported_modes(cim_model):
-    """What stays unported raises (the legacy layout); chunked prefill and
-    the prefix cache take the reference's checks; ``trace_report`` of an
-    engine that ran nothing is the pipeline model of no jobs."""
+    """An unknown KV layout raises, as in the reference; chunked prefill
+    and the prefix cache take the reference's checks; ``trace_report`` of
+    an engine that ran nothing is the pipeline model of no jobs."""
     params, ctx = cim_model
     with pytest.raises(ValueError, match="prefix_cache requires chunk_len"):
         Engine(params, CFG, ctx, dataclasses.replace(ECFG, prefix_cache=True))
     for bad in (1, ECFG.page_len + 1):
         with pytest.raises(ValueError, match=r"chunk_len must be in \[2"):
             Engine(params, CFG, ctx, dataclasses.replace(ECFG, chunk_len=bad))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        Engine(params, CFG, ctx, dataclasses.replace(ECFG, kv_layout="legacy"))
+    with pytest.raises(ValueError, match="unknown KV layout 'paged'"):
+        Engine(params, CFG, ctx, dataclasses.replace(ECFG, kv_layout="paged"))
     rep = Engine(params, CFG, ctx, ECFG).trace_report()
     assert rep.request_latency == {} and rep.pipeline.makespan == 0.0
     with pytest.raises(ValueError, match="prompt length"):
@@ -123,21 +127,23 @@ def test_slot_allocator_refcounts():
     assert a.num_free == 1 and a.alloc() == 1
 
 
-def test_gather_scatter_rows_roundtrip():
+@pytest.mark.parametrize("layout", ["fused", "legacy"])
+def test_gather_scatter_rows_roundtrip(layout):
     kv = PagedKVCache(CFG, num_slots=3, lanes=2, page_len=32, mx_digital=True,
-                      device="cpu")
+                      layout=layout, device="cpu")
+    raw = "kv" if layout == "fused" else "k"
     rows = torch.tensor([4, 1])
     vals = gather_rows(kv.pool, kv.specs, rows)
     for layer in vals[0]:
-        layer["kv"].fill_(1.5)
+        layer[raw].fill_(1.5)
         layer["k_exps"].fill_(3)
     scatter_rows(kv.pool, kv.specs, rows, vals)
     for layer in kv.pool[0]:
-        assert bool((layer["kv"][rows] == 1.5).all())
-        assert bool((layer["kv"][[0, 2, 3]] == 0).all())
+        assert bool((layer[raw][rows] == 1.5).all())
+        assert bool((layer[raw][[0, 2, 3]] == 0).all())
         assert bool((layer["k_exps"][rows] == 3).all())
-    bad = [[{**layer, "kv": layer["kv"].float()} for layer in vals[0]]]
-    with pytest.raises(TypeError, match="kv"):
+    bad = [[{**layer, raw: layer[raw].float()} for layer in vals[0]]]
+    with pytest.raises(TypeError, match=raw):
         scatter_rows(kv.pool, kv.specs, rows, bad)
 
 
@@ -193,26 +199,29 @@ def test_launcher_serves_on_cpu_and_never_falls_back(backend):
                        "--tokens", "4", "--log-level", "warning"])
     assert out["requests"] == 3 and out["tokens"] > 0
     assert all(0 <= t < CFG.vocab_size for v in out["out"].values() for t in v)
+    assert out["ecfg"].kv_layout == "legacy"  # the reference's default
     assert tserve.build_parser().parse_args([]).backend == "mxfp4"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tserve.main(["--serve-trace", "--backend", backend])
 
 
-def test_launcher_serves_chunked_with_prefix_cache_on_cpu():
+@pytest.mark.parametrize("layout", ["legacy", "fused"])
+def test_launcher_serves_chunked_with_prefix_cache_on_cpu(layout):
     """``--chunk-len``, ``--policy chunked`` and ``--prefix-cache`` serve to
-    the end, and a prompt past ``dense_attn_max`` (256) takes the
-    online-softmax prefill."""
+    the end on either ``--kv-layout``, and a prompt past
+    ``dense_attn_max`` (256) takes the online-softmax prefill."""
     out = tserve.main(["--serve-trace", "--device", "cpu", "--requests", "3",
                        "--prompt-len", "8", "--tokens", "4", "--chunk-len",
                        "4", "--policy", "chunked", "--prefix-cache",
-                       "--log-level", "warning"])
+                       "--kv-layout", layout, "--log-level", "warning"])
     assert out["requests"] == 3 and out["tokens"] > 0
+    assert out["ecfg"].kv_layout == layout
     assert out["prefix"]["verify_failures"] == 0
     assert out["prefix"]["hits"] + out["prefix"]["misses"] == 3
     out = tserve.main(["--serve-trace", "--device", "cpu", "--requests", "1",
-                       "--prompt-len", "300", "--tokens", "2", "--log-level",
-                       "warning"])
+                       "--prompt-len", "300", "--tokens", "2", "--kv-layout",
+                       layout, "--log-level", "warning"])
     assert out["prefill_len"] == 300 and out["tokens"] == 2
     with pytest.raises(SystemExit):  # argparse's choices
         tserve.main(["--serve-trace", "--device", "cpu", "--policy", "lifo"])

@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
+
 from repro.distributed import sharding as jsharding  # noqa: E402
 from repro.hwmodel import perf as jperf  # noqa: E402
 from repro.hwmodel import specs as jspecs  # noqa: E402
@@ -222,7 +224,8 @@ def test_engine_trace_report_matches_reference():
     ``simulate_trace`` of the same step events."""
     cfg = C.tiny(C.STARCODER2_7B)
     params = lm.init_model(cfg, torch.Generator().manual_seed(0))
-    ecfg = EngineConfig(lanes=3, num_slots=4, page_len=24, prefill_len=8)
+    ecfg = EngineConfig(lanes=3, num_slots=4, page_len=24, prefill_len=8,
+                        kv_layout="fused")
     eng = Engine(params, cfg, CTX, ecfg)
     for i, n in enumerate((5, 8, 3, 6)):
         eng.add_request(list(range(1, n + 1)), max_new=3 + i)
