@@ -128,7 +128,8 @@
    layers: two 5:1 local:global groups, head_dim 256, one KV head, tied
    head), h2o-danube-1.8b (8 of 24 layers, 4096-slot window, head_dim 80)
    and nemotron-4-15b (squared ReLU, LayerNorm, head_dim 128, untied
-   256000-row head; 8 of 32 layers), through the launcher's ``build_model``
+   256000-row head; 8 of 32 layers, 4 under ``cim``), through the
+   launcher's ``build_model``
    and ``serve_trace`` under ``mxfp4`` and ``cim`` (``DENSE_RUNS``): 8
    staggered requests of up to 384-token prompts ([1, 384] prefills, past
    ``dense_attn_max``) and 64 new tokens, 4 lanes, 6 slots, page 448.
@@ -192,7 +193,9 @@
 12. The recurrent families and the legacy cache: zamba2-1.2b (38
     Mamba2 layers and six visits of the shared attention block) and
     xlstm-125m (mLSTM and sLSTM, tied head) at full width and depth
-    through the launcher's ``build_model`` and greedy decode
+    (``REC_LAYERS`` cuts the depth of zamba under ``cim`` to 12 layers and
+    two visits, and of xlstm to 6 layers, one sLSTM: the script's time
+    limit) through the launcher's ``build_model`` and greedy decode
     (``serve_greedy``: a prefill into the legacy K/V cache and the
     recurrent states, then each decode step two captured graphs) under
     ``mxfp4`` and ``cim`` (``REC_RUNS``): 4 lanes, 512-token prompts, 64
@@ -219,7 +222,33 @@
     rows (``REC_SHAPES``): C at every packed linear at M = 4 and the
     prefill's rows, A at the calibrated ones, E at zamba's shared
     attention over [4, 512] and [1, 2560].
-13. Prints the kernels line (phase 9 adds B, D and E at head widths
+13. The stage-parallel FWS pipeline (``distributed/pipeline_exec.py``)
+    through the launcher's ``serve_vision`` / ``serve_pipelined_lm`` with
+    ``mesh=`` a grid whose places all sit on this card
+    (``make_pipeline_mesh(devices=[cuda] * n)``, each place its own stream
+    and kernel scratch; the whole step one captured CUDA graph):
+    ViT-L/32 ``cim`` at full width and depth over 2 stages (12 + 12), 4
+    microbatches of one frame (``PIPE_VIT_ARGS``): launches exactly by
+    route (``cim_linear`` only), 8 frames bitwise the two-chip chain of
+    phase 8 (captured, one frame a call), captured == eager, 4 frames
+    against ``impl="ref"`` (SQNR >= 30 dB), the transfer guard (trunk
+    resident before and after three steps; only the activation hop,
+    exactly (S - 1) M R mb 145 1024 2 bytes, under a tenth of the trunk),
+    the ``pipeline_measured_*`` gauges, one step profiled captured and
+    eager (device ms, busy share, ``overlap_ms``: time in which two
+    stages' kernels ran at once) and the chain's ``fps_host`` on the same
+    frames; a ``serve pipeline`` line. ViT-B/16 ``mxfp4`` over a 2 x 2
+    grid (``PIPE_ROUTER_ARGS``) and a ``ReplicaRouter``: three ragged
+    submissions, ``dispatched == [2, 1]``, each ticket bitwise the same
+    function on one stream with the same rows a launch and >= 30 dB
+    against ``vit.forward`` on its rows (``forward_own_spread_db``: C
+    splits K by the rows it is given); a ``serve pipeline router`` line.
+    starcoder2-7b ``cim`` (8 of 32 layers) over 4 stages, 2 microbatches
+    of 2 prompts of 192 tokens (``PIPE_LM_ARGS``): ``parity`` bitwise or
+    >= 60 dB against the one-device forward, again on balanced cuts
+    from ``serve_layer_costs``, ``cim_linear`` the only kernel; a ``serve
+    pipeline lm`` line.
+14. Prints the kernels line (phase 9 adds B, D and E at head widths
     256, 80 and 128; phase 11 C at the expert shapes, A at the MoE
     linears and B and D at G 16 and 7; phase 12 A, C and E at the
     recurrent and audio archs' shapes), then the card's name and power
@@ -236,7 +265,9 @@ steps {...}``, ``serve load {...}``, ``prefill eager vs captured
 ``serve dense {...}``, ``fidelity linear {...}``, ``fidelity quant_health
 {...}``, ``fidelity {...}``, ``moe layer {...}``, ``vision prefill
 {...}``, ``recurrent prefill profile {...}``, ``recurrent decode profile
-<mode> {...}``, ``serve recurrent {...}``, ``encode audio {...}``).
+<mode> {...}``, ``serve recurrent {...}``, ``encode audio {...}``,
+``serve pipeline {...}``, ``serve pipeline router {...}``, ``serve
+pipeline lm {...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
@@ -353,8 +384,10 @@ DENSE_RUNS = (("gemma3-1b", "mxfp4"), ("gemma3-1b", "cim"),
 # each of the embedding and the untied head), ~25 GB at 8; gemma3-1b (two
 # local:global groups) and h2o-danube-1.8b for the script's time limit
 # (at full depth their cim runs took 116 s and 125 s of the script's 1064 s
-# on one H100)
-DENSE_LAYERS = {"nemotron-4-15b": 8, "gemma3-1b": 12, "h2o-danube-1.8b": 8}
+# on one H100), and nemotron-4-15b under cim to 4 layers for phase 13 (74
+# s of an 880 s run at 8)
+DENSE_LAYERS = {"nemotron-4-15b": 8, "gemma3-1b": 12, "h2o-danube-1.8b": 8,
+                ("nemotron-4-15b", "cim"): 4}
 DENSE_PROMPT, DENSE_TOKENS, DENSE_PAGE = 384, 64, 448
 DENSE_ARGS = ["--no-tiny", "--serve-trace", "--kv-layout", "fused",
               "--requests", "8", "--lanes", "4", "--slots", "6",
@@ -420,6 +453,11 @@ FID_LINEARS = ((4, 4608, 18432), (192, 4608, 18432), (197, 768, 3072))
 # audio at 50 frames a second) under both backends
 REC_RUNS = (("zamba2-1.2b", "mxfp4"), ("zamba2-1.2b", "cim"),
             ("xlstm-125m", "mxfp4"), ("xlstm-125m", "cim"))
+# depth cuts of phase 12 (width kept), the script's time limit: zamba2-1.2b
+# cim to 12 of 38 Mamba layers (two shared-block visits), xlstm-125m to 6
+# of 12 layers (sLSTM at layer 3)
+REC_LAYERS = {("zamba2-1.2b", "cim"): 12, ("xlstm-125m", "mxfp4"): 6,
+              ("xlstm-125m", "cim"): 6}
 REC_BATCH, REC_PROMPT, REC_TOKENS = 4, 512, 64
 REC_LONG_PROMPT, REC_LONG_TOKENS = 2560, 16
 REC_STEPS = 4  # decode steps held to impl="ref"
@@ -450,6 +488,24 @@ REC_SHAPES = {
                       ("w2", 5120, 1280, ((AUDIO_FRAMES, _BF),), True),
                       ("head", 1280, 504, ((AUDIO_FRAMES, _BF),), True)),
 }
+# the stage-parallel pipeline (phase 13) through the launcher's
+# serve_vision / serve_pipelined_lm, every grid place on the one card:
+# ViT-L/32 cim over 2 stages, 4 microbatches of one frame (mb_size =
+# ceil(frames / (replicas * microbatches))); ViT-B/16 mxfp4 over a 2 x 2
+# grid; starcoder2-7b cim (8 of 32 layers, phase 4's model) over 4 stages,
+# 2 microbatches of 2 prompts of 192 tokens
+PIPE_VIT_ARGS = ["--arch", "vit-l32", "--backend", "cim", "--no-tiny",
+                 "--stages", "2", "--microbatches", "4", "--frames", "4",
+                 "--calib-batches", "2", "--batch", "2",
+                 "--log-level", "warning"]
+PIPE_FRAMES = 8  # frames held to the chain: two steps of 4 frames
+PIPE_ROUTER_ARGS = ["--arch", "vit-b16", "--backend", "mxfp4", "--no-tiny",
+                    "--mesh", "2x2", "--microbatches", "2", "--frames", "4",
+                    "--log-level", "warning"]
+PIPE_LM_ARGS = ["--no-tiny", "--layers", "8", "--backend", "cim",
+                "--stages", "4", "--microbatches", "2", "--batch", "4",
+                "--prompt-len", "192", "--calib-batches", "2",
+                "--log-level", "warning"]
 # kernel function -> wrapper and route, for device time by route
 KERNEL_ROUTES = {
     "cim_splitk_kernel": "cim_linear splitk",
@@ -1644,25 +1700,35 @@ def check_vit_linears(dev) -> tuple[list, list]:
     return cim_rows, mm_rows
 
 
-def _vit_routes(cfg, backend: str) -> dict:
-    """Launches by route that one frame of ``cfg`` must make: the patch
-    embedding (f32 x), six linears a layer at a frame's rows and the
-    classifier over the CLS row, each on the route its picker takes."""
+def _matmul_routes(backend: str, shapes) -> dict:
+    """Launches by route of the backend's matmul kernel over ``shapes``
+    ((M, K, N, x dtype) a launch), each on the route its picker takes."""
     from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
 
-    s, d, f = cfg.seq_len, cfg.d_model, cfg.d_ff
-    bf16, f32 = torch.bfloat16, torch.float32
-    shapes = ([(cfg.n_patches, cfg.patch_dim, d, f32)]
-              + cfg.n_layers * [(s, d, d, bf16)] * 4
-              + cfg.n_layers * [(s, d, f, bf16), (s, f, d, bf16)]
-              + [(1, d, cfg.n_classes, bf16)])
     routes: dict = {}
     for m, k, n, dtype in shapes:
         r = (cim_ops.pick_route(m, k, n) if backend == "cim"
              else mm_ops.pick_route(m, k, n, dtype))
         routes[r] = routes.get(r, 0) + 1
     return routes
+
+
+def _vit_trunk_shapes(cfg, rows: int) -> list:
+    """The six linears of every encoder layer at ``rows`` rows."""
+    d, f, bf16 = cfg.d_model, cfg.d_ff, torch.bfloat16
+    return cfg.n_layers * ([(rows, d, d, bf16)] * 4
+                           + [(rows, d, f, bf16), (rows, f, d, bf16)])
+
+
+def _vit_routes(cfg, backend: str) -> dict:
+    """Launches by route that one frame of ``cfg`` must make: the patch
+    embedding (f32 x), six linears a layer at a frame's rows and the
+    classifier over the CLS row, each on the route its picker takes."""
+    return _matmul_routes(
+        backend, [(cfg.n_patches, cfg.patch_dim, cfg.d_model, torch.float32)]
+        + _vit_trunk_shapes(cfg, cfg.seq_len)
+        + [(1, cfg.d_model, cfg.n_classes, torch.bfloat16)])
 
 
 def check_tiny_vit_agreement(dev, backend: str) -> None:
@@ -2074,7 +2140,8 @@ def serve_dense(arch: str, backend: str, layers: int | None = None,
     from repro_torch.models import lm
     from repro_torch.serving import Engine
 
-    layers = DENSE_LAYERS.get(arch, 0) if layers is None else layers
+    if layers is None:
+        layers = DENSE_LAYERS.get((arch, backend), DENSE_LAYERS.get(arch, 0))
     args = serve.build_parser().parse_args(
         ["--arch", arch, "--backend", backend, "--layers", str(layers)]
         + DENSE_ARGS)
@@ -3160,9 +3227,9 @@ def profile_greedy(cfg, params, ctx, batch: int, prompt_len: int,
 
 def serve_recurrent(arch: str, backend: str, batch: int = REC_BATCH,
                     prompt_len: int = REC_PROMPT, tokens: int = REC_TOKENS,
-                    profile: bool = True) -> dict:
-    """Phase 12, one run: ``arch`` at full width and depth through the
-    launcher's ``build_model`` and greedy decode (``serve_greedy``, its
+                    profile: bool = True, layers: int = 0) -> dict:
+    """Phase 12, one run: ``arch`` at full width and depth (``layers``
+    cuts the depth, ``REC_LAYERS``) through the launcher's ``build_model`` and greedy decode (``serve_greedy``, its
     decode step captured), ``batch`` prompts of ``prompt_len`` tokens and
     ``tokens`` new ones. The launches by kernel and route must be exactly
     ``_recurrent_launches``'s. Then: the prefill's last-position logits and
@@ -3183,7 +3250,8 @@ def serve_recurrent(arch: str, backend: str, batch: int = REC_BATCH,
     args = serve.build_parser().parse_args(
         ["--arch", arch, "--no-tiny", "--backend", backend, "--batch",
          str(batch), "--prompt-len", str(prompt_len), "--tokens",
-         str(tokens), "--calib-batches", "1", "--log-level", "warning"])
+         str(tokens), "--calib-batches", "1", "--layers", str(layers),
+         "--log-level", "warning"])
     obs = obs_lib.Obs()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3191,7 +3259,7 @@ def serve_recurrent(arch: str, backend: str, batch: int = REC_BATCH,
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated()
     resident = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"[{backend}] {cfg.name}: full width and depth ({cfg.n_layers} "
+    print(f"[{backend}] {cfg.name}: full width ({cfg.n_layers} "
           f"layers, d_model {cfg.d_model}, segments "
           f"{[(s.kind, s.n) for s in lm.build_segments(cfg)]}); build peak "
           f"{build_peak / 2**30:.2f} GiB, resident {resident / 2**30:.2f} "
@@ -3423,6 +3491,376 @@ def recurrent_kernel_entries(rec_rows: dict, runs: dict) -> list:
                 "call_ms": row["call_ms"], "kernel_route": row.get("route"),
                 "shape": f"{shape} ({row['case']})"})
     return out
+
+
+# --------------------------------------------------------------- phase 13
+
+def _vit_pipe_routes(cfg, backend: str, runner, forwards: int,
+                     stage_runs: int) -> dict:
+    """Launches by route of ``forwards`` pipelined forwards of the
+    runner's capacity (the patch embedding over every frame, each
+    microbatch's trunk at mb * seq rows, the classifier over the CLS
+    rows) and ``stage_runs`` runs of every stage alone on one microbatch
+    (``measure_stage_walls``, which first embeds the capacity's frames
+    once)."""
+    cap, rows = runner.capacity, runner.mb_size * cfg.seq_len
+    embed = [(cap * cfg.n_patches, cfg.patch_dim, cfg.d_model,
+              torch.float32)]
+    fwd = (embed + runner.n_replicas * runner.microbatches
+           * _vit_trunk_shapes(cfg, rows)
+           + [(cap, cfg.d_model, cfg.n_classes, torch.bfloat16)])
+    stages = (embed + _vit_trunk_shapes(cfg, rows) * stage_runs
+              if stage_runs else [])
+    return _matmul_routes(backend, fwd * forwards + stages)
+
+
+def _overlap_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall ms (ending in a
+    synchronize), the device ms of its events summed (``device_ms``), the
+    time at least one ran (``busy_ms``, over the wall: ``busy_share``)
+    and the time at least two ran at once (``overlap_ms``: kernels of one
+    stream run one after another, so this is time in which two stages'
+    kernels ran together)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA
+             and not getattr(ev, "is_user_annotation", False)
+             and ev.time_range.end > ev.time_range.start]
+    edges = sorted([(a, 1) for a, _ in spans] + [(b, -1) for _, b in spans])
+    busy = overlap = 0.0
+    depth, last = 0, None
+    for t, step in edges:
+        if last is not None and depth >= 1:
+            busy += t - last
+            if depth >= 2:
+                overlap += t - last
+        depth, last = depth + step, t
+    device_ms = sum(b - a for a, b in spans) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_ms": busy / 1e3, "busy_share": busy / 1e3 / wall_ms,
+            "overlap_ms": overlap / 1e3, "events": len(spans)}
+
+
+def _measured_gauges(obs, stages: int) -> None:
+    """The ``pipeline_measured_*`` gauges ``serve_vision`` /
+    ``serve_pipelined_lm`` published, one stage label a stage."""
+    snap = obs.registry.snapshot()
+    for fam in ("stage_wall_seconds", "stage_occupancy"):
+        labels = {s["labels"]["stage"]
+                  for s in snap[f"pipeline_measured_{fam}"]["series"]}
+        if labels != {str(i) for i in range(stages)}:
+            raise AssertionError(f"pipeline_measured_{fam}: stages {labels}")
+    for fam in ("bubble_fraction", "fill_latency_seconds",
+                "step_wall_seconds", "throughput_items_per_s",
+                "steady_state_fps", "stages", "replicas"):
+        if f"pipeline_measured_{fam}" not in snap:
+            raise AssertionError(f"pipeline_measured_{fam} not published")
+
+
+def pipeline_vit() -> dict:
+    """Phase 13, ViT-L/32 ``cim`` at full width and depth over two stages
+    (12 + 12 layers) on the one card, through the launcher's
+    ``serve_vision`` (``PIPE_VIT_ARGS``, ``mesh=``: both grid places on
+    the card, each on its own stream): exact launches by route (only
+    ``cim_linear``); ``PIPE_FRAMES`` frames through the pipeline bitwise
+    the two-chip chain of phase 8 (captured, one frame a call: the same
+    kernels on the same rows a launch), the captured step bitwise the
+    eager one, 4 frames against ``impl="ref"`` (SQNR >= 30 dB); the
+    transfer guard (resident trunk before and after three steps, only the
+    activation hop, its bytes exactly (S - 1) M R mb 145 1024 2 and under
+    a tenth of the trunk); one step profiled captured and eager (device
+    ms, busy share, ``overlap_ms``) and the chain's ``fps_host`` on the
+    same frames. Prints a ``serve pipeline`` line."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.distributed import pipeline_exec as pex
+    from repro_torch.launch import serve
+    from repro_torch.models import vit
+    from repro_torch.serving import VisionEngine
+
+    args = serve.build_parser().parse_args(PIPE_VIT_ARGS)
+    obs = obs_lib.Obs()
+    t0 = time.perf_counter()
+    cfg, params, ctx, dev = serve.build_vision_model(args, obs=obs)
+    build_s = time.perf_counter() - t0
+    mesh = pex.make_pipeline_mesh(2, devices=[dev] * 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    summary = serve.serve_vision(args, cfg, params, ctx, obs, dev, mesh=mesh)
+    launches, _ = _read_counts()
+    routes = {r: n for r, n in _cim_routes().items() if n}
+    runner = summary["runner"]
+    # serve_vision: one forward of its frames, then measure(reps=2): a warm
+    # forward, two timed, and each stage alone twice (captured: two
+    # replays; eager: a warm run and two)
+    want = _vit_pipe_routes(cfg, "cim", runner, forwards=4,
+                            stage_runs=2 if runner.graphs else 3)
+    if (runner.bounds != [(0, 12), (12, 24)] or runner.mb_size != 1
+            or launches["cim_linear"] != sum(want.values())
+            or any(v for k, v in launches.items() if k != "cim_linear")
+            or routes != want):
+        raise AssertionError(f"[pipeline vit-l32] cuts {runner.bounds}, "
+                             f"launches {launches} routes {routes}; want "
+                             f"cim_linear only on {want}")
+    _measured_gauges(obs, 2)
+    kctx = dataclasses.replace(ctx, obs=None)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    frames = torch.randn((PIPE_FRAMES, cfg.image_size, cfg.image_size,
+                          cfg.in_channels), generator=gen, device=dev)
+    cap = runner.capacity
+    steps = [{"images": frames[i:i + cap]} for i in range(0, PIPE_FRAMES,
+                                                           cap)]
+    resident_before = runner.trunk_resident()
+    _zero_counts()
+    with torch.no_grad():
+        piped = torch.cat([runner.forward(b) for b in steps])
+        step_launches, _ = _read_counts()
+        step_routes = {r: n for r, n in _cim_routes().items() if n}
+        runner.forward(steps[0])  # the third step
+    want_steps = _vit_pipe_routes(cfg, "cim", runner, len(steps), 0)
+    resident_after = runner.trunk_resident()
+    # phase 8's two-chip chain on the same frames, captured, one a call
+    chain = VisionEngine(params, cfg, kctx)
+    chain_logits = torch.cat([chain.logits(f[None]) for f in frames])
+    chain_bitwise = bool(torch.equal(piped, chain_logits))
+    chain.stream(frames[:1])  # warm
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    chain.stream(frames)  # each frame ends in a host read
+    chain_fps = PIPE_FRAMES / (time.perf_counter() - t1)
+    eager_runner = pex.build_vit_pipeline(
+        params, cfg, kctx, stages=2, microbatches=runner.microbatches,
+        mb_size=runner.mb_size, mesh=mesh, cuda_graphs=False)
+    with torch.no_grad():
+        eager = torch.cat([eager_runner.forward(b) for b in steps])
+        ref_ctx = dataclasses.replace(kctx, impl="ref")
+        ref = torch.cat([vit.forward(params, cfg, ref_ctx,
+                                     {"images": f[None]})[0]
+                         for f in frames[:VISION_CHECK_FRAMES]])
+    captured_bitwise = bool(torch.equal(piped, eager))
+    sq = _sqnr_db(ref.float(), piped[:VISION_CHECK_FRAMES].float())
+    finite = bool(torch.isfinite(piped).all())
+    stats = runner.collectives(steps[0])
+    hop_bytes = ((runner.n_stages - 1) * runner.microbatches
+                 * runner.n_replicas * runner.mb_size * cfg.seq_len
+                 * cfg.d_model * 2)
+    prof = {"captured": _overlap_profile(lambda: runner.forward_raw(
+                steps[0])),
+            "eager": _overlap_profile(lambda: eager_runner.forward_raw(
+                steps[0]))}
+    graph = next(iter(runner.graphs.values()))[0] if runner.graphs else None
+    peak = torch.cuda.max_memory_allocated()
+    m = summary["measured"]
+    line = {"model": cfg.name, "backend": args.backend,
+            "layers": cfg.n_layers, "stages": runner.n_stages,
+            "stage_cuts": runner.bounds, "microbatches": runner.microbatches,
+            "mb_size": runner.mb_size, "capacity": cap,
+            "fps": m["fps"], "steady_fps": m["steady_fps"],
+            "bubble": m["bubble"], "fill_ms": m["fill_ms"],
+            "step_wall_ms": m["step_wall_ms"],
+            "stage_wall_ms": m["stage_wall_ms"],
+            "chain_fps_host": chain_fps, "serve_fps_host":
+                summary["fps_host"],
+            "step": prof, "overlap_ms": prof["captured"]["overlap_ms"],
+            # the profiled window's device-busy time over the unprofiled
+            # step wall (the profiler's own cost inflates its window)
+            "busy_share_of_step": prof["captured"]["busy_ms"]
+            / m["step_wall_ms"] if prof["captured"].get("busy_ms") else None,
+            "capture_s": graph.capture_s if graph else None,
+            "graph_pool_mib": graph.pool_bytes / 2**20 if graph else None,
+            "peak_mem_gib": peak / 2**30, "model_build_s": build_s,
+            "launches": launches, "routes": routes,
+            "step_launches": step_launches["cim_linear"],
+            "step_routes": step_routes, "want_step_routes": want_steps,
+            "chain_bitwise": chain_bitwise,
+            "captured_equals_eager": captured_bitwise,
+            "logits_sqnr_db": sq, "finite": finite,
+            "trunk_resident": [resident_before, resident_after],
+            "hop_bytes": stats.wire_bytes, "want_hop_bytes": hop_bytes,
+            "hops": stats.by_kind, "trunk_mib": runner.trunk_bytes / 2**20}
+    print("serve pipeline", json.dumps(line), flush=True)
+    if (step_routes != want_steps or any(
+            v for k, v in step_launches.items() if k != "cim_linear")):
+        raise AssertionError(f"[pipeline vit-l32] {len(steps)} steps "
+                             f"launched {step_launches} {step_routes}; want "
+                             f"cim_linear on {want_steps}")
+    if not (chain_bitwise and captured_bitwise):
+        raise AssertionError("[pipeline vit-l32] logits: chain bitwise "
+                             f"{chain_bitwise}, captured == eager "
+                             f"{captured_bitwise}")
+    if not finite or sq < 30.0:
+        raise AssertionError(f"[pipeline vit-l32] logits vs impl=ref {sq}")
+    if (not (resident_before and resident_after)
+            or set(stats.by_kind) != {"collective-permute"}
+            or stats.wire_bytes != hop_bytes
+            or stats.wire_bytes >= runner.trunk_bytes / 10):
+        raise AssertionError(f"[pipeline vit-l32] transfer guard: "
+                             f"{stats}, trunk {runner.trunk_bytes}")
+    return {"launches": launches, "line": line}
+
+
+def pipeline_router() -> dict:
+    """Phase 13, ViT-B/16 ``mxfp4`` at full width and depth over a 2 x 2
+    grid (two replicas of two stages, 6 + 6 layers; all four grid places
+    on the one card) through the launcher's ``serve_vision``
+    (``PIPE_ROUTER_ARGS``), then a ``ReplicaRouter``: three ragged
+    submissions, ``dispatched == [2, 1]``, each ticket's rows bitwise the
+    same function computed on one stream with the same rows a launch
+    (:func:`_same_rows_vit`: the router's packed slab embedded whole, each
+    microbatch's trunk alone, the classifier over the slab), and against
+    ``vit.forward`` on the ticket's own rows (SQNR >= 30 dB, the logits
+    gate; printed beside ``vit.forward``'s own spread between those rows
+    alone and padded to the slab: kernel C splits K by the rows it is
+    given, in the patch embedding's ``fma`` route and the classifier's).
+    Prints a ``serve pipeline router`` line."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.distributed import pipeline_exec as pex
+    from repro_torch.launch import serve
+    from repro_torch.models import vit
+
+    args = serve.build_parser().parse_args(PIPE_ROUTER_ARGS)
+    obs = obs_lib.Obs()
+    cfg, params, ctx, dev = serve.build_vision_model(args, obs=obs)
+    mesh = pex.make_pipeline_mesh(2, 2, devices=[dev] * 4)
+    _zero_counts()
+    summary = serve.serve_vision(args, cfg, params, ctx, obs, dev, mesh=mesh)
+    launches, mm_routes = _read_counts()
+    runner = summary["runner"]
+    if (runner.bounds != [(0, 6), (6, 12)] or not launches["mxfp4_matmul"]
+            or any(v for k, v in launches.items() if k != "mxfp4_matmul")):
+        raise AssertionError(f"[pipeline router] cuts {runner.bounds}, "
+                             f"launches {launches}")
+    _measured_gauges(obs, 2)
+    kctx = dataclasses.replace(ctx, obs=None)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    frames = torch.randn((3, cfg.image_size, cfg.image_size,
+                          cfg.in_channels), generator=gen, device=dev)
+    router = pex.ReplicaRouter(runner)
+    parts = (frames[:2], frames[2:], frames[:1])  # 2, 1 (ragged), 1 rows
+    tickets = [router.submit({"images": p}) for p in parts]
+    outs = router.flush()
+    slot, reps = router.slot_rows, runner.n_replicas
+    same_rows, vs_forward, spread = [], [], []
+    with torch.no_grad():
+        for g0 in range(0, len(parts), reps):  # the router's slabs
+            slabs = [pex._pad_rows({"images": p}, slot)["images"]
+                     for p in parts[g0:g0 + reps]]
+            slabs += slabs[:1] * (reps - len(slabs))
+            want = _same_rows_vit(params, cfg, kctx, runner,
+                                  torch.cat(slabs))
+            for si, p in enumerate(parts[g0:g0 + reps]):
+                got = outs[tickets[g0 + si]]
+                n = p.shape[0]
+                same_rows.append(bool(torch.equal(
+                    got, want[si * slot:si * slot + n])))
+                ref, _ = vit.forward(params, cfg, kctx, {"images": p})
+                vs_forward.append(_sqnr_db(ref.float(), got.float()))
+                padded, _ = vit.forward(params, cfg, kctx, pex._pad_rows(
+                    {"images": p}, runner.capacity))
+                spread.append(_sqnr_db(ref.float(), padded[:n].float()))
+    line = {"model": cfg.name, "backend": args.backend, "grid": "2x2",
+            "stage_cuts": runner.bounds, "capacity": runner.capacity,
+            "slot_rows": router.slot_rows, "dispatched": router.dispatched,
+            "tickets_same_rows_bitwise": same_rows,
+            "tickets_vs_forward_sqnr_db": vs_forward,
+            "forward_own_spread_db": spread, "launches": launches,
+            "mxfp4_matmul_routes": mm_routes,
+            "measured": summary["measured"],
+            "fps_host": summary["fps_host"]}
+    print("serve pipeline router", json.dumps(line), flush=True)
+    if (router.dispatched != [2, 1] or not all(same_rows)
+            or min(vs_forward) < 30.0):
+        raise AssertionError(f"[pipeline router] dispatched "
+                             f"{router.dispatched}, same rows bitwise "
+                             f"{same_rows}, vs forward {vs_forward} dB")
+    return {"launches": launches, "line": line}
+
+
+def _same_rows_vit(params, cfg, ctx, runner, images: torch.Tensor):
+    """The pipelined ViT forward's function on ``images`` (the runner's
+    capacity) on the current stream, with the rows a launch the pipeline
+    gives: the patch embedding over every frame, each microbatch's whole
+    trunk alone, the final norm and classifier over every frame."""
+    from repro_torch.models import vit
+
+    x = vit.embed_images(ctx, cfg, params, images)
+    mb = runner.mb_size
+    y = torch.cat([vit.encode(params["segments"][0], cfg, ctx, x[i:i + mb])
+                   for i in range(0, x.shape[0], mb)])
+    return vit.head(ctx, cfg, params, y)
+
+
+def pipeline_lm() -> dict:
+    """Phase 13, starcoder2-7b ``cim`` at full width, 8 of 32 layers
+    (phase 4's model), over four stages on the one card through the
+    launcher's ``serve_pipelined_lm`` (``PIPE_LM_ARGS``: 2 microbatches of
+    2 prompts of 192 tokens): only ``cim_linear`` launched, ``parity``
+    bitwise or the logits >= 60 dB against the one-device forward (the
+    reference's bounds), then once more on balanced cuts from
+    ``serve_layer_costs``. Prints a ``serve pipeline lm`` line."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.distributed import blockwise
+    from repro_torch.distributed import pipeline_exec as pex
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    args = serve.build_parser().parse_args(PIPE_LM_ARGS)
+    obs = obs_lib.Obs()
+    cfg, params, ctx, dev = serve.build_model(args, obs=obs)
+    mesh = pex.make_pipeline_mesh(4, devices=[dev] * 4)
+    _zero_counts()
+    out = serve.serve_pipelined_lm(args, cfg, params, ctx, obs, dev,
+                                   mesh=mesh)
+    launches, _ = _read_counts()
+    routes = {r: n for r, n in _cim_routes().items() if n}
+    _measured_gauges(obs, 4)
+    runner, ref = out["runner"], out["ref"].float()
+    sq = _sqnr_db(ref, out["logits"].float())
+    costs = blockwise.serve_layer_costs(cfg, args.prompt_len)
+    with torch.no_grad():
+        bal, brunner = lm.forward_pipelined(
+            params, cfg, dataclasses.replace(ctx, obs=None), out["batch"],
+            stages=4, microbatches=args.microbatches,
+            mb_size=runner.mb_size, mesh=mesh, mode="balanced",
+            seq_len=args.prompt_len)
+    bal_parity = ("bitwise" if torch.equal(bal, out["ref"])
+                  else _sqnr_db(ref, bal.float()))
+    rep = out["report"]
+    line = {"model": cfg.name, "backend": args.backend,
+            "layers": cfg.n_layers, "stages": runner.n_stages,
+            "stage_cuts": runner.bounds, "balanced_cuts": brunner.bounds,
+            "layer_costs_equal": len(set(costs)) == 1,
+            "microbatches": runner.microbatches, "mb_size": runner.mb_size,
+            "prompt_len": args.prompt_len, "parity": out["parity"],
+            "logits_sqnr_db": sq, "balanced_parity": bal_parity,
+            "step_wall_ms": rep.step_wall_s * 1e3,
+            "stage_wall_ms": [w * 1e3 for w in rep.stage_walls_s],
+            "rows_s": rep.throughput_items_per_s,
+            "steady_rows_s": rep.steady_items_per_s,
+            "bubble": rep.bubble_fraction,
+            "fill_ms": rep.fill_latency_s * 1e3,
+            "one_device_forward_ms": out["base_wall_s"] * 1e3,
+            "launches": launches, "routes": routes,
+            "hops": runner.collectives(out["batch"]).by_kind,
+            "trunk_resident": runner.trunk_resident()}
+    print("serve pipeline lm", json.dumps(line), flush=True)
+    if not launches["cim_linear"] or any(
+            v for k, v in launches.items() if k != "cim_linear"):
+        raise AssertionError(f"[pipeline lm] launches {launches}")
+    if out["parity"] != "bitwise" and sq < 60.0:
+        raise AssertionError(f"[pipeline lm] parity {out['parity']}, {sq} dB")
+    if bal_parity != "bitwise" and bal_parity < 60.0:
+        raise AssertionError(f"[pipeline lm] balanced cuts {brunner.bounds}:"
+                             f" {bal_parity} dB")
+    return {"launches": launches, "line": line}
 
 
 def _zero_counts() -> None:
@@ -3838,13 +4276,22 @@ def main() -> int:
                      dev)  # phase 12
     for arch, backend in REC_RUNS:
         runs[f"rec {arch} {backend}"] = phase(
-            f"serve {arch} [{backend}]", serve_recurrent, arch, backend)
+            f"serve {arch} [{backend}]", serve_recurrent, arch, backend,
+            REC_BATCH, REC_PROMPT, REC_TOKENS, True,
+            REC_LAYERS.get((arch, backend), 0))
     runs["rec zamba2-1.2b long"] = phase(
         "serve zamba2-1.2b long [mxfp4]", serve_recurrent, "zamba2-1.2b",
         "mxfp4", 1, REC_LONG_PROMPT, REC_LONG_TOKENS, False)
     for backend in ("mxfp4", "cim"):
         runs[f"rec hubert-xlarge {backend}"] = phase(
             f"encode hubert-xlarge [{backend}]", encode_audio, backend)
+    # phase 13: the stage-parallel pipeline, every grid place on this card
+    runs["pipeline vit-l32 cim"] = phase("pipeline vit-l32 [cim]",
+                                         pipeline_vit)
+    runs["pipeline vit-b16 mxfp4"] = phase("pipeline router vit-b16 [mxfp4]",
+                                           pipeline_router)
+    runs["pipeline starcoder2-7b cim"] = phase(
+        "pipeline starcoder2-7b [cim]", pipeline_lm)
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
 

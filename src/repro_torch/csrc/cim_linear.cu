@@ -706,8 +706,8 @@ extern "C" int cim_linear_tc_launch(
     const int* e_n, const float* fs, float* out, void* xq, float* xu, int M,
     int K, int N, int cm, int adc_bits, int two_pass, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  static bool attr_set = false;
-  if (!attr_set) {
+  static hopper::DeviceSet attr_set;
+  if (!attr_set.has_current()) {
     cudaError_t err = cudaFuncSetAttribute(
         tc::cim_tc_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         tc::SMEM);
@@ -716,7 +716,7 @@ extern "C" int cim_linear_tc_launch(
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  tc::SMEM);
     if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+    attr_set.add_current();
   }
   __half* q = reinterpret_cast<__half*>(xq);
   const int tasks = M * (K / 32);

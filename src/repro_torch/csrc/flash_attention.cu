@@ -534,14 +534,14 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int Hkv, float scale, int causal, int window,
            int q_offset, cudaStream_t stream) {
-  static bool attr_set = false;
+  static hopper::DeviceSet attr_set;
   const int smem = Smem<D>::BYTES;
-  if (!attr_set) {
+  if (!attr_set.has_current()) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_tc_kernel<D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+    attr_set.add_current();
   }
   Masks mk{Sq, Sk, q_offset, window, causal != 0};
   const int grid = (Sq + BQ - 1) / BQ * B * H;

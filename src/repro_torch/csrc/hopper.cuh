@@ -8,9 +8,25 @@
 // for a warpgroup's 64 rows.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
+
+// A kernel's dynamic shared memory opt-in (cudaFuncSetAttribute) holds on
+// one device: a launch function opts its kernel in once a device, not once
+// a process, or its launches on a second card are refused. A function
+// keeps a static DeviceSet of the devices done (bit d: device d).
+struct DeviceSet {
+  unsigned long long bits = 0;
+  static int current() {
+    int d = 0;
+    cudaGetDevice(&d);
+    return d;
+  }
+  bool has_current() const { return bits >> current() & 1ull; }
+  void add_current() { bits |= 1ull << current(); }
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -465,14 +465,14 @@ template <int NWG>
 int launch(const __nv_bfloat16* x, const uint8_t* codes, const uint8_t* exps,
            __nv_bfloat16* out, float* partial, int M, int K, int N, int splits,
            cudaStream_t st) {
-  static bool attr_set = false;
+  static hopper::DeviceSet attr_set;
   const int smem = Smem<NWG>::BYTES;
-  if (!attr_set) {
+  if (!attr_set.has_current()) {
     cudaError_t err = cudaFuncSetAttribute(
         mxfp4_matmul_tc_kernel<NWG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+    attr_set.add_current();
   }
   const int nkt = K / BK;
   const int kt_per_split = (nkt + splits - 1) / splits;
@@ -715,14 +715,14 @@ template <int MT>
 int launch(const __nv_bfloat16* x, const uint8_t* codes, const uint8_t* exps,
            __nv_bfloat16* out, float* partial, int* arrivals, int M, int K,
            int N, int splits, int wc, cudaStream_t st) {
-  static bool attr_set = false;
+  static hopper::DeviceSet attr_set;
   const int smem = Smem<MT>::BYTES;  // the 64 KB table
-  if (!attr_set) {
+  if (!attr_set.has_current()) {
     cudaError_t err = cudaFuncSetAttribute(
         mxfp4_matmul_mma_kernel<MT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+    attr_set.add_current();
   }
   const int nkb = K / 32;
   const int kb_per_split = (nkb + splits - 1) / splits;

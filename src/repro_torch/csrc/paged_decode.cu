@@ -304,14 +304,14 @@ int launch_split(const void* q, const void* kv, const int* rows,
                  cudaStream_t st) {
   const int smem = split_smem(DH, SW, G);
   if (smem > 48 * 1024) {  // Dh 256 with wide splits: opt in, once
-    static bool opted = false;
-    if (!opted) {
+    static hopper::DeviceSet opted;
+    if (!opted.has_current()) {
       const cudaError_t e = cudaFuncSetAttribute(
           paged_decode_split_kernel<DH, GB>,
           cudaFuncAttributeMaxDynamicSharedMemorySize,
           split_smem(DH, 64, GMAX));
       if (e != cudaSuccess) return (int)e;
-      opted = true;
+      opted.add_current();
     }
   }
   dim3 grid(NS, Hkv, L);

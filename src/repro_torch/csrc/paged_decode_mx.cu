@@ -475,13 +475,13 @@ int launch(const void* q, const uint8_t* kv_codes, const int8_t* k_exps,
            cudaStream_t st) {
   constexpr int smem = Smem<KB>::BYTES;
   if (smem > 48 * 1024) {
-    static bool opted = false;
-    if (!opted) {
+    static hopper::DeviceSet opted;
+    if (!opted.has_current()) {
       const cudaError_t e = cudaFuncSetAttribute(
           paged_decode_mx_kernel<KB>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return (int)e;
-      opted = true;
+      opted.add_current();
     }
   }
   dim3 grid(L, Hkv, (G + hg - 1) / hg * ((Dh + DCOLS - 1) / DCOLS));

@@ -1,0 +1,79 @@
+"""Collective traffic and model FLOPs (counterpart of the reference's
+``repro.distributed.roofline``, copied: that module's package imports
+JAX).
+
+:class:`CollectiveStats` is what the stage pipeline's transfer guard
+fills (``pipeline_exec.StagePipeline.collectives``): the bytes each
+activation hop moves between stages, under the reference's name for that
+hop, ``collective-permute``. :func:`active_params` and
+:func:`model_flops` are pure arithmetic on a config.
+
+Not here: the reference's ``parse_collectives`` and ``roofline_terms``,
+which read XLA's compiled HLO text and cost analysis, and its TPU v5e
+peak constants. They serve the GSPMD dry-run and training tools, which
+are not ported yet (ROADMAP.md Queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    wire_bytes: float = 0.0  # bytes moved between devices
+    by_kind: dict = dataclasses.field(default_factory=dict)  # kind: [n, B]
+    count: int = 0
+
+    def add(self, kind: str, n_bytes: float) -> None:
+        """Record one transfer of ``n_bytes`` under ``kind``."""
+        self.wire_bytes += n_bytes
+        k = self.by_kind.setdefault(kind, [0, 0.0])
+        k[0] += 1
+        k[1] += n_bytes
+        self.count += 1
+
+
+def model_flops(cfg, shape, n_tokens_override=None) -> float:
+    """MODEL_FLOPS: 6*N*D for training, 2*N_active*D for inference (D =
+    tokens a step). ``shape`` has ``seq``, ``batch`` and ``kind``
+    (``train`` | ``prefill`` | ``decode``), as the reference's
+    ``configs.Shape``."""
+    n_active = active_params(cfg)
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.batch * shape.seq
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.batch * shape.seq
+    return 2.0 * n_active * shape.batch  # decode: one token a sequence
+
+
+def active_params(cfg) -> float:
+    """Active parameter count (MoE counts top_k experts only)."""
+    d, ff, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    hd = cfg.hd
+    attn = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+            + cfg.n_heads * hd * d)
+    glu = cfg.ffn_kind in ("swiglu", "geglu")
+    ffp = d * ff * (3 if glu else 2)
+    total = 0.0
+    if cfg.family in ("dense", "audio", "vlm"):
+        total = L * (attn + ffp)
+    elif cfg.family == "moe":
+        total = L * (attn + cfg.top_k * ffp + d * cfg.n_experts)
+    elif cfg.family == "hybrid":
+        di = 2 * d
+        gn = cfg.ssm_state
+        h = di // cfg.ssm_head_dim
+        mamba = d * (2 * di + 2 * gn + h) + di * d
+        shared = (2 * d) * d + attn + ffp + d * d
+        n_shared = L // max(cfg.shared_attn_every, 1)
+        total = L * mamba + n_shared * shared
+    elif cfg.family == "ssm":
+        di = int(d * 2.0)
+        mlstm = d * 2 * di + 3 * di * di + di * d
+        slstm = (d * 4 * d + 4 * d * (d // cfg.n_heads)
+                 + int(d * 4 / 3) * 2 * d + int(d * 4 / 3) * d)
+        n_s = len(cfg.slstm_at)
+        total = (L - n_s) * mlstm + n_s * slstm
+    total += v * d * (1 if cfg.tie_embeddings else 2)
+    return total

@@ -16,12 +16,15 @@ power-of-two construction relies on exact subnormal products.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -104,3 +107,17 @@ def check(err: int, name: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def on_device(launch):
+    """A wrapper's launch (first argument: a CUDA tensor) run with the
+    current CUDA device set to that tensor's: the kernel goes to the
+    stream of its own device, and the launch function opts its kernel in
+    to its shared memory on that device (a tensor on a second card while
+    the current device is the first would be refused)."""
+    @functools.wraps(launch)
+    def run(x, *a, **kw):
+        with torch.cuda.device(x.device):
+            return launch(x, *a, **kw)
+
+    return run

@@ -20,6 +20,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch import kernels
 from repro_torch.core import cim as cimlib
 from repro_torch.core import mx as mxlib
 from repro_torch.kernels import _build
@@ -106,12 +107,14 @@ def _device(dev) -> torch.device:
 
 def _workspace(dev: torch.device, ints: int) -> torch.Tensor:
     """The device's splitk workspace, zero at rest (every launch leaves it
-    so); grown, never cleared, so a call needs no memset and no sync."""
+    so); grown, never cleared, so a call needs no memset and no sync. One
+    a ``kernels.scratch_slot`` (launches on concurrent streams)."""
     dev = _device(dev)
-    ws = _workspaces.get(dev)
+    key = kernels.scratch_key(dev)
+    ws = _workspaces.get(key)
     if ws is None or ws.numel() < ints:
         ws = torch.zeros(max(ints, 1), dtype=torch.int32, device=dev)
-        _workspaces[dev] = ws
+        _workspaces[key] = ws
     return ws
 
 
@@ -147,6 +150,7 @@ def _scalar(t, dtype, dev: torch.device, name: str) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
+@_build.on_device
 def _launch(xm: torch.Tensor, w: mxlib.MXW, calib: cimlib.LayerCalib,
             cfg: cimlib.CIMConfig, route: str | None = None) -> torch.Tensor:
     """Launch the kernel on ``route`` (default :func:`pick_route`); a caller

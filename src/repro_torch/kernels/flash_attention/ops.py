@@ -39,6 +39,7 @@ def pick_route(sq: int, sk: int, d: int, dtype: torch.dtype) -> str:
     return "wgmma" if dtype == torch.bfloat16 and d in TC_D else "fma"
 
 
+@_build.on_device
 def _launch(q, k, v, causal: bool, window: int, q_offset: int,
             route: str | None = None):
     """Launch the kernel on ``route`` (default :func:`pick_route`); a

@@ -19,6 +19,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.mxfp4_matmul.ref import mxfp4_matmul_ref
 from repro_torch.obs.profile import profiled_call
@@ -122,14 +123,17 @@ def pick_splits(m: int, k: int, n: int) -> int:
 def _arrivals_for(dev: torch.device, tiles: int) -> torch.Tensor:
     """The device's arrival counters of the mma route's column tiles, zero
     at rest (the last split of each tile resets its own); grown, never
-    cleared, so a call needs no memset and no sync."""
-    a = _arrivals.get(dev)
+    cleared, so a call needs no memset and no sync. One set a
+    ``kernels.scratch_slot`` (launches on concurrent streams)."""
+    key = kernels.scratch_key(dev)
+    a = _arrivals.get(key)
     if a is None or a.numel() < tiles:
         a = torch.zeros(tiles, dtype=torch.int32, device=dev)
-        _arrivals[dev] = a
+        _arrivals[key] = a
     return a
 
 
+@_build.on_device
 def _launch(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
             route: str | None = None, tc_splits: int | None = None,
             mma_layout: int | None = None) -> torch.Tensor:

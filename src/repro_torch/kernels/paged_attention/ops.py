@@ -100,6 +100,7 @@ def _lane_ints(t, dev) -> torch.Tensor:
     return t.to(device=dev, dtype=torch.int32).contiguous()
 
 
+@_build.on_device
 def _launch(q, kv, rows, lengths, scale: float,
             split_width: int | None = None) -> torch.Tensor:
     """Launch the float kernel, its keys split by :func:`pick_splits` or,
@@ -136,6 +137,7 @@ def _launch(q, kv, rows, lengths, scale: float,
     return out
 
 
+@_build.on_device
 def _launch_mx(q, quant, rows, lengths, scale: float, bk: int,
                heads: int | None = None) -> torch.Tensor:
     """Launch the mx kernel, ``heads`` query heads a block (default

@@ -48,6 +48,19 @@ saturation and code-utilization histograms, the calibration-drift check);
 its metrics land in the ``--metrics-out`` snapshot. ``--impl ref`` runs
 the reference's own compositions instead of the kernels, eagerly.
 
+``--stages S`` / ``--mesh RxS`` (with ``--microbatches M``) run the
+forward stage-parallel instead (``distributed/pipeline_exec.py``): the
+layer stack cut into S stages, each resident on its own device of an R x
+S grid (one CUDA device a grid place; with ``--device cpu`` the places
+share the host), microbatches streamed stage to stage on the GPipe
+schedule. A vision arch streams its frames through the pipeline and adds
+the ``pipelined mesh:`` and ``fws-pipeline-measured:`` lines (the
+device's own measured stage walls, bubble and frame rate); an LM runs
+the prefill / scoring forward on a batch of ``--batch`` prompts,
+measured, and held to the one-device forward (``parity=bitwise`` or
+``diverged``). :func:`serve_vision` and :func:`serve_pipelined_lm` also
+take a ready grid (``mesh=``), which may repeat one device.
+
 Runs on CUDA unless ``--device cpu`` is given (then the kernels' plain
 versions run); without a GPU and without ``--device cpu`` it raises.
 
@@ -75,6 +88,10 @@ versions run); without a GPU and without ``--device cpu`` it raises.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --backend cim --serve-trace --fidelity \\
       --metrics-out /tmp/f.json             # fidelity pass, tiny, CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch vit-l32 \\
+      --device cpu --stages 2 --microbatches 4 --frames 8  # 2 stages
+  python -m repro_torch.launch.serve --no-tiny --layers 8 --backend cim \\
+      --mesh 1x4 --microbatches 2 --prompt-len 192  # 4 cards, 4 stages
 """
 
 from __future__ import annotations
@@ -169,6 +186,43 @@ def run_fidelity(args, cfg, fparams, params, ctx, obs: obs_lib.Obs, batch,
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def pipeline_shape(args) -> tuple[int, int] | None:
+    """(replicas, stages) from ``--mesh RxS`` / ``--stages``, or None when
+    pipelined execution is off."""
+    if args.mesh:
+        try:
+            r, s = args.mesh.lower().split("x")
+            shape = (int(r), int(s))
+        except ValueError:
+            raise SystemExit(f"--mesh wants REPLICASxSTAGES, got "
+                             f"{args.mesh!r}")
+        if shape[0] < 1 or shape[1] < 1:
+            raise SystemExit(f"--mesh axes must be >= 1, got {args.mesh!r}")
+        return shape
+    if args.stages:
+        return (1, args.stages)
+    return None
+
+
+def pipeline_mesh(pshape: tuple[int, int], device):
+    """The grid of ``pshape`` (replicas, stages): one CUDA device a grid
+    place (raises with fewer cards), or the host for every place under
+    ``--device cpu``."""
+    from repro_torch.distributed import pipeline_exec as pex
+
+    replicas, stages = pshape
+    devices = ([device] * (replicas * stages) if device.type == "cpu"
+               else None)
+    return pex.make_pipeline_mesh(stages, replicas, devices=devices)
+
+
+def _captures(ctx, mesh) -> bool:
+    """Whether the pipelined step is captured: on one card, not under
+    ``impl="ref"`` (a grid over several cards runs eagerly)."""
+    return ctx.impl != "ref" and len(
+        {d for row in mesh.devices for d in row}) == 1
 
 
 # serve_trace summary keys that hold data, not figures
@@ -622,6 +676,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "staggered run")
     ap.add_argument("--frames", type=int, default=4,
                     help="synthetic frames streamed (vision archs)")
+    ap.add_argument("--stages", type=int, default=0,
+                    help="run the forward stage-parallel over this many "
+                         "pipeline stages (one device each, weights "
+                         "resident a stage); 0 = off")
+    ap.add_argument("--microbatches", type=int, default=2,
+                    help="overlapping microbatches a pipeline replica for "
+                         "--stages / --mesh")
+    ap.add_argument("--mesh", default=None,
+                    help="REPLICASxSTAGES device grid for pipelined "
+                         "execution (e.g. 2x4: two data-parallel pipeline "
+                         "replicas of four stages, eight cards); overrides "
+                         "--stages")
     ap.add_argument("--metrics-out", default=None,
                     help="write a JSON metrics snapshot here (plus the "
                          "Prometheus text exposition at the same path "
@@ -744,17 +810,41 @@ def build_vision_model(args, obs=None):
     return cfg, params, ctx, device
 
 
-def serve_vision(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
+def serve_vision(args, cfg, params, ctx, obs: obs_lib.Obs, device,
+                 mesh=None) -> dict:
     """Stream ``--frames`` synthetic frames through the ViT (one at a
     time, the Table 7 operating mode), then map the measured stage
     traffic onto the FWS pipeline model at the workload's hardware shape.
-    Returns a summary: the device's own frame rate and frame wall times
-    (host wall clock, each frame ends in a host read), and, apart, the
-    analytical model's ``fws_model_fps`` beside the paper's."""
+    With ``--stages`` / ``--mesh`` (or a grid given as ``mesh``) the
+    frames run through the stage-parallel pipeline instead, in slabs of
+    its capacity (``--microbatches`` microbatches a replica), and the
+    pipeline is measured (``MeasuredReport``, published). Returns a
+    summary: the device's own frame rate and frame wall times (host wall
+    clock, each frame or slab ends in a host read), and, apart, the
+    analytical model's ``fws_model_fps`` beside the paper's; with a
+    pipeline also ``measured`` (its report's figures) and ``runner``."""
     from repro_torch.serving import VisionEngine
 
     log = obs_lib.get_logger("repro_torch.serve", args.log_level)
-    eng = VisionEngine(params, cfg, ctx, obs=obs,
+    runner = None
+    pshape = pipeline_shape(args)
+    if mesh is None and pshape is not None:
+        mesh = pipeline_mesh(pshape, device)
+    if mesh is not None:
+        from repro_torch.distributed import pipeline_exec as pex
+
+        replicas, stages = mesh.shape["replica"], mesh.shape["stage"]
+        runner = pex.build_vit_pipeline(
+            params, cfg, ctx, stages=stages, replicas=replicas,
+            microbatches=args.microbatches,
+            mb_size=max(1, -(-args.frames // (replicas * args.microbatches))),
+            mesh=mesh, cuda_graphs=_captures(ctx, mesh))
+        log.info("pipelined mesh: %s", obs_lib.kv(
+            replicas=replicas, stages=stages, microbatches=args.microbatches,
+            capacity=runner.capacity, stage_cuts=runner.bounds,
+            trunk_mb=runner.trunk_bytes / 2**20,
+            captured=runner.graphs is not None))
+    eng = VisionEngine(params, cfg, ctx, obs=obs, runner=runner,
                        cuda_graphs=ctx.impl != "ref")
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     frames = torch.randn((args.frames, cfg.image_size, cfg.image_size,
@@ -785,8 +875,77 @@ def serve_vision(args, cfg, params, ctx, obs: obs_lib.Obs, device) -> dict:
     if rep.paper_fps:
         fws.update(paper_fps=rep.paper_fps, err_pct=100 * rep.fps_error)
     log.info("fws-pipeline: %s", obs_lib.kv(**fws))
+    out = summary | {"fws": fws}
+    if runner is not None:
+        mrep = eng.measured_report(frames, reps=2)
+        mrep.publish(obs.registry)
+        out["measured"] = dict(
+            stages=mrep.n_stages, replicas=mrep.n_replicas,
+            step_wall_ms=mrep.step_wall_s * 1e3,
+            fps=mrep.throughput_items_per_s,
+            steady_fps=mrep.steady_items_per_s,
+            bubble=mrep.bubble_fraction, fill_ms=mrep.fill_latency_s * 1e3,
+            stage_wall_ms=[w * 1e3 for w in mrep.stage_walls_s])
+        log.info("fws-pipeline-measured: %s", obs_lib.kv(**{
+            k: v for k, v in out["measured"].items()
+            if k != "stage_wall_ms"}))
+        out.update(runner=runner, images=frames)
     _finish_metrics(args, obs, log)
-    return summary | {"fws": fws}
+    return out
+
+
+def serve_pipelined_lm(args, cfg, params, ctx, obs: obs_lib.Obs, device,
+                       mesh=None) -> dict:
+    """``--stages`` / ``--mesh``: the LM's prefill / scoring forward runs
+    stage-parallel on a device grid (``mesh``, default the flags' grid):
+    per-stage resident weights, ``--microbatches`` overlapping
+    microbatches a replica, on ``--batch`` random prompts of
+    ``--prompt-len`` tokens. It is measured (published) and held to the
+    one-device forward on the same batch and backend (``parity``:
+    ``bitwise`` or ``diverged``). Returns ``{"logits", "ref", "parity",
+    "report", "runner", "batch", "base_wall_s"}``."""
+    log = obs_lib.get_logger("repro_torch.serve", args.log_level)
+    if mesh is None:
+        mesh = pipeline_mesh(pipeline_shape(args), device)
+    replicas, stages = mesh.shape["replica"], mesh.shape["stage"]
+    mb = max(1, -(-args.batch // (replicas * args.microbatches)))
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    batch = {"ids": torch.randint(0, cfg.vocab_size,
+                                  (args.batch, args.prompt_len),
+                                  generator=gen, device=device)}
+    out, runner = lm.forward_pipelined(
+        params, cfg, ctx, batch, stages=stages, replicas=replicas,
+        microbatches=args.microbatches, mb_size=mb, mesh=mesh,
+        seq_len=args.prompt_len, cuda_graphs=_captures(ctx, mesh))
+    log.info("pipelined mesh: %s", obs_lib.kv(
+        replicas=replicas, stages=stages, microbatches=args.microbatches,
+        mb_size=mb, capacity=runner.capacity, stage_cuts=runner.bounds,
+        trunk_mb=runner.trunk_bytes / 2**20,
+        captured=runner.graphs is not None))
+    rep = runner.measure(batch, reps=2)
+    rep.publish(obs.registry)
+    # the one-device forward on the same batch, same backend
+    with torch.no_grad():
+        lm.forward(params, cfg, ctx, batch)
+        _sync(device)
+        t0 = time.perf_counter()
+        ref = lm.forward(params, cfg, ctx, batch)[0]
+        _sync(device)
+    base_wall = time.perf_counter() - t0
+    out = out.to(ref.device)  # the head ran on the last stage's device
+    parity = "bitwise" if torch.equal(out, ref) else "diverged"
+    log.info("%s [%s] pipelined forward: %s", cfg.name, args.backend,
+             obs_lib.kv(rows=args.batch,
+                        tokens=args.batch * args.prompt_len,
+                        step_wall_ms=rep.step_wall_s * 1e3,
+                        base_wall_ms=base_wall * 1e3,
+                        rows_s=rep.throughput_items_per_s,
+                        steady_rows_s=rep.steady_items_per_s,
+                        bubble=rep.bubble_fraction,
+                        fill_ms=rep.fill_latency_s * 1e3, parity=parity))
+    _finish_metrics(args, obs, log)
+    return {"logits": out, "ref": ref, "parity": parity, "report": rep,
+            "runner": runner, "batch": batch, "base_wall_s": base_wall}
 
 
 def main(argv=None) -> dict:
@@ -799,6 +958,8 @@ def main(argv=None) -> dict:
     if not cfg.supports_decode:
         raise SystemExit(f"{cfg.name} is encoder-only; no decode")
     cfg, params, ctx, device = build_model(args, obs=obs)
+    if pipeline_shape(args) is not None:
+        return serve_pipelined_lm(args, cfg, params, ctx, obs, device)
     if args.arrivals:
         return serve_load(args, cfg, params, ctx, obs, device)
     if args.serve_trace:

@@ -268,7 +268,8 @@ def forward(params, cfg: ArchConfig, ctx: RunCtx, batch: dict, caches=None,
 
 def run_segment(ctx: RunCtx, cfg, seg: Segment, layers: list, x, positions,
                 caches: list | None = None, pos=None, *, path: str,
-                shared: dict | None = None, x0=None):
+                shared: dict | None = None, x0=None,
+                paths: list | None = None):
     """Run one segment's layers over ``x``: the counterpart of the
     reference's ``lm._run_segment`` in its unrolled mode. An attention
     layer is attention, then the FFN, each pre-norm with its residual
@@ -278,7 +279,9 @@ def run_segment(ctx: RunCtx, cfg, seg: Segment, layers: list, x, positions,
     A recurrent layer is its block; a ``zshared`` visit runs the
     ``shared`` block on ``concat[x, x0]`` (``x0``: the embeddings) with
     its residual. Each layer's capture scope is ``<path>/L<j>``, or
-    ``<path>`` for a single layer (``layers/backends.py::layer_paths``); a
+    ``<path>`` for a single layer (``layers/backends.py::layer_paths``),
+    unless ``paths`` names them (a pipeline stage's slice of a segment
+    keeps the whole segment's paths); a
     ``zshared`` visit's is ``shared`` (its weights live there, so every
     visit records under the same paths, as in the reference). Returns (x,
     the layers' new caches, None each without ``caches``)."""
@@ -286,8 +289,9 @@ def run_segment(ctx: RunCtx, cfg, seg: Segment, layers: list, x, positions,
     tables = (ropelib.rope_tables(positions, a.head_dim, a.rope_theta)
               if a is not None and a.use_rope and not a.mrope else None)
     new_caches = []
-    for j, (pj, lpath) in enumerate(zip(layers,
-                                        layer_paths(path, len(layers)))):
+    if paths is None:
+        paths = layer_paths(path, len(layers))
+    for j, (pj, lpath) in enumerate(zip(layers, paths)):
         lctx = ctx.scoped(lpath)
         cj = caches[j] if caches is not None else None
         if seg.kind == "mamba":
@@ -366,6 +370,26 @@ def _head(ctx, cfg, params, x):
     if cfg.tie_embeddings:
         return torch.matmul(x, params["embed"]["emb"].to(torch.bfloat16).T)
     return linear_apply(ctx, params["lm_head"], x, name="lm_head")
+
+
+def forward_pipelined(params, cfg: ArchConfig, ctx: RunCtx, batch: dict,
+                      *, runner=None, stages: int = 1, replicas: int = 1,
+                      microbatches: int = 2, mb_size: int = 1, mesh=None,
+                      **kw):
+    """Stage-parallel pipelined forward over a (replica, stage) device grid
+    (``distributed.pipeline_exec``): the counterpart of :func:`forward` for
+    the prefill / scoring path, with the weights resident a stage and the
+    microbatches overlapped. ``mesh`` defaults to one CUDA device a grid
+    place (``pipeline_exec.make_pipeline_mesh``). Returns ``(logits,
+    runner)``; pass ``runner`` back to reuse the placed weights and the
+    captured step."""
+    if runner is None:
+        from repro_torch.distributed import pipeline_exec as pex
+
+        runner = pex.build_lm_pipeline(
+            params, cfg, ctx, stages=stages, replicas=replicas,
+            microbatches=microbatches, mb_size=mb_size, mesh=mesh, **kw)
+    return runner.forward(batch), runner
 
 
 def decode_step(params, cfg: ArchConfig, ctx: RunCtx, ids, pos, caches):

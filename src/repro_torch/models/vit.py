@@ -19,8 +19,8 @@ Dual-chip deployments (vit-l32: 24 blocks split 12+12, paper §5.3) slice
 the trunk with ``distributed.sharding.stage_partition``:
 :func:`split_chips` and :func:`forward_chip`; ``serving/vision.py`` runs
 the chip chain with the hidden state handed from one chip's step to the
-next. The stage-parallel pipelined forward is not ported (ROADMAP.md
-Queue 1 item 9).
+next. :func:`forward_pipelined` runs the stages at once instead, on a
+device grid (``distributed.pipeline_exec``), microbatches overlapped.
 """
 
 from __future__ import annotations
@@ -129,11 +129,22 @@ def forward(params: dict, cfg: ViTConfig, ctx: RunCtx, batch: dict,
 
 
 def forward_pipelined(params, cfg: ViTConfig, ctx: RunCtx, batch: dict,
-                      **kw):
-    raise NotImplementedError(
-        "the stage-parallel pipelined forward needs distributed/"
-        "pipeline_exec.py, not ported yet (ROADMAP.md Queue 1 item 9); "
-        "split_chips + forward_chip run the chip chain in sequence")
+                      *, runner=None, stages: int | None = None,
+                      replicas: int = 1, microbatches: int = 2,
+                      mb_size: int = 1, mesh=None, **kw):
+    """Stage-parallel pipelined encoder forward over a (replica, stage)
+    device grid (``distributed.pipeline_exec``): the executable form of
+    the multi-chip FWS deployment that :func:`split_chips` /
+    :func:`forward_chip` chain in sequence; ``stages`` defaults to
+    ``cfg.chips``. Returns ``(logits, runner)``; pass ``runner`` back to
+    keep the resident stage weights and the captured step."""
+    if runner is None:
+        from repro_torch.distributed import pipeline_exec as pex
+
+        runner = pex.build_vit_pipeline(
+            params, cfg, ctx, stages=stages or cfg.chips, replicas=replicas,
+            microbatches=microbatches, mb_size=mb_size, mesh=mesh, **kw)
+    return runner.forward(batch), runner
 
 
 # ------------------------------------------------------- chip partition

@@ -27,8 +27,11 @@ Two kinds of figure come out, and they are not the same thing:
   frame ends in a host read of its top-1 class): the ``frame`` events'
   ``wall_s``, and the launcher's ``fps_host``.
 
-The stage-parallel runner on a device mesh (``runner``,
-``measured_report``) is not ported (ROADMAP.md Queue 1 item 9).
+With a stage-parallel ``runner`` (``distributed.pipeline_exec``) the
+frames run instead in slabs of ``runner.capacity`` through the pipeline
+on its device grid, microbatches overlapped, and each frame of a slab is
+billed an equal share of the slab's wall; ``measured_report`` measures
+the runner (``MeasuredReport``).
 """
 
 from __future__ import annotations
@@ -43,10 +46,6 @@ from repro_torch.models import vit
 from repro_torch.obs import Obs
 from repro_torch.serving import pipeline as pipe_mod
 from repro_torch.serving.graphs import StepGraph
-
-_NOT_PORTED = ("the stage-parallel pipelined runner needs distributed/"
-               "pipeline_exec.py, not ported yet (ROADMAP.md Queue 1 item 9)")
-
 
 @dataclasses.dataclass(frozen=True)
 class VisionReport:
@@ -96,8 +95,6 @@ class VisionEngine:
     def __init__(self, params, cfg: vit.ViTConfig, ctx,
                  chips: int | None = None, obs: Obs | None = None,
                  runner=None, cuda_graphs: bool = True):
-        if runner is not None:
-            raise NotImplementedError(_NOT_PORTED)
         self.params = params
         self.cfg = cfg
         self.ctx = ctx
@@ -105,7 +102,13 @@ class VisionEngine:
         self.obs = obs if obs is not None else Obs()
         self.device = params["pos"].device
         self._next_fid = 0
-        if self.chips == 1:
+        self.runner = runner  # distributed.pipeline_exec.StagePipeline
+        if runner is not None:
+            # stage-parallel on the runner's device grid: frames run in
+            # slabs of runner.capacity, the chip chain is unused
+            self.chips = runner.n_stages
+            self._chain = []
+        elif self.chips == 1:
             self._chain = [functools.partial(_whole_step, cfg, ctx, params)]
         else:
             self._chain = []
@@ -116,7 +119,7 @@ class VisionEngine:
                     ci == self.chips - 1, chip_params))
         # {(input shape, dtype): one captured StepGraph a chip}
         self.graphs: dict | None = None
-        if cuda_graphs and self.device.type == "cuda":
+        if cuda_graphs and self.device.type == "cuda" and runner is None:
             if ctx.impl == "ref":
                 raise ValueError("impl='ref' runs eagerly: pass "
                                  "cuda_graphs=False")
@@ -157,9 +160,11 @@ class VisionEngine:
         return out.clone()  # the static output is the next frame's
 
     def classify_frame(self, image) -> int:
-        """One frame [H, W, C] through the chip chain; returns the top-1
-        class (a host read, which ends the frame) and records the frame's
-        stage traffic as a ``frame`` step event."""
+        """One frame [H, W, C] through the chip chain (or the runner);
+        returns the top-1 class (a host read, which ends the frame) and
+        records the frame's stage traffic as a ``frame`` step event."""
+        if self.runner is not None:
+            return self._stream_pipelined(torch.as_tensor(image)[None])[0]
         t0 = self.obs.clock()
         logits = self.logits(torch.as_tensor(image)[None])
         top1 = int(torch.argmax(logits[0].float()))
@@ -179,13 +184,46 @@ class VisionEngine:
         return [e.n_tokens for e in self.obs.steps if e.kind == "frame"]
 
     def stream(self, frames) -> list[int]:
-        """Stream frames ([N, H, W, C] or an iterable of [H, W, C]) one at
+        """Stream frames ([N, H, W, C] or an iterable of [H, W, C]): one at
         a time through the chip chain (single-stream serving, the Table 7
-        operating mode)."""
+        operating mode), or, with a stage-parallel ``runner``, in slabs of
+        overlapping microbatches on its device grid."""
+        if self.runner is not None:
+            return self._stream_pipelined(torch.as_tensor(frames))
         return [self.classify_frame(f) for f in frames]
 
+    @torch.no_grad()
+    def _stream_pipelined(self, frames: torch.Tensor) -> list[int]:
+        out: list[int] = []
+        cap = self.runner.capacity
+        for i in range(0, frames.shape[0], cap):
+            chunk = frames[i:i + cap]
+            t0 = self.obs.clock()
+            logits = self.runner.forward({"images": chunk}).float().cpu()
+            t1 = self.obs.clock()
+            n = chunk.shape[0]
+            for j in range(n):
+                fid = self._next_fid
+                self._next_fid += 1
+                # each frame an equal slice of the slab's wall, so that the
+                # trace keeps one event a frame
+                self.obs.step_recorded("frame", (fid,), self.cfg.seq_len,
+                                       t0 + (t1 - t0) * j / n,
+                                       t0 + (t1 - t0) * (j + 1) / n)
+            if self.obs.enabled:
+                self.obs.registry.counter(
+                    "vision_frames_total", "frames streamed").inc(n)
+            out.extend(int(v) for v in torch.argmax(logits, dim=-1))
+        return out
+
     def measured_report(self, frames, reps: int = 3):
-        raise NotImplementedError(_NOT_PORTED)
+        """Pipeline health measured on the runner's device grid (needs a
+        stage-parallel runner): stage walls, occupancy, bubble; the
+        measured counterpart of :meth:`fws_report`."""
+        if self.runner is None:
+            raise ValueError("measured_report needs a pipelined runner")
+        batch = torch.as_tensor(frames)[:self.runner.capacity]
+        return self.runner.measure({"images": batch}, reps=reps)
 
     # ----------------------------------------------------------- reports
 

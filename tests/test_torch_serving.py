@@ -177,7 +177,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.models.vit, repro_torch.serving.vision, "
             "repro_torch.serving.pipeline, repro_torch.hwmodel.perf, "
-            "repro_torch.serving.load, repro_torch.obs.export; "
+            "repro_torch.serving.load, repro_torch.obs.export, "
+            "repro_torch.distributed.pipeline_exec, "
+            "repro_torch.distributed.blockwise; "
             "import runpy; runpy.run_path('chip_smoke.py', run_name='x'); "
             "assert not [m for m, v in sys.modules.items() "
             "if v is not None and m.split('.')[0] in ('jax', 'repro')]")

@@ -315,10 +315,17 @@ def test_fws_report_guards_and_unported_runner():
         eng.fws_report(workload="vit-b16")  # 17 != 197 tokens
     assert eng.obs.registry.snapshot()["vision_frames_total"]["series"][0][
         "value"] == 1
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.measured_report(None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        VisionEngine(params, cfg, CTX, runner=object())
+    with pytest.raises(ValueError, match="pipelined runner"):
+        eng.measured_report(None)  # no runner, as in the reference
+    from repro_torch.distributed import pipeline_exec as pex
+
+    runner = pex.build_vit_pipeline(
+        params, cfg, CTX, stages=2, microbatches=1, mb_size=1,
+        mesh=pex.make_pipeline_mesh(2, devices=[torch.device("cpu")] * 2))
+    piped = VisionEngine(params, cfg, CTX, runner=runner)
+    assert piped.runner is runner and piped.chips == 2
+    frame = torch.zeros(cfg.image_size, cfg.image_size, 3)
+    assert piped.classify_frame(frame) == eng.classify_frame(frame)
 
 
 @pytest.mark.parametrize("name", ["vit-b32", "bert-base", "vit-l14"])

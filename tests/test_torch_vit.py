@@ -240,9 +240,26 @@ def test_encoder_dense_vs_flash_non_multiple_of_chunk(n):
                                atol=2e-5)
 
 
-def test_forward_pipelined_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tvit.forward_pipelined({}, TCFG, TCtx(), {})
+def test_forward_pipelined_is_not_ported(models):
+    """``vit.forward_pipelined`` (once a stub) over two stages on a CPU
+    grid: logits bitwise the monolithic forward under float and ``cim``,
+    and the returned runner reused for a second batch."""
+    from repro_torch.distributed import pipeline_exec as pex
+
+    cpu = torch.device("cpu")
+    for key, ctx in (("float", TCtx(dense_attn_max=256)),
+                     ("cim", TCtx(dense_attn_max=256, **CIM))):
+        params = models["t"][key]
+        mono, _ = tvit.forward(params, TCFG, ctx, _images())
+        out, runner = tvit.forward_pipelined(
+            params, TCFG, ctx, _images(), stages=2, microbatches=2,
+            mb_size=1, mesh=pex.make_pipeline_mesh(2, devices=[cpu] * 2))
+        assert runner.bounds == [(0, 1), (1, 2)]
+        assert torch.equal(out, mono), key
+        again, same = tvit.forward_pipelined(params, TCFG, ctx,
+                                             {"images": _images()["images"][:1]},
+                                             runner=runner)
+        assert same is runner and torch.equal(again, mono[:1]), key
 
 
 # ------------------------------------------- the kernels at the ViT's shapes
