@@ -126,8 +126,9 @@
 9. Serve the other dense families at full width with the depth cut
    (``DENSE_LAYERS``, the script's time limit): gemma3-1b (12 of 26
    layers: two 5:1 local:global groups, head_dim 256, one KV head, tied
-   head), h2o-danube-1.8b (8 of 24 layers, 4096-slot window, head_dim 80)
-   and nemotron-4-15b (squared ReLU, LayerNorm, head_dim 128, untied
+   head; 6 under ``cim``, one group), h2o-danube-1.8b (8 of 24 layers, 4
+   under ``cim``; 4096-slot window, head_dim 80) and nemotron-4-15b
+   (squared ReLU, LayerNorm, head_dim 128, untied
    256000-row head; 8 of 32 layers, 4 under ``cim``), through the
    launcher's ``build_model``
    and ``serve_trace`` under ``mxfp4`` and ``cim`` (``DENSE_RUNS``): 8
@@ -167,7 +168,8 @@
     window) at 4 layers, qwen3-moe-235b-a22b (128 experts, top-8, G 16)
     at 2 and qwen2-vl-7b (M-RoPE, G 7) at 4 of 28, all at full width
     (``MOE_LAYERS``: a full-width MoE layer is ~10 GB of f32 weights,
-    1.3 GB packed), each under ``mxfp4`` and ``cim`` through phase 9's
+    1.3 GB packed; under ``cim`` mixtral and qwen2-vl at 2, qwen3 at 1),
+    each under ``mxfp4`` and ``cim`` through phase 9's
     serve (``MOE_RUNS``). The launches by kernel and route are exactly
     ``_dense_launches``'s, which counts kernel C once an expert a bank an
     MoE layer a step under both backends (3E: 24 for mixtral, 384 for
@@ -248,7 +250,31 @@
     >= 60 dB against the one-device forward, again on balanced cuts
     from ``serve_layer_costs``, ``cim_linear`` the only kernel; a ``serve
     pipeline lm`` line.
-14. Prints the kernels line (phase 9 adds B, D and E at head widths
+14. Training (no kernel on its path, as in the reference, whose training
+    runs no Pallas kernel): h2o-danube-1.8b at full width, 12 of 24
+    layers, through ``launch.steps.make_train_step`` under ``mxfp4_ste``
+    (prequant) in a loop over ``data.pipeline.Pipeline``, batch [2,
+    1024] with ``dense_attn_max`` 512 (the torch-op ``_flash_attn``: the
+    flash kernel declines under autograd): 6 steps, each profiled (``train
+    step`` lines: loss, grad norm, wall and device ms, busy share,
+    tokens/s, peak GiB); step 1's loss within 10% of ln(32000) and
+    bitwise the per-call ``mxfp4_ste`` loss; one step with k=1 and one
+    with k=2 from the same params (``train k2``: first moments >= 30 dB,
+    every attention and FFN weight with a nonzero gradient, all five
+    launch counters 0); the step's split (``train full width``: the
+    weights' fake-quant, forward + backward with and without the
+    activations' fake-quant, AdamW). Then the launcher's ``--mesh none``
+    path (``launch.train.main``, tiny danube, 20 steps of [4, 64]): the
+    loss falls, a checkpoint from the card restores on the CPU bitwise,
+    and kill-restart (6 steps against 3 + a resume to 6) is bitwise under
+    ``torch.use_deterministic_algorithms(True)`` (``train launcher``).
+    Then tiny danube at ``dense_attn_max`` 16 trains 3 steps on the CPU,
+    and the card takes each step from the CPU's state before it (AdamW at
+    lr 1, eps 1, no warmup: the params move by ~lr times the gradient):
+    per step, losses within 1e-3, each leaf's move and both moments >= 30
+    dB, no launch, and kernel E's wrapper raises on CUDA inputs that
+    require grad (``train tiny card vs cpu``).
+15. Prints the kernels line (phase 9 adds B, D and E at head widths
     256, 80 and 128; phase 11 C at the expert shapes, A at the MoE
     linears and B and D at G 16 and 7; phase 12 A, C and E at the
     recurrent and audio archs' shapes), then the card's name and power
@@ -267,7 +293,9 @@ steps {...}``, ``serve load {...}``, ``prefill eager vs captured
 {...}``, ``recurrent prefill profile {...}``, ``recurrent decode profile
 <mode> {...}``, ``serve recurrent {...}``, ``encode audio {...}``,
 ``serve pipeline {...}``, ``serve pipeline router {...}``, ``serve
-pipeline lm {...}``).
+pipeline lm {...}``, ``train step {...}``, ``train k2 {...}``, ``train
+full width {...}``, ``train launcher {...}``, ``train tiny card vs cpu
+{...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
@@ -279,6 +307,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -385,9 +414,13 @@ DENSE_RUNS = (("gemma3-1b", "mxfp4"), ("gemma3-1b", "cim"),
 # local:global groups) and h2o-danube-1.8b for the script's time limit
 # (at full depth their cim runs took 116 s and 125 s of the script's 1064 s
 # on one H100), and nemotron-4-15b under cim to 4 layers for phase 13 (74
-# s of an 880 s run at 8)
+# s of an 880 s run at 8); gemma3-1b under cim to 6 (one local:global
+# group) and h2o-danube-1.8b under cim to 4 for phase 14 (65.1 s and
+# 53.6 s of a 1141 s run on a slow host at 12 and 8 layers; 21.2 s and
+# 19.2 s at 6 and 4 in a 782.5 s run)
 DENSE_LAYERS = {"nemotron-4-15b": 8, "gemma3-1b": 12, "h2o-danube-1.8b": 8,
-                ("nemotron-4-15b", "cim"): 4}
+                ("nemotron-4-15b", "cim"): 4, ("gemma3-1b", "cim"): 6,
+                ("h2o-danube-1.8b", "cim"): 4}
 DENSE_PROMPT, DENSE_TOKENS, DENSE_PAGE = 384, 64, 448
 DENSE_ARGS = ["--no-tiny", "--serve-trace", "--kv-layout", "fused",
               "--requests", "8", "--lanes", "4", "--slots", "6",
@@ -421,7 +454,12 @@ MOE_RUNS = (("mixtral-8x22b", "mxfp4"), ("mixtral-8x22b", "cim"),
             ("qwen3-moe-235b-a22b", "mxfp4"), ("qwen3-moe-235b-a22b", "cim"),
             ("qwen2-vl-7b", "mxfp4"), ("qwen2-vl-7b", "cim"))
 MOE_LAYERS = {"mixtral-8x22b": 4, "qwen3-moe-235b-a22b": 2,
-              "qwen2-vl-7b": 4}
+              "qwen2-vl-7b": 4, ("mixtral-8x22b", "cim"): 2,
+              ("qwen3-moe-235b-a22b", "cim"): 1,
+              ("qwen2-vl-7b", "cim"): 2}
+# the cim cuts for phase 14: mixtral, qwen3-moe and qwen2-vl took 27.4 s,
+# 35.7 s and 31.4 s of a 1141 s run on a slow host at 4, 2 and 4 layers;
+# 12.5 s, 18.7 s and 14.7 s at 2, 1 and 2 in a 782.5 s run
 MOE_STEPS = 2  # teacher-forced decode steps held to impl="ref"
 # the decode kernels at the new query groups: qwen3-moe's G 16 (the
 # kernels' G_MAX) and qwen2-vl's odd G 7 (lanes, Hkv, G, head_dim)
@@ -506,6 +544,24 @@ PIPE_LM_ARGS = ["--no-tiny", "--layers", "8", "--backend", "cim",
                 "--stages", "4", "--microbatches", "2", "--batch", "4",
                 "--prompt-len", "192", "--calib-batches", "2",
                 "--log-level", "warning"]
+# the training phase (phase 14): h2o-danube-1.8b (the training launcher's
+# default arch) at full width through launch.steps.make_train_step, the
+# loop body of the reference launcher's mesh branch; depth cut to 12 of 24
+# layers (the script's time limit; ~1.0 B f32 params, with m, v and the
+# gradients ~16 GB); batch [2, 1024] with dense_attn_max 512, so the
+# prefill past it takes the differentiable torch-op _flash_attn
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_LAYERS = 12
+TRAIN_SEQ, TRAIN_BATCH = 1024, 2
+TRAIN_DENSE_MAX = 512
+TRAIN_STEPS = 6
+TRAIN_K2_MIN_SQNR_DB = 30.0  # the k=2 gradient (first moment) vs k=1
+TRAIN_LOSS_REL = 0.10  # step 1's loss within 10% of ln(vocab)
+# the launcher's --mesh none path as the reference documents it
+TRAIN_LAUNCH_ARGS = ["--arch", "h2o-danube-1.8b", "--tiny", "--steps", "20",
+                     "--seq", "64", "--batch", "4"]
+TRAIN_TINY_MIN_SQNR_DB = 30.0  # card vs CPU, per leaf (moves, moments)
+TRAIN_TINY_OPT = dict(lr=1.0, eps=1.0, warmup_steps=0)  # phase 14c's AdamW
 # kernel function -> wrapper and route, for device time by route
 KERNEL_ROUTES = {
     "cim_splitk_kernel": "cim_linear splitk",
@@ -2593,7 +2649,8 @@ def serve_moe_vlm(arch: str, backend: str) -> dict:
     held to ``impl="ref"`` (routing flips counted), with the MoE layer's
     or the vision prefill's checks."""
     check = vlm_vision_check if arch == "qwen2-vl-7b" else moe_layer_check
-    return serve_dense(arch, backend, layers=MOE_LAYERS[arch],
+    layers = MOE_LAYERS.get((arch, backend), MOE_LAYERS[arch])
+    return serve_dense(arch, backend, layers=layers,
                        steps=MOE_STEPS, dense_ref=False, extra=check)
 
 
@@ -3863,6 +3920,365 @@ def pipeline_lm() -> dict:
     return {"launches": launches, "line": line}
 
 
+def _tree_sqnr(want, got) -> float:
+    """The least SQNR (dB) over the leaves of two trees of one layout."""
+    from repro_torch.optim import adamw
+
+    return min(_sqnr_db(w.detach().float().cpu(), g.detach().float().cpu())
+               for w, g in zip(adamw.leaves(want), adamw.leaves(got)))
+
+
+def _train_step_split(cfg, bundle, params, batch, step_device_ms: float
+                      ) -> dict:
+    """Where a train step's device time goes, each part run alone and its
+    kernels summed by the profiler (:func:`_device_ms`; host gaps are not
+    in it, so the parts add up however busy the host keeps the card): the
+    weights' step-boundary fake-quant (``quantize_weights_tree``, its
+    autograd graph built), the forward and backward of ``lm_loss`` under
+    the prequant backend and again under ``float_bf16`` on the same
+    prequantized weights (their difference: the activations' fake-quant),
+    and AdamW; shares of ``step_device_ms`` (the profiled steps' median),
+    the rest ``other_ms``; and the whole step's unprofiled wall (CUDA
+    events, median of 2). State that a part changes is a copy."""
+    from repro_torch.layers.common import RunCtx, quantize_weights_tree
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    nd = lm.ref_ndim_tree(cfg, params)
+
+    def quant():
+        with torch.enable_grad():
+            return quantize_weights_tree(params, nd)
+
+    qd = adamw.tree_map(quant(), lambda t: t.detach())
+
+    def fwd_bwd(quant_name):
+        ctx = RunCtx(quant=quant_name, dense_attn_max=TRAIN_DENSE_MAX)
+
+        def run():
+            flat = [t.requires_grad_(True) for t in adamw.leaves(qd)]
+            with torch.enable_grad():
+                loss = lm.lm_loss(qd, cfg, ctx, batch)
+                torch.autograd.grad(loss, flat, allow_unused=True)
+        return run
+
+    copy = adamw.tree_map(params, lambda t: t.detach().clone())
+    out = {"quant_ms": _device_ms(quant, 1),
+           "fwd_bwd_ms": _device_ms(fwd_bwd("mxfp4_ste_prequant"), 1),
+           "fwd_bwd_float_ms": _device_ms(fwd_bwd("none"), 1)}
+    del qd
+    state = adamw.init(copy)
+    grads = adamw.tree_map(copy, torch.ones_like)
+    out["adamw_ms"] = _device_ms(lambda: adamw.apply(
+        adamw.AdamWConfig(), copy, grads, state), 1)
+    del grads
+    state = adamw.init(copy)
+    out["step_wall_ms"] = _time_ms(lambda: bundle.fn(copy, state, batch), 2,
+                                   warm=1)
+    out["act_quant_ms"] = out["fwd_bwd_ms"] - out["fwd_bwd_float_ms"]
+    out["other_ms"] = (step_device_ms - out["quant_ms"] - out["fwd_bwd_ms"]
+                       - out["adamw_ms"])
+    for k in ("quant", "act_quant", "fwd_bwd", "adamw", "other"):
+        out[f"{k}_share"] = out[f"{k}_ms"] / step_device_ms
+    return out
+
+
+def _attn_ffn_grads_nonzero(cfg, m) -> list:
+    """Paths of the attention and FFN weights whose first moment (a fresh
+    state's: (1 - b1) times the clipped gradient) is all zero."""
+    names = (("attn", ("wq", "wk", "wv", "wo")), ("ffn", ("w1", "w2", "w3")))
+    dead = []
+    for i, seg in enumerate(m["segments"]):
+        for j, layer in enumerate(seg):
+            for block, keys in names:
+                for key in keys:
+                    if key in layer[block] and not bool(
+                            layer[block][key]["w"].any()):
+                        dead.append(f"segments/{i}/{j}/{block}/{key}")
+    return dead
+
+
+def train_full_width(dev, cfg=None, shape=None, steps: int = TRAIN_STEPS
+                     ) -> dict:
+    """Phase 14a: ``cfg`` (default h2o-danube-1.8b at full width, 12 of 24
+    layers) trains through ``launch.steps.make_train_step`` (``mxfp4_ste``,
+    hence the prequant backend; one microbatch) in a loop over
+    ``data.pipeline.Pipeline``, the loop body of the reference launcher's
+    mesh branch. Each step is profiled (device ms, busy share: device ms
+    over the step's wall ms under the profiler), with tokens/s and peak
+    allocated memory. Checks: losses and grad norms finite, step 1's loss
+    within ``TRAIN_LOSS_REL`` of ln(vocab) and bitwise the per-call
+    ``mxfp4_ste`` loss of the same params and batch (exact hoisting);
+    then one step with k=1 (on a copy) and one with k=2 from the same
+    params, each from a fresh AdamW state, whose first moments (the
+    clipped gradients) agree at ``TRAIN_K2_MIN_SQNR_DB``; every attention
+    and FFN weight has a nonzero gradient; no kernel launched (the
+    reference's training runs no Pallas kernel). Then the step's device split
+    and unprofiled wall (:func:`_train_step_split`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs as C
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.layers.common import RunCtx
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = cfg or dataclasses.replace(C.ARCHS[TRAIN_ARCH],
+                                     n_layers=TRAIN_LAYERS)
+    shape = shape or C.Shape(TRAIN_SEQ, TRAIN_BATCH, "train")
+    tokens = shape.seq * shape.batch
+    params = lm.init_model(cfg, torch.Generator(dev).manual_seed(0))
+    n_params = sum(t.numel() for t in adamw.leaves(params))
+    bundle = steps_mod.make_train_step(cfg, shape, quant="mxfp4_ste",
+                                       microbatches=1, device=dev,
+                                       dense_attn_max=TRAIN_DENSE_MAX)
+    opt_state = adamw.init(params)
+    pipe = Pipeline(cfg, shape, seed=0, device=dev)
+    rows = []
+    _zero_counts()
+    try:
+        step0, batch = pipe.get()
+        for t in adamw.leaves(params):
+            t.requires_grad_(True)
+        with torch.enable_grad():  # grad on: the path the step runs
+            per_call = lm.lm_loss(params, cfg, RunCtx(
+                quant="mxfp4_ste", dense_attn_max=TRAIN_DENSE_MAX),
+                batch).detach()
+        for i in range(steps):
+            if i:
+                step0, batch = pipe.get()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt_state, met = bundle.fn(params, opt_state, batch)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            dev_ms = sum(ev.self_device_time_total
+                         for ev in _device_events(prof)) / 1e3
+            if i == 0 and not torch.equal(met["loss"], per_call):
+                raise AssertionError(
+                    f"train: the prequant loss {float(met['loss'])} is not "
+                    f"the per-call mxfp4_ste loss {float(per_call)}")
+            met = {k: float(v) for k, v in met.items()}
+            rows.append(dict(step=step0, loss=met["loss"],
+                             grad_norm=met["grad_norm"], lr=met["lr"],
+                             wall_ms=wall, device_ms=dev_ms,
+                             busy=dev_ms / wall, tokens_s=tokens / wall * 1e3,
+                             peak_gib=torch.cuda.max_memory_allocated()
+                             / 2 ** 30))
+            print(f"train step {json.dumps(rows[-1])}", flush=True)
+        if not all(np.isfinite([r["loss"] for r in rows]
+                               + [r["grad_norm"] for r in rows])):
+            raise AssertionError("train: a loss or grad norm is not finite")
+        ln_v = float(np.log(cfg.vocab_size))
+        if abs(rows[0]["loss"] - ln_v) > TRAIN_LOSS_REL * ln_v:
+            raise AssertionError(f"train: step 1's loss {rows[0]['loss']} is "
+                                 f"not within 10% of ln(V) = {ln_v}")
+        # one step with k=1 and one with k=2 from the same params and batch
+        del opt_state
+        _, batch = pipe.get()
+        copy = adamw.tree_map(params, lambda t: t.detach().clone())
+        _, st1, met1 = bundle.fn(copy, adamw.init(copy), batch)
+        m1 = st1.m
+        del st1, copy
+        bundle2 = steps_mod.make_train_step(cfg, shape, quant="mxfp4_ste",
+                                            microbatches=2, device=dev,
+                                            dense_attn_max=TRAIN_DENSE_MAX)
+        _, st2, met2 = bundle2.fn(params, adamw.init(params), batch)
+        k2_db = _tree_sqnr(m1, st2.m)
+        dead = _attn_ffn_grads_nonzero(cfg, m1)
+        del st2, m1
+        counts, _ = _read_counts()
+        k2 = dict(loss_k1=float(met1["loss"]), loss_k2=float(met2["loss"]),
+                  grad_norm_k1=float(met1["grad_norm"]),
+                  grad_norm_k2=float(met2["grad_norm"]),
+                  first_moment_min_sqnr_db=k2_db, zero_grad_weights=dead,
+                  launches=counts)
+        print(f"train k2 {json.dumps(k2)}", flush=True)
+        if k2_db < TRAIN_K2_MIN_SQNR_DB:
+            raise AssertionError(f"train: k=2 gradients at {k2_db} dB of "
+                                 "k=1's")
+        if dead:
+            raise AssertionError(f"train: zero gradient into {dead}")
+        if any(counts.values()):
+            raise AssertionError(f"train: kernels launched: {counts}")
+        _, batch = pipe.get()
+        split = _train_step_split(cfg, bundle, params, batch, float(
+            np.median([r["device_ms"] for r in rows[1:]])))
+    finally:
+        pipe.close()
+    walls = [r["wall_ms"] for r in rows[1:]]
+    summary = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
+                   seq=shape.seq, batch=shape.batch, steps=len(rows),
+                   loss_first=rows[0]["loss"], loss_last=rows[-1]["loss"],
+                   prequant_loss_bitwise=True,
+                   wall_ms_median=float(np.median(walls)),
+                   device_ms_median=float(np.median(
+                       [r["device_ms"] for r in rows[1:]])),
+                   busy_median=float(np.median([r["busy"]
+                                                for r in rows[1:]])),
+                   tokens_s_median=float(np.median([r["tokens_s"]
+                                                    for r in rows[1:]])),
+                   peak_gib=max(r["peak_gib"] for r in rows), **split)
+    print(f"train full width {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def _kill_restart(run, tmp: str, tag: str) -> dict:
+    """6 steps uninterrupted (directory ``a``) against 3 steps and a
+    resume to 6 in a fresh directory (``b``), through ``run(steps,
+    ckpt_dir)``; the two final states."""
+    full = run(6, f"{tmp}/{tag}a")
+    run(3, f"{tmp}/{tag}b")
+    resumed = run(6, f"{tmp}/{tag}b")
+    return {"start": resumed["trainer"].start_step, "states": [
+        {"params": r["trainer"].params, "opt": r["trainer"].opt_state}
+        for r in (full, resumed)]}
+
+
+def train_launcher(dev) -> dict:
+    """Phase 14b: the launcher's ``--mesh none`` path on the card
+    (``launch.train.main`` with ``TRAIN_LAUNCH_ARGS``): the loss falls (the
+    reference's own check, ``losses[0] > losses[-1] * 0.5``: the
+    launcher's default AdamW warms up over 100 steps, so its 20 steps move
+    the loss little; the update's values are held in phase 14c); a
+    checkpoint written from the card restores on the CPU bitwise.
+    Kill-restart (:func:`_kill_restart`) under
+    ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
+    is set before the first cuBLAS call, in :func:`main`): the final params
+    and optimizer state bitwise equal; an op without a deterministic CUDA
+    path raises, and the phase fails. The checkpoints live in a temp dir
+    that is removed; the deterministic flag is restored."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+
+    base = TRAIN_LAUNCH_ARGS + ["--device", dev.type]
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = train_mod.main(base + ["--ckpt", f"{tmp}/run"])
+        out["launcher_s"] = time.perf_counter() - t0
+        losses = res["losses"]
+        out.update(final_step=res["final_step"], loss_first=losses[0],
+                   loss_last=losses[-1])
+        if not (res["final_step"] == 20 and losses[0] > losses[-1] * 0.5):
+            raise AssertionError(f"train launcher: losses {losses}")
+        trainer = res["trainer"]
+        state = {"params": trainer.params, "opt": trainer.opt_state}
+        on_cpu = CheckpointManager(f"{tmp}/run").restore(20, state,
+                                                         device="cpu")
+        out["card_to_cpu_bitwise"] = all(
+            torch.equal(a.cpu(), b) for a, b in zip(adamw.leaves(state),
+                                                     adamw.leaves(on_cpu)))
+        if not out["card_to_cpu_bitwise"]:
+            raise AssertionError("train: a checkpoint from the card does not "
+                                 "restore on the CPU bitwise")
+
+        def run(steps, ckpt):
+            return train_mod.main(base + ["--steps", str(steps), "--ckpt",
+                                          ckpt])
+
+        prior = torch.are_deterministic_algorithms_enabled()
+        try:
+            torch.use_deterministic_algorithms(True)
+            kr = _kill_restart(run, tmp, "det")
+        finally:
+            torch.use_deterministic_algorithms(prior)
+        a, b = kr["states"]
+        out["resume_start_step"] = kr["start"]
+        out["kill_restart_bitwise"] = all(
+            torch.equal(x, y) for x, y in zip(adamw.leaves(a),
+                                              adamw.leaves(b)))
+    print(f"train launcher {json.dumps(out)}", flush=True)
+    if out["resume_start_step"] != 3:
+        raise AssertionError("train: the resumed run did not start at 3")
+    if not out["kill_restart_bitwise"]:
+        raise AssertionError("train: kill-restart is not bitwise")
+    return out
+
+
+def train_tiny_agreement(dev) -> dict:
+    """Phase 14c: tiny h2o-danube-1.8b with ``dense_attn_max`` 16 at seq 64
+    (the prefill past it: the torch-op ``_flash_attn``, kernel E declined
+    under autograd) trains 3 steps through ``make_train_step`` on the CPU,
+    and the card takes each of those steps from the CPU's state before it
+    with the same data, AdamW at ``TRAIN_TINY_OPT`` (no warmup; eps 1
+    makes the update ~lr times the gradient, so the params move visibly
+    and a small difference in a gradient does not flip an update's sign).
+    Each step is held on its own: run freely, the two part after a step,
+    as the weights' MXFP4 codes flip where the params differ in the last
+    bits. Per step: losses within 1e-3 relative, each leaf's move and both
+    moments >= ``TRAIN_TINY_MIN_SQNR_DB``; no kernel launched on the card;
+    E's wrapper on CUDA inputs that require grad raises."""
+    from repro_torch import configs as C
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = C.tiny(C.ARCHS[TRAIN_ARCH])
+    shape = C.Shape(64, 4, "train")
+    cpu = torch.device("cpu")
+    opt = adamw.AdamWConfig(**TRAIN_TINY_OPT)
+    step_fn = {d.type: steps_mod.make_train_step(
+        cfg, shape, opt, device=d, dense_attn_max=16).fn for d in (cpu, dev)}
+
+    def copy(tree, d):
+        return adamw.tree_map(tree, lambda t: t.detach().to(d, copy=True))
+
+    def state_to(st, d):
+        return adamw.OptState(st.step.to(d, copy=True), copy(st.m, d),
+                              copy(st.v, d))
+
+    params = lm.init_model(cfg, torch.Generator().manual_seed(2))
+    state = adamw.init(params)
+    lc, lg, moves_db, m_db, v_db, rms = [], [], [], [], [], []
+    _zero_counts()
+    for s in range(3):
+        before = copy(params, cpu)
+        gp, gst, gmet = step_fn[dev.type](
+            copy(before, dev), state_to(state, dev),
+            make_batch(cfg, shape, 0, s, dev))
+        params, state, met = step_fn["cpu"](params, state,
+                                            make_batch(cfg, shape, 0, s, cpu))
+        lc.append(float(met["loss"]))
+        lg.append(float(gmet["loss"]))
+        moved = [(w.detach() - b, g.detach().cpu() - b) for w, g, b in zip(
+            adamw.leaves(params), adamw.leaves(gp), adamw.leaves(before))]
+        moves_db.append(min(_sqnr_db(w, g) for w, g in moved))
+        rms.append(float(torch.cat([w.flatten() for w, _ in moved])
+                         .pow(2).mean().sqrt()))
+        m_db.append(_tree_sqnr(state.m, gst.m))
+        v_db.append(_tree_sqnr(state.v, gst.v))
+    counts, _ = _read_counts()
+    out = dict(losses_cpu=lc, losses_card=lg, moves_min_sqnr_db=moves_db,
+               moves_rms=rms, m_min_sqnr_db=m_db, v_min_sqnr_db=v_db,
+               launches=counts)
+    q = torch.randn((1, 24, 4, 64), device=dev,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    kv = torch.randn((1, 24, 2, 64), device=dev, dtype=torch.bfloat16)
+    try:
+        fa_ops.flash_attention(q, kv, kv)
+        out["e_refuses_grad"] = False
+    except RuntimeError as e:
+        out["e_refuses_grad"] = "no backward" in str(e)
+    print(f"train tiny card vs cpu {json.dumps(out)}", flush=True)
+    if not np.allclose(lg, lc, rtol=1e-3, atol=0):
+        raise AssertionError("train tiny: card and CPU losses disagree")
+    if min(moves_db + m_db + v_db) < TRAIN_TINY_MIN_SQNR_DB:
+        raise AssertionError("train tiny: card and CPU params disagree")
+    if any(counts.values()):
+        raise AssertionError(f"train tiny: kernels launched: {counts}")
+    if not out["e_refuses_grad"]:
+        raise AssertionError("flash_attention ran on inputs that require "
+                             "grad")
+    return out
+
+
 def _zero_counts() -> None:
     from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4202,6 +4618,11 @@ def main() -> int:
         return 2
     from repro_torch.kernels import _build
 
+    # phase 14b's deterministic kill-restart needs cuBLAS's workspace fixed
+    # before the first cuBLAS call (32 MiB, as 8 x 4 MiB chunks); the
+    # variable goes back to what it was after that phase
+    cublas_ws = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4292,6 +4713,14 @@ def main() -> int:
                                            pipeline_router)
     runs["pipeline starcoder2-7b cim"] = phase(
         "pipeline starcoder2-7b [cim]", pipeline_lm)
+    # phase 14: training (no kernel launches; not in the kernels line)
+    phase("train full width", train_full_width, dev)
+    phase("train launcher", train_launcher, dev)
+    if cublas_ws is None:
+        del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+    else:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas_ws
+    phase("train tiny", train_tiny_agreement, dev)
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
 

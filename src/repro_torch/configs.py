@@ -14,6 +14,7 @@ audio front-end stub). The paper's two vision workloads, ``vit-b16`` and
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,6 +182,22 @@ ARCHS: dict[str, ArchConfig] = {
                         NEMOTRON4_15B, MIXTRAL_8X22B, QWEN3_MOE_235B,
                         HUBERT_XLARGE, ZAMBA2_1_2B, XLSTM_125M,
                         QWEN2_VL_7B)}
+
+
+class Shape(NamedTuple):
+    """An input shape (the reference's ``repro.configs.Shape``)."""
+
+    seq: int
+    batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, Shape] = {
+    "train_4k": Shape(4096, 256, "train"),
+    "prefill_32k": Shape(32768, 32, "prefill"),
+    "decode_32k": Shape(32768, 128, "decode"),
+    "long_500k": Shape(524288, 1, "decode"),
+}
 
 
 def tiny(cfg: ArchConfig, seq: int = 32) -> ArchConfig:

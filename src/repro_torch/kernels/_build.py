@@ -109,6 +109,26 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would need a gradient through an op on
+    ``tensors``: grad mode is on and a floating tensor requires grad."""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.is_floating_point() and t.requires_grad
+        for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a launch of kernel ``name`` would hand autograd an
+    output with no gradient: the kernels have no backward, as the Pallas
+    kernels they replace have none, so a differentiable caller takes the
+    torch-op path (or runs the kernel under ``torch.no_grad()``)."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this CUDA kernel has no "
+            "backward (the JAX package has none for it either); run it "
+            "under torch.no_grad() or take the differentiable torch-op path")
+
+
 def on_device(launch):
     """A wrapper's launch (first argument: a CUDA tensor) run with the
     current CUDA device set to that tensor's: the kernel goes to the

@@ -155,6 +155,7 @@ def _launch(xm: torch.Tensor, w: mxlib.MXW, calib: cimlib.LayerCalib,
             cfg: cimlib.CIMConfig, route: str | None = None) -> torch.Tensor:
     """Launch the kernel on ``route`` (default :func:`pick_route`); a caller
     names it only to time both routes on one shape (``chip_smoke.py``)."""
+    _build.refuse_grad("cim_linear", xm)
     m, k = xm.shape
     n = w.codes.shape[1]
     if k % mxlib.BLOCK:

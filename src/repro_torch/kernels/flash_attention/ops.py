@@ -45,6 +45,7 @@ def _launch(q, k, v, causal: bool, window: int, q_offset: int,
     """Launch the kernel on ``route`` (default :func:`pick_route`); a
     caller names it only to time both routes on one shape
     (``chip_smoke.py``)."""
+    _build.refuse_grad("flash_attention", q, k, v)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if q.dtype not in (torch.float32, torch.bfloat16):

@@ -143,6 +143,7 @@ def _launch(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
     ``mma_layout`` warps side by side; a caller names them only to time the
     alternatives on one shape (``chip_smoke.py``,
     ``scripts/torch_kernel_sweep.py``)."""
+    _build.refuse_grad("mxfp4_matmul", xm)
     m, k = xm.shape
     n = codes.shape[1]
     if n % 4:

@@ -106,6 +106,7 @@ def _launch(q, kv, rows, lengths, scale: float,
     """Launch the float kernel, its keys split by :func:`pick_splits` or,
     to time the alternatives (``scripts/torch_kernel_sweep.py``), into
     ``split_width``-key splits."""
+    _build.refuse_grad("paged_decode", q, kv)
     L, hkv, g, hd = q.shape
     w = kv.shape[1]
     _check_shape("paged_decode", q, w, pick_bk(w), kv.shape[2] // 2)
@@ -143,6 +144,7 @@ def _launch_mx(q, quant, rows, lengths, scale: float, bk: int,
     """Launch the mx kernel, ``heads`` query heads a block (default
     :func:`pick_heads`; named only to time the alternatives,
     ``scripts/torch_kernel_sweep.py``)."""
+    _build.refuse_grad("paged_decode_mx", q)
     L, hkv, g, hd = q.shape
     kvc, ke, ve = quant["kv_codes"], quant["k_exps"], quant["v_exps"]
     w, dpad = kvc.shape[1], 2 * kvc.shape[-1]

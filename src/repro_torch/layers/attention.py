@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.core import mx as mxlib
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import layout as paged_layout
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -321,23 +322,28 @@ def _flash_kernel(ctx, cfg, q, k, v, positions) -> torch.Tensor:
 
 
 def _takes_flash_kernel(ctx, cfg, device_type: str, mx_dig: bool,
-                        s: int) -> bool:
+                        s: int, grad: bool = False) -> bool:
     """Whether a prefill of ``s`` rows runs on the ``flash_attention``
     kernel: past ``dense_attn_max``, on CUDA under ``impl="auto"``, and
     only where the kernel computes ``_flash_attn``'s function: without
     the digital SDPA, causally (a KV_PAD key would enter a bidirectional
     row), at its own d^-0.5 scale and in the arange layout of the
-    positions."""
+    positions. Never where autograd needs a gradient through it
+    (``grad``): the kernel has no backward, so a differentiable prefill
+    takes the torch-op ``_flash_attn``, the function the reference's
+    training differentiates."""
     return (s > ctx.dense_attn_max and device_type == "cuda"
             and ctx.impl == "auto" and not mx_dig and ctx.arange_positions
-            and cfg.causal and cfg.scale == cfg.head_dim ** -0.5)
+            and cfg.causal and cfg.scale == cfg.head_dim ** -0.5
+            and not grad)
 
 
 def _prefill_attn(ctx, cfg, q, k, v, positions, mx_dig):
     if q.shape[1] <= ctx.dense_attn_max:
         return _dense_attn(q, k, v, positions, positions, cfg,
                            mx_digital=mx_dig)
-    if _takes_flash_kernel(ctx, cfg, q.device.type, mx_dig, q.shape[1]):
+    if _takes_flash_kernel(ctx, cfg, q.device.type, mx_dig, q.shape[1],
+                           grad=_build.needs_grad(q, k, v)):
         return _flash_kernel(ctx, cfg, q, k, v, positions)
     return _flash_attn(q, k, v, positions, positions, cfg, ctx,
                        mx_digital=mx_dig)

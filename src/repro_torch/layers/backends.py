@@ -11,11 +11,14 @@ counterpart of ``repro.layers.backends``.
                     exponents, Row-Hist ``LayerCalib`` (paper §3, §5.2.2)
 ==================  =======================================================
 
+``mxfp4_ste_prequant`` is the training step's form of ``mxfp4_ste``: the
+weights arrive fake-quantized once a step (``layers.common.
+quantize_weights_tree``), and only the activations are fake-quantized
+here.
+
 Aliases: ``none -> float_bf16``, ``cim -> cim_analog``, ``mxfp4_digital ->
-mxfp4_ste``. Unknown names raise ``ValueError``. ``mxfp4_ste_prequant``
-(training) is not ported yet and raises ``NotImplementedError``; it does
-not fall through to float. :func:`register_backend` adds a backend under
-its ``name``.
+mxfp4_ste``. Unknown names raise ``ValueError``. :func:`register_backend`
+adds a backend under its ``name``.
 """
 
 from __future__ import annotations
@@ -93,8 +96,10 @@ def expert_weight(ctx, w) -> torch.Tensor:
     paper's hybrid partition keeps only static-weight linears in the
     analog array. A packed ``{codes, exps}`` bank dequantizes exactly;
     under ``mxfp4_ste`` and ``cim_analog`` a float bank is fake-quantized
-    along K (one expert at a time, the same values); unknown backend
-    names raise. bf16 out."""
+    along K (one expert at a time, the same values; differentiable, STE);
+    under ``mxfp4_ste_prequant`` the bank was quantized at the step
+    boundary and is returned as it is (bf16); unknown backend names
+    raise. bf16 out."""
     if isinstance(w, dict):  # serving-converted packed MXFP4
         return _dequant_packed(w["codes"], w["exps"])
     backend = get_backend(ctx.quant)  # raises on unknown backend names
@@ -131,7 +136,6 @@ class LinearBackend:
 _REGISTRY: dict[str, LinearBackend] = {}
 _ALIASES = {"none": "float_bf16", "cim": "cim_analog",
             "mxfp4_digital": "mxfp4_ste"}
-_NOT_PORTED = ("mxfp4_ste_prequant",)
 
 
 def register_backend(backend: LinearBackend) -> LinearBackend:
@@ -145,9 +149,6 @@ def backend_names() -> list[str]:
 
 def get_backend(name: str) -> LinearBackend:
     key = _ALIASES.get(name, name)
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"linear backend {name!r} is not ported yet (ROADMAP.md Queue 1)")
     if key not in _REGISTRY:
         raise ValueError(
             f"unknown linear-execution backend {name!r}; known: "
@@ -193,6 +194,19 @@ class _MXFP4STE(LinearBackend):
         wq = mxlib.fake_quant_axis(params["w"], 0)
         xq = mxlib.fake_quant(x.to(torch.float32))
         return torch.matmul(xq.to(torch.bfloat16), wq.to(torch.bfloat16))
+
+
+@_register
+class _MXFP4STEPrequant(LinearBackend):
+    name = "mxfp4_ste_prequant"
+
+    def forward(self, ctx, params, x):
+        # the weights were fake-quantized once at the step boundary (exact:
+        # they are constant within a step), so the quant runs once a step
+        # and not once a microbatch
+        xq = mxlib.fake_quant(x.to(torch.float32))
+        return torch.matmul(xq.to(torch.bfloat16),
+                            params["w"].to(torch.bfloat16))
 
 
 @_register

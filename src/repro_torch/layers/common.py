@@ -14,6 +14,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import mx as mxlib
 from repro_torch.layers import backends as backends_lib
 
 
@@ -155,6 +156,45 @@ def embed_init(gen: torch.Generator, vocab: int, d: int) -> dict:
 
 def embed_apply(params: dict, ids: torch.Tensor) -> torch.Tensor:
     return params["emb"].to(torch.bfloat16)[ids]
+
+
+# ------------------------------------------------ training: prequant
+
+def quantize_weights_tree(tree, ndims):
+    """Step-boundary weight fake-quant for training ("prequant"): the
+    per-linear fake-quant of ``mxfp4_ste`` hoisted out of the microbatch
+    loop, exact because the weights are constant within a step. Each
+    linear ``w`` and each expert bank ``w1`` / ``w2`` / ``w3`` with a
+    32-aligned contraction dim is fake-quantized along it (STE) to bf16;
+    every other float32 leaf of two or more dims goes to bf16; the rest
+    stays as it is. Differentiable: the gradient into the f32 params is
+    the identity, cast to f32.
+
+    ``ndims`` is a tree of the same structure holding each leaf's ndim in
+    the reference's tree (``models.lm.ref_ndim_tree``), which stacks a
+    segment's layers only when it has more than one: a stacked norm gamma
+    or bias has two dims there and is cast to bf16, a single-layer one
+    stays f32. The rules read that ndim, not the port's."""
+
+    def rec(node, nd):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if (k == "w" and nd[k] in (2, 3)
+                        and v.shape[-2] % mxlib.BLOCK == 0) or (
+                        k in ("w1", "w2", "w3") and nd[k] in (3, 4)
+                        and v.shape[-2] % mxlib.BLOCK == 0):
+                    out[k] = mxlib.fake_quant_axis(v, -2).to(torch.bfloat16)
+                else:
+                    out[k] = rec(v, nd[k])
+            return out
+        if isinstance(node, (list, tuple)):
+            return type(node)(rec(v, n) for v, n in zip(node, nd))
+        if torch.is_tensor(node) and node.dtype == torch.float32 and nd >= 2:
+            return node.to(torch.bfloat16)
+        return node
+
+    return rec(tree, ndims)
 
 
 # ---------------------------------------------------- serving conversion

@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
 from repro_torch.layers import attention as attn_mod
@@ -370,6 +371,72 @@ def _head(ctx, cfg, params, x):
     if cfg.tie_embeddings:
         return torch.matmul(x, params["embed"]["emb"].to(torch.bfloat16).T)
     return linear_apply(ctx, params["lm_head"], x, name="lm_head")
+
+
+def lm_loss(params, cfg: ArchConfig, ctx: RunCtx, batch: dict,
+            chunk: int = 1024) -> torch.Tensor:
+    """Mean cross-entropy over the labeled tokens (``batch["labels"]``,
+    weighted by ``batch["loss_mask"]`` where given), the reference's
+    ``lm_loss``: the head runs on sequence chunks of ``chunk`` rows (the
+    sequence zero-padded to a whole number of chunks, the pad masked out),
+    so no [B, S, V] f32 logits are ever whole. Per chunk: f32 logits,
+    ``logsumexp`` and the gold logit, summed under the mask; the total
+    over ``max(count, 1)``. Differentiable through every family."""
+    hidden, _ = forward(params, cfg, ctx, batch, return_hidden=True)
+    labels = batch["labels"].long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    s = hidden.shape[1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tots, cnts = [], []
+    for c in range(0, s + pad, chunk):
+        m = mask[:, c:c + chunk]
+        logits = _head(ctx, cfg, params, hidden[:, c:c + chunk]).to(
+            torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, c:c + chunk, None])[..., 0]
+        tots.append(((lse - gold) * m).sum())
+        cnts.append(m.sum())
+    return torch.stack(tots).sum() / torch.clamp(torch.stack(cnts).sum(),
+                                                 min=1.0)
+
+
+def ref_ndim_tree(cfg: ArchConfig, tree) -> dict:
+    """Each leaf's ndim in the reference's tree, as a tree of ints of the
+    same structure as ``tree`` (parameters, or gradients and optimizer
+    moments of the same layout). The reference stacks a segment's layers
+    into leaves with a leading layer axis only when the segment has more
+    than one layer (``repro.models.lm.init_model``); the port keeps one
+    dict per layer. So a leaf of a segment of n > 1 layers has one dim
+    more there. The training rules that read ndim (the prequant of
+    ``layers.common.quantize_weights_tree``, the weight decay of
+    ``optim.adamw.apply``) take it from here: a norm gamma, a bias or a
+    Mamba ``A_log`` is decayed and cast to bf16 inside a stacked segment
+    and not in a single-layer one."""
+    def nd(node, extra: int):
+        if isinstance(node, dict):
+            return {k: nd(v, extra) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [nd(v, extra) for v in node]
+        return node.ndim + extra
+
+    segs = build_segments(cfg)
+    if len(segs) != len(tree["segments"]) or any(
+            len(layers) != seg.n for seg, layers in zip(segs,
+                                                        tree["segments"])):
+        raise ValueError("tree does not hold the segments of "
+                         f"{cfg.name}")
+    out = {k: nd(v, 0) for k, v in tree.items() if k != "segments"}
+    out["segments"] = [nd(layers, int(seg.n > 1))
+                       for seg, layers in zip(segs, tree["segments"])]
+    return out
 
 
 def forward_pipelined(params, cfg: ArchConfig, ctx: RunCtx, batch: dict,

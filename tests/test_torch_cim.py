@@ -103,15 +103,25 @@ def test_cpu_wrapper_runs_plain_version_without_launching():
 
 def test_backend_registry_names_and_errors():
     assert tbackends.backend_names() == ["cim_analog", "float_bf16",
-                                         "mxfp4_ste", "mxfp4_wonly"]
+                                         "mxfp4_ste", "mxfp4_ste_prequant",
+                                         "mxfp4_wonly"]
     assert tbackends.get_backend("cim").name == "cim_analog"
     assert tbackends.get_backend("none").name == "float_bf16"
     assert tbackends.get_backend("mxfp4_digital").name == "mxfp4_ste"
     with pytest.raises(ValueError, match="unknown"):
         tbackends.get_backend("int3_magic")
     assert tbackends.get_backend("mxfp4_wonly").name == "mxfp4_wonly"
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tbackends.get_backend("mxfp4_ste_prequant")  # training
+    # training: the weights arrive prequantized (bf16), the activations
+    # are fake-quantized here, as the reference's backend does
+    pre = tbackends.get_backend("mxfp4_ste_prequant")
+    assert pre.name == "mxfp4_ste_prequant"
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 64)).astype(np.float32))
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (64, 32)).astype(np.float32))
+    wq = tmx.fake_quant_axis(w, 0).to(torch.bfloat16)
+    ste = tbackends.get_backend("mxfp4_ste").forward(None, {"w": w}, x)
+    assert torch.equal(pre.forward(None, {"w": wq}, x), ste)
 
 
 def test_cim_backend_converted_node_and_fallback():
