@@ -274,7 +274,24 @@
     per step, losses within 1e-3, each leaf's move and both moments >= 30
     dB, no launch, and kernel E's wrapper raises on CUDA inputs that
     require grad (``train tiny card vs cpu``).
-15. Prints the kernels line (phase 9 adds B, D and E at head widths
+15. The dry run (``launch.dryrun``, ``launch.steps``, ``obs.cost``):
+    ``run_cell`` predicts three steps on the one-card mesh
+    (``make_local_mesh(1, 1)``), counted on ``meta``: h2o-danube-1.8b 12
+    of 24 layers, [2, 1024], ``mxfp4_ste`` (prequant) through
+    ``make_train_step``; starcoder2-7b ``mxfp4_wonly`` 16 layers, prefill
+    [1, 2048] through ``make_prefill_step`` and decode [4, 1] over a
+    2048-token cache through ``make_decode_step``. Each step is then
+    built on the card by the same builder from a clean memory state and
+    run: ``argument_bytes`` must equal the allocated arguments' bytes, the
+    predicted peak (arguments + the counter's temporaries) must be within
+    10% of ``max_memory_allocated`` (over the memory in use before the
+    arguments), the counter's kernel calls by route must equal the
+    wrappers' launches by route, and the measured device ms must be at or
+    above the predicted roofline time (``dry run`` lines, with the card's
+    name and power limit). Then ``run_cell`` on this host for one cell of
+    each family but audio on the single pod (hubert-xlarge's cells take
+    minutes there), with its seconds (``dry run sweep``).
+16. Prints the kernels line (phase 9 adds B, D and E at head widths
     256, 80 and 128; phase 11 C at the expert shapes, A at the MoE
     linears and B and D at G 16 and 7; phase 12 A, C and E at the
     recurrent and audio archs' shapes), then the card's name and power
@@ -295,7 +312,7 @@ steps {...}``, ``serve load {...}``, ``prefill eager vs captured
 ``serve pipeline {...}``, ``serve pipeline router {...}``, ``serve
 pipeline lm {...}``, ``train step {...}``, ``train k2 {...}``, ``train
 full width {...}``, ``train launcher {...}``, ``train tiny card vs cpu
-{...}``).
+{...}``, ``dry run {...}``, ``dry run sweep {...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
@@ -562,6 +579,24 @@ TRAIN_LAUNCH_ARGS = ["--arch", "h2o-danube-1.8b", "--tiny", "--steps", "20",
                      "--seq", "64", "--batch", "4"]
 TRAIN_TINY_MIN_SQNR_DB = 30.0  # card vs CPU, per leaf (moves, moments)
 TRAIN_TINY_OPT = dict(lr=1.0, eps=1.0, warmup_steps=0)  # phase 14c's AdamW
+# the dry run (phase 15): three steps predicted by launch.dryrun.run_cell on
+# the one-card mesh, then run on the card through the same step builders:
+# (name, arch, layers, shape as (seq, batch, kind), quant)
+DRY_STEPS = (("train", "h2o-danube-1.8b", TRAIN_LAYERS,
+              (TRAIN_SEQ, TRAIN_BATCH, "train"), "mxfp4_ste"),
+             ("prefill", "starcoder2-7b", 16, (2048, 1, "prefill"),
+              "mxfp4_wonly"),
+             ("decode", "starcoder2-7b", 16, (2048, 4, "decode"),
+              "mxfp4_wonly"))
+DRY_PEAK_REL = 0.10  # predicted peak within 10% of max_memory_allocated
+DRY_REPS = 3  # timed calls of each step
+# the dry-run sweep on the card's host, one cell a family but audio (the
+# whole single-pod sweep takes minutes on the CPU, and hubert-xlarge's
+# cells 35 s and more each: its long sequences step the torch-op
+# _flash_attn's tiles in Python)
+DRY_SWEEP = (("h2o-danube-1.8b", "decode_32k"), ("mixtral-8x22b", "decode_32k"),
+             ("zamba2-1.2b", "decode_32k"), ("xlstm-125m", "decode_32k"),
+             ("qwen2-vl-7b", "prefill_32k"))
 # kernel function -> wrapper and route, for device time by route
 KERNEL_ROUTES = {
     "cim_splitk_kernel": "cim_linear splitk",
@@ -671,17 +706,20 @@ def _kernel_wrappers() -> dict:
 
 
 def _bound_ms(n_bytes: float, ops: float, kind: str):
+    """The least time for ``n_bytes`` at the HBM rate and ``ops`` at the
+    peak rate of their type (the kernels' ``cost()`` models give both)."""
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _flash_bound(b, sq, sk, h, hkv, d, elt: int, pairs: float):
-    """``flash_attention``'s bound: q, k, v read and out written once, 4 d
-    operations a (query, visible key) pair and head."""
-    n_bytes = elt * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
-    return _bound_ms(n_bytes, 4.0 * b * h * d * pairs,
-                     "bf16" if elt == 2 else "f32")
+    """``flash_attention``'s bound from its wrapper's cost model
+    (``flash_attention/ops.py::cost``: q, k, v read and out written once,
+    4 d operations a (query, visible key) pair and head)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return _bound_ms(*fa_ops.cost(b, sq, sk, h, hkv, d, elt, pairs))
 
 
 def _sqnr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -745,8 +783,7 @@ def _cim_row(x, w, cal, cfg, extra: dict) -> dict:
     torch.cuda.synchronize()
     guarded = int(counter)
     err = (got - ref).abs()
-    n_bytes = m * k * x.element_size() + k * n + (k // 32) * n + 8 + m * n * 4
-    bound, by = _bound_ms(n_bytes, 2.0 * m * n * k, "int8")
+    bound, by = _bound_ms(*cim_ops.cost(m, k, n, x.element_size()))
     row = extra | dict(
         m=m, k=k, n=n, x_dtype=str(x.dtype).split(".")[-1], route=route,
         splits=cim_ops.pick_splits(m, k, n), guard_rows=guarded,
@@ -866,11 +903,9 @@ def check_paged_decode(dev, dims=DECODE_DIMS, pages=MX_PAGES,
         ok = (sq_plain > 40.0 and err <= 0.05 and sq_dense > 13.0
               and float((got - dense).abs().max()) <= 0.35
               and bool((got[~live] == 0).all()))
-        hb, nbd = quant["kv_codes"].shape[-1], quant["k_exps"].shape[-1]
-        n_bytes = sum(hkv * (n * (2 * hb + nbd) + -(-n // 32) * dh)
-                      for n in lens) + 2 * 2 * q.numel() + 8 * lanes
-        ops = sum(4.0 * n * hkv * g * dh for n in lens)
-        bound, by = _bound_ms(n_bytes, ops, "bf16")
+        bound, by = _bound_ms(*pops.cost_mx(
+            lens, hkv, g, dh, quant["kv_codes"].shape[-1],
+            quant["k_exps"].shape[-1]))
         rows_out.append((extra or {}) | dict(
             lanes=lanes, hkv=hkv, g=g, dh=dh, w=w, bk=bk, lengths=lens,
             heads_per_block=pops.pick_heads(g), max_abs_err=err, sqnr_vs_plain_db=sq_plain,
@@ -903,9 +938,7 @@ def _mxfp4_row(x, codes, exps, w_bf16, extra: dict) -> dict:
     torch.cuda.synchronize()
     err = (got - ref).abs()
     ok = bool((err <= 2e-2 * ref.abs() + 2e-2 * ref.abs().max()).all())
-    n_bytes = x.element_size() * m * k + k * n // 2 + k * n // 32 + 2 * m * n
-    bound, by = _bound_ms(n_bytes, 2.0 * m * n * k,
-                          "bf16" if dtype == torch.bfloat16 else "f32")
+    bound, by = _bound_ms(*mm_ops.cost(m, k, n, x.element_size()))
     row = extra | dict(
         m=m, k=k, n=n, x_dtype=str(dtype).split(".")[-1], route=route,
         max_abs_err=float(err.max()), sqnr_db=_sqnr_db(ref, got), ok=ok,
@@ -1014,10 +1047,7 @@ def check_paged_decode_float(dev, dims=DECODE_DIMS, pages=FLOAT_PAGES,
         qs = q.reshape(lanes, hkv * g, 1, dh)
         mask = (torch.arange(w, device=dev)[None, :]
                 < lengths[:, None])[:, None, None, :]
-        n_bytes = sum(hkv * n * 2 * dh * 2 for n in lens) + 2 * 2 * q.numel() \
-            + 8 * lanes
-        ops = sum(4.0 * n * hkv * g * dh for n in lens)
-        bound, by = _bound_ms(n_bytes, ops, "bf16")
+        bound, by = _bound_ms(*pops.cost_float(lens, hkv, g, dh))
         sw, splits = pops.pick_splits(w)
         rows_out.append((extra or {}) | dict(
             lanes=lanes, hkv=hkv, g=g, dh=dh, w=w, bk=bk, split_width=sw,
@@ -4279,6 +4309,149 @@ def train_tiny_agreement(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 15
+
+def _route_counts() -> dict:
+    """Each kernel's launches by route since the counts were zeroed (the
+    single-route decode kernels under ``default``, as the dry-run's
+    counter keys them); kernels that did not launch left out."""
+    from repro_torch.kernels.cim_linear import ops as cim_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    out = {"mxfp4_matmul": dict(mm_ops.mxfp4_matmul.route_launches),
+           "cim_linear": dict(cim_ops.cim_linear.route_launches),
+           "flash_attention": dict(fa_ops.flash_attention.route_launches),
+           "paged_decode": {"default": pops.paged_flash_decode.launches},
+           "paged_decode_mx": {
+               "default": pops.paged_flash_decode_mx.launches}}
+    return {k: {r: n for r, n in v.items() if n}
+            for k, v in out.items() if any(v.values())}
+
+
+def _step_device_ms(fn, reps: int) -> tuple[float, float]:
+    """(device ms a call, kernel launches a call) of a whole step:
+    ``reps`` warmed calls under ``torch.profiler``, every kernel's device
+    time summed over ``reps``. The profiler on the H100 machine now and
+    then misses a launch in a long trace, which reads a call low by that
+    kernel's time over ``reps`` (``launches`` shows it); an empty trace is
+    taken again, and after three the call is timed by :func:`_device_ms`'s
+    fallback (CUDA events, gaps included: an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        if events:
+            return (sum(ev.self_device_time_total for ev in events) / 1e3
+                    / reps, sum(ev.count for ev in events) / reps)
+    return _device_ms(fn, reps), float("nan")
+
+
+def dry_run_step(dev, smi: str, name: str, arch: str, layers: int,
+                 shape_t: tuple, quant: str) -> dict:
+    """Phase 15, one step: ``launch.dryrun.run_cell`` predicts it on the
+    one-card mesh (``make_local_mesh(1, 1)``, counted on ``meta``), then
+    ``launch.steps.make_step`` builds the same step on the card from a
+    clean memory state and it runs once, then ``DRY_REPS`` times profiled.
+    Checks: ``argument_bytes`` equals the bytes of the allocated
+    arguments; the predicted peak (arguments + the counter's temporaries)
+    is within ``DRY_PEAK_REL`` of ``max_memory_allocated`` over the
+    memory in use before the arguments; the counter's kernel calls by
+    route equal the wrappers' launches by route; the measured device ms
+    (:func:`_step_device_ms`) is at or above the predicted roofline time
+    (no run beats its bound)."""
+    from repro_torch import configs as C
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(1, 1)
+    shape = C.Shape(*shape_t)
+    t0 = time.perf_counter()
+    pred = dryrun.run_cell(arch, shape, False, quant=quant, verbose=False,
+                           overrides={"n_layers": layers}, mesh=mesh)
+    predict_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(C.ARCHS[arch], n_layers=layers)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    bundle = steps_mod.make_step(cfg, mesh, shape, quant=quant, device=dev)
+    allocated = sum(t.numel() * t.element_size()
+                    for t in _leaves(list(bundle.args)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out = bundle.fn(*bundle.args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launched = _route_counts()
+    del out
+    step_ms, step_launches = _step_device_ms(
+        lambda: bundle.fn(*bundle.args), DRY_REPS)
+    mem = pred["memory"]
+    roofline_ms = max(pred["t_compute_s"], pred["t_memory_s"]) * 1e3
+    row = dict(
+        step=name, arch=arch, layers=layers, seq=shape.seq,
+        batch=shape.batch, quant=quant, card=smi,
+        argument_bytes_predicted=mem["argument_bytes"],
+        argument_bytes_allocated=allocated,
+        peak_bytes_predicted=mem["peak_bytes"], peak_bytes_measured=peak,
+        peak_ratio=mem["peak_bytes"] / peak,
+        kernel_calls_predicted=pred["kernel_calls"],
+        kernel_launches=launched,
+        roofline_ms=roofline_ms, dominant=pred["dominant"],
+        wholegraph_ms=max(pred["wholegraph"]["t_compute_s"],
+                          pred["wholegraph"]["t_memory_s"]) * 1e3,
+        flops_predicted=pred["hlo_flops_per_dev"],
+        bytes_predicted=pred["hlo_bytes_per_dev"],
+        device_ms=step_ms, kernel_launches_a_call=step_launches,
+        measured_over_roofline=step_ms / roofline_ms,
+        predict_s=predict_s)
+    print(f"dry run {json.dumps(row)}", flush=True)
+    del bundle
+    if allocated != mem["argument_bytes"]:
+        raise AssertionError(f"dry run {name}: argument_bytes "
+                             f"{mem['argument_bytes']} != allocated "
+                             f"{allocated}")
+    if abs(row["peak_ratio"] - 1.0) > DRY_PEAK_REL:
+        raise AssertionError(f"dry run {name}: predicted peak "
+                             f"{mem['peak_bytes']} vs measured {peak}")
+    if pred["kernel_calls"] != launched:
+        raise AssertionError(f"dry run {name}: kernel calls "
+                             f"{pred['kernel_calls']} vs launches {launched}")
+    if step_ms < roofline_ms:
+        raise AssertionError(f"dry run {name}: {step_ms} device ms beat the "
+                             f"roofline's {roofline_ms}")
+    return row
+
+
+def dry_run(dev, smi: str) -> dict:
+    """Phase 15: the three ``DRY_STEPS`` (:func:`dry_run_step`), then the
+    dry-run on this host for ``DRY_SWEEP``, one cell a family but audio
+    on the single pod (its seconds; every cell must count)."""
+    from repro_torch.launch import dryrun
+
+    rows = {s[0]: dry_run_step(dev, smi, *s) for s in DRY_STEPS}
+    t0 = time.perf_counter()
+    cells = [dryrun.run_cell(a, s, False, verbose=False)
+             for a, s in DRY_SWEEP]
+    sweep = dict(cells=len(cells), seconds=time.perf_counter() - t0,
+                 rows=[{k: c[k] for k in ("arch", "shape", "mesh",
+                                          "dominant", "useful_flops_ratio")}
+                       | {"fits_80GB": c["memory"]["fits_80GB"]}
+                       for c in cells])
+    print(f"dry run sweep {json.dumps(sweep)}", flush=True)
+    return dict(rows, sweep=sweep)
+
+
 def _zero_counts() -> None:
     from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4605,7 +4778,7 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    elif isinstance(tree, list):
+    elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
     elif torch.is_tensor(tree):
@@ -4721,6 +4894,7 @@ def main() -> int:
     else:
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas_ws
     phase("train tiny", train_tiny_agreement, dev)
+    phase("dry run", dry_run, dev, smi)  # phase 15
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
@@ -198,6 +200,86 @@ SHAPES: dict[str, Shape] = {
     "decode_32k": Shape(32768, 128, "decode"),
     "long_500k": Shape(524288, 1, "decode"),
 }
+
+
+def applicable_shapes(cfg: ArchConfig) -> list[str]:
+    """Which of the four shapes run for this arch (the reference's rule):
+    train and prefill always; decode with a decode step; ``long_500k``
+    only sub-quadratic."""
+    out = ["train_4k", "prefill_32k"]
+    if cfg.supports_decode:
+        out.append("decode_32k")
+        if cfg.subquadratic:
+            out.append("long_500k")
+    return out
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every (arch, shape) cell of the dry-run."""
+    return [(a, s) for a, c in ARCHS.items() for s in applicable_shapes(c)]
+
+
+def skipped_cells() -> list[tuple[str, str, str]]:
+    """The (arch, shape, why) cells that do not run."""
+    out = []
+    for a, c in ARCHS.items():
+        for s in SHAPES:
+            if s in applicable_shapes(c):
+                continue
+            why = ("encoder-only (no decode step)" if not c.supports_decode
+                   else "pure full attention (long_500k needs "
+                        "sub-quadratic)")
+            out.append((a, s, why))
+    return out
+
+
+def input_specs(cfg: ArchConfig, shape, device="meta") -> dict:
+    """Empty tensors standing for every model input of this cell (on
+    ``meta`` by default: shapes and dtypes only, the reference's
+    ``ShapeDtypeStruct``s). train / prefill: the step's batch; decode:
+    ``ids`` [B, 1] and the scalar ``pos`` (the caches come from
+    ``models.lm.init_cache``)."""
+    sh = SHAPES[shape] if isinstance(shape, str) else shape
+    b, s = sh.batch, sh.seq
+    f32, i32 = torch.float32, torch.int32
+
+    def t(size, dtype):
+        return torch.empty(size, dtype=dtype, device=device)
+
+    if sh.kind == "decode":
+        return {"ids": t((b, 1), i32), "pos": t((), i32)}
+    batch: dict = {}
+    if cfg.frontend == "audio":
+        batch["emb"] = t((b, s, cfg.frontend_dim), f32)
+    else:
+        batch["ids"] = t((b, s), i32)
+    if cfg.frontend == "vision":
+        batch["vis_emb"] = t((b, cfg.n_vis_tokens, cfg.frontend_dim), f32)
+    if sh.kind == "train":
+        batch["labels"] = t((b, s), i32)
+        batch["loss_mask"] = t((b, s), f32)
+    return batch
+
+
+def concrete_inputs(cfg: ArchConfig, shape, seed: int = 0,
+                    device=None) -> dict:
+    """Random inputs matching :func:`input_specs` on ``device`` (the
+    reference's ``concrete_inputs``, from a torch generator): ids and
+    labels in the vocabulary, normal embeddings, an all-ones loss mask."""
+    dev = torch.device("cuda" if device is None else device)
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = {}
+    for k, v in input_specs(cfg, shape).items():
+        if v.dtype == torch.int32:
+            hi = cfg.vocab_size if k in ("ids", "labels") else 2 ** 30
+            out[k] = torch.randint(0, hi, v.shape, generator=gen,
+                                   dtype=torch.int32, device=dev)
+        else:
+            out[k] = torch.randn(v.shape, generator=gen, dtype=v.dtype,
+                                 device=dev)
+    if "loss_mask" in out:
+        out["loss_mask"] = torch.ones_like(out["loss_mask"])
+    return out
 
 
 def tiny(cfg: ArchConfig, seq: int = 32) -> ArchConfig:

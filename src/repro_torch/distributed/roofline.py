@@ -1,6 +1,12 @@
-"""Collective traffic and model FLOPs (counterpart of the reference's
-``repro.distributed.roofline``, copied: that module's package imports
-JAX).
+"""Roofline terms, collective traffic and model FLOPs (counterpart of the
+reference's ``repro.distributed.roofline``).
+
+:func:`roofline_terms` turns a step's per-device cost (FLOPs, bytes) into
+the time each would take at the card's peak: compute = FLOPs / peak,
+memory = bytes / HBM rate, on the NVIDIA H100 SXM's constants (989e12
+dense bf16 FLOP/s, 3.35e12 B/s; the ``hopper-kernels`` guide, as
+``chip_smoke.py``'s bounds). The costs come from the port's meta-device
+counter (``obs.cost``, ``distributed.blockwise.analyze_cell``).
 
 :class:`CollectiveStats` is what the stage pipeline's transfer guard
 fills (``pipeline_exec.StagePipeline.collectives``): the bytes each
@@ -8,15 +14,18 @@ activation hop moves between stages, under the reference's name for that
 hop, ``collective-permute``. :func:`active_params` and
 :func:`model_flops` are pure arithmetic on a config.
 
-Not here: the reference's ``parse_collectives`` and ``roofline_terms``,
-which read XLA's compiled HLO text and cost analysis, and its TPU v5e
-peak constants. They serve the GSPMD dry-run and training tools, which
-are not ported yet (ROADMAP.md Queue 1 item 4).
+Not here: the reference's ``parse_collectives``. It reads the collectives
+out of XLA's partitioned HLO text, and the port produces none (it runs
+no GSPMD program), so a GSPMD cell's collective term is None
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+PEAK_FLOPS = 989e12  # H100 SXM dense bf16
+HBM_BW = 3.35e12  # H100 SXM HBM3, bytes/s
 
 
 @dataclasses.dataclass
@@ -32,6 +41,38 @@ class CollectiveStats:
         k[0] += 1
         k[1] += n_bytes
         self.count += 1
+
+
+def roofline_terms(cost: dict, collectives: CollectiveStats | None,
+                   n_devices: int) -> dict:
+    """The roofline terms of a per-device ``cost`` (``flops``, ``bytes
+    accessed``) with the reference's keys. ``collectives`` None (a GSPMD
+    cell: the port has no partitioned program to read them from) gives
+    ``t_collective_s`` None, and ``dominant`` is the larger of compute
+    and memory; a ``CollectiveStats`` (per-device wire bytes) has no link
+    rate here either, so its term is None too and only its bytes are
+    reported. ``n_devices`` is the mesh's size (the costs are already per
+    device)."""
+    del n_devices
+    flops = float(cost.get("flops", 0.0))
+    byts = float(cost.get("bytes accessed", 0.0))
+    t_compute = flops / PEAK_FLOPS
+    t_memory = byts / HBM_BW
+    dom = "compute" if t_compute >= t_memory else "memory"
+    total = max(t_compute, t_memory)
+    coll = collectives or CollectiveStats()
+    return {
+        "t_compute_s": t_compute,
+        "t_memory_s": t_memory,
+        "t_collective_s": None,
+        "dominant": dom,
+        "hlo_flops_per_dev": flops,
+        "hlo_bytes_per_dev": byts,
+        "collective_wire_bytes_per_dev": coll.wire_bytes,
+        "collective_by_kind": {k: {"count": v[0], "wire_bytes": v[1]}
+                               for k, v in coll.by_kind.items()},
+        "roofline_fraction": (t_compute / total) if total > 0 else 0.0,
+    }
 
 
 def model_flops(cfg, shape, n_tokens_override=None) -> float:

@@ -4,7 +4,9 @@ against resident INT5 weight codes + per-block exponents, both K-major
 (``core.mx.MXW``), and the layer's Row-Hist calibration.
 
 CPU tensors take the plain version (:mod:`.ref`); CUDA tensors launch the
-kernel or raise. :func:`pick_route` picks the route from the shape alone:
+kernel or raise; ``meta`` tensors (the dry-run) get the kernel's output
+shape and record the call, on the route the card would take, with
+:func:`cost` (``obs.cost``), launching nothing. :func:`pick_route` picks the route from the shape alone:
 ``"splitk"`` (decode: integer sums, K split over :func:`pick_splits`
 blocks, guarded rows walked in order) or ``"wgmma"`` (prefill: an
 activation pre-pass, then tensor-core block dots aligned in order in f32).
@@ -25,6 +27,7 @@ from repro_torch.core import cim as cimlib
 from repro_torch.core import mx as mxlib
 from repro_torch.kernels import _build
 from repro_torch.kernels.cim_linear.ref import cim_linear_ref
+from repro_torch.obs import cost as cost_mod
 from repro_torch.obs.profile import profiled_call
 
 SMS = 132  # H100 SXM streaming multiprocessors
@@ -150,6 +153,36 @@ def _scalar(t, dtype, dev: torch.device, name: str) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
+def cost(m: int, k: int, n: int, x_bytes: int) -> tuple[float, float, str]:
+    """(bytes, operations, their type) of one call: x read once, the int8
+    codes (K x N) and block exponents (K/32 x N) once, the two calibration
+    scalars, the f32 output written once; 2 M N K int8 operations. The
+    bound of ``chip_smoke.py``'s rows and the dry-run's count."""
+    n_bytes = m * k * x_bytes + k * n + (k // 32) * n + 8 + m * n * 4
+    return n_bytes, 2.0 * m * n * k, "int8"
+
+
+def _meta(xm: torch.Tensor, w: mxlib.MXW) -> torch.Tensor:
+    """:func:`_launch` on ``meta``: the output (and the ``wgmma`` route's
+    activation pre-pass buffers) the launch would allocate, and the call
+    recorded with :func:`cost` on its route; nothing runs. (The
+    ``splitk`` route's workspace persists a device; not counted.)"""
+    _build.refuse_grad("cim_linear", xm)
+    m, k = xm.shape
+    n = w.codes.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=xm.device)
+    if m == 0 or n == 0:
+        return out
+    route = pick_route(m, k, n)
+    if route == "wgmma":
+        torch.empty((m, k), dtype=torch.float16, device=xm.device)
+        torch.empty((m, k // mxlib.BLOCK), dtype=torch.float32,
+                    device=xm.device)
+    n_bytes, ops, _ = cost(m, k, n, xm.element_size())
+    cost_mod.record_kernel("cim_linear", route, ops, n_bytes)
+    return out
+
+
 @_build.on_device
 def _launch(xm: torch.Tensor, w: mxlib.MXW, calib: cimlib.LayerCalib,
             cfg: cimlib.CIMConfig, route: str | None = None) -> torch.Tensor:
@@ -212,7 +245,7 @@ def cim_linear(x: torch.Tensor, w: mxlib.MXW, calib: cimlib.LayerCalib, *,
     if x.device.type == "cpu":
         return profiled_call("cim_linear.ref", obs,
                              lambda: cim_linear_ref(x, w, calib, cfg))
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"cim_linear: unsupported device {x.device}")
     k, n = w.codes.shape
     lead = x.shape[:-1]
@@ -222,6 +255,8 @@ def cim_linear(x: torch.Tensor, w: mxlib.MXW, calib: cimlib.LayerCalib, *,
     pk = k - xm.shape[1]  # activations shorter than the padded weight K
     if pk:
         xm = F.pad(xm, (0, pk))
+    if x.is_meta:
+        return _meta(xm.contiguous(), w).reshape(lead + (n,))
     out = profiled_call("cim_linear", obs, lambda: _launch(
         xm.contiguous(), w, calib, cfg))
     return out.reshape(lead + (n,))

@@ -3,7 +3,9 @@
 ``repro.kernels.flash_attention.ops.flash_attention``.
 
 CPU tensors take the plain version (:mod:`.ref`); CUDA tensors launch the
-kernel or raise. The kernel has two routes, picked by :func:`pick_route`
+kernel or raise; ``meta`` tensors (the dry-run) get the kernel's output
+shape and record the call, on the route the card would take, with
+:func:`cost` (``obs.cost``), launching nothing. The kernel has two routes, picked by :func:`pick_route`
 from dtype and head_dim alone: ``"wgmma"`` (bf16 tensor cores for both
 products, bf16 with D in ``TC_D``) and ``"fma"`` (f32 on the CUDA cores:
 f32 inputs, other D). ``flash_attention.launches`` counts wrapper
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.obs import cost as cost_mod
 from repro_torch.obs.profile import profiled_call
 
 D_MAX = 256  # head_dim the fma route holds per thread tile
@@ -37,6 +40,43 @@ def pick_route(sq: int, sk: int, d: int, dtype: torch.dtype) -> str:
     bf16 would change the function."""
     del sq, sk
     return "wgmma" if dtype == torch.bfloat16 and d in TC_D else "fma"
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int,
+                  q_offset: int) -> int:
+    """(query, key) pairs a head attends to: key j is visible from query i
+    (at position i + ``q_offset``) when j <= i + q_offset (causal) and
+    j > i + q_offset - window (a window)."""
+    total = 0
+    for i in range(sq):
+        p = i + q_offset
+        hi = min(sk - 1, p) if causal else sk - 1
+        lo = max(0, p - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def cost(b: int, sq: int, sk: int, h: int, hkv: int, d: int, elt: int,
+         pairs: float) -> tuple[float, float, str]:
+    """(bytes, operations, their type) of one call: q, k, v read and the
+    output written once; 4 d operations a (query, visible key) pair and
+    head (``pairs`` a head: :func:`visible_pairs`). The bound of
+    ``chip_smoke.py``'s rows and the dry-run's count."""
+    n_bytes = elt * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
+    return n_bytes, 4.0 * b * h * d * pairs, "bf16" if elt == 2 else "f32"
+
+
+def _meta(q, k, causal: bool, window: int, q_offset: int):
+    """:func:`_launch` on ``meta``: the output, and the call recorded with
+    :func:`cost` on its route; nothing runs."""
+    _build.refuse_grad("flash_attention", q, k)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    route = pick_route(sq, sk, d, q.dtype)
+    n_bytes, ops, _ = cost(b, sq, sk, h, hkv, d, q.element_size(),
+                           visible_pairs(sq, sk, causal, window, q_offset))
+    cost_mod.record_kernel("flash_attention", route, ops, n_bytes)
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 @_build.on_device
@@ -101,6 +141,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return profiled_call("flash_attention.ref", obs, lambda: (
             flash_attention_ref(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)))
+    if q.is_meta:
+        return _meta(q, k, causal, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return profiled_call("flash_attention", obs,

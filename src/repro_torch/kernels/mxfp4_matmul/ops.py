@@ -3,7 +3,9 @@
 expanded only on chip.
 
 CPU tensors take the plain version (:mod:`.ref`); CUDA tensors launch the
-kernel or raise. The kernel has three routes, picked by :func:`pick_route`
+kernel or raise; ``meta`` tensors (the dry-run) get the kernel's output
+shape and record the call, on the route the card would take, with
+:func:`cost` (``obs.cost``), launching nothing. The kernel has three routes, picked by :func:`pick_route`
 from the shape and dtype alone: ``"mma"`` (warp-level bf16 tensor cores at
 decode sizes, K split in one launch), ``"wgmma"`` (warpgroup bf16 tensor
 cores at prefill sizes) and ``"fma"`` (f32 FMAs on the CUDA cores: f32
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.mxfp4_matmul.ref import mxfp4_matmul_ref
+from repro_torch.obs import cost as cost_mod
 from repro_torch.obs.profile import profiled_call
 
 BM_SMALL, BM = 4, 8  # the kernel's row tiles (M <= 4: decode lanes)
@@ -205,6 +208,38 @@ def _launch(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
     return out
 
 
+def cost(m: int, k: int, n: int, x_bytes: int) -> tuple[float, float, str]:
+    """(bytes, operations, their type) of one call: x read once, the packed
+    codes (K/2 x N) and scales (K/32 x N) once, the bf16 output written
+    once; 2 M N K operations, bf16 for bf16 x, f32 otherwise. The bound
+    of ``chip_smoke.py``'s rows and the dry-run's count."""
+    n_bytes = x_bytes * m * k + k * n // 2 + k * n // 32 + 2 * m * n
+    return n_bytes, 2.0 * m * n * k, "bf16" if x_bytes == 2 else "f32"
+
+
+def _meta(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
+          route: str | None = None) -> torch.Tensor:
+    """:func:`_launch` on ``meta``: the output and the split-K partials
+    the launch would allocate, and the call recorded with :func:`cost` on
+    its route; nothing runs."""
+    _build.refuse_grad("mxfp4_matmul", xm)
+    m, k = xm.shape
+    n = codes.shape[1]
+    dtype = xm.dtype if xm.dtype in (torch.bfloat16, torch.float32) \
+        else torch.float32
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=xm.device)
+    if m == 0:
+        return out
+    route = route or pick_route(m, k, n, dtype)
+    splits = (pick_mma(m, k, n)[1] if route == "mma"
+              else pick_tc_splits(m, k, n) if route == "wgmma"
+              else pick_splits(m, k, n))
+    _partial(splits, m, n, out)
+    n_bytes, ops, _ = cost(m, k, n, dtype.itemsize)
+    cost_mod.record_kernel("mxfp4_matmul", route, ops, n_bytes)
+    return out
+
+
 def _partial(splits: int, m: int, n: int, out: torch.Tensor) -> torch.Tensor:
     """The f32 split-K partials, or ``out`` itself when K is not split."""
     if splits == 1:
@@ -225,17 +260,20 @@ def mxfp4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
     if x.device.type == "cpu":
         out = profiled_call("mxfp4_matmul.ref", obs,
                             lambda: mxfp4_matmul_ref(xm, codes, exps))
-    elif x.device.type == "cuda" and n % 4:
-        # the kernel stores four columns at a time: zero columns (scale 0)
-        # pad N, and the product drops them (tiny xlstm-125m's sLSTM FFN is
-        # 170 wide; the reference's conversion packs it); the route is N's
-        pad = -n % 4
-        out = profiled_call("mxfp4_matmul", obs, lambda: _launch(
-            xm, F.pad(codes, (0, pad)), F.pad(exps, (0, pad)),
-            route=pick_route(xm.shape[0], k, n, xm.dtype)))[:, :n]
-    elif x.device.type == "cuda":
-        out = profiled_call("mxfp4_matmul", obs,
-                            lambda: _launch(xm, codes, exps))
+    elif x.device.type in ("cuda", "meta"):
+        run = _meta if x.is_meta else _launch
+        if n % 4:
+            # the kernel stores four columns at a time: zero columns (scale
+            # 0) pad N, and the product drops them (tiny xlstm-125m's sLSTM
+            # FFN is 170 wide; the reference's conversion packs it); the
+            # route is N's
+            pad = -n % 4
+            out = profiled_call("mxfp4_matmul", obs, lambda: run(
+                xm, F.pad(codes, (0, pad)), F.pad(exps, (0, pad)),
+                route=pick_route(xm.shape[0], k, n, xm.dtype)))[:, :n]
+        else:
+            out = profiled_call("mxfp4_matmul", obs,
+                                lambda: run(xm, codes, exps))
     else:
         raise ValueError(f"mxfp4_matmul: unsupported device {x.device}")
     return out.reshape(x.shape[:-1] + (n,))

@@ -10,8 +10,10 @@ shape-derived chunk width and the float kernel's key split.
   fused decode branch; it takes exactly one of ``kv=`` / ``quant=``.
 
 CPU tensors take each kernel's plain version; CUDA tensors launch the
-kernel or raise. Each of the two kernel wrappers counts its own launches
-in ``.launches``.
+kernel or raise; ``meta`` tensors (the dry-run) get the kernel's output
+shape and record the call with :func:`cost_float` / :func:`cost_mx`
+(``obs.cost``), launching nothing. Each of the two kernel wrappers counts
+its own launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_flash_decode_mx_ref,
     paged_flash_decode_ref,
 )
+from repro_torch.obs import cost as cost_mod
 from repro_torch.obs.profile import profiled_call
 
 BLOCK = mxlib.BLOCK
@@ -94,6 +97,55 @@ def _check_shape(name: str, q, w: int, bk: int, n_kv: int) -> None:
                          f"bk={bk} W={w} Hkv={hkv}/{n_kv}")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{name} kernel: q must be bf16")
+
+
+def cost_float(lengths, hkv: int, g: int, dh: int
+               ) -> tuple[float, float, str]:
+    """(bytes, operations, their type) of one float decode: each lane's
+    live K and V rows (bf16) read once, q read and the output written once
+    (bf16), the lane's row and length; 4 dh operations a (head, live key)
+    pair. ``lengths``: the lanes' lengths (the dry-run, which sees no
+    values, gives the full window a lane)."""
+    lanes = len(lengths)
+    n_bytes = (sum(hkv * n * 2 * dh * 2 for n in lengths)
+               + 2 * 2 * lanes * hkv * g * dh + 8 * lanes)
+    ops = sum(4.0 * n * hkv * g * dh for n in lengths)
+    return n_bytes, ops, "bf16"
+
+
+def cost_mx(lengths, hkv: int, g: int, dh: int, half_bytes: int,
+            n_blocks: int) -> tuple[float, float, str]:
+    """The same for the mx decode from the resident mirrors: a live key's
+    packed K and V codes (``half_bytes`` each, half the padded head_dim)
+    and its K block exponents (``n_blocks``), V's exponents a 32-key
+    block; q and the output bf16."""
+    lanes = len(lengths)
+    n_bytes = (sum(hkv * (n * (2 * half_bytes + n_blocks) + -(-n // 32) * dh)
+                   for n in lengths)
+               + 2 * 2 * lanes * hkv * g * dh + 8 * lanes)
+    ops = sum(4.0 * n * hkv * g * dh for n in lengths)
+    return n_bytes, ops, "bf16"
+
+
+def _meta(q, w: int, quant=None) -> torch.Tensor:
+    """A launch on ``meta``: the output (and the float kernel's split
+    partials), and the call recorded at the full window ``w`` a lane
+    (the lengths are values, which ``meta`` has not); nothing runs."""
+    name = "paged_decode" if quant is None else "paged_decode_mx"
+    _build.refuse_grad(name, q)
+    L, hkv, g, hd = q.shape
+    if quant is None:
+        ns = pick_splits(w)[1]
+        torch.empty((L, hkv, ns, g, 2), dtype=torch.float32, device=q.device)
+        torch.empty((L, hkv, ns, g, hd), dtype=torch.float32,
+                    device=q.device)
+        n_bytes, ops, _ = cost_float([w] * L, hkv, g, hd)
+    else:
+        n_bytes, ops, _ = cost_mx([w] * L, hkv, g, hd,
+                                  quant["kv_codes"].shape[-1],
+                                  quant["k_exps"].shape[-1])
+    cost_mod.record_kernel(name, "default", ops, n_bytes)
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 def _lane_ints(t, dev) -> torch.Tensor:
@@ -184,6 +236,8 @@ def paged_flash_decode(q, kv, rows, lengths, *, scale: float,
     if q.device.type == "cpu":
         return profiled_call("paged_attention.ref", obs, lambda: (
             paged_flash_decode_ref(q, kv, rows, lengths, scale=scale, bk=bk)))
+    if q.is_meta:
+        return _meta(q, kv.shape[1])
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
     return profiled_call("paged_attention", obs,
@@ -201,6 +255,8 @@ def paged_flash_decode_mx(q, quant, rows, lengths, *, scale: float,
             lambda: paged_flash_decode_mx_ref(
                 q, quant["kv_codes"], quant["k_exps"], quant["v_exps"], rows,
                 lengths, scale=scale, bk=bk))
+    if q.is_meta:
+        return _meta(q, quant["kv_codes"].shape[1], quant)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode_mx: unsupported device "
                          f"{q.device}")

@@ -30,10 +30,13 @@ from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.layers import rope as ropelib
 from repro_torch.layers.common import (
     RunCtx,
+    init_device,
     linear_apply,
     linear_init,
+    linear_specs,
     norm_apply,
     norm_init,
+    norm_specs,
     rmsnorm_apply,
 )
 
@@ -60,17 +63,32 @@ class AttnStatic:
                 else self.softmax_scale)
 
 
-def attn_init(gen: torch.Generator, cfg: AttnStatic) -> dict:
+def attn_init(gen: torch.Generator, cfg: AttnStatic, device=None) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
-    p = {"ln": norm_init(cfg.norm, d, gen.device)}
-    p["wq"] = linear_init(gen, d, h * hd, use_bias=cfg.use_bias)
-    p["wk"] = linear_init(gen, d, kv * hd, use_bias=cfg.use_bias)
-    p["wv"] = linear_init(gen, d, kv * hd, use_bias=cfg.use_bias)
-    p["wo"] = linear_init(gen, h * hd, d, use_bias=cfg.use_bias)
+    dev = init_device(gen, device)
+    p = {"ln": norm_init(cfg.norm, d, dev)}
+    p["wq"] = linear_init(gen, d, h * hd, use_bias=cfg.use_bias, device=dev)
+    p["wk"] = linear_init(gen, d, kv * hd, use_bias=cfg.use_bias, device=dev)
+    p["wv"] = linear_init(gen, d, kv * hd, use_bias=cfg.use_bias, device=dev)
+    p["wo"] = linear_init(gen, h * hd, d, use_bias=cfg.use_bias, device=dev)
     if cfg.qk_norm:
-        p["qn"] = norm_init("rmsnorm", hd, gen.device)
-        p["kn"] = norm_init("rmsnorm", hd, gen.device)
+        p["qn"] = norm_init("rmsnorm", hd, dev)
+        p["kn"] = norm_init("rmsnorm", hd, dev)
     return p
+
+
+def attn_specs(cfg: AttnStatic) -> dict:
+    """Logical axes of :func:`attn_init`'s leaves (the reference's)."""
+    b = cfg.use_bias
+    s = {"ln": norm_specs(cfg.norm),
+         "wq": linear_specs("embed", "qkv_fused", use_bias=b),
+         "wk": linear_specs("embed", "kv_fused", use_bias=b),
+         "wv": linear_specs("embed", "kv_fused", use_bias=b),
+         "wo": linear_specs("qkv_fused", "embed", use_bias=b)}
+    if cfg.qk_norm:
+        s["qn"] = norm_specs("rmsnorm")
+        s["kn"] = norm_specs("rmsnorm")
+    return s
 
 
 # Sentinel position of padded K/V entries (fixed-shape serving prefill):
@@ -324,7 +342,8 @@ def _flash_kernel(ctx, cfg, q, k, v, positions) -> torch.Tensor:
 def _takes_flash_kernel(ctx, cfg, device_type: str, mx_dig: bool,
                         s: int, grad: bool = False) -> bool:
     """Whether a prefill of ``s`` rows runs on the ``flash_attention``
-    kernel: past ``dense_attn_max``, on CUDA under ``impl="auto"``, and
+    kernel: past ``dense_attn_max``, on CUDA (or ``meta``, where the
+    dry-run counts the card's path) under ``impl="auto"``, and
     only where the kernel computes ``_flash_attn``'s function: without
     the digital SDPA, causally (a KV_PAD key would enter a bidirectional
     row), at its own d^-0.5 scale and in the arange layout of the
@@ -332,7 +351,7 @@ def _takes_flash_kernel(ctx, cfg, device_type: str, mx_dig: bool,
     (``grad``): the kernel has no backward, so a differentiable prefill
     takes the torch-op ``_flash_attn``, the function the reference's
     training differentiates."""
-    return (s > ctx.dense_attn_max and device_type == "cuda"
+    return (s > ctx.dense_attn_max and device_type in ("cuda", "meta")
             and ctx.impl == "auto" and not mx_dig and ctx.arange_positions
             and cfg.causal and cfg.scale == cfg.head_dim ** -0.5
             and not grad)

@@ -56,9 +56,21 @@ def _dequant_packed(codes: torch.Tensor, exps: torch.Tensor) -> torch.Tensor:
     return w.reshape(lead + (k, n))
 
 
+def _packed_empty(w: torch.Tensor) -> dict:
+    """The packed format's tensors for ``w`` [..., K, N], unfilled."""
+    *lead, k, n = w.shape
+    return {"codes": torch.empty((*lead, k // 2, n), dtype=torch.uint8,
+                                 device=w.device),
+            "exps": torch.empty((*lead, k // mxlib.BLOCK, n),
+                                dtype=torch.uint8, device=w.device)}
+
+
 def _quantize_packed(w: torch.Tensor) -> dict:
     """[..., K, N] float -> packed MXFP4 {codes [..., K//2, N] uint8, exps
-    [..., K//32, N] uint8 biased} quantized along K."""
+    [..., K//32, N] uint8 biased} quantized along K. On ``meta`` (no
+    values: the dry-run's shapes) only the outputs are made."""
+    if w.is_meta:
+        return _packed_empty(w)
     mxq = mxlib.quantize(w.transpose(-1, -2))
     return {"codes": mxlib.pack_codes(mxq.codes).transpose(-1, -2).contiguous(),
             "exps": mxlib.exps_to_biased(mxq.exps).transpose(-1, -2)
@@ -71,11 +83,11 @@ def quantize_bank(w: torch.Tensor) -> dict:
     resident format of the ``mxfp4_matmul`` kernel. Quantized one expert
     at a time (the blocks run along K, so this is the whole bank's
     quantization) to bound the f32 temporaries at a full-width bank."""
-    e, k, n = w.shape
-    codes = torch.empty((e, k // 2, n), dtype=torch.uint8, device=w.device)
-    exps = torch.empty((e, k // mxlib.BLOCK, n), dtype=torch.uint8,
-                       device=w.device)
-    for i in range(e):
+    out = _packed_empty(w)
+    if w.is_meta:
+        return out
+    codes, exps = out["codes"], out["exps"]
+    for i in range(w.shape[0]):
         q = _quantize_packed(w[i])
         codes[i], exps[i] = q["codes"], q["exps"]
     return {"codes": codes, "exps": exps}

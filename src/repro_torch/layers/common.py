@@ -18,6 +18,91 @@ from repro_torch.core import mx as mxlib
 from repro_torch.layers import backends as backends_lib
 
 
+# --------------------------------------------------------------- sharding
+
+# logical axis -> mesh axis (or a tuple of them); the reference's table
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "kv_seq": None,  # attention K/V sequence axis (SP when heads unshardable)
+    "cache_seq": None,  # resident KV-cache sequence axis (flash-decoding)
+    "state_heads": None,  # SSM/xLSTM state head axis
+    "qkv_fused": None,
+    "kv_fused": None,
+    "heads_g": None,
+    "exp_group": ("pod", "data"),  # grouped MoE dispatch (per DP shard)
+    "exp_e": None,  # replicated expert axis around dispatch/combine
+    "exp_cap": None,
+    "conv": None,
+    "state": None,
+    "zero": None,
+    "layers": None,
+    "replicated": None,
+}
+
+
+@dataclasses.dataclass
+class ShardingCtx:
+    """Resolves logical axis names to mesh axes (the reference's
+    ``ShardingCtx.resolve``). ``mesh`` is a ``launch.mesh.Mesh`` (its
+    ``axis_names``), or None: nothing resolves. A resolved spec is a tuple
+    with one entry a dim: a mesh axis name, a tuple of them, or None (the
+    reference's ``PartitionSpec``, whose canonical form writes a tuple of
+    one axis as the axis). The port applies no activation
+    constraints: it runs one device's program (the dry-run counts it)."""
+
+    mesh: Any = None
+    rules: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def resolve(self, logical_axes) -> tuple:
+        names = []
+        used: set = set()
+        for ax in logical_axes:
+            r = self.rules.get(ax, DEFAULT_RULES.get(ax)) if ax else None
+            if isinstance(r, (list, tuple)):
+                r = tuple(a for a in r
+                          if self.mesh and a in self.mesh.axis_names)
+                r = tuple(a for a in r if a not in used) or None
+            elif r is not None:
+                if self.mesh is not None and r not in self.mesh.axis_names:
+                    r = None
+                if r in used:
+                    r = None
+            if r is not None:
+                used.update(r if isinstance(r, tuple) else (r,))
+            names.append(canonical_axes(r))
+        return tuple(names)
+
+
+def canonical_axes(entry):
+    """A resolved entry as ``PartitionSpec`` writes it: a tuple of one
+    mesh axis is that axis."""
+    if isinstance(entry, tuple) and len(entry) == 1:
+        return entry[0]
+    return entry
+
+
+def spec_leaf(x) -> bool:
+    """A logical spec: a tuple of axis names or None."""
+    return isinstance(x, tuple) and all(
+        isinstance(a, (str, type(None))) for a in x)
+
+
+def init_device(gen: torch.Generator, device=None) -> torch.device:
+    """Where a random init puts its tensors: ``device``, or ``gen``'s. On
+    ``meta`` (shapes and dtypes only) a CPU ``gen`` serves: nothing is
+    drawn, and no ``meta`` generator exists."""
+    return gen.device if device is None else torch.device(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
     """Per-call context threaded through the model.
@@ -79,15 +164,25 @@ class RunCtx:
 # ----------------------------------------------------------------- linear
 
 def linear_init(gen: torch.Generator, k: int, n: int, *,
-                use_bias: bool = False) -> dict:
-    """N(0, 1/k) weights [K, N] (f32), optional zero bias."""
+                use_bias: bool = False, device=None) -> dict:
+    """N(0, 1/k) weights [K, N] (f32), optional zero bias, on ``device``
+    (default ``gen``'s; ``meta`` draws nothing from a CPU ``gen``)."""
     scale = (1.0 / k) ** 0.5
-    dev = gen.device
+    dev = init_device(gen, device)
     w = torch.randn((k, n), generator=gen, dtype=torch.float32, device=dev)
     params = {"w": w.mul_(scale)}
     if use_bias:
         params["b"] = torch.zeros((n,), dtype=torch.float32, device=dev)
     return params
+
+
+def linear_specs(in_axis: str = "embed", out_axis: str = "mlp", *,
+                 use_bias: bool = False) -> dict:
+    """Logical axes of :func:`linear_init`'s leaves (the reference's)."""
+    specs = {"w": (in_axis, out_axis)}
+    if use_bias:
+        specs["b"] = (out_axis,)
+    return specs
 
 
 def linear_apply(ctx: RunCtx, params: dict, x: torch.Tensor,
@@ -140,6 +235,13 @@ def norm_init(kind: str, d: int, device) -> dict:
         layernorm_init(d, device)
 
 
+def norm_specs(kind: str) -> dict:
+    """Logical axes of :func:`norm_init`'s leaves."""
+    if kind == "rmsnorm":
+        return {"gamma": ("embed",)}
+    return {"gamma": ("embed",), "beta": ("embed",)}
+
+
 def norm_apply(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
     if kind == "rmsnorm":
         return rmsnorm_apply(params, x)
@@ -148,10 +250,14 @@ def norm_apply(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------- embeddings
 
-def embed_init(gen: torch.Generator, vocab: int, d: int) -> dict:
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               device=None) -> dict:
     emb = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
-                      device=gen.device)
+                      device=init_device(gen, device))
     return {"emb": emb.mul_(d ** -0.5)}
+
+
+EMBED_SPECS = {"emb": ("vocab", "embed")}
 
 
 def embed_apply(params: dict, ids: torch.Tensor) -> torch.Tensor:
@@ -239,3 +345,30 @@ def convert_params_mxfp4(tree, min_n: int = 256, free: bool = False):
         return node
 
     return rec(tree)
+
+
+def convert_specs_mxfp4(specs, params, min_n: int = 256):
+    """:func:`convert_params_mxfp4` on the logical spec tree: a packed
+    linear's ``codes`` and ``exps`` and a packed expert bank's take the
+    float weight's axes; ``params`` is the tree before conversion (its
+    shapes decide, as there). The reference's ``convert_specs_mxfp4``,
+    over the port's tree of one dict a layer (the MoE router stays
+    unpacked, as :func:`convert_params_mxfp4` keeps it)."""
+
+    def rec(spec, node, key=""):
+        if isinstance(spec, dict):
+            w = node.get("w")
+            if (key != "router" and w is not None and w.ndim == 2
+                    and w.shape[0] % 32 == 0 and w.shape[1] >= min_n):
+                out = {"codes": spec["w"], "exps": spec["w"]}
+                out.update({k: v if k == "b" else rec(v, node[k], k)
+                            for k, v in spec.items() if k != "w"})
+                return out
+            return {k: {"codes": v, "exps": v}
+                    if backends_lib.is_expert_bank(k, node[k])
+                    else rec(v, node[k], k) for k, v in spec.items()}
+        if isinstance(spec, list):
+            return [rec(v, n, key) for v, n in zip(spec, node)]
+        return spec
+
+    return rec(specs, params)

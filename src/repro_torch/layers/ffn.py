@@ -9,10 +9,13 @@ import torch.nn.functional as F
 
 from repro_torch.layers.common import (
     RunCtx,
+    init_device,
     linear_apply,
     linear_init,
+    linear_specs,
     norm_apply,
     norm_init,
+    norm_specs,
 )
 
 GLU_KINDS = ("swiglu", "geglu")
@@ -50,13 +53,24 @@ def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_init(gen: torch.Generator, d: int, d_ff: int, kind: str, norm: str,
-             use_bias: bool = False) -> dict:
-    p = {"ln": norm_init(norm, d, gen.device)}
-    p["w1"] = linear_init(gen, d, d_ff, use_bias=use_bias)
+             use_bias: bool = False, device=None) -> dict:
+    dev = init_device(gen, device)
+    p = {"ln": norm_init(norm, d, dev)}
+    p["w1"] = linear_init(gen, d, d_ff, use_bias=use_bias, device=dev)
     if kind in GLU_KINDS:
-        p["w3"] = linear_init(gen, d, d_ff, use_bias=use_bias)
-    p["w2"] = linear_init(gen, d_ff, d, use_bias=use_bias)
+        p["w3"] = linear_init(gen, d, d_ff, use_bias=use_bias, device=dev)
+    p["w2"] = linear_init(gen, d_ff, d, use_bias=use_bias, device=dev)
     return p
+
+
+def ffn_specs(kind: str, norm: str, use_bias: bool = False) -> dict:
+    """Logical axes of :func:`ffn_init`'s leaves (the reference's)."""
+    s = {"ln": norm_specs(norm),
+         "w1": linear_specs("embed", "mlp", use_bias=use_bias)}
+    if kind in GLU_KINDS:
+        s["w3"] = linear_specs("embed", "mlp", use_bias=use_bias)
+    s["w2"] = linear_specs("mlp", "embed", use_bias=use_bias)
+    return s
 
 
 def ffn_apply(ctx: RunCtx, kind: str, norm: str, p: dict,

@@ -35,9 +35,12 @@ from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
 from repro_torch.layers import backends
 from repro_torch.layers.common import (
     RunCtx,
+    init_device,
     linear_init,
+    linear_specs,
     norm_apply,
     norm_init,
+    norm_specs,
 )
 from repro_torch.layers.ffn import GLU_KINDS, _act
 
@@ -45,10 +48,10 @@ _STE = ("mxfp4_ste", "mxfp4_ste_prequant")
 
 
 def moe_init(gen: torch.Generator, d: int, d_ff: int, n_experts: int,
-             kind: str, norm: str) -> dict:
+             kind: str, norm: str, device=None) -> dict:
     """The norm, the router [d, E] and the expert banks ``w1`` (and
     ``w3`` for a GLU) [E, d, d_ff] and ``w2`` [E, d_ff, d], f32."""
-    dev = gen.device
+    dev = init_device(gen, device)
 
     def bank(k: int, n: int) -> torch.Tensor:
         w = torch.randn((n_experts, k, n), generator=gen, dtype=torch.float32,
@@ -56,12 +59,23 @@ def moe_init(gen: torch.Generator, d: int, d_ff: int, n_experts: int,
         return w.mul_((1.0 / k) ** 0.5)
 
     p = {"ln": norm_init(norm, d, dev),
-         "router": linear_init(gen, d, n_experts),
+         "router": linear_init(gen, d, n_experts, device=dev),
          "w1": bank(d, d_ff)}
     if kind in GLU_KINDS:
         p["w3"] = bank(d, d_ff)
     p["w2"] = bank(d_ff, d)
     return p
+
+
+def moe_specs(kind: str, norm: str) -> dict:
+    """Logical axes of :func:`moe_init`'s leaves (the reference's)."""
+    s = {"ln": norm_specs(norm),
+         "router": linear_specs("embed", "replicated"),
+         "w1": ("experts", "embed", "expert_mlp")}
+    if kind in GLU_KINDS:
+        s["w3"] = ("experts", "embed", "expert_mlp")
+    s["w2"] = ("experts", "expert_mlp", "embed")
+    return s
 
 
 def capacity(tokens: int, top_k: int, n_experts: int,
@@ -90,9 +104,11 @@ def route(xn: torch.Tensor, router_w: torch.Tensor, top_k: int):
 def expert_matmul(ctx: RunCtx, h: torch.Tensor, bank) -> torch.Tensor:
     """[E, cap, K] @ each expert's [K, N] -> [E, cap, N]. A packed bank on
     CUDA under ``impl="auto"`` launches the ``mxfp4_matmul`` kernel once an
-    expert; otherwise the reference's composition (the bank resolved by
+    expert (on ``meta`` the dry-run counts those calls); otherwise the
+    reference's composition (the bank resolved by
     ``backends.expert_weight``, one einsum)."""
-    if isinstance(bank, dict) and h.is_cuda and ctx.impl == "auto":
+    if (isinstance(bank, dict) and h.device.type in ("cuda", "meta")
+            and ctx.impl == "auto"):
         return torch.stack([
             mm_ops.mxfp4_matmul(h[i], bank["codes"][i], bank["exps"][i],
                                 obs=ctx.obs)

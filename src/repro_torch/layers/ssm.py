@@ -18,10 +18,13 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.layers.common import (
     RunCtx,
+    init_device,
     linear_apply,
     linear_init,
+    linear_specs,
     norm_apply,
     norm_init,
+    norm_specs,
 )
 from repro_torch.layers.ffn import _silu
 
@@ -46,15 +49,15 @@ class MambaStatic:
         return self.d_inner + 2 * self.n_groups * self.d_state
 
 
-def mamba_init(gen: torch.Generator, cfg: MambaStatic) -> dict:
+def mamba_init(gen: torch.Generator, cfg: MambaStatic, device=None) -> dict:
     """The reference's init laws: ``conv_w ~ N(0, 1/k)``, ``A_log =
     log(linspace(1, 16, h))`` (A = -exp(A_log)), ``D = 1``, ``dt_bias =
     0``."""
     d, di, h = cfg.d_model, cfg.d_inner, cfg.n_heads
     gn = cfg.n_groups * cfg.d_state
-    dev, f32 = gen.device, torch.float32
+    dev, f32 = init_device(gen, device), torch.float32
     p = {"ln": norm_init(cfg.norm, d, dev)}
-    p["in_proj"] = linear_init(gen, d, 2 * di + 2 * gn + h)
+    p["in_proj"] = linear_init(gen, d, 2 * di + 2 * gn + h, device=dev)
     p["conv_w"] = torch.randn((cfg.conv_dim, cfg.conv_k), generator=gen,
                               dtype=f32, device=dev) * (1.0 / cfg.conv_k) ** 0.5
     p["conv_b"] = torch.zeros((cfg.conv_dim,), dtype=f32, device=dev)
@@ -62,8 +65,17 @@ def mamba_init(gen: torch.Generator, cfg: MambaStatic) -> dict:
     p["D"] = torch.ones((h,), dtype=f32, device=dev)
     p["dt_bias"] = torch.zeros((h,), dtype=f32, device=dev)
     p["gn"] = norm_init("rmsnorm", di, dev)
-    p["out_proj"] = linear_init(gen, di, d)
+    p["out_proj"] = linear_init(gen, di, d, device=dev)
     return p
+
+
+def mamba_specs(cfg: MambaStatic) -> dict:
+    """Logical axes of :func:`mamba_init`'s leaves (the reference's)."""
+    return {"ln": norm_specs(cfg.norm), "in_proj": linear_specs(),
+            "conv_w": ("mlp", "conv"), "conv_b": ("mlp",),
+            "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",),
+            "gn": norm_specs("rmsnorm"),
+            "out_proj": linear_specs("mlp", "embed")}
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

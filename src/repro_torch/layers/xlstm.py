@@ -20,10 +20,13 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.layers.common import (
     RunCtx,
+    init_device,
     linear_apply,
     linear_init,
+    linear_specs,
     norm_apply,
     norm_init,
+    norm_specs,
     rmsnorm_apply,
 )
 from repro_torch.layers.ffn import _gelu_tanh, _silu
@@ -64,22 +67,32 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ mLSTM
 
-def mlstm_init(gen: torch.Generator, cfg: XLSTMStatic) -> dict:
+def mlstm_init(gen: torch.Generator, cfg: XLSTMStatic, device=None) -> dict:
     d, di, h = cfg.d_model, cfg.d_inner, cfg.n_heads
-    dev, f32 = gen.device, torch.float32
+    dev, f32 = init_device(gen, device), torch.float32
     p = {"ln": norm_init(cfg.norm, d, dev)}
-    p["w_up"] = linear_init(gen, d, 2 * di)
+    p["w_up"] = linear_init(gen, d, 2 * di, device=dev)
     p["conv_w"] = torch.randn((di, cfg.conv_k), generator=gen, dtype=f32,
                               device=dev) * 0.5
     p["conv_b"] = torch.zeros((di,), dtype=f32, device=dev)
-    p["wq"] = linear_init(gen, di, di)
-    p["wk"] = linear_init(gen, di, di)
-    p["wv"] = linear_init(gen, di, di)
-    p["w_if"] = linear_init(gen, di, 2 * h)
+    p["wq"] = linear_init(gen, di, di, device=dev)
+    p["wk"] = linear_init(gen, di, di, device=dev)
+    p["wv"] = linear_init(gen, di, di, device=dev)
+    p["w_if"] = linear_init(gen, di, 2 * h, device=dev)
     p["gn"] = norm_init("rmsnorm", di, dev)
     p["skip"] = torch.ones((di,), dtype=f32, device=dev)
-    p["w_down"] = linear_init(gen, di, d)
+    p["w_down"] = linear_init(gen, di, d, device=dev)
     return p
+
+
+def mlstm_specs(cfg: XLSTMStatic) -> dict:
+    """Logical axes of :func:`mlstm_init`'s leaves (the reference's)."""
+    return {"ln": norm_specs(cfg.norm), "w_up": linear_specs(),
+            "conv_w": ("mlp", "conv"), "conv_b": ("mlp",),
+            "wq": linear_specs("mlp", "mlp"), "wk": linear_specs("mlp", "mlp"),
+            "wv": linear_specs("mlp", "mlp"),
+            "w_if": linear_specs("mlp", "heads"), "gn": norm_specs("rmsnorm"),
+            "skip": ("mlp",), "w_down": linear_specs("mlp", "embed")}
 
 
 def _mlstm_step(carry, inp, scale: float):
@@ -246,18 +259,25 @@ MLSTM_CACHE_SPECS = {
 
 # ------------------------------------------------------------------ sLSTM
 
-def slstm_init(gen: torch.Generator, cfg: XLSTMStatic) -> dict:
+def slstm_init(gen: torch.Generator, cfg: XLSTMStatic, device=None) -> dict:
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.s_head_dim
-    dev = gen.device
+    dev = init_device(gen, device)
     p = {"ln": norm_init(cfg.norm, d, dev)}
-    p["w_in"] = linear_init(gen, d, 4 * d)
+    p["w_in"] = linear_init(gen, d, 4 * d, device=dev)
     p["r"] = torch.randn((h, dh, 4 * dh), generator=gen, dtype=torch.float32,
                          device=dev) * dh ** -0.5
     p["gn"] = norm_init("rmsnorm", d, dev)
     dff = int(d * cfg.ffn_factor)
-    p["w_up"] = linear_init(gen, d, 2 * dff)
-    p["w_down"] = linear_init(gen, dff, d)
+    p["w_up"] = linear_init(gen, d, 2 * dff, device=dev)
+    p["w_down"] = linear_init(gen, dff, d, device=dev)
     return p
+
+
+def slstm_specs(cfg: XLSTMStatic) -> dict:
+    """Logical axes of :func:`slstm_init`'s leaves (the reference's)."""
+    return {"ln": norm_specs(cfg.norm), "w_in": linear_specs(),
+            "r": ("heads", "head_dim", "mlp"), "gn": norm_specs("rmsnorm"),
+            "w_up": linear_specs(), "w_down": linear_specs("mlp", "embed")}
 
 
 def _slstm_step(carry, wx_t, r):

@@ -38,13 +38,17 @@ from repro_torch.layers import ssm as ssm_mod
 from repro_torch.layers import xlstm as xl_mod
 from repro_torch.layers.backends import layer_paths
 from repro_torch.layers.common import (
+    EMBED_SPECS,
     RunCtx,
     embed_apply,
     embed_init,
+    init_device,
     linear_apply,
     linear_init,
+    linear_specs,
     norm_apply,
     norm_init,
+    norm_specs,
 )
 
 
@@ -135,23 +139,74 @@ def build_segments(cfg: ArchConfig) -> list[Segment]:
 
 # ---------------------------------------------------------------- init
 
-def init_model(cfg: ArchConfig, gen: torch.Generator) -> dict:
-    """Random float32 parameters on ``gen``'s device."""
-    params: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model)}
+def init_model(cfg: ArchConfig, gen: torch.Generator, device=None) -> dict:
+    """Random float32 parameters on ``device`` (default ``gen``'s). On
+    ``meta`` they are shapes and dtypes only, from a CPU ``gen``: the
+    dry-run's parameters (``launch.steps.param_structs``)."""
+    dev = init_device(gen, device)
+    params: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                        device=dev)}
     if cfg.frontend != "none":
-        params["front_proj"] = linear_init(gen, cfg.frontend_dim, cfg.d_model)
+        params["front_proj"] = linear_init(gen, cfg.frontend_dim, cfg.d_model,
+                                           device=dev)
     segs = build_segments(cfg)
-    params["segments"] = [[block_init(gen, cfg, seg) for _ in range(seg.n)]
-                          for seg in segs]
+    params["segments"] = [[block_init(gen, cfg, seg, dev)
+                           for _ in range(seg.n)] for seg in segs]
     if any(seg.kind == "zshared" for seg in segs):
-        params["shared"] = zshared_init(gen, cfg)
-    params["final_ln"] = norm_init(cfg.norm, cfg.d_model, gen.device)
+        params["shared"] = zshared_init(gen, cfg, dev)
+    params["final_ln"] = norm_init(cfg.norm, cfg.d_model, dev)
     if not cfg.tie_embeddings:
-        params["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size)
+        params["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size,
+                                        device=dev)
     return params
 
 
-def block_init(gen: torch.Generator, cfg, seg: Segment) -> dict:
+def param_specs(cfg: ArchConfig) -> dict:
+    """Logical axes of every leaf of :func:`init_model`'s tree: the
+    reference's ``init_model`` specs laid out as the port's tree, one dict
+    a layer (no leading ``layers`` axis: the reference's rule for it is
+    None, so no shard and no ZeRO choice moves)."""
+    specs: dict = {"embed": dict(EMBED_SPECS)}
+    if cfg.frontend != "none":
+        specs["front_proj"] = linear_specs()
+    segs = build_segments(cfg)
+    specs["segments"] = [[block_specs(cfg, seg) for _ in range(seg.n)]
+                         for seg in segs]
+    if any(seg.kind == "zshared" for seg in segs):
+        specs["shared"] = zshared_specs(cfg)
+    specs["final_ln"] = norm_specs(cfg.norm)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = linear_specs("embed", "vocab")
+    return specs
+
+
+def block_specs(cfg, seg: Segment) -> dict:
+    """Logical axes of :func:`block_init`'s leaves."""
+    if seg.kind == "mamba":
+        return ssm_mod.mamba_specs(seg.mamba)
+    if seg.kind == "mlstm":
+        return xl_mod.mlstm_specs(seg.xl)
+    if seg.kind == "slstm":
+        return xl_mod.slstm_specs(seg.xl)
+    if seg.kind == "zshared":
+        return {}
+    s = {"attn": attn_mod.attn_specs(seg.attn)}
+    if seg.kind == "moe_attn":
+        s["moe"] = moe_mod.moe_specs(cfg.ffn_kind, cfg.norm)
+    else:
+        s["ffn"] = ffn_mod.ffn_specs(cfg.ffn_kind, cfg.norm, cfg.use_bias)
+    return s
+
+
+def zshared_specs(cfg: ArchConfig) -> dict:
+    """Logical axes of :func:`zshared_init`'s leaves."""
+    return {"w_in": linear_specs(),
+            "attn": attn_mod.attn_specs(_attn_static(cfg)),
+            "ffn": ffn_mod.ffn_specs(cfg.ffn_kind, cfg.norm),
+            "w_out": linear_specs()}
+
+
+def block_init(gen: torch.Generator, cfg, seg: Segment, device=None) -> dict:
     """One layer's parameters: a recurrent block (``mamba``, ``mlstm``,
     ``slstm``), nothing for a ``zshared`` visit (its weights are the
     top-level ``shared``), or the attention sublayer, then the FFN or, in
@@ -159,31 +214,33 @@ def block_init(gen: torch.Generator, cfg, seg: Segment) -> dict:
     ``ffn_kind``, ``norm`` and ``use_bias``, and ``n_experts`` for MoE: an
     ``ArchConfig`` or a ``ViTConfig``)."""
     if seg.kind == "mamba":
-        return ssm_mod.mamba_init(gen, seg.mamba)
+        return ssm_mod.mamba_init(gen, seg.mamba, device)
     if seg.kind == "mlstm":
-        return xl_mod.mlstm_init(gen, seg.xl)
+        return xl_mod.mlstm_init(gen, seg.xl, device)
     if seg.kind == "slstm":
-        return xl_mod.slstm_init(gen, seg.xl)
+        return xl_mod.slstm_init(gen, seg.xl, device)
     if seg.kind == "zshared":
         return {}
-    p = {"attn": attn_mod.attn_init(gen, seg.attn)}
+    p = {"attn": attn_mod.attn_init(gen, seg.attn, device)}
     if seg.kind == "moe_attn":
         p["moe"] = moe_mod.moe_init(gen, cfg.d_model, cfg.d_ff,
-                                    cfg.n_experts, cfg.ffn_kind, cfg.norm)
+                                    cfg.n_experts, cfg.ffn_kind, cfg.norm,
+                                    device)
     else:
         p["ffn"] = ffn_mod.ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
-                                    cfg.norm, cfg.use_bias)
+                                    cfg.norm, cfg.use_bias, device)
     return p
 
 
-def zshared_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
+def zshared_init(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
     """The Zamba shared block, once for all its visits: ``w_in`` [2d, d]
     over ``concat[x, x0]``, attention, the FFN and ``w_out`` [d, d]."""
-    return {"w_in": linear_init(gen, 2 * cfg.d_model, cfg.d_model),
-            "attn": attn_mod.attn_init(gen, _attn_static(cfg)),
-            "ffn": ffn_mod.ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
-                                    cfg.norm),
-            "w_out": linear_init(gen, cfg.d_model, cfg.d_model)}
+    d = cfg.d_model
+    return {"w_in": linear_init(gen, 2 * d, d, device=device),
+            "attn": attn_mod.attn_init(gen, _attn_static(cfg), device),
+            "ffn": ffn_mod.ffn_init(gen, d, cfg.d_ff, cfg.ffn_kind, cfg.norm,
+                                    device=device),
+            "w_out": linear_init(gen, d, d, device=device)}
 
 
 # --------------------------------------------------------------- caches

@@ -86,8 +86,10 @@ def test_wrapper_contract():
         out.numpy(), tfa_ref.flash_attention_ref(q, k, v, causal=True,
                                                  window=2,
                                                  q_offset=-4).numpy())
-    with pytest.raises(ValueError, match="unsupported device"):
-        tfa_ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    # meta (the dry-run): the plain version's shape and dtype, no launch
+    got = tfa_ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert got.is_meta and got.shape == q.shape and got.dtype == q.dtype
+    assert tfa_ops.flash_attention.launches == before
     with pytest.raises(ValueError, match="does not match"):
         tfa_ops.flash_attention(q[:, :, :3], k, v)
 

@@ -247,8 +247,10 @@ def test_wrapper_contract():
         y.reshape(6, 32).float().numpy(),
         tmm_ref.mxfp4_matmul_ref(x.reshape(6, 64), tc, te).float().numpy())
     assert tmm_ops.mxfp4_matmul.launches == before
-    with pytest.raises(ValueError, match="unsupported device"):
-        tmm_ops.mxfp4_matmul(x.to("meta"), tc.to("meta"), te.to("meta"))
+    # meta (the dry-run): the plain version's shape and dtype, no launch
+    got = tmm_ops.mxfp4_matmul(x.to("meta"), tc.to("meta"), te.to("meta"))
+    assert got.is_meta and got.shape == y.shape and got.dtype == y.dtype
+    assert tmm_ops.mxfp4_matmul.launches == before
     with pytest.raises(ValueError, match="does not match"):
         tmm_ops.mxfp4_matmul(x[..., :32], tc, te)
     assert tmm_ops.pick_splits(4, 4608, 4608) > 1

@@ -243,9 +243,11 @@ def test_pick_bk_and_wrapper_contract():
     for pages in ({"quant": tq}, {"kv": kv}):
         out = tops.ragged_paged_decode(q[1], rows, lens, scale=SCALE, **pages)
         assert out.shape == q[1].shape and out.dtype == torch.bfloat16
-        with pytest.raises(ValueError, match="unsupported device"):
-            tops.ragged_paged_decode(q[1].to("meta"), rows, lens,
-                                     scale=SCALE, **pages)
+        # meta (the dry-run): the same shape and dtype, no launch
+        got = tops.ragged_paged_decode(q[1].to("meta"), rows, lens,
+                                       scale=SCALE, **pages)
+        assert got.is_meta and got.shape == out.shape
+        assert got.dtype == out.dtype
     # CPU: the plain versions, no launch counted
     assert (tops.paged_flash_decode.launches,
             tops.paged_flash_decode_mx.launches) == before

@@ -182,7 +182,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.distributed.blockwise, "
             "repro_torch.optim.adamw, repro_torch.data.pipeline, "
             "repro_torch.checkpoint.ckpt, repro_torch.runtime.trainer, "
-            "repro_torch.launch.steps, repro_torch.launch.train; "
+            "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.launch.dryrun, repro_torch.launch.mesh, "
+            "repro_torch.distributed.sharding, repro_torch.obs.cost; "
             "import runpy; runpy.run_path('chip_smoke.py', run_name='x'); "
             "assert not [m for m, v in sys.modules.items() "
             "if v is not None and m.split('.')[0] in ('jax', 'repro')]")
