@@ -291,7 +291,23 @@
     name and power limit). Then ``run_cell`` on this host for one cell of
     each family but audio on the single pod (hubert-xlarge's cells take
     minutes there), with its seconds (``dry run sweep``).
-16. Prints the kernels line (phase 9 adds B, D and E at head widths
+16. The sharded steps (``launch.steps``). 16a: an NCCL process group of
+    one rank on the card (a ``HashStore``; NCCL takes one rank a GPU) and
+    ``make_train_step`` on ``make_local_mesh(1, 1)`` over it (FSDP
+    parameters, ZeRO-1 moments, the batch over the data axis, every
+    collective a copy at world 1): phase 14's h2o-danube-1.8b, 12 of 24
+    layers, [2, 1024], three steps against phase 14's one-device step
+    from the same init, both under deterministic algorithms: parameters,
+    moments and losses ``torch.equal``; the allocated argument bytes equal
+    ``steps.args_bytes``; the collectives by kind, step and device ms and
+    peak GiB (``train sharded``); the group destroyed. 16b:
+    ``make_paged_decode_step`` on full-width starcoder2-7b (16 of 32
+    layers, built by the launcher's ``build_model``) under
+    ``mxfp4_wonly`` on both layouts and under ``cim`` on ``fused``, on a
+    random pool: next ids and pool bitwise the engine's own step on a
+    copy of the pool, and the launches by route the formula's (``paged
+    step`` lines).
+17. Prints the kernels line (phase 9 adds B, D and E at head widths
     256, 80 and 128; phase 11 C at the expert shapes, A at the MoE
     linears and B and D at G 16 and 7; phase 12 A, C and E at the
     recurrent and audio archs' shapes), then the card's name and power
@@ -312,7 +328,8 @@ steps {...}``, ``serve load {...}``, ``prefill eager vs captured
 ``serve pipeline {...}``, ``serve pipeline router {...}``, ``serve
 pipeline lm {...}``, ``train step {...}``, ``train k2 {...}``, ``train
 full width {...}``, ``train launcher {...}``, ``train tiny card vs cpu
-{...}``, ``dry run {...}``, ``dry run sweep {...}``).
+{...}``, ``dry run {...}``, ``dry run sweep {...}``, ``train sharded
+{...}``, ``paged step {...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
@@ -597,6 +614,22 @@ DRY_REPS = 3  # timed calls of each step
 DRY_SWEEP = (("h2o-danube-1.8b", "decode_32k"), ("mixtral-8x22b", "decode_32k"),
              ("zamba2-1.2b", "decode_32k"), ("xlstm-125m", "decode_32k"),
              ("qwen2-vl-7b", "prefill_32k"))
+# the sharded train step and the paged decode step (phase 16): 16a runs
+# launch.steps.make_train_step on make_local_mesh(1, 1) over an NCCL group
+# of one rank, phase 14's h2o-danube-1.8b (12 of 24 layers, [2, 1024],
+# dense_attn_max 512), SHARD_STEPS steps against the one-device step from
+# the same init; 16b runs make_paged_decode_step on starcoder2-7b (16 of
+# 32 layers; PAGED_LANES lanes, PAGED_SLOTS slots, pages of PAGED_PAGE)
+# under PAGED_RUNS against the engine's own step
+SHARD_STEPS = 3
+PAGED_LAYERS = 16
+PAGED_LANES, PAGED_SLOTS, PAGED_PAGE = 4, 6, 256
+PAGED_RUNS = (("mxfp4", "legacy"), ("mxfp4", "fused"), ("cim", "fused"))
+PAGED_ARGS = {"mxfp4": ["--no-tiny", "--backend", "mxfp4", "--layers",
+                        str(PAGED_LAYERS), "--log-level", "warning"],
+              "cim": ["--no-tiny", "--backend", "cim", "--layers",
+                      str(PAGED_LAYERS), "--calib-batches", "2", "--batch",
+                      "2", "--log-level", "warning"]}
 # kernel function -> wrapper and route, for device time by route
 KERNEL_ROUTES = {
     "cim_splitk_kernel": "cim_linear splitk",
@@ -4452,6 +4485,249 @@ def dry_run(dev, smi: str) -> dict:
     return dict(rows, sweep=sweep)
 
 
+# --------------------------------------------------------------- phase 16
+
+def train_sharded_nccl(dev, smi: str) -> dict:
+    """Phase 16a: the sharded train step over ``torch.distributed`` on the
+    card. Phase 14's one-device step (``make_train_step(cfg, shape)``,
+    k = 1) takes ``SHARD_STEPS`` steps from seed 0's init on the
+    pipeline's batches; then an NCCL group of one rank (a ``HashStore``:
+    NCCL takes one rank a GPU) and ``make_train_step`` on
+    ``make_local_mesh(1, 1)`` over it (its own init from seed 0, cut into
+    blocks: at world 1 the whole) take the same steps, each profiled.
+    Checks: every loss, and the final parameters, m and v, ``torch.equal``
+    to the one-device run's (every collective a copy at world 1); the
+    bytes of the allocated arguments equal ``steps.args_bytes`` of the
+    dry-run's bundle on that mesh (``meta``). Both runs are deterministic
+    (``torch.use_deterministic_algorithms``, as phase 14b). Prints the
+    collectives by kind a step (count, result bytes, ring wire bytes),
+    step and device ms and peak GiB, and the one-device steps' wall ms
+    and peak GiB beside them (``train sharded``). The group is
+    destroyed."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs as C
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(C.ARCHS[TRAIN_ARCH], n_layers=TRAIN_LAYERS)
+    shape = C.Shape(TRAIN_SEQ, TRAIN_BATCH, "train")
+    kw = dict(quant="mxfp4_ste", microbatches=1,
+              dense_attn_max=TRAIN_DENSE_MAX)
+    batches = [make_batch(cfg, shape, 0, i, device=dev)
+               for i in range(SHARD_STEPS)]
+    prior = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        one = steps_mod.make_train_step(cfg, shape, device=dev, **kw)
+        params, _ = steps_mod.param_structs(cfg, device=dev)
+        state = adamw.init(params)
+        want_loss, one_rows = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, state, met = one.fn(params, state, b)
+            torch.cuda.synchronize()
+            one_rows.append(dict(
+                wall_ms=(time.perf_counter() - t0) * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+            want_loss.append(met["loss"].clone())
+        want = {"params": adamw.leaves(params), "m": adamw.leaves(state.m),
+                "v": adamw.leaves(state.v)}
+        del params, state, one
+        torch.cuda.set_device(dev.index or 0)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            mesh = make_local_mesh(1, 1)
+            pred = steps_mod.make_train_step(
+                cfg, make_local_mesh(1, 1, device="meta"), shape,
+                device="meta", **kw)
+            predicted = steps_mod.args_bytes(pred.args, pred.shardings,
+                                             pred.mesh)
+            del pred
+            gc.collect()
+            torch.cuda.empty_cache()
+            bundle = steps_mod.make_train_step(cfg, mesh, shape, **kw)
+            params, state, _ = bundle.args
+            allocated = sum(t.numel() * t.element_size()
+                            for t in _leaves(list(bundle.args)))
+            rows, losses = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    params, state, met = bundle.fn(params, state, b)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                events = _device_events(prof)
+                nccl = sum(ev.self_device_time_total for ev in events
+                           if "nccl" in ev.key.lower()) / 1e3
+                losses.append(met["loss"].clone())
+                rows.append(dict(
+                    wall_ms=wall, device_ms=sum(
+                        ev.self_device_time_total for ev in events) / 1e3,
+                    nccl_ms=nccl, loss=float(met["loss"]),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+            got = {"params": adamw.leaves(params), "m": adamw.leaves(state.m),
+                   "v": adamw.leaves(state.v)}
+            coll = {k: {"count": v[0] / SHARD_STEPS,
+                        "bytes": v[2] / SHARD_STEPS,
+                        "wire_bytes": v[1] / SHARD_STEPS}
+                    for k, v in bundle.collectives.by_kind.items()}
+            link_ms = bundle.collectives.link_s() / SHARD_STEPS * 1e3
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(prior)
+    equal = {name: all(torch.equal(a, b) for a, b in zip(want[name],
+                                                          got[name]))
+             for name in want}
+    equal["loss"] = all(torch.equal(a, b) for a, b in zip(want_loss, losses))
+    walls = [r["wall_ms"] for r in rows[1:]]
+    out = dict(arch=cfg.name, layers=cfg.n_layers, seq=shape.seq,
+               batch=shape.batch, world=1, backend="nccl", card=smi,
+               steps=rows, one_device_steps=one_rows, equal=equal,
+               argument_bytes_allocated=allocated,
+               argument_bytes_predicted=predicted,
+               collectives_a_step=coll, link_ms_a_step=link_ms,
+               wall_ms_median=float(np.median(walls)),
+               device_ms_median=float(np.median(
+                   [r["device_ms"] for r in rows[1:]])),
+               peak_gib=max(r["peak_gib"] for r in rows))
+    print(f"train sharded {json.dumps(out)}", flush=True)
+    del want, got, params, state, bundle
+    if not all(equal.values()):
+        raise AssertionError(f"train sharded: not torch.equal to the "
+                             f"one-device step: {equal}")
+    if allocated != predicted:
+        raise AssertionError(f"train sharded: argument bytes {allocated} "
+                             f"!= args_bytes {predicted}")
+    return out
+
+
+def _random_pool(pool, gen) -> None:
+    """Fill every leaf of a pool with random values of its dtype (float
+    leaves normal, scaled by 1/2; integer leaves in [0, 16))."""
+    for t in _leaves(pool):
+        if t.is_floating_point():
+            t.copy_(torch.randn(t.shape, generator=gen, device=t.device) / 2)
+        else:
+            t.copy_(torch.randint(0, 16, t.shape, generator=gen,
+                                  device=t.device))
+
+
+def paged_step_check(backend: str, layout: str, model) -> dict:
+    """Phase 16b, one run: ``launch.steps.make_paged_decode_step`` (its
+    arguments on ``meta``, shapes only; the served model's weights and run
+    context in) on a pool of ``PAGED_SLOTS`` + ``PAGED_LANES`` random pages
+    of ``PAGED_PAGE`` positions, lanes on rows [1, 3, 5, scratch] at
+    positions [192, 17, 255, 0], against the engine's own step
+    (``serving.engine._decode_step`` / ``_legacy_decode_step``) on a copy
+    of the pool: next ids and every pool leaf bitwise, and the step's
+    launches by route the formula's (``PERF.md`` §3: C or A 6L + 1, plus D
+    or B L on ``fused``). One call of each timed after a warm one
+    (``paged step``)."""
+    from repro_torch import configs as C
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.serving import engine as eng_mod
+
+    from repro_torch.layers.backends import cim_config
+
+    cfg, params, ctx = model
+    dev = next(_leaves(params)).device
+    quant = {"mxfp4": "mxfp4_wonly", "cim": "cim"}[backend]
+    shape = C.Shape(PAGED_PAGE, PAGED_LANES, "decode")
+    bundle = steps_mod.make_paged_decode_step(
+        cfg, make_local_mesh(1, 1, device="meta"), shape, PAGED_SLOTS,
+        quant=quant, kv_layout=layout, device="meta")
+    fused = layout == "fused"
+    mx = bundle.ctx.hybrid_digital_sdpa
+    pool = lm.init_cache(cfg, PAGED_SLOTS + PAGED_LANES, PAGED_PAGE,
+                         mx_digital=mx, fused=fused, device=dev)
+    _random_pool(pool, torch.Generator(dev).manual_seed(4))
+    copy = [[{k: v.clone() for k, v in layer.items()} for layer in seg]
+            for seg in pool]
+    specs = lm.cache_specs(cfg, mx_digital=mx, fused=fused)
+    rows = torch.tensor([1, 3, 5, PAGED_SLOTS + 3], dtype=torch.int32,
+                        device=dev)
+    ids = torch.tensor([[11], [7000], [123], [5]], dtype=torch.int32,
+                       device=dev) % cfg.vocab_size
+    pos = torch.tensor([PAGED_PAGE * 3 // 4, 17, PAGED_PAGE - 1, 0],
+                       dtype=torch.int32, device=dev) % PAGED_PAGE
+    # the bundle's own context, as the engine's (its obs and cim config)
+    fn_ctx = dataclasses.replace(ctx, obs=None)
+    if (fn_ctx.quant, cim_config(fn_ctx)) != (bundle.ctx.quant,
+                                              cim_config(bundle.ctx)):
+        raise AssertionError(f"paged step: the model runs {fn_ctx.quant} "
+                             f"({cim_config(fn_ctx)}), the bundle "
+                             f"{bundle.ctx.quant}")
+    _zero_counts()
+    got, pool = bundle.fn(params, pool, rows, ids, pos)
+    torch.cuda.synchronize()
+    launches, mm_routes = _read_counts()
+    cim_routes = _cim_routes()
+    step_in = torch.stack([rows, ids[:, 0], pos]).long()
+    if fused:
+        want = eng_mod._decode_step(params, cfg, fn_ctx, copy, step_in)
+    else:
+        want = eng_mod._legacy_decode_step(params, cfg, fn_ctx, copy, specs,
+                                           step_in)
+    ids_equal = torch.equal(got.long(), want)
+    pool_equal = all(torch.equal(a, b) for a, b in zip(_leaves(pool),
+                                                       _leaves(copy)))
+    ms = _time_ms(lambda: bundle.fn(params, pool, rows, ids, pos), 5)
+    n = cfg.n_layers
+    lin = "cim_linear" if backend == "cim" else "mxfp4_matmul"
+    att = "paged_decode_mx" if backend == "cim" else "paged_decode"
+    formula = {k: 0 for k in launches}
+    formula[lin] = 6 * n + 1
+    if fused:
+        formula[att] = n
+    out = dict(backend=backend, layout=layout, layers=n, lanes=PAGED_LANES,
+               slots=PAGED_SLOTS, page=PAGED_PAGE, ids=got.tolist(),
+               ids_equal=ids_equal, pool_bitwise=pool_equal,
+               launches=launches, formula=formula,
+               mxfp4_matmul_routes=mm_routes, cim_linear_routes=cim_routes,
+               step_ms=ms)
+    print(f"paged step {json.dumps(out)}", flush=True)
+    if not (ids_equal and pool_equal):
+        raise AssertionError(f"paged step {backend} {layout}: ids equal "
+                             f"{ids_equal}, pool bitwise {pool_equal}")
+    if launches != formula:
+        raise AssertionError(f"paged step {backend} {layout}: launches "
+                             f"{launches}, formula {formula}")
+    return out
+
+
+def paged_steps() -> dict:
+    """Phase 16b: each of ``PAGED_RUNS`` (:func:`paged_step_check`), the
+    model of a backend built once by the launcher's ``build_model``."""
+    from repro_torch.launch import serve
+
+    out = {}
+    for backend in dict.fromkeys(b for b, _ in PAGED_RUNS):
+        t0 = time.perf_counter()
+        cfg, params, ctx, _ = serve.build_model(
+            serve.build_parser().parse_args(PAGED_ARGS[backend]))
+        build_s = time.perf_counter() - t0
+        for b, layout in PAGED_RUNS:
+            if b == backend:
+                out[f"{backend} {layout}"] = dict(paged_step_check(
+                    backend, layout, (cfg, params, ctx)), build_s=build_s)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _zero_counts() -> None:
     from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4895,6 +5171,9 @@ def main() -> int:
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas_ws
     phase("train tiny", train_tiny_agreement, dev)
     phase("dry run", dry_run, dev, smi)  # phase 15
+    # phase 16: the sharded train step (NCCL, one rank) and the paged step
+    phase("train sharded", train_sharded_nccl, dev, smi)
+    phase("paged steps", paged_steps)
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
 

@@ -1,5 +1,5 @@
-"""Atomic, async checkpoints that restore onto any device (the
-reference's ``repro.checkpoint.ckpt``).
+"""Atomic, async checkpoints of global arrays that restore onto any
+device or mesh (the reference's ``repro.checkpoint.ckpt``).
 
 Layout:  <dir>/step_00000042/  MANIFEST.json + one .npy per tree leaf
          <dir>/LATEST          (text file naming the committed step dir)
@@ -12,14 +12,22 @@ falls back to the newest complete step when LATEST names a missing one.
 Leaves are keyed by their tree paths (``params/segments/0/1/attn/wq/w``,
 ``opt/m/...``; an ``OptState``'s fields by name). A bf16 leaf is stored
 as its int16 bits with ``"dtype": "bfloat16"`` in the manifest (numpy has
-no bf16 of its own). :meth:`CheckpointManager.restore` puts each leaf on
-whatever device it is asked for: written from the card, read on the
-CPU, the port's counterpart of the reference's reshard-on-load.
+no bf16 of its own).
+
+Reshard-on-load: every leaf is stored whole, with its global shape. A
+sharded state (each rank of a mesh over a process group holding blocks,
+``launch.steps.make_train_step``) is saved with its ``shardings`` and
+``mesh``: every rank takes part in one all-gather a leaf, and rank 0
+writes. :meth:`CheckpointManager.restore` with ``shardings`` gives each
+rank its block on any mesh (written at 4 ranks, restored at 2 or 1);
+without, each leaf goes whole to whatever device it is asked for
+(written from the card, read on the CPU).
 
 Async: one writer thread. :meth:`CheckpointManager.save` copies the tree
 to host memory before it returns (so the next step may change the
 tensors), then queues the write; :meth:`CheckpointManager.wait` joins
-the write in flight and raises its error, if any.
+the write in flight and raises its error, if any. A blocking save of a
+sharded state returns on every rank once rank 0 has committed it.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ import threading
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import MeshComm
 
 _STEP_DIR = re.compile(r"step_\d+")
 
@@ -94,15 +105,33 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
 
-    def save(self, step: int, tree, blocking: bool = False) -> None:
+    def save(self, step: int, tree, blocking: bool = False,
+             shardings=None, mesh=None) -> None:
         """Copy ``tree`` to host memory now, then write it as step
-        ``step`` on the writer thread (``blocking``: and wait for it)."""
-        host = {k: (_to_host(v), "bfloat16" if v.dtype == torch.bfloat16
-                    else str(v.dtype).removeprefix("torch."))
-                for k, v in flatten(tree).items()}
-        self._q.put((step, host))
-        if blocking:
-            self.wait()
+        ``step`` on the writer thread (``blocking``: and wait for it).
+        With ``shardings`` (the tree's resolved specs) on a ``mesh`` over
+        a process group, ``tree`` holds this rank's blocks: every rank
+        calls this, each leaf is all-gathered whole and rank 0 writes; a
+        blocking save returns on every rank after rank 0's commit."""
+        comm = _comm(mesh) if shardings is not None else None
+        flat = flatten(tree)
+        specs = (shd.spec_leaves(tree, shardings) if comm is not None
+                 else [None] * len(flat))
+        host = {}
+        for (k, v), spec in zip(flat.items(), specs):
+            if comm is not None:
+                v = comm.gather_leaf(v, spec, shd.global_shape(
+                    spec, v.shape, mesh))
+                if mesh.rank:
+                    continue
+            host[k] = (_to_host(v), "bfloat16" if v.dtype == torch.bfloat16
+                       else str(v.dtype).removeprefix("torch."))
+        if comm is None or not mesh.rank:
+            self._q.put((step, host))
+            if blocking:
+                self.wait()
+        if comm is not None and blocking:
+            comm.barrier()
 
     def wait(self) -> None:
         self._q.join()
@@ -170,10 +199,15 @@ class CheckpointManager:
             name = cands[-1]
         return int(name.split("_")[1])
 
-    def restore(self, step: int, tree, device=None):
+    def restore(self, step: int, tree, device=None, shardings=None,
+                mesh=None):
         """Load step ``step`` into the structure of ``tree`` (its leaves
         give the paths, shapes and dtypes). Each leaf goes to ``device``,
-        or to its template leaf's device when ``device`` is None."""
+        or to its template leaf's device when ``device`` is None. With
+        ``shardings`` (the tree's resolved specs on ``mesh``) the
+        template's leaves are this rank's blocks, and each global leaf is
+        cut into the rank's block: the reference's reshard-on-load, onto
+        a mesh of any size (read from the file's map, block by block)."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "MANIFEST.json")) as f:
             manifest = json.load(f)["leaves"]
@@ -181,14 +215,33 @@ class CheckpointManager:
         missing = [k for k in flat if k not in manifest]
         if missing:
             raise ValueError(f"checkpoint missing leaves: {missing[:5]}")
+        if shardings is not None and mesh is None:
+            raise ValueError("restore with shardings needs their mesh")
+        specs = (shd.spec_leaves(tree, shardings) if shardings is not None
+                 else [None] * len(flat))
         out = []
-        for key, want in flat.items():
+        for (key, want), spec in zip(flat.items(), specs):
             entry = manifest[key]
-            t = _from_host(np.load(os.path.join(path, entry["file"])),
-                           entry["dtype"])
-            if tuple(t.shape) != tuple(want.shape):
+            arr = np.load(os.path.join(path, entry["file"]), mmap_mode="r")
+            shape = tuple(arr.shape)
+            if spec is not None:
+                if shd.shard_shape(spec, shape, mesh) != tuple(want.shape):
+                    raise ValueError(
+                        f"shape mismatch for {key}: {shape} cut by {spec} "
+                        f"on {mesh.name} vs {tuple(want.shape)}")
+                arr = arr[shd.shard_slices(spec, shape, mesh)]
+            elif shape != tuple(want.shape):
                 raise ValueError(f"shape mismatch for {key}: "
-                                 f"{tuple(t.shape)} vs {tuple(want.shape)}")
+                                 f"{shape} vs {tuple(want.shape)}")
+            t = _from_host(np.array(arr), entry["dtype"])
             out.append(t.to(device=device if device is not None
                             else want.device, dtype=want.dtype))
         return _unflatten_like(tree, iter(out))
+
+
+def _comm(mesh):
+    """The collectives of a sharded save (not the step's)."""
+    if mesh is None or not mesh.distributed:
+        raise ValueError("a save with shardings needs a mesh over a "
+                         "process group")
+    return MeshComm(mesh)

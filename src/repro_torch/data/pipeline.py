@@ -7,6 +7,11 @@ bitwise the reference's, restarted training sees the same data
 (the trainer's kill-restart relies on it), and no two steps repeat. A
 host thread prefetches the next batches as numpy while the device runs;
 the tensors move to the device in the caller's thread.
+
+A data rank of the sharded train step takes its rows of the global batch
+(:func:`rank_rows`) in the reference's order: the k microbatches split
+the global batch first, then each microbatch's rows split over the data
+ranks.
 """
 
 from __future__ import annotations
@@ -53,6 +58,30 @@ def make_batch_np(cfg: ArchConfig, shape: Shape, seed: int, step: int
     return out
 
 
+def rank_rows(batch: dict, microbatches: int, ranks: int, rank: int
+              ) -> dict:
+    """Rank ``rank``'s rows of a global batch (numpy or tensors) of B
+    rows for a step of ``microbatches`` (k) over ``ranks`` (W) data
+    ranks: the reference reshapes the batch into k microbatches of B/k
+    rows (``repro.launch.steps.make_train_step``) and its data sharding
+    splits each microbatch's rows over the ranks. So the rank holds rows
+    ``j B/k + rank B/(kW)`` to ``j B/k + (rank+1) B/(kW)`` of each
+    microbatch j, in order: B/W rows, whose own k-way split is its part
+    of each microbatch."""
+    out = {}
+    for name, x in batch.items():
+        b = x.shape[0]
+        if b % (microbatches * ranks):
+            raise ValueError(f"{name}: {b} rows do not split into "
+                             f"{microbatches} microbatches over {ranks} "
+                             "ranks")
+        per = b // (microbatches * ranks)
+        y = x.reshape((microbatches, ranks, per) + tuple(x.shape[1:]))
+        out[name] = y[:, rank].reshape((microbatches * per,)
+                                       + tuple(x.shape[1:]))
+    return out
+
+
 def to_device(batch: dict, device) -> dict:
     """numpy batch -> tensors on ``device`` (the same dtypes)."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
@@ -71,11 +100,15 @@ class Pipeline:
     """Prefetching iterator over the batches of steps ``start_step``,
     ``start_step + 1``, ...: a daemon thread makes up to ``prefetch``
     numpy batches ahead; :meth:`get` returns ``(step, batch)`` with the
-    batch on ``device``. :meth:`close` stops and joins the thread."""
+    batch on ``device``. :meth:`close` stops and joins the thread. With
+    ``ranks`` > 1 (or a ``rank``), each batch is rank ``rank``'s rows of
+    the global one for a step of ``microbatches`` (:func:`rank_rows`)."""
 
     def __init__(self, cfg, shape: Shape, seed: int = 0, start_step: int = 0,
-                 prefetch: int = 2, device=None):
+                 prefetch: int = 2, device=None, rank: int = 0,
+                 ranks: int = 1, microbatches: int = 1):
         self.cfg, self.shape, self.seed = cfg, shape, seed
+        self.rank, self.ranks, self.microbatches = rank, ranks, microbatches
         self.device = resolve_device(device)
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._next = start_step
@@ -86,8 +119,11 @@ class Pipeline:
     def _fill(self):
         step = self._next
         while not self._stop.is_set():
-            item = (step, make_batch_np(self.cfg, self.shape, self.seed,
-                                        step))
+            batch = make_batch_np(self.cfg, self.shape, self.seed, step)
+            if self.ranks > 1:
+                batch = rank_rows(batch, self.microbatches, self.ranks,
+                                  self.rank)
+            item = (step, batch)
             while not self._stop.is_set():
                 try:
                     self._q.put(item, timeout=0.05)

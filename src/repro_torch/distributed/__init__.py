@@ -1,8 +1,11 @@
-"""Distribution of the model over devices: the logical-axis sharding rules
+"""Distribution of the model over devices: the device mesh, over cards or
+over a process group's ranks (``mesh``), the logical-axis sharding rules
 and the static stage partition (``sharding``), the dry-run's block-level
 cost analysis and per-layer serving costs for balanced cuts
 (``blockwise``), roofline terms, collective and FLOP accounting
 (``roofline``) and the stage-parallel FWS pipeline over a (replica,
 stage) grid of devices (``pipeline_exec``). The rules describe the
-reference's GSPMD shardings for the dry-run; no step runs sharded over
-``torch.distributed`` yet (``ROADMAP.md``)."""
+reference's GSPMD shardings for the dry-run, and the sharded train step
+runs them on the data axes over ``torch.distributed`` through the
+collectives of ``collectives`` (the model axis is not run yet,
+``ROADMAP.md``)."""

@@ -11,13 +11,20 @@ counter (``obs.cost``, ``distributed.blockwise.analyze_cell``).
 :class:`CollectiveStats` is what the stage pipeline's transfer guard
 fills (``pipeline_exec.StagePipeline.collectives``): the bytes each
 activation hop moves between stages, under the reference's name for that
-hop, ``collective-permute``. :func:`active_params` and
-:func:`model_flops` are pure arithmetic on a config.
+hop, ``collective-permute``. The sharded train step on the data axes
+(``launch.steps.make_train_step`` on a mesh over a process group) fills
+one with its all-gathers, reduce-scatters and all-reduces
+(``distributed/collectives.py``). Each call's wire bytes a device follow
+the ring model of the reference's ``parse_collectives``
+(:func:`ring_wire_bytes`), and :meth:`CollectiveStats.link_s` is their
+time at NVLink's 450 GB/s each way (:data:`LINK_BW`).
+:func:`active_params` and :func:`model_flops` are pure arithmetic on a
+config.
 
-Not here: the reference's ``parse_collectives``. It reads the collectives
-out of XLA's partitioned HLO text, and the port produces none (it runs
-no GSPMD program), so a GSPMD cell's collective term is None
-(``ROADMAP.md``).
+Not here: the reference's ``parse_collectives`` itself. It reads the
+collectives out of XLA's partitioned HLO text, and the port produces
+none, so the dry-run's GSPMD cells still have no collective term: it
+waits for the model axis of the sharded step (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -26,21 +33,51 @@ import dataclasses
 
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16
 HBM_BW = 3.35e12  # H100 SXM HBM3, bytes/s
+# NVLink between the cards of one H100 host, each way (the hopper-kernels
+# guide: 900 GB/s all to all, 450 GB/s each way)
+LINK_BW = 450e9
+
+
+def ring_wire_bytes(kind: str, n_bytes: float, n: int | None) -> float:
+    """Bytes a device sends for one collective over ``n`` devices whose
+    result is ``n_bytes`` (a shard for reduce-scatter, the whole for
+    all-gather and all-reduce), the reference's ring model: all-reduce
+    2B(n-1)/n, all-gather B(n-1)/n, reduce-scatter B(n-1), all-to-all
+    B(n-1)/n, collective-permute B."""
+    if kind == "collective-permute":
+        return float(n_bytes)
+    if n is None:
+        raise ValueError(f"{kind}: the ring model needs the group size")
+    if kind == "all-reduce":
+        return 2.0 * n_bytes * (n - 1) / n
+    if kind in ("all-gather", "all-to-all"):
+        return n_bytes * (n - 1) / n
+    if kind == "reduce-scatter":
+        return float(n_bytes * (n - 1))
+    raise ValueError(f"unknown collective {kind!r}")
 
 
 @dataclasses.dataclass
 class CollectiveStats:
-    wire_bytes: float = 0.0  # bytes moved between devices
-    by_kind: dict = dataclasses.field(default_factory=dict)  # kind: [n, B]
+    wire_bytes: float = 0.0  # per-device bytes on the links (ring model)
+    by_kind: dict = dataclasses.field(default_factory=dict)  # [n, wire, B]
     count: int = 0
 
-    def add(self, kind: str, n_bytes: float) -> None:
-        """Record one transfer of ``n_bytes`` under ``kind``."""
-        self.wire_bytes += n_bytes
-        k = self.by_kind.setdefault(kind, [0, 0.0])
+    def add(self, kind: str, n_bytes: float, n: int | None = None) -> None:
+        """Record one ``kind`` collective over ``n`` devices whose result
+        is ``n_bytes`` (:func:`ring_wire_bytes`; a hop needs no ``n``):
+        ``by_kind[kind]`` is [count, wire bytes, result bytes]."""
+        wire = ring_wire_bytes(kind, n_bytes, n)
+        self.wire_bytes += wire
+        k = self.by_kind.setdefault(kind, [0, 0.0, 0.0])
         k[0] += 1
-        k[1] += n_bytes
+        k[1] += wire
+        k[2] += n_bytes
         self.count += 1
+
+    def link_s(self, link_bw: float = LINK_BW) -> float:
+        """The wire bytes' time at ``link_bw`` (seconds)."""
+        return self.wire_bytes / link_bw
 
 
 def roofline_terms(cost: dict, collectives: CollectiveStats | None,

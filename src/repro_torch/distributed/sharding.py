@@ -7,9 +7,17 @@ The reference resolves specs into ``NamedSharding``s for XLA's GSPMD
 partitioner. The port resolves them into plain tuples (one entry a dim: a
 mesh axis, a tuple of them, or None) and, with :func:`shard_shape`, into
 each device's shard shape: what the dry-run needs to count the bytes a
-device holds. No step here runs sharded (``ROADMAP.md``)."""
+device holds. On a mesh over a process group (``distributed.mesh``) the
+sharded train step holds each leaf as this rank's block of it
+(:func:`shard_slices`, :func:`take_shard`) and rebuilds global leaves
+from the ranks' blocks (:func:`assemble`); the mesh is row-major over
+its axes (``pod``, ``data``, ``model``), and a dim over several axes is
+cut row-major over them, as ``NamedSharding`` cuts it. The data axes
+only: a model axis larger than 1 is not run (``ROADMAP.md``)."""
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.layers.common import (
     DEFAULT_RULES,
@@ -164,6 +172,88 @@ def shard_shape(spec: tuple, shape, mesh) -> tuple:
             k *= mesh.shape[a]
         out.append(-(-n // k))
     return tuple(out)
+
+
+def spec_leaves(tree, specs) -> list:
+    """The resolved spec of each tensor of ``tree`` (dicts, lists and
+    tuples, named ones too), in the order of ``adamw.leaves``;
+    ``specs`` has the tree's layout with a spec a tensor (a spec is a
+    tuple itself, so it is walked by the tree, not by its own shape)."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in spec_leaves(v, specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in spec_leaves(v, specs[i])]
+    return [tuple(specs)]
+
+
+def dim_axes(entry) -> tuple:
+    """The mesh axes of one resolved spec entry (None, an axis or a tuple
+    of them), in order."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def shard_index(spec: tuple, dim: int, mesh, rank: int | None = None
+                ) -> tuple[int, int]:
+    """(block index, blocks) of dim ``dim`` for ``rank`` (default the
+    mesh's own) under the resolved ``spec``: row-major over the entry's
+    axes' coordinates."""
+    coords = mesh.coords(rank)
+    idx, k = 0, 1
+    for a in dim_axes(spec[dim] if dim < len(spec) else None):
+        idx = idx * mesh.shape[a] + coords[a]
+        k *= mesh.shape[a]
+    return idx, k
+
+
+def shard_slices(spec: tuple, shape, mesh, rank: int | None = None
+                 ) -> tuple:
+    """The slices of ``rank``'s block of a global leaf of ``shape`` under
+    the resolved ``spec``; raises where a dim does not divide (the rules'
+    :func:`resolve_with_divisibility` picks only axes that divide)."""
+    out = []
+    for i, n in enumerate(shape):
+        idx, k = shard_index(spec, i, mesh, rank)
+        if n % k:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                             f"into {k} under {spec}")
+        out.append(slice(idx * (n // k), (idx + 1) * (n // k)))
+    return tuple(out)
+
+
+def global_shape(spec: tuple, shard, mesh) -> tuple:
+    """The global shape whose blocks under ``spec`` have shape ``shard``."""
+    return tuple(n * shard_index(spec, i, mesh)[1]
+                 for i, n in enumerate(shard))
+
+
+def take_shard(t: torch.Tensor, spec: tuple, mesh,
+               rank: int | None = None) -> torch.Tensor:
+    """``rank``'s block of the global leaf ``t``, a contiguous copy."""
+    return t[shard_slices(spec, t.shape, mesh, rank)].clone(
+        memory_format=torch.contiguous_format)
+
+
+def assemble(shards, spec: tuple, shape, mesh) -> torch.Tensor:
+    """The global leaf of ``shape`` from every rank's block (``shards[r]``
+    rank r's, all of one dtype and device); a block replicated on several
+    ranks is written once from each, with the same values."""
+    full = torch.empty(tuple(shape), dtype=shards[0].dtype,
+                       device=shards[0].device)
+    for r, s in enumerate(shards):
+        full[shard_slices(spec, shape, mesh, r)] = s
+    return full
+
+
+def owns(spec: tuple, mesh, rank: int | None = None) -> bool:
+    """Whether ``rank`` counts its block of a leaf in a sum over ranks
+    (a global norm): a block replicated over a mesh axis the spec does
+    not use counts on that axis's coordinate 0 only."""
+    used = {a for e in spec for a in dim_axes(e)}
+    coords = mesh.coords(rank)
+    return all(coords[a] == 0 for a in mesh.axis_names if a not in used)
 
 
 def stage_partition(

@@ -50,7 +50,8 @@ import traceback
 from repro_torch import configs as C
 from repro_torch.distributed import roofline as rl
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.distributed.mesh import data_size, make_local_mesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.obs.cost import CostCounter, tensors
 
 HBM_LIMIT = 80e9  # H100 80GB
@@ -59,7 +60,7 @@ HBM_LIMIT = 80e9  # H100 80GB
 def _per_device_shape(shape, mesh, k_micro: int):
     """One device's microbatch of ``shape`` on ``mesh``: the batch over
     the data axes where it divides, then over the microbatches."""
-    dsz = steps_mod._data_size(mesh)
+    dsz = data_size(mesh)
     b = shape.batch // dsz if shape.batch % dsz == 0 else shape.batch
     return C.Shape(shape.seq, max(1, b // k_micro), shape.kind)
 

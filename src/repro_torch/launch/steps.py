@@ -1,15 +1,16 @@
-"""Step builders: train, prefill and decode, with the sharding of their
-arguments resolved from the logical-axis rules (counterpart of the
-reference's ``repro.launch.steps``). Shared by the training launcher, the
-dry-run and ``chip_smoke.py``.
+"""Step builders: train, prefill, decode and paged decode, with the
+sharding of their arguments resolved from the logical-axis rules
+(counterpart of the reference's ``repro.launch.steps``). Shared by the
+training launcher, the dry-run and ``chip_smoke.py``.
 
 Each builder returns a :class:`StepBundle`: the step function, its
 arguments built on ``device`` (default ``cuda``; ``meta`` for the
 dry-run, shapes and dtypes only; ``cpu`` in tests; never the CPU on its
 own), the run context and the arguments' resolved specs on ``mesh``
-(``launch.mesh``). The step runs on one device, where its arguments are:
-the reference's GSPMD partitioning of it over the mesh is what the specs
-describe and the dry-run counts, not what runs (``ROADMAP.md``).
+(``launch.mesh``). The prefill, decode and paged decode steps run on
+one device, where their arguments are: the reference's GSPMD
+partitioning of them over the mesh is what the specs describe and the
+dry-run counts, not what runs (``ROADMAP.md``).
 
 Under ``quant="mxfp4_ste"`` the train step runs the
 ``mxfp4_ste_prequant`` backend: the weights are fake-quantized once a
@@ -21,6 +22,19 @@ accumulate in f32 over ``k`` microbatches and are divided by ``k``; then
 ``optim.adamw.apply`` updates the parameters in place. The prefill and
 decode steps keep the reference's bodies: cache init, ``lm.forward`` /
 ``lm.decode_step``, the head, argmax.
+
+On a mesh over a process group (``make_local_mesh`` inside an
+initialised ``torch.distributed`` group, one rank a device) the train
+step runs sharded on the data axes, the reference's one GSPMD program
+written out: the same body (:func:`_train_fn`) over the collectives of
+``distributed/collectives.py`` instead of their one-device identities.
+Each rank holds its blocks of the f32 parameters (FSDP: ``embed`` over
+the data axes) and of the moments (ZeRO-1) and its rows of each
+microbatch (``data.pipeline.rank_rows``); a step all-gathers the
+parameters at its boundary, normalises each microbatch's loss by that
+microbatch's global mask count, reduce-scatters the f32 gradients into
+the moments' layout, all-reduces the loss and runs AdamW on the blocks.
+A model axis larger than 1 is not run (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -33,7 +47,11 @@ import torch
 from repro_torch import configs as C
 from repro_torch import resolve_device
 from repro_torch.configs import Shape
+from repro_torch.data.pipeline import rank_rows
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import LocalComm, MeshComm
+from repro_torch.distributed.mesh import Mesh, data_rank, data_size
+from repro_torch.distributed.roofline import CollectiveStats
 from repro_torch.layers.backends import _dequant_packed
 from repro_torch.layers.common import (
     RunCtx,
@@ -41,10 +59,10 @@ from repro_torch.layers.common import (
     convert_specs_mxfp4,
     quantize_weights_tree,
 )
-from repro_torch.launch.mesh import Mesh
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 from repro_torch.runtime.trainer import loss_and_grads
+from repro_torch.serving.kvcache import gather_rows, scatter_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +72,9 @@ class StepBundle:
     args: tuple = ()  # the step's arguments on the bundle's device
     shardings: tuple = ()  # the args' resolved specs on the mesh
     microbatches: int = 1
+    mesh: Mesh | None = None
+    # the sharded train step's collectives, summed over its calls
+    collectives: CollectiveStats | None = None
 
 
 def _device(device) -> torch.device:
@@ -105,12 +126,6 @@ def batch_shardings(batch: dict, mesh, ctx: shd.ShardingCtx) -> dict:
         mesh)
 
 
-def _data_size(mesh) -> int:
-    n = 1
-    for a in ("pod", "data"):
-        if a in mesh.axis_names:
-            n *= mesh.shape[a]
-    return n
 
 
 def pick_microbatches(mesh, shape: Shape | None = None,
@@ -122,7 +137,7 @@ def pick_microbatches(mesh, shape: Shape | None = None,
     one-device form."""
     if isinstance(mesh, Shape):  # pick_microbatches(shape): one device
         mesh, shape = None, mesh
-    dsz = _data_size(mesh) if mesh is not None else 1
+    dsz = data_size(mesh) if mesh is not None else 1
     k = 1
     while (shape.seq * shape.batch // (dsz * k) > target_tokens
            and (shape.batch // (2 * k)) % dsz == 0
@@ -140,6 +155,12 @@ def param_rules(rules: dict, mesh, fsdp: bool = True) -> dict:
     return r
 
 
+def _like(tree, flat: list):
+    """``flat`` (in ``adamw.leaves`` order) in ``tree``'s layout."""
+    it = iter(flat)
+    return adamw.tree_map(tree, lambda _: next(it))
+
+
 def _split(batch: dict, k: int) -> list[dict]:
     """k microbatches of ``batch`` along its leading axis, in order."""
     return [{name: t.reshape((k, t.shape[0] // k) + t.shape[1:])[i]
@@ -147,39 +168,95 @@ def _split(batch: dict, k: int) -> list[dict]:
 
 
 def _train_fn(cfg, ctx: RunCtx, k: int, prequant: bool,
-              opt_cfg: adamw.AdamWConfig) -> Callable:
+              opt_cfg: adamw.AdamWConfig, comm=None, p_specs=None,
+              m_specs=None, shapes=None) -> Callable:
+    """The train step ``fn(params, opt_state, batch)``. On one device
+    (``comm`` None: ``LocalComm``, every collective the identity) the
+    arguments are whole; over a ``MeshComm`` they are the rank's blocks
+    of the parameters (``p_specs``) and moments (``m_specs``) of global
+    ``shapes``, and its rows of each microbatch. In order:
+
+    1. Every f32 parameter is gathered whole (the prequant makes a whole
+       copy at the boundary anyway).
+    2. Each microbatch's mask count is summed over the data ranks (one
+       all-reduce); each rank's loss of a microbatch's rows is normalised
+       by it (``lm.lm_loss(count=)``), so the ranks' losses and gradients
+       sum to those of the reference's one loss over all of its rows (a
+       mean of per-rank means is wrong wherever the counts differ).
+    3. The gradients are accumulated in f32 over the k microbatches
+       (k = 1 keeps the one set), reduced into the moments' layout (a
+       reduce-scatter in f32), divided by k and cast to each quantized
+       leaf's dtype; autograd takes them back through the step-boundary
+       quantization (the STE's identity, cast to f32). The loss is summed
+       over the ranks and divided by k.
+    4. AdamW updates the blocks in the moments' layout, the clipping's
+       norm summed over the ranks. Where the parameters' layout differs
+       (FSDP's ``embed`` over ``pod`` x ``data``, ZeRO-1's over ``data``
+       only) the updated blocks are gathered and the parameter block taken
+       from them; on a local ``(data, 1)`` mesh the two layouts are one."""
+    comm = comm or LocalComm()
+
     def train_step(params, opt_state, batch):
+        blocks = adamw.leaves(params)
+        ps = p_specs or [()] * len(blocks)
+        ms = m_specs or ps
+        full = [comm.gather_leaf(p, s, shp) for p, s, shp in zip(
+            blocks, ps, shapes or [None] * len(blocks))]
         ndims = lm.ref_ndim_tree(cfg, params)
-        flat = adamw.leaves(params)
+        mbs = [batch] if k == 1 else _split(batch, k)
+        counts = comm.all_reduce(torch.stack([lm.loss_count(mb)
+                                              for mb in mbs]))
         with torch.enable_grad():
-            for p in flat:
+            for p in full:
                 p.requires_grad_(True)
-            cparams = (quantize_weights_tree(params, ndims) if prequant
-                       else params)
+            ftree = _like(params, full)
+            cparams = (quantize_weights_tree(ftree, ndims) if prequant
+                       else ftree)
             cflat = adamw.leaves(cparams)
             if k == 1:
-                loss, grads = loss_and_grads(cparams, cfg, ctx, batch)
+                loss, acc = loss_and_grads(cparams, cfg, ctx, batch,
+                                           count=counts[0])
             else:
-                acc = [torch.zeros(c.shape, dtype=torch.float32,
-                                   device=c.device) for c in cflat]
+                acc = None  # allocated after the first backward: lower peak
                 loss = torch.zeros((), dtype=torch.float32,
-                                   device=flat[0].device)
-                for mb in _split(batch, k):
-                    lm_b, gs = loss_and_grads(cparams, cfg, ctx, mb)
+                                   device=full[0].device)
+                for j, mb in enumerate(mbs):
+                    lm_b, gs = loss_and_grads(cparams, cfg, ctx, mb,
+                                              count=counts[j])
+                    if acc is None:
+                        acc = [torch.zeros(c.shape, dtype=torch.float32,
+                                           device=c.device) for c in cflat]
                     for a, g in zip(acc, gs):
                         a.add_(g.to(torch.float32))
                     loss = loss + lm_b
-                grads = [a / k for a in acc]
-                loss = loss / k
+                    del gs
+            grads = []
+            for i, s in enumerate(ms):
+                g = comm.reduce_leaf(acc[i], s)
+                acc[i] = None
+                grads.append((g / k if k > 1 else g).to(cflat[i].dtype))
             # back through the step-boundary quant: the STE's identity
-            grads = [g.to(c.dtype) for g, c in zip(grads, cflat)]
             if prequant:
-                grads = torch.autograd.grad(cflat, flat, grad_outputs=grads)
-        del cparams, cflat
-        grads = iter(grads)
-        params, opt_state, metrics = adamw.apply(
-            opt_cfg, params, adamw.tree_map(params, lambda _: next(grads)),
-            opt_state, ndims)
+                grads = [comm.shard(g, s) for g, s in zip(torch.autograd.grad(
+                    [comm.shard(c, s) for c, s in zip(cflat, ms)], full,
+                    grad_outputs=grads), ms)]
+        del cparams, cflat, ftree
+        loss = comm.all_reduce(loss)
+        if k > 1:
+            loss = loss / k
+        same = [p == m for p, m in zip(ps, ms)]
+        pm = [b if s else comm.shard(f.detach(), m)
+              for b, f, s, m in zip(blocks, full, same, ms)]
+        del full
+        _, opt_state, metrics = adamw.apply(
+            opt_cfg, _like(params, pm), _like(params, grads), opt_state,
+            ndims, owned=[comm.owns(s) for s in ms],
+            all_reduce=comm.all_reduce)
+        with torch.no_grad():
+            for i, s in enumerate(same):
+                if not s:  # the updated blocks into the storage layout
+                    whole = comm.gather_leaf(pm[i], ms[i], shapes[i])
+                    blocks[i].copy_(shd.take_shard(whole, ps[i], comm.mesh))
         metrics["loss"] = loss
         return params, opt_state, metrics
 
@@ -199,10 +276,23 @@ def make_train_step(cfg, mesh, shape: Shape | None = None,
     ``device`` only checks that it is there. ``microbatches`` defaults to
     :func:`pick_microbatches`; ``dense_attn_max`` is the run context's
     (past it a prefill takes the online-softmax ``_flash_attn``, which is
-    differentiable)."""
+    differentiable).
+
+    On a mesh over a process group the step is the sharded one
+    (:func:`_train_fn` over a ``MeshComm``) and the arguments are this
+    rank's, on ``mesh.device``: its blocks of the parameters (drawn whole from seed
+    0, then cut) and of the moments, and its rows of the global batch.
+    ``collectives`` records the step's collectives. A model axis larger
+    than 1 raises ``NotImplementedError``."""
     if isinstance(mesh, Shape):  # (cfg, shape, opt_cfg): one device
         mesh, shape, opt_cfg = None, mesh, shape or opt_cfg
-    dev = _device(device)
+    sharded = mesh is not None and mesh.distributed
+    if sharded and mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a {mesh.name} mesh: the sharded train step runs the data axes "
+            "only; a model axis larger than 1 (tensor parallelism) is not "
+            "ported, see ROADMAP.md")
+    dev = mesh.device if sharded else _device(device)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     prequant = quant == "mxfp4_ste"
     if prequant:
@@ -220,17 +310,39 @@ def make_train_step(cfg, mesh, shape: Shape | None = None,
     sctx = shd.ShardingCtx(mesh=mesh, rules=rules)
     pctx = shd.ShardingCtx(mesh=mesh, rules=param_rules(rules, mesh, fsdp))
     params, specs = param_structs(cfg, device=dev)
-    opt_state = adamw.init(params)
     batch = _inputs(cfg, shape, dev)
     p_shard = shd.resolve_with_divisibility(specs, params, pctx, mesh)
     m_shard = shd.resolve_with_divisibility(
         shd.opt_state_specs(specs, cfg, mesh, zero1=zero1), params, pctx,
         mesh)
     o_shard = adamw.OptState(step=(), m=m_shard, v=m_shard)
+    b_shard = batch_shardings(batch, mesh, sctx)
+    if not sharded:
+        return StepBundle(fn=fn, ctx=ctx,
+                          args=(params, adamw.init(params), batch),
+                          shardings=(p_shard, o_shard, b_shard),
+                          microbatches=k, mesh=mesh)
+    p_specs = shd.spec_leaves(params, p_shard)
+    m_specs = shd.spec_leaves(params, m_shard)
+    shapes = [tuple(p.shape) for p in adamw.leaves(params)]
+    params = _like(params, [shd.take_shard(p, s, mesh) for p, s in zip(
+        adamw.leaves(params), p_specs)])
+
+    def moments():
+        return _like(params, [
+            torch.zeros(shd.shard_shape(s, shp, mesh), dtype=torch.float32,
+                        device=dev) for s, shp in zip(m_specs, shapes)])
+
+    opt_state = adamw.OptState(
+        step=torch.zeros((), dtype=torch.int32, device=dev), m=moments(),
+        v=moments())
+    batch = rank_rows(batch, k, data_size(mesh), data_rank(mesh))
+    comm = MeshComm(mesh)
+    fn = _train_fn(cfg, ctx, k, prequant, opt_cfg, comm, p_specs, m_specs,
+                   shapes)
     return StepBundle(fn=fn, ctx=ctx, args=(params, opt_state, batch),
-                      shardings=(p_shard, o_shard,
-                                 batch_shardings(batch, mesh, sctx)),
-                      microbatches=k)
+                      shardings=(p_shard, o_shard, b_shard),
+                      microbatches=k, mesh=mesh, collectives=comm.stats)
 
 
 def _head_logits(cfg, params, last_hidden):
@@ -323,6 +435,67 @@ def make_decode_step(cfg, mesh: Mesh, shape: Shape,
     return StepBundle(fn=serve_step, ctx=ctx,
                       args=(params, caches, inp["ids"], inp["pos"]),
                       shardings=(p_shard, c_shard, ids_shard, ()))
+
+
+def make_paged_decode_step(cfg, mesh: Mesh, shape: Shape, num_slots: int,
+                           quant: str = "mxfp4_wonly",
+                           kv_layout: str = "legacy",
+                           device=None) -> StepBundle:
+    """``fn(params, pool, rows, ids, pos) -> (next ids int32 [lanes],
+    pool)``: one continuous-batching decode step over a slot-paged KV
+    pool (the reference's ``make_paged_decode_step``). ``shape.batch`` is
+    the number of decode lanes; the pool (``lm.init_cache``) holds
+    ``num_slots`` request pages plus one scratch row a lane, of
+    ``shape.seq`` positions, quantized-resident under ``cim`` (the
+    hybrid's digital SDPA). ``rows`` (int [lanes]: a pool row a lane),
+    ``ids`` (int [lanes, 1]) and ``pos`` (int [lanes]) are the step's
+    inputs, as in the reference (int32 in the bundle).
+
+    ``kv_layout="legacy"`` gathers the lanes' pages, runs
+    ``lm.decode_step`` on them and scatters them back
+    (``serving.kvcache.gather_rows`` / ``scatter_rows``, the engine's
+    legacy step); ``"fused"`` decodes in place on the head-interleaved
+    pages through the paged decode kernels (``RunCtx.paged_rows``, the
+    engine's fused step). The pool is updated in place and returned. The
+    step runs on one device; ``shardings`` are the pool's specs resolved
+    on ``mesh`` (its slot axis carries ``batch``)."""
+    if kv_layout not in ("legacy", "fused"):
+        raise ValueError(f"unknown KV layout {kv_layout!r}")
+    fused = kv_layout == "fused"
+    lanes = shape.batch
+    dev = _device(device)
+    ctx = RunCtx(quant=quant)
+    sctx = shd.make_ctx(cfg, mesh, "decode", batch_size=lanes)
+    params, p_shard = _serve_params(cfg, mesh, quant, sctx, dev)
+    mx_dig = ctx.hybrid_digital_sdpa  # quantized-resident pool for cim
+    specs = lm.cache_specs(cfg, mx_digital=mx_dig, fused=fused)
+    pool = lm.init_cache(cfg, num_slots + lanes, shape.seq,
+                         mx_digital=mx_dig, fused=fused, device=dev)
+    pool_shard = shd.resolve_with_divisibility(
+        [[dict(s) for _ in range(seg.n)]
+         for s, seg in zip(specs, lm.build_segments(cfg))], pool, sctx, mesh)
+    rows = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    ids = torch.zeros((lanes, 1), dtype=torch.int32, device=dev)
+    pos = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+
+    @torch.no_grad()
+    def paged_step(params, pool, rows, ids, pos):
+        rows, ids, pos = rows.long(), ids.long(), pos.long()
+        if fused:
+            dctx = dataclasses.replace(ctx, paged_rows=rows)
+            logits, _ = lm.decode_step(params, cfg, dctx, ids, pos, pool)
+        else:
+            caches = gather_rows(pool, specs, rows)
+            logits, caches = lm.decode_step(params, cfg, ctx, ids, pos,
+                                            caches)
+            scatter_rows(pool, specs, rows, caches)
+        next_ids = torch.argmax(logits.to(torch.float32), dim=-1)
+        return next_ids.to(torch.int32), pool
+
+    return StepBundle(fn=paged_step, ctx=ctx,
+                      args=(params, pool, rows, ids, pos),
+                      shardings=(p_shard, pool_shard, (), (), ()),
+                      mesh=mesh)
 
 
 def make_step(cfg, mesh: Mesh, shape: Shape, **kw) -> StepBundle:

@@ -11,8 +11,10 @@ per-linear fake-quant) with ``dense_attn_max=512``, AdamW, async
 checkpoints in ``--ckpt`` (resumed from when it holds one). Runs on CUDA
 unless ``--device cpu`` is given; without a GPU and without it, it
 raises. ``--mesh single|multi`` name the reference's 256- and 512-chip
-GSPMD pod meshes (FSDP + ZeRO-1 sharded steps), which the port does not
-build (``ROADMAP.md``): they raise ``NotImplementedError``.
+pod meshes, 16x16 and 2x16x16, whose model axis is 16 wide: the port's
+sharded train step runs the data axes only (``launch.steps`` on a mesh
+over a process group, ``scripts/torch_fsdp_multicard.py``), so they
+raise ``NotImplementedError`` (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -55,8 +57,9 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the reference's GSPMD pod mesh (FSDP + "
-            "ZeRO-1 sharded train step) is not ported; see ROADMAP.md")
+            f"--mesh {args.mesh}: the pod mesh's model axis is 16 wide, and "
+            "the sharded train step runs the data axes only (tensor "
+            "parallelism over 'model' is not ported); see ROADMAP.md")
     device = resolve_device(args.device)
     cfg = C.ARCHS[args.arch]
     if args.tiny:

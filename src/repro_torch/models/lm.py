@@ -430,39 +430,63 @@ def _head(ctx, cfg, params, x):
     return linear_apply(ctx, params["lm_head"], x, name="lm_head")
 
 
+def _loss_mask(batch: dict, chunk: int, s: int):
+    """(labels, mask) of a batch, zero-padded to whole chunks of
+    ``min(chunk, s)`` sequence rows, and that chunk."""
+    labels = batch["labels"].long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    return labels, mask, chunk
+
+
+def loss_count(batch: dict, chunk: int = 1024) -> torch.Tensor:
+    """The mask count :func:`lm_loss` normalises ``batch``'s loss by
+    before its ``max(., 1)`` (f32 []): the chunks' mask sums, summed."""
+    s = batch["labels"].shape[1]
+    _, mask, chunk = _loss_mask(batch, chunk, s)
+    return torch.stack([mask[:, c:c + chunk].sum()
+                        for c in range(0, mask.shape[1], chunk)]).sum()
+
+
 def lm_loss(params, cfg: ArchConfig, ctx: RunCtx, batch: dict,
-            chunk: int = 1024) -> torch.Tensor:
+            chunk: int = 1024, count: torch.Tensor | None = None
+            ) -> torch.Tensor:
     """Mean cross-entropy over the labeled tokens (``batch["labels"]``,
     weighted by ``batch["loss_mask"]`` where given), the reference's
     ``lm_loss``: the head runs on sequence chunks of ``chunk`` rows (the
     sequence zero-padded to a whole number of chunks, the pad masked out),
     so no [B, S, V] f32 logits are ever whole. Per chunk: f32 logits,
     ``logsumexp`` and the gold logit, summed under the mask; the total
-    over ``max(count, 1)``. Differentiable through every family."""
+    over ``max(count, 1)``. Differentiable through every family.
+
+    ``count`` (f32 []) replaces this batch's own mask count
+    (:func:`loss_count`): a data rank of the sharded train step holds
+    some of a microbatch's rows and normalises their sum by the whole
+    microbatch's count, as the reference's one loss over all of its rows
+    does under GSPMD."""
     hidden, _ = forward(params, cfg, ctx, batch, return_hidden=True)
-    labels = batch["labels"].long()
-    mask = batch.get("loss_mask")
-    if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
     s = hidden.shape[1]
-    chunk = min(chunk, s)
-    pad = (-s) % chunk
-    if pad:
-        hidden = F.pad(hidden, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad))
-        mask = F.pad(mask, (0, pad))
-    tots, cnts = [], []
-    for c in range(0, s + pad, chunk):
+    labels, mask, chunk = _loss_mask(batch, chunk, s)
+    if mask.shape[1] > s:
+        hidden = F.pad(hidden, (0, 0, 0, mask.shape[1] - s))
+    tots = []
+    for c in range(0, mask.shape[1], chunk):
         m = mask[:, c:c + chunk]
         logits = _head(ctx, cfg, params, hidden[:, c:c + chunk]).to(
             torch.float32)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[:, c:c + chunk, None])[..., 0]
         tots.append(((lse - gold) * m).sum())
-        cnts.append(m.sum())
-    return torch.stack(tots).sum() / torch.clamp(torch.stack(cnts).sum(),
-                                                 min=1.0)
+    if count is None:
+        count = loss_count(batch, chunk)
+    return torch.stack(tots).sum() / torch.clamp(count, min=1.0)
 
 
 def ref_ndim_tree(cfg: ArchConfig, tree) -> dict:
@@ -490,10 +514,10 @@ def ref_ndim_tree(cfg: ArchConfig, tree) -> dict:
                                                         tree["segments"])):
         raise ValueError("tree does not hold the segments of "
                          f"{cfg.name}")
-    out = {k: nd(v, 0) for k, v in tree.items() if k != "segments"}
-    out["segments"] = [nd(layers, int(seg.n > 1))
-                       for seg, layers in zip(segs, tree["segments"])]
-    return out
+    # the tree's own key order: ``optim.adamw.leaves`` pairs the leaves
+    return {k: [nd(layers, int(seg.n > 1))
+                for seg, layers in zip(segs, v)] if k == "segments"
+            else nd(v, 0) for k, v in tree.items()}
 
 
 def forward_pipelined(params, cfg: ArchConfig, ctx: RunCtx, batch: dict,

@@ -8,6 +8,11 @@ returns them: at full width the state is three copies of the f32
 parameters, and the update needs no fourth. The values are the
 reference's, leaf by leaf, with one exception stated at
 :func:`global_norm`.
+
+The sharded train step (``launch.steps`` on a mesh over a process group)
+runs :func:`apply` on each rank's blocks in the moments' layout: the
+update is element-wise, so a block updates as the whole would; only the
+clipping's global norm spans the ranks (``owned``, ``all_reduce``).
 """
 
 from __future__ import annotations
@@ -80,27 +85,43 @@ def init(params) -> OptState:
                     m=tree_map(params, zeros), v=tree_map(params, zeros))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, owned=None, all_reduce=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32. The leaves are
     summed in the tree's order, one leaf per layer; the reference sums its
     layer-stacked leaves in sorted-key order, so the two agree to f32
-    rounding, not bitwise."""
+    rounding, not bitwise.
+
+    Over a sharded tree (each rank holding blocks of the leaves) every
+    rank sums the squares of the blocks it counts (``owned``, one bool a
+    leaf: a block replicated on several ranks counts on one of them,
+    ``distributed.sharding.owns``) and ``all_reduce`` sums the ranks'
+    totals in place, one collective for the whole tree."""
     total = None
-    for x in leaves(tree):
+    flat = leaves(tree)
+    for x, own in zip(flat, owned if owned is not None else [True] * len(
+            flat)):
+        if not own:
+            continue
         sq = torch.sum(torch.square(x.to(torch.float32)))
         total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    if all_reduce is not None:
+        all_reduce(total)
     return torch.sqrt(total)
 
 
-def apply(cfg: AdamWConfig, params, grads, state: OptState, ndims=None
-          ) -> tuple[dict, OptState, dict]:
+def apply(cfg: AdamWConfig, params, grads, state: OptState, ndims=None,
+          owned=None, all_reduce=None) -> tuple[dict, OptState, dict]:
     """One AdamW step: returns (params, new state, metrics ``grad_norm``
     and ``lr``). ``params``, ``state.m`` and ``state.v`` are updated in
     place and returned; ``grads`` may be any float dtype. Weight decay
     applies to leaves of two or more dims *in the reference's tree*:
     ``ndims`` is that tree of ints (``models.lm.ref_ndim_tree``; None
-    reads each leaf's own ndim, for a tree without stacked segments)."""
-    gnorm = global_norm(grads)
+    reads each leaf's own ndim, for a tree without stacked segments).
+    On a rank's blocks, ``owned`` and ``all_reduce`` make the clipping's
+    norm global (:func:`global_norm`)."""
+    gnorm = global_norm(grads, owned, all_reduce)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1
