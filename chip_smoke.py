@@ -293,9 +293,12 @@
     minutes there), with its seconds (``dry run sweep``).
 16. The sharded steps (``launch.steps``). 16a: an NCCL process group of
     one rank on the card (a ``HashStore``; NCCL takes one rank a GPU) and
-    ``make_train_step`` on ``make_local_mesh(1, 1)`` over it (FSDP
-    parameters, ZeRO-1 moments, the batch over the data axis, every
-    collective a copy at world 1): phase 14's h2o-danube-1.8b, 12 of 24
+    ``make_train_step`` on ``make_local_mesh(1, 1)`` over it, the
+    model-aware body at (data, model) = (1, 1) (FSDP parameters, ZeRO-1
+    moments, the batch over the data axis, a model axis of 1: no
+    tensor-parallel layers; every collective a copy at world 1; the
+    model axis on four cards is ``scripts/torch_fsdp_multicard.py``'s):
+    phase 14's h2o-danube-1.8b, 12 of 24
     layers, [2, 1024], three steps against phase 14's one-device step
     from the same init, both under deterministic algorithms: parameters,
     moments and losses ``torch.equal``; the allocated argument bytes equal
@@ -4580,6 +4583,10 @@ def train_sharded_nccl(dev, smi: str) -> dict:
                         "bytes": v[2] / SHARD_STEPS,
                         "wire_bytes": v[1] / SHARD_STEPS}
                     for k, v in bundle.collectives.by_kind.items()}
+            by_axis = {a: {k: v[0] / SHARD_STEPS
+                           for k, v in st.by_kind.items()}
+                       for a, st in bundle.axis_collectives.items()}
+            tp = bundle.ctx.tp
             link_ms = bundle.collectives.link_s() / SHARD_STEPS * 1e3
         finally:
             dist.destroy_process_group()
@@ -4592,6 +4599,8 @@ def train_sharded_nccl(dev, smi: str) -> dict:
     walls = [r["wall_ms"] for r in rows[1:]]
     out = dict(arch=cfg.name, layers=cfg.n_layers, seq=shape.seq,
                batch=shape.batch, world=1, backend="nccl", card=smi,
+               mesh=[1, 1], tensor_parallel=tp is not None,
+               collective_counts_by_axis=by_axis,
                steps=rows, one_device_steps=one_rows, equal=equal,
                argument_bytes_allocated=allocated,
                argument_bytes_predicted=predicted,

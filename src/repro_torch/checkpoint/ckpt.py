@@ -17,11 +17,13 @@ no bf16 of its own).
 Reshard-on-load: every leaf is stored whole, with its global shape. A
 sharded state (each rank of a mesh over a process group holding blocks,
 ``launch.steps.make_train_step``) is saved with its ``shardings`` and
-``mesh``: every rank takes part in one all-gather a leaf, and rank 0
-writes. :meth:`CheckpointManager.restore` with ``shardings`` gives each
-rank its block on any mesh (written at 4 ranks, restored at 2 or 1);
-without, each leaf goes whole to whatever device it is asked for
-(written from the card, read on the CPU).
+``mesh``: every rank takes part in the gathers of each leaf (over the
+data axes, then over ``model``), and rank 0 writes.
+:meth:`CheckpointManager.restore` with ``shardings`` gives each rank its
+block on any mesh, of any (data, model) layout (written at (2, 2),
+restored at (4, 1), (1, 4) or on one rank); without, each leaf goes
+whole to whatever device it is asked for (written from the card, read on
+the CPU).
 
 Async: one writer thread. :meth:`CheckpointManager.save` copies the tree
 to host memory before it returns (so the next step may change the

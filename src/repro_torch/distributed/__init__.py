@@ -6,6 +6,6 @@ cost analysis and per-layer serving costs for balanced cuts
 (``roofline``) and the stage-parallel FWS pipeline over a (replica,
 stage) grid of devices (``pipeline_exec``). The rules describe the
 reference's GSPMD shardings for the dry-run, and the sharded train step
-runs them on the data axes over ``torch.distributed`` through the
-collectives of ``collectives`` (the model axis is not run yet,
-``ROADMAP.md``)."""
+runs them over ``torch.distributed`` through the collectives of
+``collectives``: FSDP and ZeRO-1 on the data axes, and on ``model`` the
+tensor-parallel layers of ``tensor_parallel``."""

@@ -14,17 +14,20 @@ activation hop moves between stages, under the reference's name for that
 hop, ``collective-permute``. The sharded train step on the data axes
 (``launch.steps.make_train_step`` on a mesh over a process group) fills
 one with its all-gathers, reduce-scatters and all-reduces
-(``distributed/collectives.py``). Each call's wire bytes a device follow
+(``distributed/collectives.py``), and one more for each mesh axis
+(``data``, ``model``, ``world``) with that axis's calls. Each call's wire
+bytes a device follow
 the ring model of the reference's ``parse_collectives``
-(:func:`ring_wire_bytes`), and :meth:`CollectiveStats.link_s` is their
+(:func:`ring_wire_bytes`) over its group's size, and
+:meth:`CollectiveStats.link_s` is their
 time at NVLink's 450 GB/s each way (:data:`LINK_BW`).
 :func:`active_params` and :func:`model_flops` are pure arithmetic on a
 config.
 
 Not here: the reference's ``parse_collectives`` itself. It reads the
 collectives out of XLA's partitioned HLO text, and the port produces
-none, so the dry-run's GSPMD cells still have no collective term: it
-waits for the model axis of the sharded step (``ROADMAP.md``).
+none, so the dry-run's GSPMD cells still have no collective term
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations

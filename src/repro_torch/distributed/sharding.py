@@ -12,8 +12,10 @@ sharded train step holds each leaf as this rank's block of it
 (:func:`shard_slices`, :func:`take_shard`) and rebuilds global leaves
 from the ranks' blocks (:func:`assemble`); the mesh is row-major over
 its axes (``pod``, ``data``, ``model``), and a dim over several axes is
-cut row-major over them, as ``NamedSharding`` cuts it. The data axes
-only: a model axis larger than 1 is not run (``ROADMAP.md``)."""
+cut row-major over them, as ``NamedSharding`` cuts it. A rank's *model
+shard* of a leaf is the leaf cut on ``model`` alone
+(:func:`model_shard_shape`): what the tensor-parallel layers compute
+with, gathered over the data axes from the rank's block."""
 
 from __future__ import annotations
 
@@ -247,10 +249,47 @@ def assemble(shards, spec: tuple, shape, mesh) -> torch.Tensor:
     return full
 
 
+def drop_axis(spec: tuple, axis: str) -> tuple:
+    """``spec`` without mesh axis ``axis`` (an entry of it alone becomes
+    None)."""
+    out = []
+    for e in spec:
+        rest = tuple(a for a in dim_axes(e) if a != axis)
+        out.append(canonical_axes(rest) if rest else None)
+    return tuple(out)
+
+
+def model_dim(spec: tuple) -> int | None:
+    """The dim ``spec`` cuts over ``model``, or None; raises where a dim
+    is cut over ``model`` and another axis at once, or ``model`` cuts
+    two dims (the train rules make neither)."""
+    dims = [d for d, e in enumerate(spec) if "model" in dim_axes(e)]
+    if len(dims) > 1 or (dims and len(dim_axes(spec[dims[0]])) > 1):
+        raise NotImplementedError(f"{spec}: 'model' with another axis on one "
+                                  "dim, or on two dims")
+    return dims[0] if dims else None
+
+
+def model_shard_shape(spec: tuple, shape, mesh) -> tuple:
+    """The shape of a rank's model shard of a leaf of ``shape`` under the
+    resolved ``spec``: the dim cut over ``model`` divided by its size."""
+    d = model_dim(spec)
+    out = list(shape)
+    if d is not None:
+        m = mesh.shape["model"]
+        if out[d] % m:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split into "
+                             f"{m} under {spec}")
+        out[d] //= m
+    return tuple(out)
+
+
 def owns(spec: tuple, mesh, rank: int | None = None) -> bool:
     """Whether ``rank`` counts its block of a leaf in a sum over ranks
     (a global norm): a block replicated over a mesh axis the spec does
-    not use counts on that axis's coordinate 0 only."""
+    not use counts on that axis's coordinate 0 only (a norm gamma or the
+    bias of a row-parallel output, replicated over ``model``, on model
+    coordinate 0)."""
     used = {a for e in spec for a in dim_axes(e)}
     coords = mesh.coords(rank)
     return all(coords[a] == 0 for a in mesh.axis_names if a not in used)

@@ -25,16 +25,26 @@ decode steps keep the reference's bodies: cache init, ``lm.forward`` /
 
 On a mesh over a process group (``make_local_mesh`` inside an
 initialised ``torch.distributed`` group, one rank a device) the train
-step runs sharded on the data axes, the reference's one GSPMD program
-written out: the same body (:func:`_train_fn`) over the collectives of
+step runs sharded, the reference's one GSPMD program written out: the
+same body (:func:`_train_fn`) over the collectives of
 ``distributed/collectives.py`` instead of their one-device identities.
-Each rank holds its blocks of the f32 parameters (FSDP: ``embed`` over
-the data axes) and of the moments (ZeRO-1) and its rows of each
-microbatch (``data.pipeline.rank_rows``); a step all-gathers the
-parameters at its boundary, normalises each microbatch's loss by that
-microbatch's global mask count, reduce-scatters the f32 gradients into
-the moments' layout, all-reduces the loss and runs AdamW on the blocks.
-A model axis larger than 1 is not run (``ROADMAP.md``).
+On the data axes each rank holds its blocks of the f32 parameters
+(FSDP: ``embed`` over the data axes) and of the moments (ZeRO-1) and
+its rows of each microbatch (``data.pipeline.rank_rows``); a step
+all-gathers the parameters over the data axes at its boundary,
+normalises each microbatch's loss by that microbatch's global mask
+count, reduce-scatters the f32 gradients into the moments' layout,
+all-reduces the loss and runs AdamW on the blocks. On a model axis
+larger than 1 the gather gives each rank its model shard (``heads``,
+``qkv_fused`` / ``kv_fused``, ``mlp`` and ``vocab`` over ``model``) and
+the layers run tensor-parallel over the model subgroup (``RunCtx.tp``,
+``distributed/tensor_parallel.py``): column-parallel ``wq`` / ``wk`` /
+``wv`` / ``w1`` / ``w3`` and head, one f32 reduction after ``wo`` and
+one after ``w2``, a vocab-parallel embedding and loss. Families
+``dense`` and ``vlm`` only: ``moe``, ``hybrid``, ``ssm``, ``audio``, a
+model axis that does not divide the query heads (the reference's
+sequence-parallel ``kv_seq``) or a dim the rules then leave whole raise
+``NotImplementedError`` (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -50,8 +60,15 @@ from repro_torch.configs import Shape
 from repro_torch.data.pipeline import rank_rows
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import LocalComm, MeshComm
-from repro_torch.distributed.mesh import Mesh, data_rank, data_size
+from repro_torch.distributed.mesh import (
+    Mesh,
+    data_rank,
+    data_size,
+    model_size,
+)
 from repro_torch.distributed.roofline import CollectiveStats
+from repro_torch.layers.attention import tp_heads
+from repro_torch.layers import backends as backends_lib
 from repro_torch.layers.backends import _dequant_packed
 from repro_torch.layers.common import (
     RunCtx,
@@ -73,8 +90,10 @@ class StepBundle:
     shardings: tuple = ()  # the args' resolved specs on the mesh
     microbatches: int = 1
     mesh: Mesh | None = None
-    # the sharded train step's collectives, summed over its calls
+    # the sharded train step's collectives, summed over its calls, and
+    # those of each mesh axis (data, model, world)
     collectives: CollectiveStats | None = None
+    axis_collectives: dict | None = None
 
 
 def _device(device) -> torch.device:
@@ -176,42 +195,52 @@ def _train_fn(cfg, ctx: RunCtx, k: int, prequant: bool,
     of the parameters (``p_specs``) and moments (``m_specs``) of global
     ``shapes``, and its rows of each microbatch. In order:
 
-    1. Every f32 parameter is gathered whole (the prequant makes a whole
-       copy at the boundary anyway).
+    1. Every f32 parameter is gathered over the data axes: whole, or on a
+       model axis the rank's model shard, which ``ctx.tp``'s layers run
+       on (the prequant makes a copy at the boundary anyway, and
+       quantizes each shard as the whole would be: ``quantize_weights_
+       tree`` under ``tp``).
     2. Each microbatch's mask count is summed over the data ranks (one
        all-reduce); each rank's loss of a microbatch's rows is normalised
        by it (``lm.lm_loss(count=)``), so the ranks' losses and gradients
        sum to those of the reference's one loss over all of its rows (a
        mean of per-rank means is wrong wherever the counts differ).
     3. The gradients are accumulated in f32 over the k microbatches
-       (k = 1 keeps the one set), reduced into the moments' layout (a
-       reduce-scatter in f32), divided by k and cast to each quantized
-       leaf's dtype; autograd takes them back through the step-boundary
-       quantization (the STE's identity, cast to f32). The loss is summed
-       over the ranks and divided by k.
+       (k = 1 keeps the one set), reduced over the data ranks into the
+       moments' layout (a reduce-scatter in f32), divided by k and cast
+       to each quantized leaf's dtype; autograd takes them back through
+       the step-boundary quantization (the STE's identity, cast to f32).
+       A leaf replicated over ``model`` has the same gradient on every
+       model rank (the layers' collectives make it so): it is not summed
+       over them. The loss is summed over the data ranks (the model ranks
+       hold the same one) and divided by k.
     4. AdamW updates the blocks in the moments' layout, the clipping's
-       norm summed over the ranks. Where the parameters' layout differs
-       (FSDP's ``embed`` over ``pod`` x ``data``, ZeRO-1's over ``data``
-       only) the updated blocks are gathered and the parameter block taken
-       from them; on a local ``(data, 1)`` mesh the two layouts are one."""
+       norm summed over every rank (a block replicated over an axis
+       counted on one: ``sharding.owns``). Where the parameters' layout
+       differs (FSDP's ``embed`` over ``pod`` x ``data``, ZeRO-1's over
+       ``data`` only) the updated blocks are gathered and the parameter
+       block taken from them; on a local ``(data, model)`` mesh the two
+       layouts are one."""
     comm = comm or LocalComm()
 
     def train_step(params, opt_state, batch):
         blocks = adamw.leaves(params)
         ps = p_specs or [()] * len(blocks)
         ms = m_specs or ps
-        full = [comm.gather_leaf(p, s, shp) for p, s, shp in zip(
+        # detached: a block that is its own model shard stays untouched
+        full = [comm.gather_shard(p, s, shp).detach() for p, s, shp in zip(
             blocks, ps, shapes or [None] * len(blocks))]
         ndims = lm.ref_ndim_tree(cfg, params)
         mbs = [batch] if k == 1 else _split(batch, k)
-        counts = comm.all_reduce(torch.stack([lm.loss_count(mb)
-                                              for mb in mbs]))
+        counts = comm.sum_data(torch.stack([lm.loss_count(mb)
+                                            for mb in mbs]))
         with torch.enable_grad():
             for p in full:
                 p.requires_grad_(True)
             ftree = _like(params, full)
-            cparams = (quantize_weights_tree(ftree, ndims) if prequant
-                       else ftree)
+            cparams = (quantize_weights_tree(ftree, ndims, tp=ctx.tp,
+                                             specs=_like(params, ps))
+                       if prequant else ftree)
             cflat = adamw.leaves(cparams)
             if k == 1:
                 loss, acc = loss_and_grads(cparams, cfg, ctx, batch,
@@ -241,7 +270,7 @@ def _train_fn(cfg, ctx: RunCtx, k: int, prequant: bool,
                     [comm.shard(c, s) for c, s in zip(cflat, ms)], full,
                     grad_outputs=grads), ms)]
         del cparams, cflat, ftree
-        loss = comm.all_reduce(loss)
+        loss = comm.sum_data(loss)
         if k > 1:
             loss = loss / k
         same = [p == m for p, m in zip(ps, ms)]
@@ -255,12 +284,49 @@ def _train_fn(cfg, ctx: RunCtx, k: int, prequant: bool,
         with torch.no_grad():
             for i, s in enumerate(same):
                 if not s:  # the updated blocks into the storage layout
-                    whole = comm.gather_leaf(pm[i], ms[i], shapes[i])
-                    blocks[i].copy_(shd.take_shard(whole, ps[i], comm.mesh))
+                    whole = comm.gather_shard(pm[i], ms[i], shapes[i])
+                    blocks[i].copy_(comm.shard(whole, ps[i]))
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return train_step
+
+
+def check_model_axis(cfg, mesh, quant: str = "mxfp4_ste_prequant") -> None:
+    """Raise ``NotImplementedError`` (naming ``ROADMAP.md``) unless the
+    sharded train step's tensor-parallel layers cover ``cfg`` on
+    ``mesh``'s model axis (nothing to cover at model 1): families
+    ``dense`` and ``vlm``, query heads, ``vocab``, ``d_ff``, the fused
+    K/V dim and (``vlm``) ``d_model`` divisible by the model axis, the
+    rank's query heads over their KV heads in equal groups
+    (``layers.attention.tp_heads``), and a backend marked
+    ``tensor_parallel`` (``float_bf16``, ``mxfp4_ste``'s prequant form)."""
+    m = model_size(mesh)
+    if m == 1:
+        return
+    where = f"on a {mesh.name} mesh (model axis {m})"
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) {where}: the sharded train step's "
+            "tensor parallelism covers the dense and vlm families; moe "
+            "(experts / expert_mlp), hybrid and ssm (state_heads) and audio "
+            "on 'model' are not ported, see ROADMAP.md")
+    if not backends_lib.get_backend(quant).tensor_parallel:
+        raise NotImplementedError(
+            f"quant {quant!r} {where}: the tensor-parallel linears run "
+            "mxfp4_ste (prequant) or none; see ROADMAP.md")
+    for seg in lm.build_segments(cfg):
+        for r in range(m):
+            tp_heads(seg.attn, m, r)
+    dims = {"vocab_size": cfg.vocab_size, "d_ff": cfg.d_ff,
+            "n_kv_heads * head_dim": cfg.n_kv_heads * cfg.hd}
+    if cfg.frontend != "none":
+        dims["d_model"] = cfg.d_model
+    for name, n in dims.items():
+        if n % m:
+            raise NotImplementedError(
+                f"{cfg.name} {where}: {name} {n} does not split over it "
+                "and would stay whole; see ROADMAP.md")
 
 
 def make_train_step(cfg, mesh, shape: Shape | None = None,
@@ -280,23 +346,22 @@ def make_train_step(cfg, mesh, shape: Shape | None = None,
 
     On a mesh over a process group the step is the sharded one
     (:func:`_train_fn` over a ``MeshComm``) and the arguments are this
-    rank's, on ``mesh.device``: its blocks of the parameters (drawn whole from seed
-    0, then cut) and of the moments, and its rows of the global batch.
-    ``collectives`` records the step's collectives. A model axis larger
-    than 1 raises ``NotImplementedError``."""
+    rank's, on ``mesh.device``: its blocks of the parameters (drawn whole
+    from seed 0, then cut) and of the moments, and its rows of the global
+    batch. ``collectives`` records the step's collectives. On a model
+    axis larger than 1 the run context's ``tp`` is the model subgroup's
+    communicator; a layout the tensor-parallel layers do not cover
+    raises ``NotImplementedError`` (:func:`check_model_axis`)."""
     if isinstance(mesh, Shape):  # (cfg, shape, opt_cfg): one device
         mesh, shape, opt_cfg = None, mesh, shape or opt_cfg
     sharded = mesh is not None and mesh.distributed
-    if sharded and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a {mesh.name} mesh: the sharded train step runs the data axes "
-            "only; a model axis larger than 1 (tensor parallelism) is not "
-            "ported, see ROADMAP.md")
-    dev = mesh.device if sharded else _device(device)
-    opt_cfg = opt_cfg or adamw.AdamWConfig()
     prequant = quant == "mxfp4_ste"
     if prequant:
         quant = "mxfp4_ste_prequant"
+    if sharded:
+        check_model_axis(cfg, mesh, quant)
+    dev = mesh.device if sharded else _device(device)
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
     ctx = RunCtx(quant=quant, dense_attn_max=dense_attn_max)
     k = microbatches or pick_microbatches(mesh, shape)
     if shape.batch % k:
@@ -338,11 +403,14 @@ def make_train_step(cfg, mesh, shape: Shape | None = None,
         v=moments())
     batch = rank_rows(batch, k, data_size(mesh), data_rank(mesh))
     comm = MeshComm(mesh)
+    if model_size(mesh) > 1:
+        ctx = dataclasses.replace(ctx, tp=comm.model)
     fn = _train_fn(cfg, ctx, k, prequant, opt_cfg, comm, p_specs, m_specs,
                    shapes)
     return StepBundle(fn=fn, ctx=ctx, args=(params, opt_state, batch),
                       shardings=(p_shard, o_shard, b_shard),
-                      microbatches=k, mesh=mesh, collectives=comm.stats)
+                      microbatches=k, mesh=mesh, collectives=comm.stats,
+                      axis_collectives=comm.by_axis)
 
 
 def _head_logits(cfg, params, last_hidden):

@@ -10,11 +10,15 @@ device: ``lm_loss`` under ``--quant`` (default ``mxfp4_ste``, the
 per-linear fake-quant) with ``dense_attn_max=512``, AdamW, async
 checkpoints in ``--ckpt`` (resumed from when it holds one). Runs on CUDA
 unless ``--device cpu`` is given; without a GPU and without it, it
-raises. ``--mesh single|multi`` name the reference's 256- and 512-chip
-pod meshes, 16x16 and 2x16x16, whose model axis is 16 wide: the port's
-sharded train step runs the data axes only (``launch.steps`` on a mesh
-over a process group, ``scripts/torch_fsdp_multicard.py``), so they
-raise ``NotImplementedError`` (``ROADMAP.md``).
+raises. ``--mesh single|multi`` build the reference's 256- and 512-chip
+pod meshes, 16x16 and 2x16x16 (``launch.mesh.make_production_mesh``),
+over the process group (torchrun's, joined here from its environment
+where none is initialised: NCCL on CUDA, gloo on the CPU), one rank a
+device, and run the sharded ``Trainer`` on ``launch.steps``'s train step
+there: FSDP and ZeRO-1 over the data axes, tensor parallelism over the
+16-wide model axis. A group of any other size raises ``ValueError``
+naming the ranks the mesh needs; a config the model axis does not cover
+raises ``NotImplementedError`` (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -22,8 +26,15 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+import os
+
+import torch.distributed as dist
+
 from repro_torch import configs as C
 from repro_torch import resolve_device
+from repro_torch.distributed.mesh import make_group_mesh
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.layers.common import RunCtx
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
@@ -55,22 +66,20 @@ def main(argv=None) -> dict:
     """Run the launcher; returns the trainer's result (``final_step``,
     ``preempted``, ``slow_steps``, ``losses``) and the ``trainer``."""
     args = build_parser().parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the pod mesh's model axis is 16 wide, and "
-            "the sharded train step runs the data axes only (tensor "
-            "parallelism over 'model' is not ported); see ROADMAP.md")
     device = resolve_device(args.device)
     cfg = C.ARCHS[args.arch]
     if args.tiny:
         cfg = C.tiny(cfg)
     shape = (C.SHAPES[args.shape] if args.shape
              else C.Shape(args.seq, args.batch, "train"))
-    ctx = RunCtx(quant=args.quant, dense_attn_max=512)
-    trainer = Trainer(cfg, shape,
-                      TrainerConfig(total_steps=args.steps,
-                                    ckpt_dir=args.ckpt),
-                      ctx=ctx, device=device)
+    tcfg = TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt)
+    if args.mesh != "none":
+        trainer = Trainer(cfg, shape, tcfg, bundle=steps.make_train_step(
+            cfg, _pod_mesh(args.mesh, device), shape, quant=args.quant,
+            dense_attn_max=512))
+    else:
+        ctx = RunCtx(quant=args.quant, dense_attn_max=512)
+        trainer = Trainer(cfg, shape, tcfg, ctx=ctx, device=device)
     result = trainer.run()
     losses = result["losses"]
     if losses:
@@ -80,6 +89,20 @@ def main(argv=None) -> dict:
         print(f"final step {result['final_step']}: {args.ckpt} already "
               f"holds step {trainer.start_step}")
     return dict(result, trainer=trainer)
+
+
+def _pod_mesh(name: str, device):
+    """The reference's pod mesh ``name`` (``single``: 16x16, ``multi``:
+    2x16x16) over the process group, one rank a device."""
+    pod = make_production_mesh(multi_pod=name == "multi")
+    if not dist.is_initialized():
+        if "RANK" not in os.environ:
+            raise ValueError(
+                f"--mesh {name} runs over a process group of {pod.size} "
+                "ranks, one a device (torchrun --nproc_per_node ...)")
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return make_group_mesh(pod.axis_names, pod.sizes,
+                           device="cpu" if device.type == "cpu" else None)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import layout as paged_layout
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.layers import rope as ropelib
 from repro_torch.layers.common import (
     RunCtx,
@@ -38,6 +39,7 @@ from repro_torch.layers.common import (
     norm_init,
     norm_specs,
     rmsnorm_apply,
+    row_linear_apply,
 )
 
 
@@ -209,13 +211,15 @@ def _quant_cache_step(cache: dict, ck: torch.Tensor, cv: torch.Tensor,
 
 
 def _dense_attn(q, k, v, q_pos, k_pos, cfg: AttnStatic,
-                mx_digital: bool = False) -> torch.Tensor:
+                mx_digital: bool = False, v_dtype=None) -> torch.Tensor:
     """q [B,Sq,Hkv,G,Dh]; k,v [B,Sk,Hkv,Dh]. With ``mx_digital`` the SDPA
     runs on the digital MXFP4 systolic datapath: Q/K quantized along
     head_dim, BF16 score round, P/V re-quantized along the key axis,
     division by the quantized-P sum after the SV product. bf16 operands
     with f32 accumulation are computed as f32 products of the (exactly
-    bf16-valued) operands."""
+    bf16-valued) operands. ``v_dtype`` (default v's) is the dtype P and
+    the output are rounded to: bf16 for f32 k and v of bf16 values, whose
+    gradients then stay in f32 (a tensor-parallel rank's part)."""
     if mx_digital:
         q, k = _mx_qk(q, k)
         q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
@@ -232,19 +236,70 @@ def _dense_attn(q, k, v, q_pos, k_pos, cfg: AttnStatic,
                          v.to(torch.bfloat16).float())
         o = o / torch.movedim(den, -2, 1)
         return o.to(torch.bfloat16)
-    return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    dt = v.dtype if v_dtype is None else v_dtype
+    return torch.einsum("bhgqk,bkhd->bqhgd", p.to(dt).to(v.dtype), v).to(dt)
+
+
+def tp_heads(cfg: AttnStatic, tp_size: int, tp_rank: int):
+    """A model rank's part of the attention under tensor parallelism: (its
+    ``AttnStatic``, of n_heads / tp_size query heads and the KV heads
+    they read; the range (lo, hi) of those KV heads in k and v gathered
+    whole, or None where the rank's ``wk`` / ``wv`` columns are its own
+    KV heads). Raises ``NotImplementedError`` where the model axis does
+    not divide the query heads (the reference's sequence-parallel
+    ``kv_seq`` rule), or the rank's query heads do not read their KV
+    heads in equal groups."""
+    h, kv = cfg.n_heads, cfg.n_kv
+    if h % tp_size:
+        raise NotImplementedError(
+            f"{h} query heads over a model axis of {tp_size}: the "
+            "reference's sequence-parallel attention (kv_seq on 'model') is "
+            "not ported; see ROADMAP.md")
+    hl = h // tp_size
+    if kv % tp_size == 0:
+        return dataclasses.replace(cfg, n_heads=hl, n_kv=kv // tp_size), None
+    g = h // kv
+    if hl % g and g % hl:
+        raise NotImplementedError(
+            f"{hl} query heads a model rank in groups of {g}: not an equal "
+            "grouping over the rank's KV heads; see ROADMAP.md")
+    lo, hi = tp_rank * hl // g, ((tp_rank + 1) * hl - 1) // g + 1
+    return dataclasses.replace(cfg, n_heads=hl, n_kv=hi - lo), (lo, hi)
 
 
 def _qkv(ctx: RunCtx, cfg: AttnStatic, p: dict, x, positions,
-         rope_tables=None):
+         rope_tables=None, kv_range=None):
+    """Q, K, V of ``x``, heads split, qk-normed and rotated. Under
+    tensor parallelism (``ctx.tp``) ``cfg`` is the rank's
+    (:func:`tp_heads`) and, with ``kv_range``, k and v are gathered over
+    the model ranks along features (their fused dim is cut inside a KV
+    head) before the head reshape, the norm and RoPE, which then run on
+    every KV head as on one device; the rank's KV heads go on in f32
+    (bf16 values) with their gradients summed over the model ranks. The
+    qk-norm gammas are replicated over the model ranks; one that only the
+    rank's heads read (``qn``, and ``kn`` without ``kv_range``) has its
+    gradient summed over the ranks."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = linear_apply(ctx, p["wq"], x, name="wq").reshape(b, s, h, hd)
-    k = linear_apply(ctx, p["wk"], x, name="wk").reshape(b, s, kv, hd)
-    v = linear_apply(ctx, p["wv"], x, name="wv").reshape(b, s, kv, hd)
+    k = linear_apply(ctx, p["wk"], x, name="wk")
+    v = linear_apply(ctx, p["wv"], x, name="wv")
+    if kv_range is not None:  # every KV head, as on one device
+        k = tpl.gather_from_model(k, ctx.tp, -1)
+        v = tpl.gather_from_model(v, ctx.tp, -1)
+        kv = k.shape[-1] // hd
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
     if cfg.qk_norm:
-        q = rmsnorm_apply(p["qn"], q)
-        k = rmsnorm_apply(p["kn"], k)
+        qn, kn = p["qn"], p["kn"]
+        if ctx.tp is not None:  # replicated, read by the rank's heads only
+            qn = {"gamma": tpl.copy_to_model(qn["gamma"].to(torch.float32),
+                                             ctx.tp)}
+            if kv_range is None:  # else it reads every KV head
+                kn = {"gamma": tpl.copy_to_model(
+                    kn["gamma"].to(torch.float32), ctx.tp)}
+        q = rmsnorm_apply(qn, q)
+        k = rmsnorm_apply(kn, k)
     if cfg.use_rope:
         if cfg.mrope:  # text positions; the vision stub feeds the same layer
             mp = ropelib.text_mrope_positions(positions)
@@ -256,11 +311,18 @@ def _qkv(ctx: RunCtx, cfg: AttnStatic, p: dict, x, positions,
                                    tables=rope_tables)
             k = ropelib.apply_rope(k, positions, cfg.rope_theta,
                                    tables=rope_tables)
+    if kv_range is not None:
+        # the rank's heads' gradients of every KV head, summed over the
+        # model ranks in f32 where the one-device attention rounds its
+        # sum over all heads once; then the rank's KV heads
+        lo, hi = kv_range
+        k, v = (tpl.copy_to_model(t.to(torch.float32), ctx.tp)[:, :, lo:hi]
+                for t in (k, v))
     return q, k, v
 
 
 def _flash_attn(q, k, v, q_pos, k_pos, cfg: AttnStatic, ctx: RunCtx,
-                mx_digital: bool = False) -> torch.Tensor:
+                mx_digital: bool = False, v_dtype=None) -> torch.Tensor:
     """Online-softmax attention, tile for tile the reference's: queries in
     ``ctx.q_chunk`` tiles, keys in ``ctx.attn_chunk`` tiles (padded keys
     sit at KV_PAD), a running max, a corrected denominator and f32 ``acc``;
@@ -271,7 +333,8 @@ def _flash_attn(q, k, v, q_pos, k_pos, cfg: AttnStatic, ctx: RunCtx,
 
     With ``mx_digital`` Q/K are quantized along head_dim, scores get the
     BF16 round, and P/V are re-quantized per KV tile along the key axis;
-    the denominator sums the quantized P."""
+    the denominator sums the quantized P. ``v_dtype`` as
+    :func:`_dense_attn`'s."""
     if mx_digital:
         qq, kq = _mx_qk(q, k)
         q, k = qq.to(q.dtype), kq.to(k.dtype)
@@ -288,6 +351,7 @@ def _flash_attn(q, k, v, q_pos, k_pos, cfg: AttnStatic, ctx: RunCtx,
         q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pad_q))
         q_pos = F.pad(q_pos, (0, pad_q))
     f32 = torch.float32
+    dt = v.dtype if v_dtype is None else v_dtype
     out = []
     for i in range(nqc):
         qi = q[:, i * qc:(i + 1) * qc].to(f32)
@@ -313,8 +377,8 @@ def _flash_attn(q, k, v, q_pos, k_pos, cfg: AttnStatic, ctx: RunCtx,
             if mx_digital:  # per-tile P/V re-quant; den sums quantized P
                 p, vq, _ = _mx_pv(p, vci)
                 vci = vq.to(vci.dtype)
-            pv = torch.einsum("bqhgk,bkhd->bqhgd", p.to(vci.dtype).to(f32),
-                              vci.to(f32)).to(vci.dtype)
+            pv = torch.einsum("bqhgk,bkhd->bqhgd", p.to(dt).to(f32),
+                              vci.to(f32)).to(dt)
             acc = acc * corr[..., None] + pv.to(f32)
             den = den * corr + p.sum(-1)
             m_run = m_new
@@ -358,14 +422,17 @@ def _takes_flash_kernel(ctx, cfg, device_type: str, mx_dig: bool,
 
 
 def _prefill_attn(ctx, cfg, q, k, v, positions, mx_dig):
+    # f32 k and v of bf16 values (a tensor-parallel rank's gathered KV
+    # heads) round P and the output to q's bf16
+    v_dtype = q.dtype if v.dtype != q.dtype else None
     if q.shape[1] <= ctx.dense_attn_max:
         return _dense_attn(q, k, v, positions, positions, cfg,
-                           mx_digital=mx_dig)
+                           mx_digital=mx_dig, v_dtype=v_dtype)
     if _takes_flash_kernel(ctx, cfg, q.device.type, mx_dig, q.shape[1],
                            grad=_build.needs_grad(q, k, v)):
         return _flash_kernel(ctx, cfg, q, k, v, positions)
     return _flash_attn(q, k, v, positions, positions, cfg, ctx,
-                       mx_digital=mx_dig)
+                       mx_digital=mx_dig, v_dtype=v_dtype)
 
 
 def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
@@ -389,13 +456,25 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
       SDPA, optionally the resident mirrors): the new row is written in
       place at slot ``pos % W`` of each lane, then attention over the
       lane's valid slots (:func:`_legacy_decode`).
+
+    Under tensor parallelism (``ctx.tp``, the sharded train step) the
+    prefill without a cache runs on the rank's query heads and their KV
+    heads (:func:`tp_heads`): ``wq`` / ``wk`` / ``wv`` hold its columns,
+    ``wo`` its rows (``layers.common.row_linear_apply``).
     """
     b, s, _ = x.shape
+    kv_range = None
+    if ctx.tp is not None:
+        if cache is not None:
+            raise NotImplementedError("tensor parallelism runs the train "
+                                      "step's prefill, without a cache")
+        cfg, kv_range = tp_heads(cfg, ctx.tp.size, ctx.tp.rank)
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     g = h // kv
     mx_dig = ctx.hybrid_digital_sdpa
     xn = norm_apply(cfg.norm, p["ln"], x)
-    q, k, v = _qkv(ctx, cfg, p, xn, positions, rope_tables=rope_tables)
+    q, k, v = _qkv(ctx, cfg, p, xn, positions, rope_tables=rope_tables,
+                   kv_range=kv_range)
     if s > 1:
         # zero K/V at KV_PAD positions (fixed-shape padded prefill): the
         # MXFP4 SDPA quantizes V in blocks along the key axis, so garbage
@@ -441,7 +520,7 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
         o = _prefill_attn(ctx, cfg, q, k, v, positions, mx_dig)
 
     o = o.reshape(b, s, h * hd)
-    y = linear_apply(ctx, p["wo"], o, name="wo")
+    y = row_linear_apply(ctx, p["wo"], o, name="wo")
     return x + y.to(x.dtype), cache
 
 

@@ -132,10 +132,23 @@ def quantize_linear_params(params: dict) -> dict:
     return out
 
 
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` cast to bf16 @ bf16 ``b``: the product of the bf16 backends."""
+    return torch.matmul(a.to(torch.bfloat16), b)
+
+
 class LinearBackend:
-    """One linear-execution strategy."""
+    """One linear-execution strategy.
+
+    A backend with ``tensor_parallel`` set runs on the sharded train
+    step's model axis: its ``forward`` takes ``matmul`` (the product of
+    its activations, cast to bf16 inside it, and the bf16 weight) and
+    ``quant`` (its activations' fake-quant along K, where it has one),
+    which the tensor-parallel linears replace by their column- and
+    row-parallel forms (``layers.common``)."""
 
     name = "?"
+    tensor_parallel = False
 
     def handles(self, params: dict) -> bool:
         """True if ``params`` is this backend's converted serving node."""
@@ -192,10 +205,10 @@ def _register(cls):
 @_register
 class _FloatBF16(LinearBackend):
     name = "float_bf16"
+    tensor_parallel = True
 
-    def forward(self, ctx, params, x):
-        return torch.matmul(x.to(torch.bfloat16),
-                            params["w"].to(torch.bfloat16))
+    def forward(self, ctx, params, x, matmul=bf16_matmul, quant=None):
+        return matmul(x, params["w"].to(torch.bfloat16))
 
 
 @_register
@@ -211,14 +224,15 @@ class _MXFP4STE(LinearBackend):
 @_register
 class _MXFP4STEPrequant(LinearBackend):
     name = "mxfp4_ste_prequant"
+    tensor_parallel = True
 
-    def forward(self, ctx, params, x):
+    def forward(self, ctx, params, x, matmul=bf16_matmul,
+                quant=mxlib.fake_quant):
         # the weights were fake-quantized once at the step boundary (exact:
         # they are constant within a step), so the quant runs once a step
         # and not once a microbatch
-        xq = mxlib.fake_quant(x.to(torch.float32))
-        return torch.matmul(xq.to(torch.bfloat16),
-                            params["w"].to(torch.bfloat16))
+        return matmul(quant(x.to(torch.float32)),
+                      params["w"].to(torch.bfloat16))
 
 
 @_register

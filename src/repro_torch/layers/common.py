@@ -15,6 +15,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import mx as mxlib
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.layers import backends as backends_lib
 
 
@@ -141,6 +142,11 @@ class RunCtx:
     # same scoped paths as calibration. None (the default) leaves every
     # forward and captured step as it is.
     fidelity: Any = None
+    # the model axis's communicator (distributed.collectives.AxisComm) of
+    # the sharded train step on a model axis larger than 1: the layers'
+    # weights are this rank's model shards and they run tensor-parallel
+    # (heads, mlp and vocab over the model ranks). None on one device.
+    tp: Any = None
 
     def __post_init__(self):
         if self.impl not in ("auto", "ref"):
@@ -191,14 +197,72 @@ def linear_apply(ctx: RunCtx, params: dict, x: torch.Tensor,
     markers win, otherwise ``ctx.quant`` names the backend. ``name`` is the
     call site's param key; with an active tap it extends ``ctx.scope`` into
     the param-tree path that keys Row-Hist calibration; with an active
-    fidelity probe the linear's input is probed under the same path."""
+    fidelity probe the linear's input is probed under the same path.
+    Under tensor parallelism (``ctx.tp``) it is a column-parallel linear
+    (its ``w`` the rank's output columns)."""
     if ctx.tap is not None and name is not None:
         path = f"{ctx.scope}/{name}" if ctx.scope else name
         ctx.tap.record(path, params, x)
+    if ctx.tp is not None:
+        return _column_linear(ctx, params, x)
     if ctx.fidelity is not None and name is not None:
         path = f"{ctx.scope}/{name}" if ctx.scope else name
         ctx.fidelity.observe_linear(path, ctx, params, x)
     y = backends_lib.resolve_backend(ctx, params).forward(ctx, params, x)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def _tp_backend(ctx: RunCtx, params: dict) -> backends_lib.LinearBackend:
+    """The backend of a tensor-parallel linear: one that takes ``matmul``
+    and ``quant`` (``launch.steps.check_model_axis`` admits no other). A
+    tap or a fidelity probe would see one rank's shard."""
+    if ctx.tap is not None or ctx.fidelity is not None:
+        raise NotImplementedError("a tap or a fidelity probe under tensor "
+                                  "parallelism")
+    return backends_lib.resolve_backend(ctx, params)
+
+
+def _column_linear(ctx: RunCtx, params: dict, x: torch.Tensor
+                   ) -> torch.Tensor:
+    """A column-parallel linear under ``ctx.tp``: the backend's product on
+    the rank's columns, in bf16 as on one device. ``x`` is replicated over
+    the model ranks; its gradient is this linear's, each rank's part
+    taken in f32 (``tensor_parallel.matmul_bf16``), summed over the ranks
+    in f32 and cast to ``x``'s dtype once (``copy_to_model``): the
+    one-device product's gradient, rounded as that one is, before
+    autograd adds the linears' gradients of a shared input as it does on
+    one device."""
+    xf = tpl.copy_to_model(x.to(torch.float32), ctx.tp)
+    y = _tp_backend(ctx, params).forward(ctx, params, xf,
+                                         matmul=tpl.matmul_bf16)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def row_linear_apply(ctx: RunCtx, params: dict, x: torch.Tensor,
+                     name: str | None = None) -> torch.Tensor:
+    """:func:`linear_apply` of a row-parallel linear (``wo``, ``w2``: K
+    over the model axis). On one device (``ctx.tp`` None) it is
+    :func:`linear_apply`. Under ``ctx.tp`` ``x`` holds this rank's K
+    columns and ``params["w"]`` its K rows: each rank's partial product
+    is taken in f32, the ranks' partials summed in f32 and cast to bf16
+    once (as the one-device product rounds once), then the bias, once.
+    A backend's activation quant runs along the whole row's 32-blocks
+    (``tensor_parallel.fake_quant_cut``)."""
+    tp = ctx.tp
+    if tp is None:
+        return linear_apply(ctx, params, x, name=name)
+
+    def matmul(a, w):
+        part = tpl.matmul_f32(a.to(torch.bfloat16), w)
+        return tpl.reduce_from_model(part, tp).to(torch.bfloat16)
+
+    y = _tp_backend(ctx, params).forward(
+        ctx, params, x, matmul=matmul,
+        quant=lambda a: tpl.fake_quant_cut(a, -1, tp))
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
@@ -260,13 +324,30 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 EMBED_SPECS = {"emb": ("vocab", "embed")}
 
 
-def embed_apply(params: dict, ids: torch.Tensor) -> torch.Tensor:
-    return params["emb"].to(torch.bfloat16)[ids]
+def embed_apply(params: dict, ids: torch.Tensor, tp=None) -> torch.Tensor:
+    """The bf16 rows of ``ids``. Under ``tp`` (the model axis) the table
+    holds this rank's vocab rows: ids outside them give zero rows, and
+    the sum over the model ranks is the lookup, exactly (one rank holds
+    each row)."""
+    emb = params["emb"].to(torch.bfloat16)
+    if tp is None:
+        return emb[ids]
+    rows = emb.shape[0]
+    local = ids - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = emb[torch.where(mine, local, torch.zeros_like(local))]
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return tpl.reduce_from_model(x, tp)
 
 
 # ------------------------------------------------ training: prequant
 
-def quantize_weights_tree(tree, ndims):
+def _on_model(entry) -> bool:
+    return entry == "model" or (isinstance(entry, tuple) and "model" in entry)
+
+
+def quantize_weights_tree(tree, ndims, tp=None, specs=None):
     """Step-boundary weight fake-quant for training ("prequant"): the
     per-linear fake-quant of ``mxfp4_ste`` hoisted out of the microbatch
     loop, exact because the weights are constant within a step. Each
@@ -280,27 +361,44 @@ def quantize_weights_tree(tree, ndims):
     the reference's tree (``models.lm.ref_ndim_tree``), which stacks a
     segment's layers only when it has more than one: a stacked norm gamma
     or bias has two dims there and is cast to bf16, a single-layer one
-    stays f32. The rules read that ndim, not the port's."""
+    stays f32. The rules read that ndim, not the port's.
 
-    def rec(node, nd):
+    Under ``tp`` (the model axis) the leaves are this rank's model shards
+    and ``specs`` (their resolved specs, the tree's layout) say which are
+    cut over ``model``: the contraction dim's length and its 32-blocks are
+    the whole leaf's, and a row-parallel ``w`` (``wo``, ``w2``: K over
+    ``model``) whose K shard is not a whole number of blocks is gathered
+    over the model ranks, quantized and cut again
+    (``tensor_parallel.fake_quant_cut``). Each rank's quantized shard is
+    bitwise that shard of the one-device quant."""
+
+    def quant(v, spec):
+        cut = tp is not None and spec is not None and _on_model(spec[-2])
+        k = v.shape[-2] * (tp.size if cut else 1)
+        if k % mxlib.BLOCK:
+            return None
+        return tpl.fake_quant_cut(v, -2, tp if cut else None).to(
+            torch.bfloat16)
+
+    def rec(node, nd, sp):
         if isinstance(node, dict):
             out = {}
             for k, v in node.items():
-                if (k == "w" and nd[k] in (2, 3)
-                        and v.shape[-2] % mxlib.BLOCK == 0) or (
-                        k in ("w1", "w2", "w3") and nd[k] in (3, 4)
-                        and v.shape[-2] % mxlib.BLOCK == 0):
-                    out[k] = mxlib.fake_quant_axis(v, -2).to(torch.bfloat16)
-                else:
-                    out[k] = rec(v, nd[k])
+                spk = sp[k] if sp is not None else None
+                q = None
+                if (k == "w" and nd[k] in (2, 3)) or (
+                        k in ("w1", "w2", "w3") and nd[k] in (3, 4)):
+                    q = quant(v, spk)
+                out[k] = q if q is not None else rec(v, nd[k], spk)
             return out
         if isinstance(node, (list, tuple)):
-            return type(node)(rec(v, n) for v, n in zip(node, nd))
+            return type(node)(rec(v, n, sp[i] if sp is not None else None)
+                              for i, (v, n) in enumerate(zip(node, nd)))
         if torch.is_tensor(node) and node.dtype == torch.float32 and nd >= 2:
             return node.to(torch.bfloat16)
         return node
 
-    return rec(tree, ndims)
+    return rec(tree, ndims, specs)
 
 
 # ---------------------------------------------------- serving conversion

@@ -16,6 +16,7 @@ from repro_torch.layers.common import (
     norm_apply,
     norm_init,
     norm_specs,
+    row_linear_apply,
 )
 
 GLU_KINDS = ("swiglu", "geglu")
@@ -75,10 +76,12 @@ def ffn_specs(kind: str, norm: str, use_bias: bool = False) -> dict:
 
 def ffn_apply(ctx: RunCtx, kind: str, norm: str, p: dict,
               x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm FFN sublayer with residual."""
+    """Pre-norm FFN sublayer with residual. Under tensor parallelism
+    (``ctx.tp``) ``w1`` / ``w3`` hold the rank's ``mlp`` columns and
+    ``w2`` its rows (``layers.common.row_linear_apply``)."""
     xn = norm_apply(norm, p["ln"], x)
     h = _act(kind, linear_apply(ctx, p["w1"], xn, name="w1"))
     if kind in GLU_KINDS:
         h = h * linear_apply(ctx, p["w3"], xn, name="w3")
-    y = linear_apply(ctx, p["w2"], h, name="w2")
+    y = row_linear_apply(ctx, p["w2"], h, name="w2")
     return x + y.to(x.dtype)

@@ -27,9 +27,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.layers import attention as attn_mod
 from repro_torch.layers import ffn as ffn_mod
 from repro_torch.layers import moe as moe_mod
@@ -299,7 +301,14 @@ def forward(params, cfg: ArchConfig, ctx: RunCtx, batch: dict, caches=None,
     (logits or hidden, caches). ``pos`` (decode): int or int [B], the
     position of the token; with ``positions`` and caches, the start of a
     prefill chunk. Without either, row i sits at position i and
-    ``ctx.arange_positions`` is set for the layers."""
+    ``ctx.arange_positions`` is set for the layers. Under tensor
+    parallelism (``ctx.tp``) only the hidden states are returned
+    (``return_hidden``): the head's logits are the rank's vocab columns,
+    which :func:`lm_loss` reads."""
+    if ctx.tp is not None and not return_hidden:
+        raise NotImplementedError("under tensor parallelism the logits are "
+                                  "the rank's vocab columns: lm_loss reads "
+                                  "them, forward returns hidden states")
     x = embed_inputs(ctx, cfg, params, batch)
     b, s, _ = x.shape
     if "positions" in batch:
@@ -349,6 +358,9 @@ def run_segment(ctx: RunCtx, cfg, seg: Segment, layers: list, x, positions,
     new_caches = []
     if paths is None:
         paths = layer_paths(path, len(layers))
+    if ctx.tp is not None and seg.kind != "attn":
+        raise NotImplementedError(f"a {seg.kind} segment under tensor "
+                                  "parallelism; see ROADMAP.md")
     for j, (pj, lpath) in enumerate(zip(layers, paths)):
         lctx = ctx.scoped(lpath)
         cj = caches[j] if caches is not None else None
@@ -410,23 +422,33 @@ def embed_inputs(ctx: RunCtx, cfg: ArchConfig, params, batch: dict):
     stub). The audio front end (the reference's stub) takes
     ``batch["emb"]`` [B, S, frontend_dim] through ``front_proj`` and adds
     the sinusoidal positions (f32, cast to the projection's dtype), in
-    bf16."""
+    bf16. Under tensor parallelism (``ctx.tp``) the embedding is
+    vocab-parallel (``layers.common.embed_apply``) and ``front_proj``
+    holds the rank's output columns, gathered over the model ranks."""
     if cfg.frontend == "audio":
         x = linear_apply(ctx, params["front_proj"], batch["emb"],
                          name="front_proj")
         pe = _sinusoid_table(x.shape[1], cfg.d_model, x.device)
         return (x + pe[None].to(x.dtype)).to(torch.bfloat16)
-    x = embed_apply(params["embed"], batch["ids"])
+    x = embed_apply(params["embed"], batch["ids"], tp=ctx.tp)
     if cfg.frontend == "vision" and "vis_emb" in batch:
         v = linear_apply(ctx, params["front_proj"], batch["vis_emb"],
                          name="front_proj")
+        if ctx.tp is not None:
+            v = tpl.gather_from_model(v, ctx.tp, -1)
         x = torch.cat([v.to(x.dtype), x[:, v.shape[1]:]], dim=1)
     return x
 
 
 def _head(ctx, cfg, params, x):
+    """The logits of ``x`` (under ``ctx.tp``: the rank's vocab columns,
+    through its rows of a tied embedding or its ``lm_head`` columns)."""
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["embed"]["emb"].to(torch.bfloat16).T)
+        emb = params["embed"]["emb"].to(torch.bfloat16).T
+        if ctx.tp is not None:
+            return tpl.matmul_bf16(
+                tpl.copy_to_model(x.to(torch.float32), ctx.tp), emb)
+        return torch.matmul(x, emb)
     return linear_apply(ctx, params["lm_head"], x, name="lm_head")
 
 
@@ -470,7 +492,13 @@ def lm_loss(params, cfg: ArchConfig, ctx: RunCtx, batch: dict,
     (:func:`loss_count`): a data rank of the sharded train step holds
     some of a microbatch's rows and normalises their sum by the whole
     microbatch's count, as the reference's one loss over all of its rows
-    does under GSPMD."""
+    does under GSPMD.
+
+    Under tensor parallelism (``ctx.tp``) the loss is vocab-parallel: each
+    model rank's logits are its vocab columns; the max is all-reduced
+    (detached), then the sum of exps and the gold logit (from the rank
+    that holds the label, zero elsewhere), one all-reduce of both; every
+    model rank holds the same loss."""
     hidden, _ = forward(params, cfg, ctx, batch, return_hidden=True)
     s = hidden.shape[1]
     labels, mask, chunk = _loss_mask(batch, chunk, s)
@@ -481,12 +509,36 @@ def lm_loss(params, cfg: ArchConfig, ctx: RunCtx, batch: dict,
         m = mask[:, c:c + chunk]
         logits = _head(ctx, cfg, params, hidden[:, c:c + chunk]).to(
             torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, c:c + chunk, None])[..., 0]
+        if ctx.tp is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                labels[:, c:c + chunk, None])[..., 0]
+        else:
+            lse, gold = _vocab_parallel_lse(logits, labels[:, c:c + chunk],
+                                            ctx.tp)
         tots.append(((lse - gold) * m).sum())
     if count is None:
         count = loss_count(batch, chunk)
     return torch.stack(tots).sum() / torch.clamp(count, min=1.0)
+
+
+def _vocab_parallel_lse(logits, labels, tp):
+    """(logsumexp, gold logit) over the whole vocab from this model rank's
+    f32 ``logits`` [..., V / m] (its vocab columns, in rank order), as
+    ``torch.logsumexp`` computes it: the max (all-reduced, detached), then
+    the log of the sum of exps past it."""
+    mx = logits.detach().amax(-1)
+    tp.all_reduce(mx, op=dist.ReduceOp.MAX)
+    vl = logits.shape[-1]
+    local = labels - tp.rank * vl
+    mine = (local >= 0) & (local < vl)
+    gold = torch.gather(logits, -1, torch.where(
+        mine, local, torch.zeros_like(local))[..., None])[..., 0]
+    gold = torch.where(mine, gold, torch.zeros((), dtype=gold.dtype,
+                                               device=gold.device))
+    se = torch.exp(logits - mx[..., None]).sum(-1)
+    both = tpl.reduce_from_model(torch.stack([se, gold]), tp)
+    return torch.log(both[0]) + mx, both[1]
 
 
 def ref_ndim_tree(cfg: ArchConfig, tree) -> dict:

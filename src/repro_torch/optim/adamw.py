@@ -93,9 +93,10 @@ def global_norm(tree, owned=None, all_reduce=None) -> torch.Tensor:
 
     Over a sharded tree (each rank holding blocks of the leaves) every
     rank sums the squares of the blocks it counts (``owned``, one bool a
-    leaf: a block replicated on several ranks counts on one of them,
-    ``distributed.sharding.owns``) and ``all_reduce`` sums the ranks'
-    totals in place, one collective for the whole tree."""
+    leaf: a block replicated on several ranks, over the data axes or over
+    ``model``, counts on one of them, ``distributed.sharding.owns``) and
+    ``all_reduce`` sums the ranks' totals in place over every rank, one
+    collective for the whole tree."""
     total = None
     flat = leaves(tree)
     for x, own in zip(flat, owned if owned is not None else [True] * len(

@@ -12,8 +12,9 @@
 - Restore onto any device or mesh: the checkpoint holds global host
   arrays (``checkpoint.ckpt``).
 - Sharded (a bundle of ``launch.steps.make_train_step`` on a mesh over a
-  process group): every rank runs the step on its blocks and its rows of
-  each batch, restores its blocks, and takes part in each save; rank 0
+  process group, with or without a model axis): every rank runs the step
+  on its blocks and its data rank's rows of each batch, restores its
+  blocks, and takes part in each save; rank 0
   writes the checkpoints and the log; a SIGTERM on any rank stops every
   rank after the same step (one all-reduce of the flag a step).
 """

@@ -40,9 +40,11 @@ test reads its part.
   the parameters leaf by leaf on the ten archs (the weight decay's ndim).
 - Collectives: the recorded counts and bytes are those the shard shapes
   give, with the ring model's wire bytes.
-- A model axis larger than 1 raises ``NotImplementedError``; a mesh
-  whose size is not the world size, and a mesh over the group without a
-  GPU and without ``device="cpu"``, raise.
+- A model axis larger than 1 under a family it does not cover (tiny
+  mixtral-8x22b: experts on ``model``) raises ``NotImplementedError``
+  (``tests/test_torch_tp.py`` holds the covered ones); a mesh whose size
+  is not the world size, and a mesh over the group without a GPU and
+  without ``device="cpu"``, raise.
 - Checkpoints: saved at world 2, restored at worlds 1 and 4, the global
   arrays bitwise; a world-2 ``Trainer`` killed and restarted is bitwise
   the uninterrupted one; a SIGTERM on one rank stops both after the same

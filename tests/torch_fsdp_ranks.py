@@ -18,6 +18,7 @@ from repro_torch.data.pipeline import rank_rows
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import MeshComm
 from repro_torch.launch import steps
+from repro_torch.distributed.mesh import data_rank, data_size
 from repro_torch.launch.mesh import Mesh, make_local_mesh
 from repro_torch.optim import adamw
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -39,12 +40,13 @@ def opt(clip: float = 1.0, **kw) -> adamw.AdamWConfig:
 
 
 def bundle(mesh, k: int = 1, clip: float = 1.0, init=None, batch=None,
-           dense: int = DENSE, adam: dict | None = None):
-    """The sharded bundle on ``mesh``; ``init`` (a global parameter tree,
-    keyed as the port's) replaces its seed-0 parameters and ``batch`` (a
-    global numpy batch) its inputs, each cut to this rank's part;
-    ``adam`` overrides the AdamW settings."""
-    b = steps.make_train_step(CFG, mesh, SHAPE, opt(clip, **(adam or {})),
+           dense: int = DENSE, adam: dict | None = None, cfg=CFG):
+    """The sharded bundle of ``cfg`` on ``mesh``; ``init`` (a global
+    parameter tree, keyed as the port's) replaces its seed-0 parameters
+    and ``batch`` (a global numpy batch) its inputs, each cut to this
+    rank's part (its rows: the data axes'); ``adam`` overrides the AdamW
+    settings."""
+    b = steps.make_train_step(cfg, mesh, SHAPE, opt(clip, **(adam or {})),
                               microbatches=k, device="cpu",
                               dense_attn_max=dense)
     params, opt_state, rows = b.args
@@ -55,7 +57,7 @@ def bundle(mesh, k: int = 1, clip: float = 1.0, init=None, batch=None,
                                       for t, s in zip(whole, specs)])
     if batch is not None:
         rows = {n: torch.from_numpy(v) for n, v in rank_rows(
-            batch, k, mesh.size, mesh.rank).items()}
+            batch, k, data_size(mesh), data_rank(mesh)).items()}
     return b, params, opt_state, rows
 
 
@@ -69,8 +71,9 @@ def _aligned(template, tree):
 
 
 def gathered(mesh, tree, specs) -> list:
-    """Every leaf of a rank's ``tree`` of blocks, whole (every rank
-    calls it; not recorded in any step's collectives)."""
+    """Every leaf of a rank's ``tree`` of blocks, whole: over the data
+    axes and ``model`` (every rank calls it; not recorded in any step's
+    collectives)."""
     comm = MeshComm(mesh)
     return [comm.gather_leaf(t, s, shd.global_shape(s, t.shape, mesh))
             .clone() for t, s in zip(adamw.leaves(tree),
@@ -128,9 +131,10 @@ def world2(rank: int, world: int, tmp: str, ref_init, ref_batch,
     pod = Mesh(("pod", "data", "model"), (2, 1, 1), mesh.devices,
                rank=rank)
     out["pod"] = one_step(pod, clip=CLIP_OFF)
-    try:
-        steps.make_train_step(CFG, make_local_mesh(1, 2, device="cpu"),
-                              SHAPE, device="cpu")
+    try:  # a family the model axis does not cover (experts on 'model')
+        steps.make_train_step(C.tiny(C.ARCHS["mixtral-8x22b"]),
+                              make_local_mesh(1, 2, device="cpu"), SHAPE,
+                              device="cpu")
         out["model_axis"] = "built"
     except NotImplementedError as e:
         out["model_axis"] = str(e)
