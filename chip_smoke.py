@@ -310,11 +310,35 @@
     random pool: next ids and pool bitwise the engine's own step on a
     copy of the pool, and the launches by route the formula's (``paged
     step`` lines).
-17. Prints the kernels line (phase 9 adds B, D and E at head widths
+17. The sharded serving steps' kernel modes and builders. 17a: kernel C
+    with ``out_dtype=float32`` (a row-parallel linear's partial) at
+    starcoder2-7b's ``wo`` and ``w2`` at a quarter of their K (1152 x
+    4608, 4608 x 4608), M 4 and 2048: on every route that takes the
+    rows the f32 output within 1e-5 x max |plain| of the plain version,
+    at least half of it off the bf16 grid, and the bf16 output
+    ``torch.equal`` to the f32 one cast (``mxfp4_matmul f32 out``
+    lines). 17b: kernel A's pass sums at the same slices, both routes:
+    each slice's int32 sums ``torch.equal`` to the plain version's,
+    four slices' sums read out ``torch.equal`` to A's whole output on
+    the same route, and the constructed rounding input's one guarded row
+    the only one that differs (``cim_linear pass sums`` lines). 17c: an
+    NCCL group of one rank and ``make_prefill_step``,
+    ``make_decode_step`` and ``make_paged_decode_step`` (legacy and
+    fused) on ``make_local_mesh(1, 1)`` over it, starcoder2-7b 16 of 32
+    layers under ``mxfp4`` and 8 under ``cim`` (the launcher's
+    ``build_model``), [4, 256]: ids and caches ``torch.equal`` to the
+    one-device bundles, the sharded steps' launches (C or A, and D or B),
+    device ms a step; then prefill, decode and the legacy paged step with
+    ``model_forms`` (the row-parallel linears' modes at model 1),
+    ``torch.equal`` to the one-device bundles, C's f32 or A's sums mode
+    counted launching (``sharded serve`` lines; the kernels line's
+    phase-17 rows take those counts).
+18. Prints the kernels line (phase 9 adds B, D and E at head widths
     256, 80 and 128; phase 11 C at the expert shapes, A at the MoE
     linears and B and D at G 16 and 7; phase 12 A, C and E at the
-    recurrent and audio archs' shapes), then the card's name and power
-    limit, then the device line, as the last line.
+    recurrent and audio archs' shapes; phase 17 C's f32 output and A's
+    pass sums), then the card's name and power limit, then the device
+    line, as the last line.
 
 Every measured shape is printed on a line of its own (``cim_linear {...}``,
 ``paged_decode_mx {...}``, ``mxfp4_matmul {...}``, ``paged_decode {...}``,
@@ -332,7 +356,8 @@ steps {...}``, ``serve load {...}``, ``prefill eager vs captured
 pipeline lm {...}``, ``train step {...}``, ``train k2 {...}``, ``train
 full width {...}``, ``train launcher {...}``, ``train tiny card vs cpu
 {...}``, ``dry run {...}``, ``dry run sweep {...}``, ``train sharded
-{...}``, ``paged step {...}``).
+{...}``, ``paged step {...}``, ``mxfp4_matmul f32 out {...}``,
+``cim_linear pass sums {...}``, ``sharded serve {...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
@@ -633,6 +658,28 @@ PAGED_ARGS = {"mxfp4": ["--no-tiny", "--backend", "mxfp4", "--layers",
               "cim": ["--no-tiny", "--backend", "cim", "--layers",
                       str(PAGED_LAYERS), "--calib-batches", "2", "--batch",
                       "2", "--log-level", "warning"]}
+# the sharded serving steps (phase 17): 17a / 17b hold kernel C's f32
+# output and kernel A's pass sums (the row-parallel linears' modes) at
+# starcoder2-7b's wo and w2 at a quarter of their K (a model rank of 4),
+# (K, N), at decode and prefill rows; 17c runs make_prefill_step,
+# make_decode_step and make_paged_decode_step on make_local_mesh(1, 1)
+# over an NCCL group of one rank against the one-device bundles
+ROWPAR_SHAPES = ((1152, 4608), (4608, 4608))
+ROWPAR_M = (4, 2048)
+ROWPAR_SLICES = 4
+# 17a: C's f32 output within this x max |plain| of its plain version (the
+# f32 sums' order: 3.8e-6 absolute measured at max |plain| ~5), and at
+# least this share of it off the bf16 grid
+ROWPAR_F32_TOL = 1e-5
+ROWPAR_OFF_BF16 = 0.5
+SERVE_SHARD_LAYERS = {"mxfp4": 16, "cim": 8}
+SERVE_SHARD_SEQ, SERVE_SHARD_BATCH = 256, 4
+SERVE_SHARD_ARGS = {"mxfp4": ["--no-tiny", "--backend", "mxfp4", "--layers",
+                              str(SERVE_SHARD_LAYERS["mxfp4"]),
+                              "--log-level", "warning"],
+                    "cim": ["--no-tiny", "--backend", "cim", "--layers",
+                            str(SERVE_SHARD_LAYERS["cim"]), "--calib-batches",
+                            "2", "--batch", "2", "--log-level", "warning"]}
 # kernel function -> wrapper and route, for device time by route
 KERNEL_ROUTES = {
     "cim_splitk_kernel": "cim_linear splitk",
@@ -4620,6 +4667,397 @@ def train_sharded_nccl(dev, smi: str) -> dict:
     return out
 
 
+def _c_routes(m: int) -> tuple:
+    """``mxfp4_matmul``'s routes that take ``m`` bf16 rows."""
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+
+    return ("fma",) + (("mma",) if m <= mm_ops.MMA_MAX_M else ("wgmma",))
+
+
+def check_c_f32_out(dev) -> list:
+    """Phase 17a: kernel C with ``out_dtype=float32`` (a row-parallel
+    linear's partial) at ``ROWPAR_SHAPES`` x ``ROWPAR_M``: on every route
+    that takes the rows, the f32 output against the plain version's
+    (``mxfp4_matmul_ref(out_dtype=float32)``) within
+    ``ROWPAR_F32_TOL`` x its largest magnitude (the f32 sums' order; a
+    bf16 rounding is 2^-9 of each value), at least ``ROWPAR_OFF_BF16`` of
+    the f32 outputs off the bf16 grid (a kernel that rounded to bf16 and
+    stored f32 would have none), and the bf16 output ``torch.equal`` to
+    the f32 one cast to bf16; the picked route timed beside its bound,
+    the plain version and ``torch.mm`` with f32 out on the dequantized
+    weight (the library call). A disagreement raises."""
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+    from repro_torch.kernels.mxfp4_matmul.ref import mxfp4_matmul_ref
+    from repro_torch.layers import backends
+
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    for k, n in ROWPAR_SHAPES:
+        packed = backends._quantize_packed(
+            torch.randn((k, n), generator=gen, device=dev) * k ** -0.5)
+        codes, exps = packed["codes"], packed["exps"]
+        w_bf16 = backends._dequant_packed(codes, exps)
+        for m in ROWPAR_M:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            ref = mxfp4_matmul_ref(x, codes, exps, f32)
+            limit = ROWPAR_F32_TOL * float(ref.abs().max())
+            cast_equal, errs, off_bf16 = {}, {}, {}
+            for r in _c_routes(m):
+                got = mm_ops._launch(x, codes, exps, route=r, out_dtype=f32)
+                half = mm_ops._launch(x, codes, exps, route=r)
+                cast_equal[r] = bool(torch.equal(half, got.to(torch.bfloat16)))
+                errs[r] = float((got - ref).abs().max())
+                # an f32 store of a bf16-rounded sum would be bf16-exact
+                off_bf16[r] = float(
+                    (got != got.to(torch.bfloat16).float()).float().mean())
+                if errs[r] > limit or off_bf16[r] < ROWPAR_OFF_BF16:
+                    raise AssertionError(
+                        f"mxfp4_matmul f32 out, {r} route, at {(m, k, n)}: "
+                        f"max |err| {errs[r]} (limit {limit}), "
+                        f"{off_bf16[r]} of the outputs off the bf16 grid "
+                        f"(at least {ROWPAR_OFF_BF16})")
+            route = mm_ops.pick_route(m, k, n, x.dtype)
+            bound, by = _bound_ms(*mm_ops.cost(m, k, n, 2, 4))
+            row = dict(
+                case="f32 out", m=m, k=k, n=n, route=route,
+                bf16_is_cast_f32=cast_equal, max_abs_err=max(errs.values()),
+                max_abs_err_by_route=errs, limit=limit,
+                off_bf16_by_route=off_bf16,
+                ms=_device_ms(lambda: mm_ops.mxfp4_matmul(
+                    x, codes, exps, out_dtype=f32), 20),
+                call_ms=_time_ms(lambda: mm_ops.mxfp4_matmul(
+                    x, codes, exps, out_dtype=f32), 20),
+                plain_ms=_device_ms(
+                    lambda: mxfp4_matmul_ref(x, codes, exps, f32), 1),
+                bound_ms=bound, bound_by=by,
+                library_ms=_device_ms(lambda: torch.mm(
+                    x, w_bf16, out_dtype=f32), 20))
+            print("mxfp4_matmul f32 out", json.dumps(row), flush=True)
+            if not all(cast_equal.values()):
+                raise AssertionError(f"mxfp4_matmul: the bf16 output is not "
+                                     f"the f32 one cast at {(m, k, n)}: "
+                                     f"{cast_equal}")
+            rows.append(row)
+        del packed, codes, exps, w_bf16
+    return rows
+
+
+def _a_slices(x, w, slices: int) -> list:
+    """(x's K-slice, its rows of the K-major weight, K-major) ``slices``
+    ways: the blocks of a row-parallel linear's model ranks."""
+    from repro_torch.core import mx as mxlib
+
+    k = x.shape[1]
+    ks = k // slices
+    return [(x[:, i * ks:(i + 1) * ks].contiguous(),
+             mxlib.MXW(mxlib.kmajor(w.codes[i * ks:(i + 1) * ks]),
+                       mxlib.kmajor(w.exps[i * ks // 32:(i + 1) * ks // 32])))
+            for i in range(slices)]
+
+
+def _a_sums_check(x, w, cal, cfg, routes) -> dict:
+    """Kernel A's pass sums of ``ROWPAR_SLICES`` K-slices of ``x @ w`` on
+    each of ``routes``: each slice's sums ``torch.equal`` to the plain
+    version's (``core.cim.pass_sums``), and their sum, read out
+    (``core.cim.read_out_sums``), against A's whole output on the same
+    route: rows equal, and the rows that differ (only where the whole
+    one's ordered f32 sum rounds: ``guard_rows``) counted."""
+    from repro_torch.core import cim as cimlib
+    from repro_torch.kernels.cim_linear import ops as cim_ops
+
+    parts = _a_slices(x, w, ROWPAR_SLICES)
+    out = {}
+    for r in routes:
+        counter = cim_ops.guard_rows(x.device)
+        counter.zero_()
+        whole = cim_ops._launch(x, w, cal, cfg, route=r)
+        sums, plain_equal = None, True
+        for xs, ws in parts:
+            got = cim_ops._launch(xs, ws, cal, cfg, route=r, sums=True)
+            plain_equal &= bool(torch.equal(
+                got, cimlib.pass_sums(xs, ws, cal, cfg)))
+            sums = got if sums is None else sums + got
+        y = cimlib.read_out_sums(sums, cal, cfg)
+        torch.cuda.synchronize()
+        differ = (y != whole).any(-1)
+        out[r] = dict(plain_equal=plain_equal,
+                      rows_differ=int(differ.sum()),
+                      guard_rows=int(counter),
+                      max_abs_diff=float((y - whole).abs().max()))
+    return out
+
+
+def check_a_sums(dev) -> list:
+    """Phase 17b: kernel A's pass-sums mode at ``ROWPAR_SHAPES`` (the
+    slice's K) x ``ROWPAR_M``: on both routes, the sums of
+    ``ROWPAR_SLICES`` K-slices bitwise the plain version's, and their sum
+    read out ``torch.equal`` to A's whole output (the whole K) in every
+    row (a row whose one-device ordered sum rounds may differ; none of
+    these inputs has one); then the constructed rounding input at
+    K = 18432 (its row 0 rounds): the split sums read out differ from the
+    whole output in that one guarded row, which is counted. The picked
+    route of the sums mode timed at the slice's shape beside its bound
+    and the plain version (no library call computes it). A disagreement
+    raises."""
+    from repro_torch.core import cim as cimlib
+    from repro_torch.core import mx as mxlib
+    from repro_torch.kernels.cim_linear import ops as cim_ops
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cfg = cimlib.CIMConfig()
+    rows = []
+    for ks, n in ROWPAR_SHAPES:
+        k = ks * ROWPAR_SLICES
+        w = mxlib.quantize_w(torch.randn((k, n), generator=gen, device=dev)
+                             * k ** -0.5)
+        for m in ROWPAR_M:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            cal = cimlib.calibrate_rowhist([x.float()], w, cfg)
+            routes = ("splitk",) + (("wgmma",) if m >= cim_ops.TC_MIN_M
+                                    else ())
+            by_route = _a_sums_check(x, w, cal, cfg, routes)
+            xs, ws = _a_slices(x, w, ROWPAR_SLICES)[0]
+            route = cim_ops._sums_route(m, ks, n, cfg.cm_bits)
+            bound, by = _bound_ms(*cim_ops.cost(m, ks, n, 2, sums=True))
+            row = dict(
+                case="pass sums", m=m, k=ks, n=n, whole_k=k, route=route,
+                routes=by_route, max_abs_err=0.0,
+                ms=_device_ms(lambda: cim_ops.cim_linear(
+                    xs, ws, cal, cfg=cfg, sums=True), 20),
+                call_ms=_time_ms(lambda: cim_ops.cim_linear(
+                    xs, ws, cal, cfg=cfg, sums=True), 20),
+                plain_ms=_device_ms(
+                    lambda: cimlib.pass_sums(xs, ws, cal, cfg), 1),
+                bound_ms=bound, bound_by=by, library_ms=None)
+            print("cim_linear pass sums", json.dumps(row), flush=True)
+            bad = {r: v for r, v in by_route.items()
+                   if not v["plain_equal"] or v["rows_differ"]}
+            if bad:
+                raise AssertionError(f"cim_linear pass sums at {(m, ks, n)}: "
+                                     f"{bad}")
+            rows.append(row)
+        del w
+    x, w, cal, rcfg = _rounding_input(dev)
+    rounding = _a_sums_check(x, w, cal, rcfg, ("splitk",))["splitk"]
+    print("cim_linear pass sums rounding", json.dumps(rounding), flush=True)
+    if not rounding["plain_equal"] or rounding["rows_differ"] != 1 \
+            or rounding["guard_rows"] != 1:
+        raise AssertionError(f"cim_linear pass sums, rounding input: "
+                             f"{rounding} (expected its one guarded row to "
+                             "differ)")
+    return rows
+
+
+def _serve_shard_inputs(cfg, dev) -> dict:
+    """Phase 17c's inputs (seed 17): the prefill's ids, the decode step's
+    ids, the paged step's rows, ids and positions."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, s = SERVE_SHARD_BATCH, SERVE_SHARD_SEQ
+
+    def ids(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             dtype=torch.int32, device=dev)
+
+    return {"batch": {"ids": ids(b, s)}, "ids": ids(b, 1),
+            "pos": torch.tensor(s, dtype=torch.int32, device=dev),
+            "rows": torch.tensor([1, 3, 5, PAGED_SLOTS + 3],
+                                 dtype=torch.int32, device=dev),
+            "paged_ids": ids(b, 1),
+            "paged_pos": torch.tensor([s * 3 // 4, 17, s - 1, 0],
+                                      dtype=torch.int32, device=dev)}
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def serve_sharded_one(backend: str, model, smi: str) -> dict:
+    """Phase 17c, one backend: the three serving builders on
+    ``make_local_mesh(1, 1)`` over the NCCL group (their arguments on
+    ``meta``; the served model's weights cut by ``steps.shard_params``,
+    a copy at (1, 1)) against the one-device bundles on the same inputs:
+    prefill into fresh caches, one decode step over copies of the
+    prefill's caches, the paged step (legacy, and fused) over copies of
+    one random pool. Ids and caches ``torch.equal``. The launch counters
+    are zeroed before the sharded steps and read after: C (``mxfp4``) or
+    A (``cim``) must launch, and on the fused pool D or B. Device ms of
+    each sharded step (one traced call after the compared one), the
+    collectives recorded (every one a copy at (1, 1)). Then the same
+    steps (the paged one legacy) with ``model_forms``: the row-parallel
+    ``wo`` and ``w2`` run C's f32 out or A's pass sums, q, k and v are
+    gathered and the head is vocab-parallel, every model collective a
+    copy; ids and caches ``torch.equal`` to the one-device bundles, and
+    the counters, zeroed before and read after, must show C's f32 or
+    A's sums mode launched (``forms_launches``)."""
+    from repro_torch import configs as C
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+
+    cfg, params, ctx = model
+    dev = next(_leaves(params)).device
+    quant = ctx.quant
+    one = make_local_mesh(1, 1, device="meta")  # not over the group
+    mesh = make_local_mesh(1, 1)
+    inp = _serve_shard_inputs(cfg, dev)
+    b, s = SERVE_SHARD_BATCH, SERVE_SHARD_SEQ
+    pre = C.Shape(s, b, "prefill")
+    dec = C.Shape(s, b, "decode")
+    kw = dict(quant=quant, device="meta")
+    blocks = {mode: steps_mod.shard_params(cfg, mesh, params, mode,
+                                           batch_size=b)[0]
+              for mode in ("prefill", "decode")}
+    mx = ctx.hybrid_digital_sdpa
+    layouts = ("legacy", "fused")
+    pools = {}
+    for layout in layouts:
+        pools[layout] = lm.init_cache(cfg, PAGED_SLOTS + b, s, mx_digital=mx,
+                                      fused=layout == "fused", device=dev)
+        _random_pool(pools[layout], torch.Generator(dev).manual_seed(5))
+
+    def clone(tree):
+        return [[{k: v.clone() for k, v in layer.items()} for layer in seg]
+                for seg in tree]
+
+    def runs(m, forms):
+        fkw = dict(kw, model_forms=forms)
+        pb = steps_mod.make_prefill_step(cfg, m, pre, **fkw)
+        db = steps_mod.make_decode_step(cfg, m, dec, **fkw)
+        kb = {lay: steps_mod.make_paged_decode_step(
+            cfg, m, dec, PAGED_SLOTS, kv_layout=lay, **fkw)
+            for lay in layouts if not (forms and lay == "fused")}
+        return pb, db, kb
+
+    out = {"backend": backend, "layers": cfg.n_layers, "card": smi}
+    results = {}
+    for label, m in (("one", one), ("sharded", mesh), ("forms", mesh)):
+        pb, db, kb = runs(m, label == "forms")
+        p_pre = params if label == "one" else blocks["prefill"]
+        p_dec = params if label == "one" else blocks["decode"]
+        step_calls = {
+            "prefill": lambda: pb.fn(p_pre, inp["batch"]),
+            "decode": lambda: db.fn(p_dec, dec_caches, inp["ids"],
+                                    inp["pos"])}
+        for lay in kb:
+            step_calls[f"paged {lay}"] = (
+                lambda lay=lay: kb[lay].fn(p_dec, paged[lay], inp["rows"],
+                                           inp["paged_ids"],
+                                           inp["paged_pos"]))
+        if label != "one":
+            _zero_counts()
+        res = {}
+        res["prefill"] = step_calls["prefill"]()
+        dec_caches = clone(res["prefill"][1])
+        res["decode"] = step_calls["decode"]()
+        paged = {lay: clone(pools[lay]) for lay in kb}
+        for lay in kb:
+            res[f"paged {lay}"] = step_calls[f"paged {lay}"]()
+        torch.cuda.synchronize()
+        if label == "forms":
+            out["forms_launches"] = _read_counts()[0] | _mode_counts()
+            out["forms_device_ms"] = {}
+            for name, fn in step_calls.items():
+                dec_caches = clone(res["prefill"][1])
+                paged = {lay: clone(pools[lay]) for lay in kb}
+                out["forms_device_ms"][name] = _device_ms(fn, 1)
+        if label == "sharded":
+            launches, mm_routes = _read_counts()
+            out["launches"] = launches
+            out["mxfp4_matmul_routes"] = mm_routes
+            out["cim_linear_routes"] = _cim_routes()
+            dec_caches = clone(res["prefill"][1])
+            paged = {lay: clone(pools[lay]) for lay in layouts}
+            out["device_ms"] = {name: _device_ms(fn, 1)
+                                for name, fn in step_calls.items()}
+            out["collectives"] = {
+                name: {a: {k: v[0] for k, v in st.by_kind.items()}
+                       for a, st in bd.axis_collectives.items()}
+                for name, bd in (("prefill", pb), ("decode", db),
+                                 ("paged legacy", kb["legacy"]))}
+        results[label] = {k: (v[0].clone(), v[1]) for k, v in res.items()}
+        del pb, db, kb
+    for label in ("sharded", "forms"):
+        out["equal" if label == "sharded" else "forms_equal"] = {
+            name: bool(torch.equal(results["one"][name][0],
+                                   results[label][name][0])
+                       and _same(results["one"][name][1],
+                                 results[label][name][1]))
+            for name in results[label]}
+    lin = "cim_linear" if backend == "cim" else "mxfp4_matmul"
+    att = "paged_decode_mx" if backend == "cim" else "paged_decode"
+    mode = "cim_linear sums" if backend == "cim" else "mxfp4_matmul f32"
+    print(f"sharded serve {json.dumps(out)}", flush=True)
+    for key in ("equal", "forms_equal"):
+        if not all(out[key].values()):
+            raise AssertionError(f"sharded serve {backend}: not torch.equal "
+                                 f"to the one-device bundles ({key}): "
+                                 f"{out[key]}")
+    if not (out["launches"][lin] and out["launches"][att]):
+        raise AssertionError(f"sharded serve {backend}: {lin} / {att} did "
+                             f"not launch: {out['launches']}")
+    if not out["forms_launches"][mode]:
+        raise AssertionError(f"sharded serve {backend}: {mode} did not "
+                             f"launch under model_forms: "
+                             f"{out['forms_launches']}")
+    return out
+
+
+def serve_sharded(dev, smi: str) -> dict:
+    """Phase 17c: an NCCL group of one rank (a ``HashStore``), then
+    :func:`serve_sharded_one` for each backend of ``SERVE_SHARD_ARGS``,
+    its model built by the launcher's ``build_model``; the group is
+    destroyed."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve
+
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        for backend, args in SERVE_SHARD_ARGS.items():
+            model = serve.build_model(serve.build_parser().parse_args(args))
+            out[backend] = serve_sharded_one(backend, model[:3], smi)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def rowpar_kernel_entries(c_rows: list, a_rows: list, runs: dict) -> list:
+    """The kernels line's entries of phase 17: C's f32 output and A's pass
+    sums at the row-parallel shapes, each with that mode's launches in
+    phase 17c's ``model_forms`` steps (the run whose row-parallel linears
+    take it)."""
+    out = []
+    for name, rows, replaces, run, mode in (
+            ("mxfp4_matmul", c_rows,
+             "src/repro/kernels/mxfp4_matmul/kernel.py:69", "mxfp4",
+             "mxfp4_matmul f32"),
+            ("cim_linear", a_rows,
+             "src/repro/kernels/cim_linear/kernel.py:127", "cim",
+             "cim_linear sums")):
+        for row in rows:
+            out.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": replaces,
+                "launches": runs[run]["forms_launches"][mode],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "call_ms": row["call_ms"], "kernel_route": row["route"],
+                "shape": f"M={row['m']} K={row['k']} N={row['n']} "
+                         f"({row['case']})"})
+    return out
+
+
 def _random_pool(pool, gen) -> None:
     """Fill every leaf of a pool with random values of its dtype (float
     leaves normal, scaled by 1/2; integer leaves in [0, 16))."""
@@ -4750,6 +5188,8 @@ def _zero_counts() -> None:
         cim_ops.cim_linear.route_launches[r] = 0
     for r in fa_ops.ROUTES:
         fa_ops.flash_attention.route_launches[r] = 0
+    mm_ops.mxfp4_matmul.f32_launches = 0
+    cim_ops.cim_linear.sums_launches = 0
 
 
 def _read_counts() -> tuple[dict, dict]:
@@ -4758,6 +5198,16 @@ def _read_counts() -> tuple[dict, dict]:
 
     return ({name: fn.launches for name, fn in _kernel_wrappers().items()},
             dict(mm_ops.mxfp4_matmul.route_launches))
+
+
+def _mode_counts() -> dict:
+    """The row-parallel linears' kernel modes' launches since the counts
+    were zeroed: C with f32 out, A's pass sums."""
+    from repro_torch.kernels.cim_linear import ops as cim_ops
+    from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+
+    return {"mxfp4_matmul f32": mm_ops.mxfp4_matmul.f32_launches,
+            "cim_linear sums": cim_ops.cim_linear.sums_launches}
 
 
 def _cim_routes() -> dict:
@@ -5183,6 +5633,10 @@ def main() -> int:
     # phase 16: the sharded train step (NCCL, one rank) and the paged step
     phase("train sharded", train_sharded_nccl, dev, smi)
     phase("paged steps", paged_steps)
+    # phase 17: the row-parallel kernel modes, the sharded serving steps
+    c_f32 = phase("c f32 out", check_c_f32_out, dev)
+    a_sums = phase("a pass sums", check_a_sums, dev)
+    sharded_runs = phase("sharded serve", serve_sharded, dev, smi)
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
 
@@ -5222,6 +5676,7 @@ def main() -> int:
     kernels += dense_kernel_entries(dense_rows, runs)
     kernels += moe_kernel_entries(moe_rows, runs)
     kernels += recurrent_kernel_entries(rec_rows, runs)
+    kernels += rowpar_kernel_entries(c_f32, a_sums, sharded_runs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -160,10 +160,7 @@ def cim_linear(x: torch.Tensor, w: MXW, cfg: CIMConfig,
         raise ValueError("row_hist needs offline calibration (calib=None)")
     cx, ex, _ = _xq_blocks(x, w.codes.shape[0])
     c1, c2, cnt = _scan_blocks(cx, ex, w, calib.e_n, cfg)
-    y = _adc(c1, calib.adc_fs, cfg.adc_bits) * _en_scale(calib.e_n) * 0.25
-    if cfg.two_pass:
-        y = y + (_adc(c2, calib.adc_fs, cfg.adc_bits)
-                 * _en_scale(calib.e_n, cfg.cm_bits) * 0.25)
+    y = read_out(c1, c2, calib, cfg)
     stats = {}
     if cfg.collect_stats:
         tot = torch.clamp(cnt[3], min=1)
@@ -173,6 +170,75 @@ def cim_linear(x: torch.Tensor, w: MXW, cfg: CIMConfig,
             "underflow_rate_p2": cnt[2] / tot,
         }
     return y.to(torch.float32), stats
+
+
+def read_out(c1: torch.Tensor, c2: torch.Tensor, calib: LayerCalib,
+             cfg: CIMConfig) -> torch.Tensor:
+    """The read-out of the two pass sums ``c1``, ``c2`` (f32, in units of
+    2^E_N / 4 and 2^(E_N - CM) / 4): the n-bit ADC of each, scaled, pass 2
+    added. Element-wise: the epilogue of :func:`cim_linear` and of
+    :func:`read_out_sums`, and the kernel's (``csrc/cim_linear.cu``)."""
+    y = _adc(c1, calib.adc_fs, cfg.adc_bits) * _en_scale(calib.e_n) * 0.25
+    if cfg.two_pass:
+        y = y + (_adc(c2, calib.adc_fs, cfg.adc_bits)
+                 * _en_scale(calib.e_n, cfg.cm_bits) * 0.25)
+    return y.to(torch.float32)
+
+
+def sums_dtype(k: int, cm: int) -> torch.dtype:
+    """The integer type of :func:`pass_sums` over a contraction of ``k``:
+    int32 while a row's bound K * 144 * 2^CM (32 products of at most
+    12 * 12 a block, each shifted by up to CM) stays below 2^31, else
+    int64."""
+    return torch.int32 if k * 144 * 2 ** cm < 2 ** 31 else torch.int64
+
+
+def pass_sums(x: torch.Tensor, w: MXW, calib: LayerCalib,
+              cfg: CIMConfig) -> torch.Tensor:
+    """The two pass sums of the ``row_hist`` datapath before the read-out,
+    as exact integers in units of 2^-CM: [2, ..., N] of
+    :func:`sums_dtype`. Each block's dot is an exact integer and its
+    aligned term an integer multiple of 2^-CM, so the sums are exact in
+    any order: the sums of the K-slices of a linear add up to the whole
+    one's (a row-parallel linear's ranks add theirs before the one
+    :func:`read_out_sums`). :func:`cim_linear`'s ordered f32 sums equal
+    them times 2^-CM wherever a row stays below 2^24 units (where
+    ``kernels.cim_linear.ops.needs_guard`` is false, always); past that
+    the f32 walk may round and the two differ."""
+    if cfg.strategy != "row_hist":
+        raise ValueError("pass sums take the row_hist strategy")
+    k = w.codes.shape[0]
+    cm = cfg.cm_bits
+    cx, ex, nb = _xq_blocks(x, k)
+    wc = w.codes.contiguous().to(torch.float32).reshape(nb, BLOCK, -1)
+    e_n = torch.as_tensor(calib.e_n, device=cx.device).to(torch.int32)
+    u = mxlib.exp2i(ex - e_n)
+    v = mxlib.exp2i(w.exps.contiguous().to(torch.int32))
+    lo, lo2, hi = 2.0 ** -cm, 2.0 ** -(2 * cm), 2.0 ** cm
+    shape = cx.shape[:-2] + (wc.shape[-1],)
+    c1 = torch.zeros(shape, dtype=torch.int64, device=cx.device)
+    c2 = torch.zeros_like(c1)
+    for b in range(nb):
+        s = cx[..., b, :] @ wc[b]  # exact integer partial
+        uv = u[..., b, None] * v[b]
+        under1 = uv < lo
+        # both terms exact integers in f32: |s| <= 32 * 144, times <= 2^CM
+        c1 += (s * torch.where(under1, 0.0, torch.clamp(uv, max=1.0))
+               * hi).to(torch.int64)
+        if cfg.two_pass:
+            c2 += (s * torch.where(under1 & (uv >= lo2), uv * (hi * hi),
+                                   0.0)).to(torch.int64)
+    return torch.stack([c1, c2]).to(sums_dtype(k, cm))
+
+
+def read_out_sums(sums: torch.Tensor, calib: LayerCalib,
+                  cfg: CIMConfig) -> torch.Tensor:
+    """:func:`read_out` of integer pass sums [2, ..., N] (units of 2^-CM,
+    :func:`pass_sums`, summed over a linear's K-slices): each converted to
+    f32 (exact below 2^24), times 2^-CM, read out. f32 [..., N]."""
+    unit = 2.0 ** -cfg.cm_bits
+    return read_out(sums[0].to(torch.float32) * unit,
+                    sums[1].to(torch.float32) * unit, calib, cfg)
 
 
 def _cim_linear_materialized(x: torch.Tensor, w: MXW, cfg: CIMConfig,

@@ -87,6 +87,18 @@
 //   sync and no launch to gather them.
 // - Built without fast-math / ftz: the two-factor 2^e construction
 //   relies on exact subnormal powers of two.
+//
+// Pass sums (`sums` given): each route writes every (row, column)'s two
+// pass sums c1, c2 in units of 2^-CM as int32 [2, M, N] instead of the
+// read-out: the part of a row-parallel linear (K over the model ranks),
+// whose ranks' sums are added as integers before the one ADC read-out
+// (ADC(a + b) != ADC(a) + ADC(b)). The splitk route stores its int32
+// sums as they are (exact at any K whose bound K * 144 * 2^CM stays below
+// 2^31: the wrapper takes no guard then, a guarded row's ordered f32 walk
+// being the one-device arithmetic, not the sum); the wgmma route its f32
+// sums times 2^CM, exact integers while they stay below 2^24 units, which
+// the wrapper ensures by taking the splitk route where a row could reach
+// that (ops.py::needs_guard).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -179,7 +191,8 @@ struct Args {
   const int8_t* we;       // exponents, K-major: column n at we + n * nb
   const int* e_n;         // [] E_N, int32
   const float* fs;        // [] adc_fs, f32
-  float* out;             // [M, N] f32
+  float* out;             // [M, N] f32 (the read-out)
+  int* sums;              // or [2, M, N] int32 pass sums (null: read out)
   int* ws;                // split-K workspace (zero at rest)
   int* guard_rows;        // rows that took the ordered walk (a statistic)
   int M, K, N, nb, kb_per_split, cm, adc_bits, x_bf16, guard;
@@ -418,6 +431,19 @@ cim_splitk_kernel(const Args a) {
                       : 0;
     if (tid == 0) wcnt[blockIdx.y * gridDim.x + blockIdx.x] = 0;
   }
+  if (a.sums != nullptr) {  // pass sums as they are: no guard, no read-out
+    if (owner) {
+#pragma unroll
+      for (int m = 0; m < BM; ++m) {
+        if (row0 + m < a.M) {
+          const size_t i = (size_t)(row0 + m) * a.N + n;
+          a.sums[i] = acc1[m];
+          a.sums[(size_t)a.M * a.N + i] = acc2[m];
+        }
+      }
+    }
+    return;
+  }
   if (tid < BM)
     guarded[tid] = a.guard && row0 + tid < a.M &&
                    ldexpf(12.0f * (float)gsum[tid], cm) >= EXACT;
@@ -442,6 +468,8 @@ cim_splitk_kernel(const Args a) {
       a.out[(size_t)row * a.N + n] = read_out(c1, c2, fs, a.adc_bits, sc1, sc2, TWO);
   }
 }
+
+
 
 template <int BM, int WK>
 int launch_splitk(const Args& a, int splits, int two, cudaStream_t st) {
@@ -522,9 +550,9 @@ __global__ void __launch_bounds__(TTHREADS, 3)
 cim_tc_kernel(const __half* __restrict__ xq,
               const float* __restrict__ xu, const int8_t* __restrict__ wc,
               const int8_t* __restrict__ we, const int* __restrict__ e_n_p,
-              const float* __restrict__ fs_p, float* __restrict__ out, int M,
-              int K, int N, int cm, int adc_bits, float lo, float lo2,
-              float hi2) {
+              const float* __restrict__ fs_p, float* __restrict__ out,
+              int* __restrict__ sums, int M, int K, int N, int cm,
+              int adc_bits, float lo, float lo2, float hi2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_addr = hopper::smem_addr(smem_raw);
   unsigned char* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
@@ -656,9 +684,15 @@ cim_tc_kernel(const __half* __restrict__ xq,
     for (int e = 0; e < 4; ++e) {
       const int row = m0 + ra + 8 * (e >> 1);
       const int col = n0 + 8 * j + 2 * (lane & 3) + (e & 1);
-      if (row < M && col < N)
-        out[(size_t)row * N + col] =
-            read_out(c1[4 * j + e], c2[4 * j + e], fs, adc_bits, sc1, sc2, TWO);
+      if (row >= M || col >= N) continue;
+      const size_t i = (size_t)row * N + col;
+      if (sums != nullptr) {  // exact integers of 2^-CM (no guard needed)
+        sums[i] = __float2int_rn(c1[4 * j + e] * hi2);
+        sums[(size_t)M * N + i] = __float2int_rn(c2[4 * j + e] * hi2);
+      } else {
+        out[i] = read_out(c1[4 * j + e], c2[4 * j + e], fs, adc_bits, sc1,
+                          sc2, TWO);
+      }
     }
   }
 }
@@ -675,16 +709,17 @@ cim_tc_kernel(const __half* __restrict__ xq,
 // tm = ceil(M / bm); zero again when the launch ends); guard_rows int32
 // [1]. K % 32 == 0, bm in {4, 8, 16}, wk in {1, 4}, every split owns
 // ceil(K/32 / splits) blocks and none is empty; adc_bits < 0 disables the
-// ADC; guard = 1 when K * 144 * 2^cm >= 2^24. Returns the launch's
-// cudaError_t.
+// ADC; guard = 1 when K * 144 * 2^cm >= 2^24. With sums (int32 [2, M, N])
+// the pass sums are written there and out is not (guard must be 0).
+// Returns the launch's cudaError_t.
 extern "C" int cim_linear_splitk_launch(
     const void* x, int x_bf16, const int8_t* wc, const int8_t* we,
-    const int* e_n, const float* fs, float* out, int* ws, int* guard_rows,
-    int M, int K, int N, int bm, int wk, int splits, int cm, int adc_bits,
-    int two_pass, int guard, void* stream) {
+    const int* e_n, const float* fs, float* out, int* sums, int* ws,
+    int* guard_rows, int M, int K, int N, int bm, int wk, int splits, int cm,
+    int adc_bits, int two_pass, int guard, void* stream) {
   Args a;
   a.x = x; a.wc = wc; a.we = we; a.e_n = e_n; a.fs = fs; a.out = out;
-  a.ws = ws; a.guard_rows = guard_rows;
+  a.sums = sums; a.ws = ws; a.guard_rows = guard_rows;
   a.M = M; a.K = K; a.N = N; a.nb = K / 32;
   a.kb_per_split = (a.nb + splits - 1) / splits;
   a.cm = cm; a.adc_bits = adc_bits; a.x_bf16 = x_bf16; a.guard = guard;
@@ -697,14 +732,16 @@ extern "C" int cim_linear_splitk_launch(
 }
 
 // Route "wgmma". x [M, K] f32 / bf16 as for "splitk"; wc / we K-major;
-// e_n / fs device scalars; out f32 [M, N]; xq f16 [M, K] and xu f32
-// [M, K/32] scratch. K % 64 == 0. Two launches: the activation pre-pass,
-// then the tensor-core kernel. Returns the first failing launch's
-// cudaError_t.
+// e_n / fs device scalars; out f32 [M, N], or (sums not null) the pass
+// sums int32 [2, M, N] where K * 144 * 2^cm < 2^24; xq f16 [M, K] and xu
+// f32 [M, K/32] scratch. K % 64 == 0. Two launches: the activation
+// pre-pass, then the tensor-core kernel. Returns the first failing
+// launch's cudaError_t.
 extern "C" int cim_linear_tc_launch(
     const void* x, int x_bf16, const int8_t* wc, const int8_t* we,
-    const int* e_n, const float* fs, float* out, void* xq, float* xu, int M,
-    int K, int N, int cm, int adc_bits, int two_pass, void* stream) {
+    const int* e_n, const float* fs, float* out, int* sums, void* xq,
+    float* xu, int M, int K, int N, int cm, int adc_bits, int two_pass,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   static hopper::DeviceSet attr_set;
   if (!attr_set.has_current()) {
@@ -729,9 +766,11 @@ extern "C" int cim_linear_tc_launch(
   dim3 grid((M + tc::ROWS - 1) / tc::ROWS, (N + tc::BN - 1) / tc::BN);
   if (two_pass)
     tc::cim_tc_kernel<true><<<grid, tc::TTHREADS, tc::SMEM, st>>>(
-        q, xu, wc, we, e_n, fs, out, M, K, N, cm, adc_bits, lo, lo2, hi2);
+        q, xu, wc, we, e_n, fs, out, sums, M, K, N, cm, adc_bits, lo, lo2,
+        hi2);
   else
     tc::cim_tc_kernel<false><<<grid, tc::TTHREADS, tc::SMEM, st>>>(
-        q, xu, wc, we, e_n, fs, out, M, K, N, cm, adc_bits, lo, lo2, hi2);
+        q, xu, wc, we, e_n, fs, out, sums, M, K, N, cm, adc_bits, lo, lo2,
+        hi2);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernel `mxfp4_matmul_kernel`
 // (src/repro/kernels/mxfp4_matmul/kernel.py, `_kernel` / `_decode_tile`):
-// y[M, N] = x[M, K] @ dequant(codes, exps), f32 accumulation, bf16 out.
+// y[M, N] = x[M, K] @ dequant(codes, exps), f32 accumulation, bf16 or f32
+// out (`Out`: the accumulator, or the split-K sum, rounded to bf16 once, or
+// stored as it is; the bf16 output is the f32 one rounded to nearest even).
 // The weights stay packed in device memory, 4.25 bits per value: codes
 // [K/2, N] u8 with two E2M1 nibbles per byte along K (even row in the low
 // nibble), exps [K/32, N] u8 biased E8M0. They are expanded only on chip.
@@ -123,6 +125,27 @@ __device__ __forceinline__ float code2x(int c) {
   return (float)(s ? -v : v);
 }
 
+// The output: bf16 (f32 values rounded to nearest even) or f32 as it is.
+struct Out {
+  void* p;
+  int f32;
+  __device__ __forceinline__ void store(size_t i, float v) const {
+    if (f32)
+      reinterpret_cast<float*>(p)[i] = v;
+    else
+      reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  }
+  // two adjacent columns, i even
+  __device__ __forceinline__ void store2(size_t i, float v0, float v1) const {
+    if (f32)
+      *reinterpret_cast<float2*>(reinterpret_cast<float*>(p) + i) =
+          make_float2(v0, v1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(
+          reinterpret_cast<__nv_bfloat16*>(p) + i) = __floats2bfloat162_rn(v0, v1);
+  }
+};
+
 __device__ __forceinline__ float load_x(const float* x, size_t i) {
   return x[i];
 }
@@ -135,8 +158,7 @@ template <int BM, typename XT>
 __global__ void __launch_bounds__(THREADS)
 mxfp4_matmul_kernel(const XT* __restrict__ x,
                     const uint8_t* __restrict__ codes,
-                    const uint8_t* __restrict__ exps,
-                    __nv_bfloat16* __restrict__ out,
+                    const uint8_t* __restrict__ exps, const Out out,
                     float* __restrict__ partial, int M, int K, int N,
                     int kb_per_split) {
   __shared__ __align__(16) float xs[BM][KSTEP];
@@ -241,7 +263,7 @@ mxfp4_matmul_kernel(const XT* __restrict__ x,
     const int row = m0 + r, col = col0 + cc;
     if (row < M && col < N) {
       if (gridDim.z == 1)
-        out[(size_t)row * N + col] = __float2bfloat16_rn(s);
+        out.store((size_t)row * N + col, s);
       else
         partial[((size_t)split * M + row) * N + col] = s;
     }
@@ -249,18 +271,17 @@ mxfp4_matmul_kernel(const XT* __restrict__ x,
 }
 
 __global__ void splitk_sum_kernel(const float* __restrict__ partial,
-                                  __nv_bfloat16* __restrict__ out, int splits,
-                                  size_t mn) {
+                                  const Out out, int splits, size_t mn) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.0f;
     for (int z = 0; z < splits; ++z) s += partial[(size_t)z * mn + i];
-    out[i] = __float2bfloat16_rn(s);
+    out.store(i, s);
   }
 }
 
-int launch_splitk_sum(const float* partial, __nv_bfloat16* out, int splits,
-                      size_t mn, cudaStream_t st) {
+int launch_splitk_sum(const float* partial, Out out, int splits, size_t mn,
+                      cudaStream_t st) {
   const int blocks = (int)((mn + 255) / 256 < 1024 ? (mn + 255) / 256 : 1024);
   splitk_sum_kernel<<<blocks, 256, 0, st>>>(partial, out, splits, mn);
   return (int)cudaGetLastError();
@@ -268,7 +289,7 @@ int launch_splitk_sum(const float* partial, __nv_bfloat16* out, int splits,
 
 template <int BM>
 void launch_tile(const void* x, bool x_bf16, const uint8_t* codes,
-                 const uint8_t* exps, __nv_bfloat16* out, float* partial,
+                 const uint8_t* exps, Out out, float* partial,
                  int M, int K, int N, int splits, int kb_per_split,
                  cudaStream_t stream) {
   dim3 grid((M + BM - 1) / BM, (N + COLS - 1) / COLS, splits);
@@ -308,8 +329,7 @@ template <int NWG>
 __global__ void __launch_bounds__(NWG * 128, 1)
 mxfp4_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,
                        const uint8_t* __restrict__ codes,
-                       const uint8_t* __restrict__ exps,
-                       __nv_bfloat16* __restrict__ out,
+                       const uint8_t* __restrict__ exps, const Out out,
                        float* __restrict__ partial, int M, int K, int N,
                        int kt_per_split) {
   using S = Smem<NWG>;
@@ -451,8 +471,7 @@ mxfp4_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,
       if (row < M) {
         const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
         if (gridDim.z == 1)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-              __floats2bfloat162_rn(v0, v1);
+          out.store2((size_t)row * N + col, v0, v1);
         else
           *reinterpret_cast<float2*>(
               partial + ((size_t)split * M + row) * N + col) = make_float2(v0, v1);
@@ -463,7 +482,7 @@ mxfp4_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,
 
 template <int NWG>
 int launch(const __nv_bfloat16* x, const uint8_t* codes, const uint8_t* exps,
-           __nv_bfloat16* out, float* partial, int M, int K, int N, int splits,
+           Out out, float* partial, int M, int K, int N, int splits,
            cudaStream_t st) {
   static hopper::DeviceSet attr_set;
   const int smem = Smem<NWG>::BYTES;
@@ -542,8 +561,7 @@ template <int MT>
 __global__ void __launch_bounds__(THREADS, MT == 1 ? 2 : 1)
 mxfp4_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                         const uint8_t* __restrict__ codes,
-                        const uint8_t* __restrict__ exps,
-                        __nv_bfloat16* __restrict__ out,
+                        const uint8_t* __restrict__ exps, const Out out,
                         float* __restrict__ partial, int* __restrict__ arrivals,
                         int M, int K, int N, int kb_per_split, int wc) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -684,7 +702,7 @@ mxfp4_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
       v += red[(w * ROWS + r) * BN + cc % BN];
     if (n < N) {
       if (direct)
-        out[(size_t)r * N + n] = __float2bfloat16_rn(v);
+        out.store((size_t)r * N + n, v);
       else
         partial[((size_t)split * M + r) * N + n] = v;
     }
@@ -705,7 +723,7 @@ mxfp4_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
       float v = 0.0f;
       for (int z = 0; z < splits; ++z)
         v += __ldcg(partial + ((size_t)z * M + r) * N + n);
-      out[(size_t)r * N + n] = __float2bfloat16_rn(v);
+      out.store((size_t)r * N + n, v);
     }
   }
   if (tid == 0) arrivals[tile] = 0;
@@ -713,7 +731,7 @@ mxfp4_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
 
 template <int MT>
 int launch(const __nv_bfloat16* x, const uint8_t* codes, const uint8_t* exps,
-           __nv_bfloat16* out, float* partial, int* arrivals, int M, int K,
+           Out out, float* partial, int* arrivals, int M, int K,
            int N, int splits, int wc, cudaStream_t st) {
   static hopper::DeviceSet attr_set;
   const int smem = Smem<MT>::BYTES;  // the 64 KB table
@@ -737,14 +755,16 @@ int launch(const __nv_bfloat16* x, const uint8_t* codes, const uint8_t* exps,
 }  // namespace
 
 // x [M, K] bf16 (x_bf16 = 1) or f32; codes u8 [K/2, N]; exps u8 [K/32, N];
-// out bf16 [M, N]; partial f32 [splits, M, N] (unused when splits == 1).
-// K % 32 == 0, N % 4 == 0. Returns the launches' cudaError_t.
+// out [M, N] bf16, or f32 where out_f32 = 1; partial f32 [splits, M, N]
+// (unused when splits == 1). K % 32 == 0, N % 4 == 0. Returns the
+// launches' cudaError_t.
 extern "C" int mxfp4_matmul_launch(const void* x, const uint8_t* codes,
                                    const uint8_t* exps, void* out,
                                    float* partial, int M, int K, int N,
-                                   int splits, int x_bf16, void* stream) {
+                                   int splits, int x_bf16, int out_f32,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out);
+  const Out o{out, out_f32};
   const int nkb = K / 32;
   const int kb_per_split = (nkb + splits - 1) / splits;
   if (M <= 4)
@@ -758,18 +778,18 @@ extern "C" int mxfp4_matmul_launch(const void* x, const uint8_t* codes,
   return launch_splitk_sum(partial, o, splits, (size_t)M * N, st);
 }
 
-// x [M, K] bf16; codes u8 [K/2, N]; exps u8 [K/32, N]; out bf16 [M, N];
-// partial f32 [splits, M, N] (unused when splits == 1). M >= 1,
-// K % 64 == 0, N % 128 == 0, x / codes / exps 16-byte aligned; every split
-// owns ceil(K/64 / splits) tiles (the last may own none and writes zeros).
-// Returns the launches' cudaError_t.
+// x [M, K] bf16; codes u8 [K/2, N]; exps u8 [K/32, N]; out [M, N] bf16,
+// or f32 where out_f32 = 1; partial f32 [splits, M, N] (unused when
+// splits == 1). M >= 1, K % 64 == 0, N % 128 == 0, x / codes / exps
+// 16-byte aligned; every split owns ceil(K/64 / splits) tiles (the last
+// may own none and writes zeros). Returns the launches' cudaError_t.
 extern "C" int mxfp4_matmul_tc_launch(const void* x, const uint8_t* codes,
                                       const uint8_t* exps, void* out,
                                       float* partial, int M, int K, int N,
-                                      int splits, void* stream) {
+                                      int splits, int out_f32, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
-  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out);
+  const Out o{out, out_f32};
   int err;
   if (M <= 64)
     err = tc::launch<1>(xb, codes, exps, o, partial, M, K, N, splits, st);
@@ -781,8 +801,9 @@ extern "C" int mxfp4_matmul_tc_launch(const void* x, const uint8_t* codes,
   return launch_splitk_sum(partial, o, splits, (size_t)M * N, st);
 }
 
-// x [M, K] bf16; codes u8 [K/2, N]; exps u8 [K/32, N]; out bf16 [M, N];
-// partial f32 [splits, M, N] (unused when splits == 1) and arrivals int32
+// x [M, K] bf16; codes u8 [K/2, N]; exps u8 [K/32, N]; out [M, N] bf16, or
+// f32 where out_f32 = 1; partial f32 [splits, M, N] (unused when
+// splits == 1) and arrivals int32
 // [ceil(N / (128 wc))], zero at rest (each launch leaves them so). wc in
 // {1, 2, 4, 8}: warps side by side over the block's columns. 1 <= M <= 16,
 // K % 32 == 0, N % 16 == 0, x / codes / exps 16-byte aligned. Returns the
@@ -791,10 +812,10 @@ extern "C" int mxfp4_matmul_mma_launch(const void* x, const uint8_t* codes,
                                        const uint8_t* exps, void* out,
                                        float* partial, int* arrivals, int M,
                                        int K, int N, int splits, int wc,
-                                       void* stream) {
+                                       int out_f32, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
-  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out);
+  const Out o{out, out_f32};
   if (M <= 8)
     return mma::launch<1>(xb, codes, exps, o, partial, arrivals, M, K, N,
                           splits, wc, st);

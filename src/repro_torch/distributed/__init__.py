@@ -5,7 +5,9 @@ cost analysis and per-layer serving costs for balanced cuts
 (``blockwise``), roofline terms, collective and FLOP accounting
 (``roofline``) and the stage-parallel FWS pipeline over a (replica,
 stage) grid of devices (``pipeline_exec``). The rules describe the
-reference's GSPMD shardings for the dry-run, and the sharded train step
-runs them over ``torch.distributed`` through the collectives of
-``collectives``: FSDP and ZeRO-1 on the data axes, and on ``model`` the
-tensor-parallel layers of ``tensor_parallel``."""
+reference's GSPMD shardings for the dry-run, and the sharded train and
+serving steps run them over ``torch.distributed`` through the
+collectives of ``collectives``: FSDP and ZeRO-1 on the data axes, on
+``model`` the tensor-parallel layers of ``tensor_parallel``, and the
+decode over a cache whose sequence is cut over ranks
+(``seq_parallel``)."""

@@ -238,6 +238,32 @@ def take_shard(t: torch.Tensor, spec: tuple, mesh,
         memory_format=torch.contiguous_format)
 
 
+def _kmajor(t: torch.Tensor) -> bool:
+    """A 2-D [K, N] view of an [N, K] contiguous tensor (``core.mx.
+    kmajor``: the layout of kernel A's codes and exponents)."""
+    return (t.ndim == 2 and t.shape[0] > 1 and t.shape[1] > 1
+            and t.stride() == (1, t.shape[0]))
+
+
+def take_shard_tree(tree, specs, mesh, rank: int | None = None):
+    """``rank``'s blocks of every tensor of ``tree`` (dicts and lists) under
+    the resolved ``specs`` (the tree's layout, a spec a tensor), each a
+    copy (:func:`take_shard`); a K-major [K, N] leaf (a ``cim_analog``
+    node's ``codes`` / ``exps``) stays K-major."""
+    if isinstance(tree, dict):
+        return {k: take_shard_tree(v, specs[k], mesh, rank)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(take_shard_tree(v, specs[i], mesh, rank)
+                          for i, v in enumerate(tree))
+    if not torch.is_tensor(tree):
+        return tree
+    block = take_shard(tree, tuple(specs), mesh, rank)
+    if _kmajor(tree):
+        block = block.transpose(0, 1).contiguous().transpose(0, 1)
+    return block
+
+
 def assemble(shards, spec: tuple, shape, mesh) -> torch.Tensor:
     """The global leaf of ``shape`` from every rank's block (``shards[r]``
     rank r's, all of one dtype and device); a block replicated on several

@@ -12,7 +12,14 @@ blocks, guarded rows walked in order) or ``"wgmma"`` (prefill: an
 activation pre-pass, then tensor-core block dots aligned in order in f32).
 ``cim_linear.launches`` counts calls that launched, one per call (the
 ``wgmma`` route's pre-pass included); ``cim_linear.route_launches`` counts
-them by route.
+them by route, ``cim_linear.sums_launches`` those in the ``sums`` mode.
+
+With ``sums=True`` either route returns the pass sums before the read-out
+(``core.cim.pass_sums``: int32 [2, ..., N] in units of 2^-CM) for a
+row-parallel linear, whose ranks add them before ``core.cim.read_out_sums``.
+The splitk route stores its integer sums with no guard (exact at any K);
+the wgmma route's ordered f32 sums are exact integers only below 2^24
+units, so a shape that :func:`needs_guard` takes the splitk route there.
 """
 
 from __future__ import annotations
@@ -43,9 +50,9 @@ TC_MIN_M = 64
 TC_MIN_N = 1025
 TC_BK = 64  # its K tile: two 32-blocks
 ROUTES = ("splitk", "wgmma")
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
     ctypes.c_int] * 10 + [ctypes.c_void_p]
-_ARGTYPES_TC = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+_ARGTYPES_TC = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
     ctypes.c_int] * 6 + [ctypes.c_void_p]
 _workspaces: dict = {}
 _guard_rows: dict = {}
@@ -153,16 +160,33 @@ def _scalar(t, dtype, dev: torch.device, name: str) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
-def cost(m: int, k: int, n: int, x_bytes: int) -> tuple[float, float, str]:
+def cost(m: int, k: int, n: int, x_bytes: int,
+         sums: bool = False) -> tuple[float, float, str]:
     """(bytes, operations, their type) of one call: x read once, the int8
     codes (K x N) and block exponents (K/32 x N) once, the two calibration
-    scalars, the f32 output written once; 2 M N K int8 operations. The
-    bound of ``chip_smoke.py``'s rows and the dry-run's count."""
-    n_bytes = m * k * x_bytes + k * n + (k // 32) * n + 8 + m * n * 4
+    scalars, the f32 output (or the int32 pass sums, twice its size)
+    written once; 2 M N K int8 operations. The bound of
+    ``chip_smoke.py``'s rows and the dry-run's count."""
+    n_bytes = (m * k * x_bytes + k * n + (k // 32) * n + 8
+               + m * n * 4 * (2 if sums else 1))
     return n_bytes, 2.0 * m * n * k, "int8"
 
 
-def _meta(xm: torch.Tensor, w: mxlib.MXW) -> torch.Tensor:
+def _sums_route(m: int, k: int, n: int, cm: int) -> str:
+    """The route of a pass-sums call: :func:`pick_route`'s, but the splitk
+    route where a row could reach 2^24 units (:func:`needs_guard`), whose
+    integer sums stay exact there."""
+    return "splitk" if needs_guard(k, cm) else pick_route(m, k, n)
+
+
+def _out(m: int, n: int, dev, sums: bool) -> torch.Tensor:
+    if sums:
+        return torch.empty((2, m, n), dtype=torch.int32, device=dev)
+    return torch.empty((m, n), dtype=torch.float32, device=dev)
+
+
+def _meta(xm: torch.Tensor, w: mxlib.MXW, cm: int = 3,
+          sums: bool = False) -> torch.Tensor:
     """:func:`_launch` on ``meta``: the output (and the ``wgmma`` route's
     activation pre-pass buffers) the launch would allocate, and the call
     recorded with :func:`cost` on its route; nothing runs. (The
@@ -170,24 +194,27 @@ def _meta(xm: torch.Tensor, w: mxlib.MXW) -> torch.Tensor:
     _build.refuse_grad("cim_linear", xm)
     m, k = xm.shape
     n = w.codes.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=xm.device)
+    out = _out(m, n, xm.device, sums)
     if m == 0 or n == 0:
         return out
-    route = pick_route(m, k, n)
+    route = _sums_route(m, k, n, cm) if sums else pick_route(m, k, n)
     if route == "wgmma":
         torch.empty((m, k), dtype=torch.float16, device=xm.device)
         torch.empty((m, k // mxlib.BLOCK), dtype=torch.float32,
                     device=xm.device)
-    n_bytes, ops, _ = cost(m, k, n, xm.element_size())
+    n_bytes, ops, _ = cost(m, k, n, xm.element_size(), sums)
     cost_mod.record_kernel("cim_linear", route, ops, n_bytes)
     return out
 
 
 @_build.on_device
 def _launch(xm: torch.Tensor, w: mxlib.MXW, calib: cimlib.LayerCalib,
-            cfg: cimlib.CIMConfig, route: str | None = None) -> torch.Tensor:
-    """Launch the kernel on ``route`` (default :func:`pick_route`); a caller
-    names it only to time both routes on one shape (``chip_smoke.py``)."""
+            cfg: cimlib.CIMConfig, route: str | None = None,
+            sums: bool = False) -> torch.Tensor:
+    """Launch the kernel on ``route`` (default :func:`pick_route`, under
+    ``sums`` :func:`_sums_route`); a caller names it only to time both
+    routes on one shape (``chip_smoke.py``). ``sums``: the pass sums
+    int32 [2, M, N] instead of the read-out f32 [M, N]."""
     _build.refuse_grad("cim_linear", xm)
     m, k = xm.shape
     n = w.codes.shape[1]
@@ -198,11 +225,21 @@ def _launch(xm: torch.Tensor, w: mxlib.MXW, calib: cimlib.LayerCalib,
     _check_kmajor(w, xm.device)
     e_n = _scalar(calib.e_n, torch.int32, xm.device, "e_n")
     fs = _scalar(calib.adc_fs, torch.float32, xm.device, "adc_fs")
-    out = torch.empty((m, n), dtype=torch.float32, device=xm.device)
+    cm = cfg.cm_bits
+    if sums and cimlib.sums_dtype(k, cm) != torch.int32:
+        raise NotImplementedError(
+            f"cim_linear: pass sums at K={k}, CM={cm} need int64; the kernel "
+            "keeps int32 sums (see ROADMAP.md)")
+    out = _out(m, n, xm.device, sums)
     if m == 0 or n == 0:
         return out
-    route = route or pick_route(m, k, n)
-    cm = cfg.cm_bits
+    route = route or (_sums_route(m, k, n, cm) if sums
+                      else pick_route(m, k, n))
+    if sums and route == "wgmma" and needs_guard(k, cm):
+        raise ValueError("cim_linear: the wgmma route's pass sums are exact "
+                         "only below 2^24 units (needs_guard)")
+    outp = 0 if sums else out.data_ptr()
+    sump = out.data_ptr() if sums else 0
     adc = -1 if cfg.adc_bits is None else cfg.adc_bits
     stream = torch.cuda.current_stream(xm.device).cuda_stream
     if route == "wgmma":
@@ -216,7 +253,7 @@ def _launch(xm: torch.Tensor, w: mxlib.MXW, calib: cimlib.LayerCalib,
                              _ARGTYPES_TC)
         err = fn(xm.data_ptr(), int(xm.dtype == torch.bfloat16),
                  w.codes.data_ptr(), w.exps.data_ptr(), e_n.data_ptr(),
-                 fs.data_ptr(), out.data_ptr(), xq.data_ptr(), xu.data_ptr(),
+                 fs.data_ptr(), outp, sump, xq.data_ptr(), xu.data_ptr(),
                  m, k, n, cm, adc, int(cfg.two_pass), stream)
     else:
         bm, wk = pick_tile(m, n)
@@ -226,23 +263,31 @@ def _launch(xm: torch.Tensor, w: mxlib.MXW, calib: cimlib.LayerCalib,
                              _ARGTYPES)
         err = fn(xm.data_ptr(), int(xm.dtype == torch.bfloat16),
                  w.codes.data_ptr(), w.exps.data_ptr(), e_n.data_ptr(),
-                 fs.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                 fs.data_ptr(), outp, sump, ws.data_ptr(),
                  guard_rows(xm.device).data_ptr(), m, k, n, bm, wk, splits,
-                 cm, adc, int(cfg.two_pass), int(needs_guard(k, cm)), stream)
+                 cm, adc, int(cfg.two_pass),
+                 int(needs_guard(k, cm) and not sums), stream)
     cim_linear.launches += 1
     cim_linear.route_launches[route] += 1
+    cim_linear.sums_launches += int(sums)
     _build.check(err, "cim_linear")
     return out
 
 
 def cim_linear(x: torch.Tensor, w: mxlib.MXW, calib: cimlib.LayerCalib, *,
-               cfg: cimlib.CIMConfig | None = None, obs=None) -> torch.Tensor:
-    """x [..., K] float -> [..., N] f32 through the analog CIM datapath."""
+               cfg: cimlib.CIMConfig | None = None, sums: bool = False,
+               obs=None) -> torch.Tensor:
+    """x [..., K] float -> [..., N] f32 through the analog CIM datapath;
+    with ``sums`` its pass sums before the read-out, int32 [2, ..., N] in
+    units of 2^-CM (``core.cim.pass_sums``)."""
     cfg = cfg or cimlib.CIMConfig()
     if cfg.strategy != "row_hist" or cfg.collect_stats:
         raise ValueError("the CIM kernel runs the row_hist strategy only, "
                          "without stats")
     if x.device.type == "cpu":
+        if sums:
+            return profiled_call("cim_linear.ref", obs, lambda: cimlib.
+                                 pass_sums(x, w, calib, cfg))
         return profiled_call("cim_linear.ref", obs,
                              lambda: cim_linear_ref(x, w, calib, cfg))
     if x.device.type not in ("cuda", "meta"):
@@ -255,12 +300,14 @@ def cim_linear(x: torch.Tensor, w: mxlib.MXW, calib: cimlib.LayerCalib, *,
     pk = k - xm.shape[1]  # activations shorter than the padded weight K
     if pk:
         xm = F.pad(xm, (0, pk))
+    shape = ((2,) if sums else ()) + lead + (n,)
     if x.is_meta:
-        return _meta(xm.contiguous(), w).reshape(lead + (n,))
+        return _meta(xm.contiguous(), w, cfg.cm_bits, sums).reshape(shape)
     out = profiled_call("cim_linear", obs, lambda: _launch(
-        xm.contiguous(), w, calib, cfg))
-    return out.reshape(lead + (n,))
+        xm.contiguous(), w, calib, cfg, sums=sums))
+    return out.reshape(shape)
 
 
 cim_linear.launches = 0
 cim_linear.route_launches = {r: 0 for r in ROUTES}
+cim_linear.sums_launches = 0

@@ -9,9 +9,13 @@ shape and record the call, on the route the card would take, with
 from the shape and dtype alone: ``"mma"`` (warp-level bf16 tensor cores at
 decode sizes, K split in one launch), ``"wgmma"`` (warpgroup bf16 tensor
 cores at prefill sizes) and ``"fma"`` (f32 FMAs on the CUDA cores: f32
-``x`` and shapes the others do not tile). ``mxfp4_matmul.launches`` counts
+``x`` and shapes the others do not tile). Each stores its f32 accumulator,
+or its split-K sum, as bf16 (rounded to nearest even) or, with
+``out_dtype=torch.float32``, as it is: the partial product of a
+row-parallel linear, summed over the model ranks before its one rounding.
+``mxfp4_matmul.launches`` counts
 wrapper launches, one per call; ``mxfp4_matmul.route_launches`` counts
-them by route.
+them by route, ``mxfp4_matmul.f32_launches`` those with f32 out.
 """
 
 from __future__ import annotations
@@ -45,10 +49,11 @@ MMA_BN, MMA_WARPS = 128, 8  # the mma route's columns a warp, warps a block
 MMA_MAX_M = 16  # its rows: two tiles of 8 rows of x
 MMA_MIN_KB = 6  # 32-row K blocks a split keeps at least
 ROUTES = ("fma", "mma", "wgmma")
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_ARGTYPES_TC = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_ARGTYPES_MMA = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES_TC = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES_MMA = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p]
+OUT_DTYPES = (torch.bfloat16, torch.float32)
 _arrivals: dict = {}
 
 
@@ -139,8 +144,10 @@ def _arrivals_for(dev: torch.device, tiles: int) -> torch.Tensor:
 @_build.on_device
 def _launch(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
             route: str | None = None, tc_splits: int | None = None,
-            mma_layout: int | None = None) -> torch.Tensor:
-    """Launch the kernel on ``route`` (default :func:`pick_route`) with
+            mma_layout: int | None = None,
+            out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Launch the kernel on ``route`` (default :func:`pick_route`), its
+    output of ``out_dtype`` (bf16 or f32), with
     ``tc_splits`` K splits on the wgmma or mma route (default
     :func:`pick_tc_splits` / :func:`pick_mma`) and, on the mma route,
     ``mma_layout`` warps side by side; a caller names them only to time the
@@ -159,10 +166,11 @@ def _launch(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
                 or not t.is_contiguous()):
             raise ValueError(f"mxfp4_matmul: {name} must be contiguous uint8 "
                              f"on {xm.device}")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=xm.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=xm.device)
     if m == 0:
         return out
     route = route or pick_route(m, k, n, xm.dtype)
+    f32 = int(out_dtype == torch.float32)
     stream = torch.cuda.current_stream(xm.device).cuda_stream
     if route == "mma":
         if xm.dtype != torch.bfloat16 or m > MMA_MAX_M or n % 16:
@@ -180,7 +188,7 @@ def _launch(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
                              _ARGTYPES_MMA)
         err = fn(xm.data_ptr(), codes.data_ptr(), exps.data_ptr(),
                  out.data_ptr(), partial.data_ptr(), arrivals.data_ptr(), m,
-                 k, n, splits, wc, stream)
+                 k, n, splits, wc, f32, stream)
     elif route == "wgmma":
         if xm.dtype != torch.bfloat16 or k % TC_BK or n % TC_BN:
             raise ValueError(f"mxfp4_matmul: the wgmma route takes bf16 x, "
@@ -193,7 +201,8 @@ def _launch(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
         fn = _build.function("mxfp4_matmul", "mxfp4_matmul_tc_launch",
                              _ARGTYPES_TC)
         err = fn(xm.data_ptr(), codes.data_ptr(), exps.data_ptr(),
-                 out.data_ptr(), partial.data_ptr(), m, k, n, splits, stream)
+                 out.data_ptr(), partial.data_ptr(), m, k, n, splits, f32,
+                 stream)
     else:
         splits = pick_splits(m, k, n)
         partial = _partial(splits, m, n, out)
@@ -201,24 +210,28 @@ def _launch(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
                              _ARGTYPES)
         err = fn(xm.data_ptr(), codes.data_ptr(), exps.data_ptr(),
                  out.data_ptr(), partial.data_ptr(), m, k, n, splits,
-                 int(xm.dtype == torch.bfloat16), stream)
+                 int(xm.dtype == torch.bfloat16), f32, stream)
     mxfp4_matmul.launches += 1
     mxfp4_matmul.route_launches[route] += 1
+    mxfp4_matmul.f32_launches += f32
     _build.check(err, "mxfp4_matmul")
     return out
 
 
-def cost(m: int, k: int, n: int, x_bytes: int) -> tuple[float, float, str]:
+def cost(m: int, k: int, n: int, x_bytes: int,
+         out_bytes: int = 2) -> tuple[float, float, str]:
     """(bytes, operations, their type) of one call: x read once, the packed
-    codes (K/2 x N) and scales (K/32 x N) once, the bf16 output written
-    once; 2 M N K operations, bf16 for bf16 x, f32 otherwise. The bound
-    of ``chip_smoke.py``'s rows and the dry-run's count."""
-    n_bytes = x_bytes * m * k + k * n // 2 + k * n // 32 + 2 * m * n
+    codes (K/2 x N) and scales (K/32 x N) once, the output (bf16, or f32:
+    ``out_bytes`` 4) written once; 2 M N K operations, bf16 for bf16 x,
+    f32 otherwise. The bound of ``chip_smoke.py``'s rows and the dry-run's
+    count."""
+    n_bytes = x_bytes * m * k + k * n // 2 + k * n // 32 + out_bytes * m * n
     return n_bytes, 2.0 * m * n * k, "bf16" if x_bytes == 2 else "f32"
 
 
 def _meta(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
-          route: str | None = None) -> torch.Tensor:
+          route: str | None = None,
+          out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """:func:`_launch` on ``meta``: the output and the split-K partials
     the launch would allocate, and the call recorded with :func:`cost` on
     its route; nothing runs."""
@@ -227,7 +240,7 @@ def _meta(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
     n = codes.shape[1]
     dtype = xm.dtype if xm.dtype in (torch.bfloat16, torch.float32) \
         else torch.float32
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=xm.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=xm.device)
     if m == 0:
         return out
     route = route or pick_route(m, k, n, dtype)
@@ -235,7 +248,7 @@ def _meta(xm: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
               else pick_tc_splits(m, k, n) if route == "wgmma"
               else pick_splits(m, k, n))
     _partial(splits, m, n, out)
-    n_bytes, ops, _ = cost(m, k, n, dtype.itemsize)
+    n_bytes, ops, _ = cost(m, k, n, dtype.itemsize, out_dtype.itemsize)
     cost_mod.record_kernel("mxfp4_matmul", route, ops, n_bytes)
     return out
 
@@ -248,18 +261,24 @@ def _partial(splits: int, m: int, n: int, out: torch.Tensor) -> torch.Tensor:
 
 
 def mxfp4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
-                 *, obs=None) -> torch.Tensor:
-    """x [..., K] @ dequant(codes [K//2, N], exps [K//32, N]) -> bf16
-    [..., N], f32 accumulation."""
+                 *, out_dtype: torch.dtype = torch.bfloat16,
+                 obs=None) -> torch.Tensor:
+    """x [..., K] @ dequant(codes [K//2, N], exps [K//32, N]) -> [..., N]
+    of ``out_dtype`` (bf16 or f32), f32 accumulation: the bf16 output is
+    the f32 one rounded to nearest even."""
     k = x.shape[-1]
     n = codes.shape[1]
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"mxfp4_matmul: out_dtype {out_dtype} is not one "
+                         "of bf16, f32")
     if k % 32 or codes.shape != (k // 2, n) or exps.shape != (k // 32, n):
         raise ValueError(f"mxfp4_matmul: x [..., {k}] does not match codes "
                          f"{tuple(codes.shape)} / exps {tuple(exps.shape)}")
     xm = x.reshape(-1, k)
     if x.device.type == "cpu":
         out = profiled_call("mxfp4_matmul.ref", obs,
-                            lambda: mxfp4_matmul_ref(xm, codes, exps))
+                            lambda: mxfp4_matmul_ref(xm, codes, exps,
+                                                     out_dtype))
     elif x.device.type in ("cuda", "meta"):
         run = _meta if x.is_meta else _launch
         if n % 4:
@@ -270,10 +289,11 @@ def mxfp4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
             pad = -n % 4
             out = profiled_call("mxfp4_matmul", obs, lambda: run(
                 xm, F.pad(codes, (0, pad)), F.pad(exps, (0, pad)),
-                route=pick_route(xm.shape[0], k, n, xm.dtype)))[:, :n]
+                route=pick_route(xm.shape[0], k, n, xm.dtype),
+                out_dtype=out_dtype))[:, :n]
         else:
-            out = profiled_call("mxfp4_matmul", obs,
-                                lambda: run(xm, codes, exps))
+            out = profiled_call("mxfp4_matmul", obs, lambda: run(
+                xm, codes, exps, out_dtype=out_dtype))
     else:
         raise ValueError(f"mxfp4_matmul: unsupported device {x.device}")
     return out.reshape(x.shape[:-1] + (n,))
@@ -281,3 +301,4 @@ def mxfp4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor,
 
 mxfp4_matmul.launches = 0
 mxfp4_matmul.route_launches = dict.fromkeys(ROUTES, 0)
+mxfp4_matmul.f32_launches = 0

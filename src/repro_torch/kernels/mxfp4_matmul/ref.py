@@ -37,7 +37,9 @@ def dequant_ref(codes: torch.Tensor, exps: torch.Tensor) -> torch.Tensor:
 
 
 def mxfp4_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
-                     exps: torch.Tensor) -> torch.Tensor:
-    """x [M, K] @ dequant(codes, exps) in f32 -> bf16 [M, N]."""
+                     exps: torch.Tensor,
+                     out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x [M, K] @ dequant(codes, exps) in f32 -> [M, N] of ``out_dtype``
+    (the reference's ``out_dtype``: bf16, or f32 as it is)."""
     return torch.matmul(x.to(torch.float32),
-                        dequant_ref(codes, exps)).to(torch.bfloat16)
+                        dequant_ref(codes, exps)).to(out_dtype)

@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import layout as paged_layout
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
+from repro_torch.distributed import seq_parallel as spl
 from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.layers import rope as ropelib
 from repro_torch.layers.common import (
@@ -185,15 +186,25 @@ def _quant_cache_full(kw: torch.Tensor, vw: torch.Tensor) -> dict:
 
 
 def _quant_cache_step(cache: dict, ck: torch.Tensor, cv: torch.Tensor,
-                      lanes: torch.Tensor, slot: torch.Tensor) -> None:
+                      lanes: torch.Tensor, slot: torch.Tensor,
+                      write: torch.Tensor | None = None) -> None:
     """In-place per-step update of the mirrors in ``cache`` from the
     just-written raw caches ``ck`` / ``cv``: the written K row of each
     lane and the V block holding its slot (a partial end block reads 0
-    past the cache), the reference's ``_quant_cache_step``."""
+    past the cache), the reference's ``_quant_cache_step``. ``write``
+    (bool [B]) limits the update to its lanes (a rank's block of a cache
+    cut along its sequence: the lanes whose slot it holds)."""
     b, w = cv.shape[0], cv.shape[1]
+
+    def put(old, new, dims):  # old: a thunk, read only under ``write``
+        if write is None:
+            return new
+        return torch.where(write.reshape((-1,) + (1,) * dims), new, old())
+
     kq = mxlib.quantize(ck[lanes, slot].to(torch.float32))  # [B, Hkv, *]
-    cache["k_codes"][lanes, slot] = kq.codes
-    cache["k_exps"][lanes, slot] = kq.exps
+    for name, new in (("k_codes", kq.codes), ("k_exps", kq.exps)):
+        cache[name][lanes, slot] = put(lambda: cache[name][lanes, slot],
+                                       new, 2)
     start = (slot // mxlib.BLOCK) * mxlib.BLOCK  # [B]
     idx = start[:, None] + torch.arange(mxlib.BLOCK, device=cv.device)
     blk = cv[lanes[:, None], torch.clamp(idx, max=w - 1)]  # [B, 32, Hkv, Dh]
@@ -201,13 +212,15 @@ def _quant_cache_step(cache: dict, ck: torch.Tensor, cv: torch.Tensor,
                       torch.zeros((), dtype=blk.dtype, device=blk.device))
     vq = mxlib.quantize_axis(blk.to(torch.float32), 1)  # [B, Hkv, Dh, 32]
     vc = cache["v_codes"]
+    ci = idx[:, None, None, :].expand(b, vc.shape[1], vc.shape[2],
+                                      mxlib.BLOCK)
     cache["v_codes"].scatter_(
-        3, idx[:, None, None, :].expand(b, vc.shape[1], vc.shape[2],
-                                        mxlib.BLOCK), vq.codes)
+        3, ci, put(lambda: torch.gather(vc, 3, ci), vq.codes, 3))
     ve = cache["v_exps"]
+    ei = (slot // mxlib.BLOCK)[:, None, None, None].expand(
+        b, ve.shape[1], ve.shape[2], 1)
     cache["v_exps"].scatter_(
-        3, (slot // mxlib.BLOCK)[:, None, None, None].expand(
-            b, ve.shape[1], ve.shape[2], 1), vq.exps)
+        3, ei, put(lambda: torch.gather(ve, 3, ei), vq.exps, 3))
 
 
 def _dense_attn(q, k, v, q_pos, k_pos, cfg: AttnStatic,
@@ -268,7 +281,8 @@ def tp_heads(cfg: AttnStatic, tp_size: int, tp_rank: int):
 
 
 def _qkv(ctx: RunCtx, cfg: AttnStatic, p: dict, x, positions,
-         rope_tables=None, kv_range=None):
+         rope_tables=None, kv_range=None, gather: bool = False,
+         want_all: bool = False):
     """Q, K, V of ``x``, heads split, qk-normed and rotated. Under
     tensor parallelism (``ctx.tp``) ``cfg`` is the rank's
     (:func:`tp_heads`) and, with ``kv_range``, k and v are gathered over
@@ -278,12 +292,21 @@ def _qkv(ctx: RunCtx, cfg: AttnStatic, p: dict, x, positions,
     (bf16 values) with their gradients summed over the model ranks. The
     qk-norm gammas are replicated over the model ranks; one that only the
     rank's heads read (``qn``, and ``kn`` without ``kv_range``) has its
-    gradient summed over the ranks."""
+    gradient summed over the ranks.
+
+    ``gather`` (the sharded decode, whose heads are whole): q, k and v
+    are gathered over the model ranks in one all-gather, and ``cfg`` is
+    the whole layer's. ``want_all`` (a sharded prefill into a cache):
+    also every KV head's k and v, bf16, as on one device (returned after
+    q, k, v)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = linear_apply(ctx, p["wq"], x, name="wq").reshape(b, s, h, hd)
+    q = linear_apply(ctx, p["wq"], x, name="wq")
     k = linear_apply(ctx, p["wk"], x, name="wk")
     v = linear_apply(ctx, p["wv"], x, name="wv")
+    if gather:
+        q, k, v = spl.gather_heads(ctx.tp, q, k, v)
+    q = q.reshape(b, s, h, hd)
     if kv_range is not None:  # every KV head, as on one device
         k = tpl.gather_from_model(k, ctx.tp, -1)
         v = tpl.gather_from_model(v, ctx.tp, -1)
@@ -311,6 +334,10 @@ def _qkv(ctx: RunCtx, cfg: AttnStatic, p: dict, x, positions,
                                    tables=rope_tables)
             k = ropelib.apply_rope(k, positions, cfg.rope_theta,
                                    tables=rope_tables)
+    every = (k, v)
+    if want_all and kv_range is None:  # the other ranks' KV heads
+        every = tuple(t.reshape(b, s, -1, hd) for t in spl.gather_heads(
+            ctx.tp, k.reshape(b, s, -1), v.reshape(b, s, -1)))
     if kv_range is not None:
         # the rank's heads' gradients of every KV head, summed over the
         # model ranks in f32 where the one-device attention rounds its
@@ -318,7 +345,7 @@ def _qkv(ctx: RunCtx, cfg: AttnStatic, p: dict, x, positions,
         lo, hi = kv_range
         k, v = (tpl.copy_to_model(t.to(torch.float32), ctx.tp)[:, :, lo:hi]
                 for t in (k, v))
-    return q, k, v
+    return (q, k, v) + (every if want_all else ())
 
 
 def _flash_attn(q, k, v, q_pos, k_pos, cfg: AttnStatic, ctx: RunCtx,
@@ -455,46 +482,70 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
     - Legacy decode (S == 1, ``cache={"k", "v"}`` and, under the digital
       SDPA, optionally the resident mirrors): the new row is written in
       place at slot ``pos % W`` of each lane, then attention over the
-      lane's valid slots (:func:`_legacy_decode`).
+      lane's valid slots (``distributed.seq_parallel.legacy_decode``).
 
     Under tensor parallelism (``ctx.tp``, the sharded train step) the
     prefill without a cache runs on the rank's query heads and their KV
     heads (:func:`tp_heads`): ``wq`` / ``wk`` / ``wv`` hold its columns,
-    ``wo`` its rows (``layers.common.row_linear_apply``).
+    ``wo`` its rows (``layers.common.row_linear_apply``). The sharded
+    serving steps run two more branches: a prefill into a legacy cache
+    under ``ctx.tp`` attends on the rank's heads too, and writes every
+    KV head's rows (gathered over the model ranks) into the cache, of
+    which it keeps its block of the sequence (``ctx.seq``); a legacy
+    decode under ``ctx.tp`` gathers q, k and v over the model ranks
+    (heads are whole at decode) and takes ``wo``'s rows of its features;
+    over a cache whose sequence is cut (``ctx.seq``) it is the
+    flash-decoding of ``distributed.seq_parallel``. The fused page and
+    the chunked prefill raise ``NotImplementedError`` under either.
     """
     b, s, _ = x.shape
     kv_range = None
-    if ctx.tp is not None:
-        if cache is not None:
-            raise NotImplementedError("tensor parallelism runs the train "
-                                      "step's prefill, without a cache")
-        cfg, kv_range = tp_heads(cfg, ctx.tp.size, ctx.tp.rank)
+    tp, seq = ctx.tp, ctx.seq
+    decode_tp = tp is not None and cache is not None and s == 1
+    if (tp is not None or seq is not None) and cache is not None and (
+            "kv" in cache or (s > 1 and pos is not None)):
+        raise NotImplementedError(
+            "the sharded serving steps run legacy caches: the fused page "
+            "(kernels B and D would need partial (o, lse) outputs) and the "
+            "chunked prefill on a model axis or a cut cache sequence are "
+            "not ported; see ROADMAP.md")
+    if tp is not None and not decode_tp:
+        cfg, kv_range = tp_heads(cfg, tp.size, tp.rank)
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     g = h // kv
     mx_dig = ctx.hybrid_digital_sdpa
     xn = norm_apply(cfg.norm, p["ln"], x)
-    q, k, v = _qkv(ctx, cfg, p, xn, positions, rope_tables=rope_tables,
-                   kv_range=kv_range)
+    want_all = tp is not None and cache is not None and s > 1
+    qkv = _qkv(ctx, cfg, p, xn, positions, rope_tables=rope_tables,
+               kv_range=kv_range, gather=decode_tp, want_all=want_all)
+    q, k, v = qkv[:3]
+    kc, vc = qkv[3:] if want_all else (k, v)  # every KV head
     if s > 1:
         # zero K/V at KV_PAD positions (fixed-shape padded prefill): the
         # MXFP4 SDPA quantizes V in blocks along the key axis, so garbage
         # pad rows would perturb real rows' codes and land in the cache
         kvm = (positions > _KV_PAD_MIN)[:, :, None, None]
-        k = torch.where(kvm, k, torch.zeros((), dtype=k.dtype, device=k.device))
-        v = torch.where(kvm, v, torch.zeros((), dtype=v.dtype, device=v.device))
+        zero = torch.zeros((), dtype=k.dtype, device=k.device)
+        k, v = torch.where(kvm, k, zero), torch.where(kvm, v, zero)
+        if want_all:
+            kc, vc = torch.where(kvm, kc, zero), torch.where(kvm, vc, zero)
+        else:
+            kc, vc = k, v
     q = q.reshape(b, s, kv, g, hd)
     fused = cache is not None and "kv" in cache
 
     if cache is not None and s > 1 and pos is not None:
         o, cache = _chunk_prefill(cfg, q, k, v, positions, cache, mx_dig)
     elif cache is not None and s > 1:
-        # prefill into a page: ring convention, slot = pos % W
+        # prefill into a page: ring convention, slot = pos % W (W the
+        # whole window: a cut cache holds its block of it)
         w = (cache["kv"] if fused else cache["k"]).shape[1]
+        w *= seq.n if seq is not None else 1
         if s < w:
-            kw = F.pad(k, (0, 0, 0, 0, 0, w - s))
-            vw = F.pad(v, (0, 0, 0, 0, 0, w - s))
+            kw = F.pad(kc, (0, 0, 0, 0, 0, w - s))
+            vw = F.pad(vc, (0, 0, 0, 0, 0, w - s))
         else:
-            kw, vw = k[:, -w:], v[:, -w:]
+            kw, vw = kc[:, -w:], vc[:, -w:]
             if s % w:
                 kw = torch.roll(kw, s % w, dims=1)
                 vw = torch.roll(vw, s % w, dims=1)
@@ -511,17 +562,36 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
                      "v": vw.to(cache["v"].dtype)}
             if resident:  # from the cache-dtype pages, as a requant sees them
                 cache.update(_quant_cache_full(cache["k"], cache["v"]))
+            if seq is not None:
+                cache = _keep_seq_block(cache, seq)
         o = _prefill_attn(ctx, cfg, q, k, v, positions, mx_dig)
     elif fused:
         o = _fused_decode(ctx, cfg, q, k, v, cache, pos, mx_dig)
     elif cache is not None:
-        o = _legacy_decode(cfg, q, k, v, cache, pos, mx_dig)
+        o = spl.legacy_decode(cfg, q, k, v, cache, pos, mx_dig, seq)
     else:
         o = _prefill_attn(ctx, cfg, q, k, v, positions, mx_dig)
 
     o = o.reshape(b, s, h * hd)
+    if decode_tp:  # wo's rows are the rank's features of every head
+        o = tp.block(o, -1).contiguous()
     y = row_linear_apply(ctx, p["wo"], o, name="wo")
     return x + y.to(x.dtype), cache
+
+
+def _keep_seq_block(cache: dict, seq) -> dict:
+    """A legacy page's leaves (the whole window) cut to this rank's block of
+    the sequence: the key axis of ``k`` / ``v`` and of the K mirrors, the
+    last axis of the V mirrors (its codes and, held beside them, its
+    32-block exponents)."""
+    out = {}
+    for name, t in cache.items():
+        dim = 3 if name.startswith("v_") else 1
+        if name.startswith("v_"):
+            spl.check_blocks(cache["k"].shape[1] // seq.n,
+                             "the resident V mirrors")
+        out[name] = spl.keep_block(t, dim, seq)
+    return out
 
 
 def _chunk_prefill(cfg, q, k, v, positions, cache, mx_dig):
@@ -600,57 +670,6 @@ def _fused_decode(ctx, cfg, q, k, v, cache, pos, mx_dig):
             qd[:, 0], rows, lengths, kv=kv_pages, quant=quant,
             scale=cfg.scale, obs=ctx.obs)
     return o[:, None]
-
-
-def _legacy_decode(cfg, q, k, v, cache, pos, mx_dig):
-    """One decode step over the legacy split cache, the reference's
-    einsum decode: each lane's new K/V row is written in place at slot
-    ``pos % W`` (``pos`` an int or an int tensor, 0-d or [B]), and its
-    query attends over slots ``<= pos`` (all W once the ring has wrapped).
-    Under the digital SDPA, Q and K are quantized along head_dim (K read
-    back from the resident mirrors, updated in place, or requantized whole
-    each step), the scores get the BF16 round, P is quantized along the
-    key axis and V along its key axis (resident or requantized), and the
-    output is divided by the quantized P's sum."""
-    b, hd = q.shape[0], cfg.head_dim
-    ck, cv = cache["k"], cache["v"]
-    w = ck.shape[1]
-    dev = q.device
-    pos_b = torch.as_tensor(pos, device=dev).to(torch.long).expand(b)
-    slot = pos_b % w
-    lanes = torch.arange(b, device=dev)
-    ck[lanes, slot] = k[:, 0].to(ck.dtype)
-    cv[lanes, slot] = v[:, 0].to(cv.dtype)
-    resident = "k_codes" in cache
-    if resident:
-        _quant_cache_step(cache, ck, cv, lanes, slot)
-    idx = torch.arange(w, device=dev)
-    valid = (idx[None, :] <= pos_b[:, None]) | (pos_b[:, None] >= w)
-    qd, kd = q, ck
-    if mx_dig:
-        qd = _mx_fq(q)
-        if resident:  # O(1) a step: K read back from its codes
-            kd = mxlib.dequantize(mxlib.MX(cache["k_codes"], cache["k_exps"]),
-                                  out_len=hd)
-        else:  # the requant-per-step reference
-            kd = _mx_fq(ck)
-        qd, kd = qd.to(torch.bfloat16), kd.to(torch.bfloat16)
-    sc = torch.einsum("bqhgd,bkhd->bhgqk", qd.float(), kd.float()) * cfg.scale
-    if mx_dig:
-        sc = _mx_score_round(sc)
-    sc = torch.where(valid[:, None, None, None, :], sc, float("-inf"))
-    if not mx_dig:
-        pr = torch.softmax(sc, dim=-1).to(cv.dtype)
-        return torch.einsum("bhgqk,bkhd->bqhgd", pr, cv)
-    pr, den = _mx_p(torch.softmax(sc, dim=-1))
-    if resident:
-        vd = torch.movedim(mxlib.dequantize(
-            mxlib.MX(cache["v_codes"], cache["v_exps"]), out_len=w), -1, 1)
-    else:
-        vd = mxlib.fake_quant_axis(cv, 1)  # bf16-native chain
-    o = torch.einsum("bhgqk,bkhd->bqhgd", pr.to(torch.bfloat16).float(),
-                     vd.to(torch.bfloat16).float())
-    return (o / torch.movedim(den, -2, 1)).to(cv.dtype)
 
 
 def attn_cache_init(cfg: AttnStatic, batch: int, max_len: int,

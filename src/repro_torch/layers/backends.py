@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.core import cim as cimlib
 from repro_torch.core import mx as mxlib
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.kernels.cim_linear import ops as cim_ops
 from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
 
@@ -145,10 +146,17 @@ class LinearBackend:
     its activations, cast to bf16 inside it, and the bf16 weight) and
     ``quant`` (its activations' fake-quant along K, where it has one),
     which the tensor-parallel linears replace by their column- and
-    row-parallel forms (``layers.common``)."""
+    row-parallel forms (``layers.common``).
+
+    A backend with ``serve_parallel`` set runs on the sharded serving
+    steps' model axis (no gradient): its column-parallel form is its
+    ``forward`` on the rank's output columns, its row-parallel form
+    :meth:`forward_row` on the rank's K rows, which sums the ranks'
+    parts over ``tp`` before its one rounding or read-out."""
 
     name = "?"
     tensor_parallel = False
+    serve_parallel = False
 
     def handles(self, params: dict) -> bool:
         """True if ``params`` is this backend's converted serving node."""
@@ -156,6 +164,18 @@ class LinearBackend:
 
     def forward(self, ctx, params: dict, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def forward_row(self, ctx, params: dict, x: torch.Tensor, tp
+                    ) -> torch.Tensor:
+        """The row-parallel product: ``x`` holds the rank's K columns and
+        ``params`` its K rows; bf16 out, replicated over ``tp``."""
+        raise NotImplementedError
+
+
+def _sum_bf16(part: torch.Tensor, tp) -> torch.Tensor:
+    """The f32 partial products of a row-parallel linear summed over the
+    model ranks in place, rounded to bf16 once."""
+    return tp.all_reduce(part).to(torch.bfloat16)
 
 
 _REGISTRY: dict[str, LinearBackend] = {}
@@ -210,15 +230,27 @@ class _FloatBF16(LinearBackend):
     def forward(self, ctx, params, x, matmul=bf16_matmul, quant=None):
         return matmul(x, params["w"].to(torch.bfloat16))
 
+    def forward_row(self, ctx, params, x, tp):
+        return _sum_bf16(tpl.matmul_f32(x.to(torch.bfloat16),
+                                        params["w"].to(torch.bfloat16)), tp)
+
 
 @_register
 class _MXFP4STE(LinearBackend):
     name = "mxfp4_ste"
+    serve_parallel = True
 
     def forward(self, ctx, params, x):
         wq = mxlib.fake_quant_axis(params["w"], 0)
         xq = mxlib.fake_quant(x.to(torch.float32))
         return torch.matmul(xq.to(torch.bfloat16), wq.to(torch.bfloat16))
+
+    def forward_row(self, ctx, params, x, tp):
+        # the weight's K rows are whole 32-blocks (check_model_axis), the
+        # activations' quant runs along the whole row's blocks
+        wq = mxlib.fake_quant_axis(params["w"], 0).to(torch.bfloat16)
+        xq = tpl.fake_quant_cut(x.to(torch.float32), -1, tp)
+        return _sum_bf16(tpl.matmul_f32(xq.to(torch.bfloat16), wq), tp)
 
 
 @_register
@@ -241,6 +273,7 @@ class _MXFP4WeightOnly(LinearBackend):
     ``exps`` uint8 [K//32, N] biased E8M0, optional ``b``."""
 
     name = "mxfp4_wonly"
+    serve_parallel = True
 
     def handles(self, params):
         return "codes" in params and "e_n" not in params
@@ -259,6 +292,20 @@ class _MXFP4WeightOnly(LinearBackend):
         return mm_ops.mxfp4_matmul(x, params["codes"], params["exps"],
                                    obs=ctx.obs)
 
+    def forward_row(self, ctx, params, x, tp):
+        """The rank's K rows of the packed weight (whole 32-blocks): its
+        partial product in f32 (kernel C with ``out_dtype=float32``),
+        summed over the model ranks, rounded once."""
+        if "codes" not in params:
+            return _REGISTRY["float_bf16"].forward_row(ctx, params, x, tp)
+        if ctx.impl == "ref":
+            w = _dequant_packed(params["codes"], params["exps"])
+            part = tpl.matmul_f32(x.to(torch.bfloat16), w)
+        else:
+            part = mm_ops.mxfp4_matmul(x, params["codes"], params["exps"],
+                                       out_dtype=torch.float32, obs=ctx.obs)
+        return _sum_bf16(part, tp)
+
 
 @_register
 class _CIMAnalog(LinearBackend):
@@ -268,6 +315,7 @@ class _CIMAnalog(LinearBackend):
     [], optional ``b`` (bf16, added after read-out)."""
 
     name = "cim_analog"
+    serve_parallel = True
 
     def handles(self, params):
         return "e_n" in params
@@ -297,6 +345,26 @@ class _CIMAnalog(LinearBackend):
         else:
             y = cim_ops.cim_linear(x, w, calib, cfg=cfg, obs=ctx.obs)
         return y.to(torch.bfloat16)
+
+    def forward_row(self, ctx, params, x, tp):
+        """The rank's K rows (whole 32-blocks): its two pass sums before
+        the ADC (kernel A's ``sums`` mode, exact integers), summed over the
+        model ranks as integers, then the one read-out on every rank
+        (ADC(a + b) != ADC(a) + ADC(b)). Bitwise the one-device linear
+        except in a row whose one-device ordered f32 sum rounds (past 2^24
+        units of 2^-CM), which the integer sum does not."""
+        if "e_n" not in params:
+            return _REGISTRY["mxfp4_ste"].forward_row(ctx, params, x, tp)
+        cfg = cim_config(ctx)
+        w = mxlib.MXW(params["codes"], params["exps"])
+        calib = cimlib.LayerCalib(e_n=params["e_n"], adc_fs=params["adc_fs"])
+        if ctx.impl == "ref":
+            sums = cimlib.pass_sums(x, w, calib, cfg)
+        else:
+            sums = cim_ops.cim_linear(x, w, calib, cfg=cfg, sums=True,
+                                      obs=ctx.obs)
+        tp.all_reduce(sums)
+        return cimlib.read_out_sums(sums, calib, cfg).to(torch.bfloat16)
 
 
 # --------------------------------------------------- Row-Hist calibration

@@ -146,7 +146,14 @@ class RunCtx:
     # the sharded train step on a model axis larger than 1: the layers'
     # weights are this rank's model shards and they run tensor-parallel
     # (heads, mlp and vocab over the model ranks). None on one device.
+    # The sharded serving steps set it too.
     tp: Any = None
+    # the sharded serving steps' cut cache sequence: one
+    # distributed.seq_parallel.SeqShard (or None: whole) a segment
+    # (``seq_shards``, set by the step), and the segment's own (``seq``,
+    # set by models.lm.forward for each segment's layers)
+    seq_shards: Any = None
+    seq: Any = None
 
     def __post_init__(self):
         if self.impl not in ("auto", "ref"):
@@ -216,12 +223,18 @@ def linear_apply(ctx: RunCtx, params: dict, x: torch.Tensor,
 
 def _tp_backend(ctx: RunCtx, params: dict) -> backends_lib.LinearBackend:
     """The backend of a tensor-parallel linear: one that takes ``matmul``
-    and ``quant`` (``launch.steps.check_model_axis`` admits no other). A
-    tap or a fidelity probe would see one rank's shard."""
+    and ``quant`` (``tensor_parallel``: the train step's) or one with a
+    row-parallel form of its own (``serve_parallel``: the serving steps';
+    ``launch.steps.check_model_axis`` admits no other). A tap or a
+    fidelity probe would see one rank's shard."""
     if ctx.tap is not None or ctx.fidelity is not None:
         raise NotImplementedError("a tap or a fidelity probe under tensor "
                                   "parallelism")
-    return backends_lib.resolve_backend(ctx, params)
+    backend = backends_lib.resolve_backend(ctx, params)
+    if not (backend.tensor_parallel or backend.serve_parallel):
+        raise NotImplementedError(f"backend {backend.name!r} under tensor "
+                                  "parallelism; see ROADMAP.md")
+    return backend
 
 
 def _column_linear(ctx: RunCtx, params: dict, x: torch.Tensor
@@ -233,10 +246,15 @@ def _column_linear(ctx: RunCtx, params: dict, x: torch.Tensor
     in f32 and cast to ``x``'s dtype once (``copy_to_model``): the
     one-device product's gradient, rounded as that one is, before
     autograd adds the linears' gradients of a shared input as it does on
-    one device."""
-    xf = tpl.copy_to_model(x.to(torch.float32), ctx.tp)
-    y = _tp_backend(ctx, params).forward(ctx, params, xf,
-                                         matmul=tpl.matmul_bf16)
+    one device. A serving backend (``serve_parallel``) runs its own
+    product on the rank's columns (packed ``codes`` / ``exps`` of kernel
+    C, or kernel A's K-major ones), as on one device."""
+    backend = _tp_backend(ctx, params)
+    if backend.tensor_parallel:
+        xf = tpl.copy_to_model(x.to(torch.float32), ctx.tp)
+        y = backend.forward(ctx, params, xf, matmul=tpl.matmul_bf16)
+    else:
+        y = backend.forward(ctx, params, x)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
@@ -251,7 +269,9 @@ def row_linear_apply(ctx: RunCtx, params: dict, x: torch.Tensor,
     is taken in f32, the ranks' partials summed in f32 and cast to bf16
     once (as the one-device product rounds once), then the bias, once.
     A backend's activation quant runs along the whole row's 32-blocks
-    (``tensor_parallel.fake_quant_cut``)."""
+    (``tensor_parallel.fake_quant_cut``). A serving backend runs its own
+    row-parallel form (``LinearBackend.forward_row``: kernel C's f32
+    partials, kernel A's integer pass sums before the one read-out)."""
     tp = ctx.tp
     if tp is None:
         return linear_apply(ctx, params, x, name=name)
@@ -260,9 +280,12 @@ def row_linear_apply(ctx: RunCtx, params: dict, x: torch.Tensor,
         part = tpl.matmul_f32(a.to(torch.bfloat16), w)
         return tpl.reduce_from_model(part, tp).to(torch.bfloat16)
 
-    y = _tp_backend(ctx, params).forward(
-        ctx, params, x, matmul=matmul,
-        quant=lambda a: tpl.fake_quant_cut(a, -1, tp))
+    backend = _tp_backend(ctx, params)
+    if backend.tensor_parallel:
+        y = backend.forward(ctx, params, x, matmul=matmul,
+                            quant=lambda a: tpl.fake_quant_cut(a, -1, tp))
+    else:
+        y = backend.forward_row(ctx, params, x, tp)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
@@ -470,3 +493,35 @@ def convert_specs_mxfp4(specs, params, min_n: int = 256):
         return spec
 
     return rec(specs, params)
+
+
+def convert_specs_cim(specs, tree):
+    """The logical spec tree of a served tree ``tree``: a
+    ``cim_analog``-converted linear's ``codes`` and ``exps`` (K-major
+    [K, N] and [K/32, N]) take the float weight's axes and its ``e_n`` /
+    ``adc_fs`` are replicated (``()``); a packed (``mxfp4_wonly``) node or
+    expert bank maps as :func:`convert_specs_mxfp4` maps it; every other
+    leaf keeps its spec. ``tree`` is the converted tree itself (which
+    linears were calibrated decides, not their shapes)."""
+
+    def packed(v):
+        return isinstance(v, dict) and "codes" in v
+
+    def rec(spec, node):
+        if isinstance(spec, dict):
+            if "w" in spec and packed(node):
+                out = {"codes": spec["w"], "exps": spec["w"]}
+                if "e_n" in node:
+                    out.update(e_n=(), adc_fs=())
+                if "b" in node:
+                    out["b"] = spec["b"]
+                return out
+            return {k: {"codes": v, "exps": v}
+                    if spec_leaf(v) and packed(node[k]) else rec(v, node[k])
+                    for k, v in spec.items()}
+        if isinstance(spec, list):
+            return [rec(v, n) for v, n in zip(spec, node)]
+        return spec
+
+    return rec(specs, tree)
+

@@ -322,8 +322,10 @@ def forward(params, cfg: ArchConfig, ctx: RunCtx, batch: dict, caches=None,
     x0 = x  # the Zamba shared block reads the embeddings again
     new_caches = []
     for i, seg in enumerate(build_segments(cfg)):
+        sctx = (ctx if ctx.seq_shards is None
+                else dataclasses.replace(ctx, seq=ctx.seq_shards[i]))
         x, seg_caches = run_segment(
-            ctx, cfg, seg, params["segments"][i], x, positions,
+            sctx, cfg, seg, params["segments"][i], x, positions,
             caches[i] if caches is not None else None, pos,
             path=f"segments/{i}", shared=params.get("shared"), x0=x0)
         new_caches.append(seg_caches)
