@@ -113,7 +113,9 @@
    flash kernel. Logits of 4 frames against ``impl="ref"`` (SQNR >= 30
    dB), the ViT-L/32 chain against the monolithic forward (bitwise), and
    one frame under the profiler (device ms by kernel and route, wall ms,
-   busy share), eager and captured: ``WINDOW_FRAMES`` frames each way,
+   busy share), eager and captured: ``WINDOW_FRAMES`` frames each way
+   (ViT-L/32: 4, calibrated on one batch: ``VISION_WINDOW_FRAMES``,
+   ``VISION_CALIB_BATCHES``, the script's time limit),
    logits bitwise between the two (each chip's step one graph; the
    chain's hidden state is the static buffer between them). A ``serve
    vision`` line a run gives the card's own
@@ -129,7 +131,7 @@
    head; 6 under ``cim``, one group), h2o-danube-1.8b (8 of 24 layers, 4
    under ``cim``; 4096-slot window, head_dim 80) and nemotron-4-15b
    (squared ReLU, LayerNorm, head_dim 128, untied
-   256000-row head; 8 of 32 layers, 4 under ``cim``), through the
+   256000-row head; 8 of 32 layers, 2 under ``cim``), through the
    launcher's ``build_model``
    and ``serve_trace`` under ``mxfp4`` and ``cim`` (``DENSE_RUNS``): 8
    staggered requests of up to 384-token prompts ([1, 384] prefills, past
@@ -154,12 +156,13 @@
     ``cim_linear`` kernel's, its counts (alignment, saturation, code
     occupancy, ``live_e_max``) equal a CPU run on the same tensors, and
     ``quant_health`` on the card equals its CPU run. Then ViT-B/16 (12
-    layers) and phase 4's starcoder2-7b (8 of 32 layers) under ``cim``,
+    layers) and starcoder2-7b (8 of 32 layers) under ``cim``,
     calibrated on two batches and probed on the first, against the digital
     MXFP4 reference: every calibrated path covered, ``cim_linear``
     launched once an analog linear, no drift; the same with ``adc_fs / 4``
     (drift tripped, output SQNR 3 dB lower or more); a lossless CIM (no
-    ADC, CM 64, one pass) with ``impl="ref"`` (output SQNR >= 60 dB: the
+    ADC, CM 64, one pass; starcoder2-7b's first 2 layers,
+    ``FID_LOSSLESS_LAYERS``) with ``impl="ref"`` (output SQNR >= 60 dB: the
     reference CI gate's three conditions); and ViT-B/16 ``mxfp4`` against
     float through ``mxfp4_matmul``. A ``fidelity`` line a run: output and
     smallest per-layer SQNR, drift, clip and saturation ratios, the pass's
@@ -202,8 +205,9 @@
     recurrent states, then each decode step two captured graphs) under
     ``mxfp4`` and ``cim`` (``REC_RUNS``): 4 lanes, 512-token prompts, 64
     new tokens; then zamba under ``mxfp4`` on one 2560-token prompt (16
-    new tokens); then hubert-xlarge's encoder (48 layers) on one emb batch
-    [1, 1500, 512] under both backends. The launches by kernel and route
+    new tokens); then hubert-xlarge's encoder (48 layers; 12 under
+    ``cim``, ``REC_LAYERS``) on one emb batch [1, 1500, 512] under both
+    backends. The launches by kernel and route
     are exactly ``_recurrent_launches``'s (A on the calibrated linears
     only: the shared block, the heads and hubert's; C on every packed
     one; E once a shared-block visit a prefill past 256 tokens under
@@ -321,23 +325,31 @@
     each slice's int32 sums ``torch.equal`` to the plain version's,
     four slices' sums read out ``torch.equal`` to A's whole output on
     the same route, and the constructed rounding input's one guarded row
-    the only one that differs (``cim_linear pass sums`` lines). 17c: an
+    the only one that differs (``cim_linear pass sums`` lines). 17d:
+    kernels B and D in their partial (o, lse) mode (``PARTIAL_CASES``:
+    starcoder2-7b's decode shape, W 2048 in 4 blocks; gemma3-1b's, W 448
+    in 2), each block's (o, lse) against the plain version's, the whole
+    page's o cast ``torch.equal`` to the bf16 mode, the blocks combined
+    against the dense decode within 1 dB of the whole page
+    (``paged_decode partial`` / ``paged_decode_mx partial`` lines). 17c: an
     NCCL group of one rank and ``make_prefill_step``,
     ``make_decode_step`` and ``make_paged_decode_step`` (legacy and
     fused) on ``make_local_mesh(1, 1)`` over it, starcoder2-7b 16 of 32
     layers under ``mxfp4`` and 8 under ``cim`` (the launcher's
     ``build_model``), [4, 256]: ids and caches ``torch.equal`` to the
     one-device bundles, the sharded steps' launches (C or A, and D or B),
-    device ms a step; then prefill, decode and the legacy paged step with
-    ``model_forms`` (the row-parallel linears' modes at model 1),
-    ``torch.equal`` to the one-device bundles, C's f32 or A's sums mode
-    counted launching (``sharded serve`` lines; the kernels line's
-    phase-17 rows take those counts).
+    device ms a step; then prefill, decode and both paged steps with
+    ``model_forms`` (the row-parallel linears' modes and the fused
+    decode's partial mode at one block, at model 1), ``torch.equal`` to
+    the one-device bundles, C's f32 or A's sums mode counted launching
+    and D's or B's partial mode once a layer (``sharded serve`` lines;
+    the kernels line's phase-17 rows take those counts).
 18. Prints the kernels line (phase 9 adds B, D and E at head widths
     256, 80 and 128; phase 11 C at the expert shapes, A at the MoE
     linears and B and D at G 16 and 7; phase 12 A, C and E at the
-    recurrent and audio archs' shapes; phase 17 C's f32 output and A's
-    pass sums), then the card's name and power limit, then the device
+    recurrent and audio archs' shapes; phase 17 C's f32 output, A's
+    pass sums and B's and D's partial mode), then the card's name and
+    power limit, then the device
     line, as the last line.
 
 Every measured shape is printed on a line of its own (``cim_linear {...}``,
@@ -357,7 +369,8 @@ pipeline lm {...}``, ``train step {...}``, ``train k2 {...}``, ``train
 full width {...}``, ``train launcher {...}``, ``train tiny card vs cpu
 {...}``, ``dry run {...}``, ``dry run sweep {...}``, ``train sharded
 {...}``, ``paged step {...}``, ``mxfp4_matmul f32 out {...}``,
-``cim_linear pass sums {...}``, ``sharded serve {...}``).
+``cim_linear pass sums {...}``, ``paged_decode partial {...}``,
+``paged_decode_mx partial {...}``, ``sharded serve {...}``).
 The decode kernels are also checked at the page widths of phases 6 and 7
 (``FLOAT_PAGES``, ``MX_PAGES``).
 """
@@ -457,6 +470,11 @@ VISION_ARGS = ["--no-tiny", "--frames", str(VISION_FRAMES),
 VISION_KERNEL = {"cim": "cim_linear", "mxfp4": "mxfp4_matmul"}
 VISION_CHECK_FRAMES = 4  # frames whose logits are held to impl="ref"
 WINDOW_FRAMES = 8  # frames a profiled window, eager and captured
+# repeat cuts of phase 8 (the frames, widths and depth kept), the script's
+# time limit: ViT-L/32 cim (61.3 s on a slow host, its 64 frames 2.2 s of
+# it) calibrates on one batch of 2 and profiles windows of 4 frames
+VISION_CALIB_BATCHES = {"vit-l32": 1}
+VISION_WINDOW_FRAMES = {"vit-l32": 4}
 # ViT-B/16's linears at the shapes a frame gives them (PERF.md §6):
 # cim_linear (M, K, N) and mxfp4_matmul (M, K, N, x dtype)
 VIT_CIM_SHAPES = ((197, 768, 768), (197, 768, 3072))
@@ -479,9 +497,14 @@ DENSE_RUNS = (("gemma3-1b", "mxfp4"), ("gemma3-1b", "cim"),
 # s of an 880 s run at 8); gemma3-1b under cim to 6 (one local:global
 # group) and h2o-danube-1.8b under cim to 4 for phase 14 (65.1 s and
 # 53.6 s of a 1141 s run on a slow host at 12 and 8 layers; 21.2 s and
-# 19.2 s at 6 and 4 in a 782.5 s run)
+# 19.2 s at 6 and 4 in a 782.5 s run); nemotron-4-15b under cim to 2
+# layers (57.9 s of a 1122.8 s run on a slow host at 4, most of it the f32
+# embedding and head), to make room for phase 17's partial-mode checks
+# within the time limit, with phase 8's VISION_CALIB_BATCHES /
+# VISION_WINDOW_FRAMES, phase 10's FID_ARGS and phase 12's REC_LAYERS
+# (hubert-xlarge)
 DENSE_LAYERS = {"nemotron-4-15b": 8, "gemma3-1b": 12, "h2o-danube-1.8b": 8,
-                ("nemotron-4-15b", "cim"): 4, ("gemma3-1b", "cim"): 6,
+                ("nemotron-4-15b", "cim"): 2, ("gemma3-1b", "cim"): 6,
                 ("h2o-danube-1.8b", "cim"): 4}
 DENSE_PROMPT, DENSE_TOKENS, DENSE_PAGE = 384, 64, 448
 DENSE_ARGS = ["--no-tiny", "--serve-trace", "--kv-layout", "fused",
@@ -529,8 +552,8 @@ MOE_DECODE_DIMS = {"qwen3-moe-235b-a22b": (4, 4, 16, 128),
                    "qwen2-vl-7b": (4, 4, 7, 128)}
 VIS_TOKENS = 64  # qwen2-vl's vision prefill: vis_emb [1, 64, 1176]
 # the fidelity phase (phase 10): the launcher's --fidelity pass at full
-# width on ViT-B/16 (12 layers, the paper's workload) and phase 4's
-# starcoder2-7b at 8 of 32 layers, both cim, calibrated on their two
+# width on ViT-B/16 (12 layers, the paper's workload) and starcoder2-7b
+# at 8 of 32 layers, both cim, calibrated on their two
 # calibration batches and probed on the first; ViT-B/16 mxfp4 against
 # float through mxfp4_matmul
 FID_COMMON = ["--no-tiny", "--calib-batches", "2", "--batch", "2",
@@ -539,6 +562,11 @@ FID_RUNS = (("vit-b16", "cim"), ("starcoder2-7b", "cim"),
             ("vit-b16", "mxfp4"))
 FID_ARGS = {"vit-b16": [], "starcoder2-7b": ["--layers", "8",
                                              "--prompt-len", "192"]}
+# the lossless CIM's check on the first layers of the model only (a depth
+# cut, the script's time limit: at 8 layers its calibration and impl="ref"
+# pass took ~20 s of starcoder2-7b's 59.4 s on a slow host; it measured
+# ~300 dB at 4 layers against its 60 dB bound)
+FID_LOSSLESS_LAYERS = {"starcoder2-7b": 2}
 FID_MISCAL = 0.25  # adc_fs scale of the mis-calibrated run
 FID_MIN_DROP_DB = 3.0  # its output SQNR drop, at least
 FID_LOSSLESS_MIN_DB = 60.0  # the reference CI gate's lossless bound
@@ -555,9 +583,11 @@ REC_RUNS = (("zamba2-1.2b", "mxfp4"), ("zamba2-1.2b", "cim"),
             ("xlstm-125m", "mxfp4"), ("xlstm-125m", "cim"))
 # depth cuts of phase 12 (width kept), the script's time limit: zamba2-1.2b
 # cim to 12 of 38 Mamba layers (two shared-block visits), xlstm-125m to 6
-# of 12 layers (sLSTM at layer 3)
+# of 12 layers (sLSTM at layer 3), hubert-xlarge's encoder under cim to 12
+# of 48 (62.0 s of a 1122.8 s run at 48: its calibration and the plain
+# CIM forward at 1500 rows, per layer)
 REC_LAYERS = {("zamba2-1.2b", "cim"): 12, ("xlstm-125m", "mxfp4"): 6,
-              ("xlstm-125m", "cim"): 6}
+              ("xlstm-125m", "cim"): 6, ("hubert-xlarge", "cim"): 12}
 REC_BATCH, REC_PROMPT, REC_TOKENS = 4, 512, 64
 REC_LONG_PROMPT, REC_LONG_TOKENS = 2560, 16
 REC_STEPS = 4  # decode steps held to impl="ref"
@@ -672,6 +702,19 @@ ROWPAR_SLICES = 4
 # least this share of it off the bf16 grid
 ROWPAR_F32_TOL = 1e-5
 ROWPAR_OFF_BF16 = 0.5
+# 17d: kernels B and D in their partial mode (a rank's block of a cache
+# sequence cut over ranks) at the decode shapes of starcoder2-7b (W 2048
+# in 4 blocks) and gemma3-1b (W 448 in 2): (name, (lanes, Hkv, G, Dh), W,
+# blocks, lane lengths); each block's (o, lse) against the plain version's
+PARTIAL_CASES = (("starcoder2-7b", (4, 4, 9, 128), 2048, 4,
+                  [0, 700, 1500, 2048]),
+                 ("gemma3-1b", (4, 1, 4, 256), 448, 2, [0, 1, 300, 448]))
+# D's o: its 16-key splits round P to bf16 against the split's own max,
+# the plain version against its 128-key chunk's running max, so its f32 o
+# differs from the plain one by P's bf16 rounding: held to the bf16
+# mode's gates (SQNR and max |err|), its lse to ROWPAR_F32_TOL
+PARTIAL_FLOAT_MIN_DB, PARTIAL_FLOAT_ATOL = 40.0, 1e-2
+PARTIAL_DROP_DB = 1.0  # the blocks combined vs dense, below the whole page
 SERVE_SHARD_LAYERS = {"mxfp4": 16, "cim": 8}
 SERVE_SHARD_SEQ, SERVE_SHARD_BATCH = 256, 4
 SERVE_SHARD_ARGS = {"mxfp4": ["--no-tiny", "--backend", "mxfp4", "--layers",
@@ -1943,8 +1986,10 @@ def serve_vision_full(arch: str, backend: str) -> dict:
     from repro_torch.models import vit
     from repro_torch.serving import VisionEngine
 
+    calib = ["--calib-batches", str(VISION_CALIB_BATCHES[arch])] \
+        if arch in VISION_CALIB_BATCHES else []
     args = serve.build_parser().parse_args(
-        ["--arch", arch, "--backend", backend] + VISION_ARGS)
+        ["--arch", arch, "--backend", backend] + VISION_ARGS + calib)
     obs = obs_lib.Obs()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2031,7 +2076,8 @@ def serve_vision_full(arch: str, backend: str) -> dict:
 
 
 def profile_frames(cfg, params, ctx, arch: str) -> dict:
-    """``WINDOW_FRAMES`` single-stream frames under ``torch.profiler``,
+    """``WINDOW_FRAMES`` single-stream frames (``VISION_WINDOW_FRAMES``
+    for a cut arch) under ``torch.profiler``,
     eager (``cuda_graphs=False``) and captured (the first frame, outside
     the window, captures the chain): device time, wall time and busy
     share a frame, ``fps_host`` of the window, the capture's seconds and
@@ -2039,8 +2085,9 @@ def profile_frames(cfg, params, ctx, arch: str) -> dict:
     must be bitwise equal between the two."""
     from repro_torch.serving import VisionEngine
 
+    window = VISION_WINDOW_FRAMES.get(arch, WINDOW_FRAMES)
     gen = torch.Generator(device=params["pos"].device).manual_seed(22)
-    frames = torch.randn((WINDOW_FRAMES, cfg.image_size, cfg.image_size,
+    frames = torch.randn((window, cfg.image_size, cfg.image_size,
                           cfg.in_channels), generator=gen,
                          device=params["pos"].device)
     out, logits = {}, {}
@@ -2052,10 +2099,9 @@ def profile_frames(cfg, params, ctx, arch: str) -> dict:
         # one window each: every 8-frame window has traced a matmul
         # launch or two fewer than counted, whatever the attempt (scaled,
         # and ``timer`` says so)
-        prof = _profiled(f"frame profile {arch} {mode}", ctx, WINDOW_FRAMES,
+        prof = _profiled(f"frame profile {arch} {mode}", ctx, window,
                          lambda: eng.classify_frame(next(nxt)), attempts=1)
-        _unprofiled(prof, WINDOW_FRAMES, lambda: eng.classify_frame(next(nxt)),
-                    1)
+        _unprofiled(prof, window, lambda: eng.classify_frame(next(nxt)), 1)
         if eng.graphs:
             chain = [g for c in eng.graphs.values() for g in c]
             prof["capture_s"] = sum(g.capture_s for g in chain)
@@ -2067,7 +2113,7 @@ def profile_frames(cfg, params, ctx, arch: str) -> dict:
         raise AssertionError(f"[{ctx.quant} {arch}] captured frame logits "
                              "are not the eager ones")
     print("frame eager vs captured", json.dumps(
-        {"backend": ctx.quant, "model": cfg.name, "frames": WINDOW_FRAMES,
+        {"backend": ctx.quant, "model": cfg.name, "frames": window,
          "logits_bitwise": True} | _step_pair(out)), flush=True)
     return out
 
@@ -2950,7 +2996,8 @@ def fidelity_model(arch: str, backend: str) -> dict:
     launched once an analog linear and nothing else, no drift; then the
     same pass with ``scale_adc_fs(conv, FID_MISCAL)`` (drift tripped,
     output SQNR at least ``FID_MIN_DROP_DB`` lower) and a lossless CIM
-    (no ADC, CM 64, one pass) calibrated and run with ``impl="ref"``, the
+    (no ADC, CM 64, one pass; on the first ``FID_LOSSLESS_LAYERS`` layers
+    where given) calibrated and run with ``impl="ref"``, the
     kernel taking CM <= 24 only (output SQNR >= ``FID_LOSSLESS_MIN_DB``).
     Under ``mxfp4``: against float, ``mxfp4_matmul`` launched once a packed
     linear. The probe's cost: the pass's wall against one plain eager
@@ -3031,16 +3078,22 @@ def fidelity_model(arch: str, backend: str) -> dict:
         finally:
             quiet.disabled = False
         ll_cfg = cimlib.CIMConfig(adc_bits=None, cm_bits=64, two_pass=False)
+        ll_layers = FID_LOSSLESS_LAYERS.get(arch, cfg.n_layers)
+        ll_model, ll_fparams = cfg, fparams
+        if ll_layers < cfg.n_layers:  # one segment: its first layers
+            ll_model = dataclasses.replace(cfg, n_layers=ll_layers)
+            ll_fparams = dict(fparams, segments=[
+                fparams["segments"][0][:ll_layers]])
         t1 = time.perf_counter()
         with torch.no_grad():
             conv_ll, _ = calibrate.convert_model_cim(
-                fparams, cfg, RunCtx(dense_attn_max=256), batches,
+                ll_fparams, ll_model, RunCtx(dense_attn_max=256), batches,
                 cim_cfg=ll_cfg, min_n=args.cim_min_n, forward_fn=fwd)
         ll_ctx = RunCtx(quant="cim", cim=ll_cfg, impl="ref",
                         dense_attn_max=256)
         _zero_counts()
         _, ll = obs_lib.run_fidelity_pass(
-            fparams, conv_ll, cfg, ll_ctx, batch, obs=obs_lib.Obs(),
+            ll_fparams, conv_ll, ll_model, ll_ctx, batch, obs=obs_lib.Obs(),
             forward_fn=fwd, min_n=args.cim_min_n)
         ll_launches = _read_counts()[0]
         ll_s = time.perf_counter() - t1
@@ -3049,7 +3102,8 @@ def fidelity_model(arch: str, backend: str) -> dict:
             "miscal": {"adc_fs_scale": FID_MISCAL, "pass_s": bad_s}
             | _fidelity_digest(bad) | {"drifted": bad["drift"]["drifted"][:4]},
             "lossless": {"impl": "ref", "cim": "adc_bits=None cm_bits=64 "
-                         "two_pass=False", "launches": ll_launches,
+                         "two_pass=False", "layers": ll_layers,
+                         "launches": ll_launches,
                          "calibrate_and_pass_s": ll_s}
             | _fidelity_digest(ll)}
         ok = (ok and bad["drift"]["n_drifted"] > 0
@@ -3544,7 +3598,8 @@ def serve_recurrent(arch: str, backend: str, batch: int = REC_BATCH,
 
 
 def encode_audio(backend: str) -> dict:
-    """Phase 12, hubert-xlarge (48 layers, full width) under ``backend``
+    """Phase 12, hubert-xlarge (48 layers, full width; ``REC_LAYERS`` cuts
+    its depth under ``cim``) under ``backend``
     through the launcher's ``build_model`` (``cim``: calibrated on one
     ``emb`` batch) and ``lm.forward`` on one ``emb`` batch [1, 1500, 512]
     (30 s of audio at 50 frames a second): launches exactly
@@ -3558,9 +3613,11 @@ def encode_audio(backend: str) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
+    layers = REC_LAYERS.get(("hubert-xlarge", backend), 0)
     args = serve.build_parser().parse_args(
         ["--arch", "hubert-xlarge", "--no-tiny", "--backend", backend,
-         "--batch", "1", "--calib-batches", "1", "--log-level", "warning"])
+         "--batch", "1", "--calib-batches", "1", "--layers", str(layers),
+         "--log-level", "warning"])
     dev = resolve_device(args.device)
     fdim = serve.lm_config(args).frontend_dim
     gen = torch.Generator(device=dev).manual_seed(32)
@@ -4851,6 +4908,189 @@ def check_a_sums(dev) -> list:
     return rows
 
 
+def _partial_pages(dev, dims, w: int, mx: bool, gen):
+    """Phase 17d's q and pages of ``w`` slots (10 pool rows), as
+    ``check_paged_decode`` / ``check_paged_decode_float`` make them."""
+    from repro_torch.core import mx as mxlib
+    from repro_torch.kernels.paged_attention import layout
+
+    lanes, hkv, g, dh = dims
+    kv = (torch.randn((10, w, 2 * hkv, dh), generator=gen, device=dev)
+          * 0.7).to(torch.bfloat16)
+    q = (torch.randn((lanes, hkv, g, dh), generator=gen, device=dev)
+         * 0.7).to(torch.bfloat16)
+    if not mx:
+        return q, {"kv": kv}
+    return mxlib.fake_quant(q), {"quant": layout.quant_page_full(
+        *layout.split_kv(kv))}
+
+
+def _page_block(pages: dict, r: int, wl: int) -> dict:
+    """Block ``r`` of ``wl`` slots of the pages, contiguous (a rank's)."""
+    if "kv" in pages:
+        return {"kv": pages["kv"][:, r * wl:(r + 1) * wl].contiguous()}
+    q = pages["quant"]
+    return {"quant": {
+        "kv_codes": q["kv_codes"][:, r * wl:(r + 1) * wl].contiguous(),
+        "k_exps": q["k_exps"][:, r * wl:(r + 1) * wl].contiguous(),
+        "v_exps": q["v_exps"][:, r * wl // 32:(r + 1) * wl // 32]
+        .contiguous()}}
+
+
+def _partial_plain(q, pages, rows, lengths, scale: float, bk: int):
+    from repro_torch.kernels.paged_attention import ref as pref
+
+    if "kv" in pages:
+        return pref.paged_flash_decode_ref(q, pages["kv"], rows, lengths,
+                                           scale=scale, bk=bk, partial=True)
+    qu = pages["quant"]
+    return pref.paged_flash_decode_mx_ref(
+        q, qu["kv_codes"], qu["k_exps"], qu["v_exps"], rows, lengths,
+        scale=scale, bk=bk, partial=True)
+
+
+def _efficient_lse_ms(q, kv, rows, lengths, scale: float):
+    """The library call that returns the same (o, lse) of float pages: the
+    memory-efficient SDPA with its log-sum-exp, the lanes' pages gathered,
+    their KV heads repeated over the query heads and the length mask built
+    outside the timing; None (and why) where it does not take the shape."""
+    from repro_torch.kernels.paged_attention import layout
+
+    lanes, hkv, g, dh = q.shape
+    kd, vd = layout.split_kv(kv[rows.long()])  # [L, W, Hkv, Dh]
+    kd, vd = (t.transpose(1, 2).repeat_interleave(g, 1).contiguous()
+              for t in (kd, vd))
+    qs = q.reshape(lanes, hkv * g, 1, dh)
+    w = kv.shape[1]
+    bias = torch.zeros((lanes, hkv * g, 1, w), device=q.device,
+                       dtype=q.dtype)
+    bias.masked_fill_((torch.arange(w, device=q.device)[None, :]
+                       >= lengths[:, None])[:, None, None, :], float("-inf"))
+    try:
+        def call():
+            return torch.ops.aten._scaled_dot_product_efficient_attention(
+                qs, kd, vd, bias, True, scale=scale)
+        call()
+        torch.cuda.synchronize()
+        return _device_ms(call, 20), None
+    except (RuntimeError, TypeError) as e:
+        return None, f"aten._scaled_dot_product_efficient_attention: {e}"
+
+
+def check_decode_partial(dev) -> list:
+    """Phase 17d: kernels B (``paged_decode_mx``) and D (``paged_decode``)
+    in their partial mode at ``PARTIAL_CASES``: the page cut in its blocks
+    (each a rank's, contiguous), each block's (o, lse) against the plain
+    version's on the same inputs: -inf at the same heads; lse within
+    ``ROWPAR_F32_TOL`` x its largest magnitude; B's o within
+    ``ROWPAR_F32_TOL`` x max |plain o| (the same chunks and P blocks, f32
+    sums in another order), D's within its bf16 mode's gates
+    (``PARTIAL_FLOAT_MIN_DB``, ``PARTIAL_FLOAT_ATOL``). The whole page in
+    one block: o cast to bf16 ``torch.equal`` to the bf16 mode. The
+    blocks combined (``seq_parallel.combine_partials``) against the dense
+    function, within ``PARTIAL_DROP_DB`` of the whole page's kernel. Block
+    0's launch timed beside its bound (the partial mode's bytes: o and lse
+    f32), the plain version and, for D, the memory-efficient SDPA with its
+    log-sum-exp. A disagreement raises."""
+    from repro_torch.distributed import seq_parallel as spl
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention import ref as pref
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    rows_out = []
+    for arch, dims, w, n, lens in PARTIAL_CASES:
+        lanes, hkv, g, dh = dims
+        scale = dh ** -0.5
+        rows = torch.tensor([7, 0, 3, 9], device=dev, dtype=torch.int32)
+        lengths = torch.tensor(lens, device=dev, dtype=torch.int32)
+        wl = w // n
+        for name, mx in (("paged_decode_mx", True), ("paged_decode", False)):
+            q, pages = _partial_pages(dev, dims, w, mx, gen)
+            whole = pops.ragged_paged_decode(q, rows, lengths, scale=scale,
+                                             **pages)
+            one_o, _ = pops.ragged_paged_decode(q, rows, lengths, scale=scale,
+                                                partial=True, **pages)
+            cast_equal = bool(torch.equal(one_o.to(torch.bfloat16), whole))
+            os_, ls_, o_err, lse_err, sq_plain, blocks = [], [], [], [], [], []
+            inf_same = True
+            for r in range(n):
+                blk = _page_block(pages, r, wl)
+                bl = torch.clamp(lengths - r * wl, 0, wl).to(torch.int32)
+                o, lse = pops.ragged_paged_decode(q, rows, bl, scale=scale,
+                                                  partial=True, **blk)
+                po, pl = _partial_plain(q, blk, rows, bl, scale,
+                                        pops.pick_bk(wl))
+                torch.cuda.synchronize()
+                fin = torch.isfinite(pl)
+                inf_same &= bool(torch.equal(fin, torch.isfinite(lse)))
+                o_err.append(float((o - po).abs().max()))
+                lse_err.append(float((lse[fin] - pl[fin]).abs().max())
+                               if fin.any() else 0.0)
+                live = fin.any(-1).any(-1)
+                sq_plain.append(_sqnr_db(po[live], o[live])
+                                if live.any() else float("inf"))
+                os_.append(o)
+                ls_.append(lse)
+                blocks.append((blk, bl, po, pl))
+            got = spl.combine_partials(torch.stack(os_), torch.stack(ls_))
+            dense = pref.ragged_paged_decode_ref(
+                q, rows, lengths, scale=scale, **pages).float()
+            live = lengths > 0
+            sq_comb = _sqnr_db(dense[live], got.float()[live])
+            sq_whole = _sqnr_db(dense[live], whole.float()[live])
+            o_lim = [ROWPAR_F32_TOL * float(b[2].abs().max()) for b in blocks]
+            lse_lim = [ROWPAR_F32_TOL * float(b[3][torch.isfinite(b[3])]
+                                              .abs().max())
+                       if torch.isfinite(b[3]).any() else 0.0
+                       for b in blocks]
+            if mx:
+                o_ok = all(e <= lim for e, lim in zip(o_err, o_lim))
+            else:
+                o_ok = (min(sq_plain) > PARTIAL_FLOAT_MIN_DB
+                        and max(o_err) <= PARTIAL_FLOAT_ATOL)
+            ok = (cast_equal and inf_same and o_ok
+                  and all(e <= lim for e, lim in zip(lse_err, lse_lim))
+                  and sq_comb >= sq_whole - PARTIAL_DROP_DB
+                  and bool((got[~live] == 0).all()))
+            blk, bl, _, _ = blocks[0]
+            lens0 = bl.tolist()
+            if mx:
+                cost = pops.cost_mx(lens0, hkv, g, dh,
+                                    blk["quant"]["kv_codes"].shape[-1],
+                                    blk["quant"]["k_exps"].shape[-1], True)
+                lib_ms, lib_why = None, "no PyTorch call decodes MXFP4 pages"
+            else:
+                cost = pops.cost_float(lens0, hkv, g, dh, True)
+                lib_ms, lib_why = _efficient_lse_ms(q, blk["kv"], rows, bl,
+                                                    scale)
+            bound, by = _bound_ms(*cost)
+
+            def kernel(blk=blk, bl=bl):
+                return pops.ragged_paged_decode(q, rows, bl, scale=scale,
+                                                partial=True, **blk)
+
+            row = dict(
+                case="partial", arch=arch, name=name, lanes=lanes, hkv=hkv,
+                g=g, dh=dh, w=w, blocks=n, w_block=wl, lengths=lens,
+                block0_lengths=lens0, bf16_is_cast_f32=cast_equal,
+                inf_same=inf_same, o_err_by_block=o_err, o_limit=o_lim,
+                lse_err_by_block=lse_err, lse_limit=lse_lim,
+                o_sqnr_vs_plain_db=sq_plain, combined_vs_dense_db=sq_comb,
+                whole_vs_dense_db=sq_whole, ok=ok,
+                max_abs_err=max(o_err + lse_err), ms=_device_ms(kernel, 50),
+                call_ms=_time_ms(kernel, 50),
+                plain_ms=_device_ms(lambda: _partial_plain(
+                    q, blk, rows, bl, scale, pops.pick_bk(wl)), 5),
+                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                library_note=lib_why)
+            print(f"{name} partial", json.dumps(row), flush=True)
+            if not ok:
+                raise AssertionError(f"{name} partial mode disagrees at "
+                                     f"{arch} W={w} in {n}: {row}")
+            rows_out.append(row)
+    return rows_out
+
+
 def _serve_shard_inputs(cfg, dev) -> dict:
     """Phase 17c's inputs (seed 17): the prefill's ids, the decode step's
     ids, the paged step's rows, ids and positions."""
@@ -4886,12 +5126,14 @@ def serve_sharded_one(backend: str, model, smi: str) -> dict:
     A (``cim``) must launch, and on the fused pool D or B. Device ms of
     each sharded step (one traced call after the compared one), the
     collectives recorded (every one a copy at (1, 1)). Then the same
-    steps (the paged one legacy) with ``model_forms``: the row-parallel
-    ``wo`` and ``w2`` run C's f32 out or A's pass sums, q, k and v are
-    gathered and the head is vocab-parallel, every model collective a
-    copy; ids and caches ``torch.equal`` to the one-device bundles, and
-    the counters, zeroed before and read after, must show C's f32 or
-    A's sums mode launched (``forms_launches``)."""
+    steps with ``model_forms``: the row-parallel ``wo`` and ``w2`` run
+    C's f32 out or A's pass sums, q, k and v are gathered, the head is
+    vocab-parallel and the fused decode runs D's or B's partial mode at
+    one block (its combine over identity collectives), every model
+    collective a copy; ids and caches ``torch.equal`` to the one-device
+    bundles, and the counters, zeroed before and read after, must show
+    C's f32 or A's sums mode launched, and the partial mode once a layer
+    (``forms_launches``)."""
     from repro_torch import configs as C
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.mesh import make_local_mesh
@@ -4928,7 +5170,7 @@ def serve_sharded_one(backend: str, model, smi: str) -> dict:
         db = steps_mod.make_decode_step(cfg, m, dec, **fkw)
         kb = {lay: steps_mod.make_paged_decode_step(
             cfg, m, dec, PAGED_SLOTS, kv_layout=lay, **fkw)
-            for lay in layouts if not (forms and lay == "fused")}
+            for lay in layouts}
         return pb, db, kb
 
     out = {"backend": backend, "layers": cfg.n_layers, "card": smi}
@@ -5002,6 +5244,12 @@ def serve_sharded_one(backend: str, model, smi: str) -> dict:
         raise AssertionError(f"sharded serve {backend}: {mode} did not "
                              f"launch under model_forms: "
                              f"{out['forms_launches']}")
+    if out["forms_launches"][f"{att} partial"] != cfg.n_layers:
+        raise AssertionError(f"sharded serve {backend}: {att}'s partial "
+                             f"mode launched "
+                             f"{out['forms_launches'][f'{att} partial']} "
+                             f"times in the fused step under model_forms, "
+                             f"not once a layer ({cfg.n_layers})")
     return out
 
 
@@ -5030,12 +5278,31 @@ def serve_sharded(dev, smi: str) -> dict:
     return out
 
 
-def rowpar_kernel_entries(c_rows: list, a_rows: list, runs: dict) -> list:
+def rowpar_kernel_entries(c_rows: list, a_rows: list, p_rows: list,
+                          runs: dict) -> list:
     """The kernels line's entries of phase 17: C's f32 output and A's pass
-    sums at the row-parallel shapes, each with that mode's launches in
-    phase 17c's ``model_forms`` steps (the run whose row-parallel linears
-    take it)."""
+    sums at the row-parallel shapes, B's and D's partial mode at the
+    decode shapes (block 0 of the page), each with that mode's launches
+    in phase 17c's ``model_forms`` steps (the run whose row-parallel
+    linears and fused decode take it)."""
     out = []
+    for row in p_rows:
+        name = row["name"]
+        run = "cim" if name == "paged_decode_mx" else "mxfp4"
+        line = 275 if name == "paged_decode_mx" else 228
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/paged_attention/kernel.py:{line}",
+            "launches": runs[run]["forms_launches"][f"{name} partial"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "call_ms": row["call_ms"], "kernel_route": "partial",
+            "shape": f"{row['arch']}: L={row['lanes']} Hkv={row['hkv']} "
+                     f"G={row['g']} Dh={row['dh']} W={row['w']} in "
+                     f"{row['blocks']}, block 0 lengths "
+                     f"{row['block0_lengths']} (partial)"})
     for name, rows, replaces, run, mode in (
             ("mxfp4_matmul", c_rows,
              "src/repro/kernels/mxfp4_matmul/kernel.py:69", "mxfp4",
@@ -5179,6 +5446,7 @@ def _zero_counts() -> None:
     from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+    from repro_torch.kernels.paged_attention import ops as pops
 
     for fn in _kernel_wrappers().values():
         fn.launches = 0
@@ -5190,6 +5458,8 @@ def _zero_counts() -> None:
         fa_ops.flash_attention.route_launches[r] = 0
     mm_ops.mxfp4_matmul.f32_launches = 0
     cim_ops.cim_linear.sums_launches = 0
+    for fn in (pops.paged_flash_decode, pops.paged_flash_decode_mx):
+        fn.partial_launches = 0
 
 
 def _read_counts() -> tuple[dict, dict]:
@@ -5201,13 +5471,18 @@ def _read_counts() -> tuple[dict, dict]:
 
 
 def _mode_counts() -> dict:
-    """The row-parallel linears' kernel modes' launches since the counts
-    were zeroed: C with f32 out, A's pass sums."""
+    """The sharded steps' kernel modes' launches since the counts were
+    zeroed: C with f32 out, A's pass sums (the row-parallel linears), D's
+    and B's partial (o, lse) (the fused decode over ranks)."""
     from repro_torch.kernels.cim_linear import ops as cim_ops
     from repro_torch.kernels.mxfp4_matmul import ops as mm_ops
+    from repro_torch.kernels.paged_attention import ops as pops
 
     return {"mxfp4_matmul f32": mm_ops.mxfp4_matmul.f32_launches,
-            "cim_linear sums": cim_ops.cim_linear.sums_launches}
+            "cim_linear sums": cim_ops.cim_linear.sums_launches,
+            "paged_decode partial": pops.paged_flash_decode.partial_launches,
+            "paged_decode_mx partial":
+                pops.paged_flash_decode_mx.partial_launches}
 
 
 def _cim_routes() -> dict:
@@ -5636,6 +5911,7 @@ def main() -> int:
     # phase 17: the row-parallel kernel modes, the sharded serving steps
     c_f32 = phase("c f32 out", check_c_f32_out, dev)
     a_sums = phase("a pass sums", check_a_sums, dev)
+    partial = phase("decode partial", check_decode_partial, dev)
     sharded_runs = phase("sharded serve", serve_sharded, dev, smi)
     launches = {k: max(r["launches"][k] for r in runs.values())
                 for k in _kernel_wrappers()}
@@ -5676,7 +5952,7 @@ def main() -> int:
     kernels += dense_kernel_entries(dense_rows, runs)
     kernels += moe_kernel_entries(moe_rows, runs)
     kernels += recurrent_kernel_entries(rec_rows, runs)
-    kernels += rowpar_kernel_entries(c_f32, a_sums, sharded_runs)
+    kernels += rowpar_kernel_entries(c_f32, a_sums, partial, sharded_runs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,13 @@ turn: (data, model) = (4, 1), (2, 2) and (1, 4).
    positions 2048..2063: the ring wraps onto slot 0..15), then one
    paged step over a random pool (4 lanes on rows 1, 6, 11, 14 of 16:
    12 request pages and a scratch row a lane, pages of 256) in the
-   legacy layout, and in the fused layout on (4, 1). The prefill and the
+   legacy and the fused layouts (the fused one: kernels B and D on the
+   rank's rows at (4, 1), in their partial mode on its block of the
+   sequence on the model meshes, the blocks' (o, lse) combined over the
+   ranks), and on (4, 1) once more in the fused layout over a pool of 6
+   request pages and 4 scratch rows (``fused10``: 10 rows, which do not
+   divide the data axis, so the rules cut its sequence over ``data``;
+   lanes on rows 1, 3, 5, 8). The prefill and the
    paged steps run twice (the first warms: the kernels' builds, NCCL's
    first calls), each decode step once. Wall ms on the host clock,
    synchronised: the second prefill, the median of decode steps 2-12
@@ -42,8 +48,9 @@ turn: (data, model) = (4, 1), (2, 2) and (1, 4).
    step by step, and the cache gates are min(30, the floor - 3 dB).
 4. The kernels' launches, a call (``launches``): the wrappers' counters
    zeroed before the timed prefill, the decode steps and each timed
-   paged step and read after, with kernel C's f32-out and kernel A's
-   pass-sums launches (the row-parallel linears' modes) apart.
+   paged step and read after, with kernel C's f32-out, kernel A's
+   pass-sums (the row-parallel linears' modes) and kernels D's and B's
+   partial (the fused decode over ranks) launches apart.
 
 The exit code is 1 if a check fails. Rank 0 writes the result to
 ``chiprun_out/serve_multicard.json`` (``--out``).
@@ -92,6 +99,8 @@ QUANT = {"mxfp4": "mxfp4_wonly", "cim": "cim"}
 LANES, PROMPT, DECODE_STEPS = 4, 2048, 16
 SLOTS, PAGE = 12, 256  # the pool's rows: 16, four a data rank at (4, 1)
 PAGED_ROWS = (1, 6, 11, 14)
+# the fused10 pool on (4, 1): 10 rows, its sequence cut over the data axis
+SLOTS10, PAGED_ROWS10 = 6, (1, 3, 5, 8)
 MIN_DB = 30.0
 FLOOR_MARGIN_DB = 3.0  # a cache may sit this far below its floor
 TIE_ULPS = 2  # a lane whose pick is within this of the one-device max
@@ -182,14 +191,17 @@ def _inputs(cfg, prompt: int, page: int, dev) -> dict:
     return {"prompt": ids(5, LANES, prompt),
             "teacher": ids(6, DECODE_STEPS, LANES, 1),
             "rows": torch.tensor(PAGED_ROWS, dtype=torch.int32, device=dev),
+            "rows10": torch.tensor(PAGED_ROWS10, dtype=torch.int32,
+                                   device=dev),
             "paged_ids": ids(8, LANES, 1),
             "paged_pos": torch.tensor([page * 3 // 4, 17, page - 1, 0],
                                       dtype=torch.int32, device=dev),
             "pool_gen": pool_gen}
 
 
-def _random_pool(cfg, quant: str, fused: bool, page: int, gen, dev):
-    pool = lm.init_cache(cfg, SLOTS + LANES, page,
+def _random_pool(cfg, quant: str, fused: bool, page: int, gen, dev,
+                 slots: int = SLOTS):
+    pool = lm.init_cache(cfg, slots + LANES, page,
                          mx_digital=quant == "cim", fused=fused, device=dev)
     for t in _leaves(pool):
         if t.is_floating_point():
@@ -285,15 +297,19 @@ def _zero_counts() -> None:
         fn.launches = 0
     w["mxfp4_matmul"].f32_launches = 0
     w["cim_linear"].sums_launches = 0
+    w["paged_decode"].partial_launches = 0
+    w["paged_decode_mx"].partial_launches = 0
 
 
 def _counts(calls: int) -> dict:
     """The wrappers' launches since :func:`_zero_counts`, a call; C's
-    f32-out and A's pass-sums launches apart."""
+    f32-out, A's pass-sums and D's and B's partial launches apart."""
     w = _wrappers()
     out = {k: fn.launches / calls for k, fn in w.items() if fn.launches}
     out["mxfp4_matmul f32"] = w["mxfp4_matmul"].f32_launches / calls
     out["cim_linear sums"] = w["cim_linear"].sums_launches / calls
+    for k in ("paged_decode", "paged_decode_mx"):
+        out[f"{k} partial"] = w[k].partial_launches / calls
     return out
 
 
@@ -349,7 +365,6 @@ def _mesh_run(cfg, params, quant: str, mesh, inp: dict, page: int,
     bodies on this card (see the module). ``page``: the prompt and the
     caches' length; ``paged_page``: the paged pool's."""
     data, model = mesh.sizes
-    fused_too = model == 1
     pre = C.Shape(page, LANES, "prefill")
     dec = C.Shape(page, LANES, "decode")
     pdec = C.Shape(paged_page, LANES, "decode")
@@ -416,26 +431,29 @@ def _mesh_run(cfg, params, quant: str, mesh, inp: dict, page: int,
     row["peak_gib"] = (None if cpu else
                        torch.cuda.max_memory_allocated(dev) / 2 ** 30)
     del caches
-    # the paged step: legacy on every mesh, fused where model is 1
+    # the paged step: legacy and fused on every mesh, fused10 on (4, 1)
     paged = {}
-    for lay in ("legacy", "fused") if fused_too else ("legacy",):
-        kb = steps.make_paged_decode_step(cfg, mesh, pdec, SLOTS,
-                                          kv_layout=lay, **kw)
-        pool = _random_pool(cfg, quant, lay == "fused", paged_page,
-                            inp["pool_gen"].manual_seed(7), dev)
+    for lay in ("legacy", "fused") + (("fused10",) if model == 1 else ()):
+        slots = SLOTS10 if lay == "fused10" else SLOTS
+        rows = inp["rows10" if lay == "fused10" else "rows"]
+        kb = steps.make_paged_decode_step(
+            cfg, mesh, pdec, slots,
+            kv_layout="legacy" if lay == "legacy" else "fused", **kw)
+        pool = _random_pool(cfg, quant, lay != "legacy", paged_page,
+                            inp["pool_gen"].manual_seed(7), dev, slots)
         pl = steps._cache_layout(kb.shardings[1])
         warm = shd.take_shard_tree(pool, pl, mesh)  # builds, first calls
-        kb.fn(p_dec, warm, inp["rows"], inp["paged_ids"], inp["paged_pos"])
+        kb.fn(p_dec, warm, rows, inp["paged_ids"], inp["paged_pos"])
         del warm
         mine = shd.take_shard_tree(pool, pl, mesh)
         before = _snapshot(kb)
         dist.barrier()
         _zero_counts()
         (pid, mine), wall, device, nccl = _profiled(
-            lambda: kb.fn(p_dec, mine, inp["rows"], inp["paged_ids"],
+            lambda: kb.fn(p_dec, mine, rows, inp["paged_ids"],
                           inp["paged_pos"]), dev, cpu)
         paged[lay] = {"ids": pid.clone(), "pool": mine, "layout": pl,
-                      "input": pool,
+                      "input": pool, "rows": rows,
                       "row": {"wall_ms": wall, "device_ms": device,
                               "nccl_ms": nccl,
                               "collectives": _stats_delta(kb, before, 1),
@@ -489,12 +507,12 @@ def _mesh_run(cfg, params, quant: str, mesh, inp: dict, page: int,
         del ref, step_blocks, fl_ref
         for lay, v in paged.items():
             pool = v["input"]
-            fused = lay == "fused"
+            fused = lay != "legacy"
             specs = lm.cache_specs(cfg, mx_digital=quant == "cim",
                                    fused=fused)
             before_pool = [[{k: t.clone() for k, t in layer.items()}
                             for layer in seg] for seg in pool]
-            rows = inp["rows"].long()
+            rows = v["rows"].long()
             pos = inp["paged_pos"].long()
             pids = inp["paged_ids"].long()
             if fused:

@@ -41,6 +41,11 @@
 //   combines a lane's live splits in a fixed order (deterministic, no
 //   atomics): with M = max m_s, out = sum_s e^(m_s-M) acc_s /
 //   sum_s e^(m_s-M) l_s (l == 0 -> 1); a lane of length 0 writes zeros.
+// - Partial mode (a rank's block of a cache sequence cut over ranks; the
+//   ranks combine the blocks' partials as these splits are combined): the
+//   combine writes that quotient in f32, before its bf16 rounding, and
+//   the lane's lse = M + log(sum_s e^(m_s-M) l_s), -inf where no split is
+//   live. The bf16 mode is that f32 value rounded, bitwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -229,7 +234,8 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 __global__ void paged_decode_combine_kernel(const float* __restrict__ ml,
                                             const float* __restrict__ acc,
                                             const int* __restrict__ lengths,
-                                            __nv_bfloat16* __restrict__ out,
+                                            void* __restrict__ out,
+                                            float* __restrict__ lse,
                                             int W, int Hkv, int G, int Dh,
                                             int SW, int NS) {
   extern __shared__ float wts[];  // [NS] weights, then the denominator
@@ -271,7 +277,12 @@ __global__ void paged_decode_combine_kernel(const float* __restrict__ ml,
       }
     }
     den = warp_sum(den);
-    if (tid == 0) wts[NS] = den == 0.0f ? 1.0f : den;
+    if (tid == 0) {
+      wts[NS] = den == 0.0f ? 1.0f : den;
+      if (lse != nullptr)
+        lse[(size_t)(li * Hkv + h) * G + g] =
+            den == 0.0f ? -INFINITY : mmax + logf(den);
+    }
   }
   __syncthreads();
   if (tid < Dh) {
@@ -287,8 +298,11 @@ __global__ void paged_decode_combine_kernel(const float* __restrict__ ml,
       for (int r = 0; r < 16; ++r)
         if (s0 + r < nlive) num = fmaf(wts[s0 + r], a[r], num);
     }
-    out[((size_t)(li * Hkv + h) * G + g) * Dh + tid] =
-        __float2bfloat16_rn(num / wts[NS]);
+    const size_t o = ((size_t)(li * Hkv + h) * G + g) * Dh + tid;
+    if (lse != nullptr)
+      static_cast<float*>(out)[o] = num / wts[NS];
+    else
+      static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(num / wts[NS]);
   }
 }
 
@@ -340,16 +354,18 @@ int launch_split_g(const void* q, const void* kv, const int* rows,
 
 // q bf16 [L, Hkv, G, Dh]; kv bf16 [P, W, 2Hkv, Dh]; rows / lengths i32
 // [L]; ml f32 [L, Hkv, NS, G, 2] and acc f32 [L, Hkv, NS, G, Dh] scratch;
-// out bf16 [L, Hkv, G, Dh]. G <= 16, Dh in {8, 16, 32, 64, 80, 128, 256},
+// out bf16 [L, Hkv, G, Dh], or with lse (f32 [L, Hkv, G], else null: the
+// partial mode) out f32 [L, Hkv, G, Dh]. G <= 16, Dh in {8, 16, 32, 64, 80, 128, 256},
 // SW <= 64 and SW <= W, NS = ceil(W / SW) <= 256; 16-byte aligned q and
 // kv. Shared memory: at most (2*64 + 16)*Dh*2 + 16*64*4 bytes, 40 KB at
 // Dh 128 and 76 KB at Dh 256 (18.3 KB at the 16-key splits of pages up to
 // 4096 slots with G = 4). Returns the launches' cudaError_t.
 extern "C" int paged_decode_launch(const void* q, const void* kv,
                                    const int* rows, const int* lengths,
-                                   float* ml, float* acc, void* out, int L,
-                                   int W, int Hkv, int G, int Dh, int SW,
-                                   int NS, float scale, void* stream) {
+                                   float* ml, float* acc, void* out,
+                                   float* lse, int L, int W, int Hkv, int G,
+                                   int Dh, int SW, int NS, float scale,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (NS > MAX_SPLITS) return (int)cudaErrorInvalidValue;
   int err;
@@ -366,7 +382,6 @@ extern "C" int paged_decode_launch(const void* q, const void* kv,
   if (err != cudaSuccess) return err;
   dim3 grid(G, Hkv, L);
   paged_decode_combine_kernel<<<grid, Dh < 32 ? 32 : Dh, (NS + 1) * 4, st>>>(
-      ml, acc, lengths, reinterpret_cast<__nv_bfloat16*>(out), W, Hkv, G, Dh,
-      SW, NS);
+      ml, acc, lengths, out, lse, W, Hkv, G, Dh, SW, NS);
   return (int)cudaGetLastError();
 }

@@ -55,6 +55,11 @@
 //   the buffers: a lane reads only what it copied.
 // - Epilogue divides by l (l == 0 -> 1); a lane of length 0 runs no chunk
 //   and writes zeros.
+// - Partial mode (a rank's block of a cache sequence cut over ranks,
+//   combined over the ranks by flash-decoding): the epilogue writes a / l
+//   in f32, before its bf16 rounding (the bf16 mode is that value
+//   rounded, bitwise), and each head's lse = m + log(l) from its running
+//   max and sum, -inf for a lane with no live slot.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,9 +87,9 @@ struct Smem {
   static constexpr int V_OFF = VE_OFF + 2 * 16 * THREADS;  // 8 x 8 B V codes
   static constexpr int STAGE = V_OFF + 8 * 8 * THREADS;    // 20 / 28 KB
   static constexpr int MAIN = 2 * STAGE > RED_BYTES ? 2 * STAGE : RED_BYTES;
-  // 42,752 bytes at KB 1; 59,136 at KB 2 (opted in past 48 KB)
+  // 42,816 bytes at KB 1; 59,200 at KB 2 (opted in past 48 KB)
   static constexpr int BYTES =
-      MAIN + 256 * 4 + (2 * WARPS * HMAX + WARPS * HMAX) * 4;
+      MAIN + 256 * 4 + (2 * WARPS * HMAX + WARPS * HMAX + HMAX) * 4;
 };
 
 __device__ __forceinline__ float f32_from_field(int f) {
@@ -155,15 +160,16 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ rows,
                        const int* __restrict__ lengths,
                        const uint32_t* __restrict__ table,
-                       __nv_bfloat16* __restrict__ out, int W, int Hkv, int G,
-                       int Dh, int dpad, int nwb, int bk, int hg,
-                       float scale) {
+                       void* __restrict__ out, float* __restrict__ lse,
+                       int W, int Hkv, int G, int Dh, int dpad, int nwb,
+                       int bk, int hg, float scale) {
   using SM = Smem<KB>;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* stage = smem;  // 2 chunk stages, then the warps' acc
   uint32_t* tab = reinterpret_cast<uint32_t*>(smem + SM::MAIN);
   float* red_max = reinterpret_cast<float*>(tab + 256);  // [2][WARPS][HMAX]
   float* red_l = red_max + 2 * WARPS * HMAX;             // [WARPS][HMAX]
+  float* red_m = red_l + WARPS * HMAX;                   // [HMAX]
 
   const int CB = (Dh + DCOLS - 1) / DCOLS;  // column halves of head_dim
   const int li = blockIdx.x, h = blockIdx.y;
@@ -451,9 +457,13 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
   if (t == 0) {
     red_l[warp * HMAX + g] = l0;
     red_l[warp * HMAX + g + 8] = l1;
+    if (warp == 0) {  // every warp holds the same running max
+      red_m[g] = m0;
+      red_m[g + 8] = m1;
+    }
   }
   __syncthreads();
-  __nv_bfloat16* ob = out + ((size_t)(li * Hkv + h) * G + h0) * Dh + c0;
+  const size_t o0 = ((size_t)(li * Hkv + h) * G + h0) * Dh + c0;
   const int ncol = min(DCOLS, Dh - c0);
   for (int i = tid; i < hcount * ncol; i += THREADS) {
     const int r = i / ncol, d = i % ncol;
@@ -463,16 +473,28 @@ paged_decode_mx_kernel(const __nv_bfloat16* __restrict__ q,
       a += red[(w * HMAX + r) * DCOLS + d];
       l += red_l[w * HMAX + r];
     }
-    ob[r * Dh + d] = __float2bfloat16_rn(a / (l == 0.0f ? 1.0f : l));
+    const float v = a / (l == 0.0f ? 1.0f : l);
+    if (lse != nullptr)
+      static_cast<float*>(out)[o0 + r * Dh + d] = v;
+    else
+      static_cast<__nv_bfloat16*>(out)[o0 + r * Dh + d] =
+          __float2bfloat16_rn(v);
+  }
+  if (lse != nullptr && cb == 0 && tid < hcount) {  // one column half
+    float l = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) l += red_l[w * HMAX + tid];
+    lse[(size_t)(li * Hkv + h) * G + h0 + tid] =
+        l == 0.0f ? -INFINITY : red_m[tid] + logf(l);
   }
 }
 
 template <int KB>
 int launch(const void* q, const uint8_t* kv_codes, const int8_t* k_exps,
            const int8_t* v_exps, const int* rows, const int* lengths,
-           const uint32_t* table, void* out, int L, int W, int Hkv, int G,
-           int Dh, int dpad, int nwb, int bk, int hg, float scale,
-           cudaStream_t st) {
+           const uint32_t* table, void* out, float* lse, int L, int W,
+           int Hkv, int G, int Dh, int dpad, int nwb, int bk, int hg,
+           float scale, cudaStream_t st) {
   constexpr int smem = Smem<KB>::BYTES;
   if (smem > 48 * 1024) {
     static hopper::DeviceSet opted;
@@ -487,8 +509,8 @@ int launch(const void* q, const uint8_t* kv_codes, const int8_t* k_exps,
   dim3 grid(L, Hkv, (G + hg - 1) / hg * ((Dh + DCOLS - 1) / DCOLS));
   paged_decode_mx_kernel<KB><<<grid, THREADS, smem, st>>>(
       reinterpret_cast<const __nv_bfloat16*>(q), kv_codes, k_exps, v_exps,
-      rows, lengths, table, reinterpret_cast<__nv_bfloat16*>(out), W, Hkv, G,
-      Dh, dpad, nwb, bk, hg, scale);
+      rows, lengths, table, out, lse, W, Hkv, G, Dh, dpad, nwb, bk, hg,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -496,21 +518,24 @@ int launch(const void* q, const uint8_t* kv_codes, const int8_t* k_exps,
 
 // q bf16 [L, Hkv, G, Dh]; kv_codes u8 [P, W, 2Hkv, dpad/2]; k_exps i8
 // [P, W, Hkv, dpad/32]; v_exps i8 [P, nwb, Hkv, Dh]; rows / lengths i32
-// [L]; table u32 [256]; out bf16 [L, Hkv, G, Dh]. Dh % 16 == 0,
+// [L]; table u32 [256]; out bf16 [L, Hkv, G, Dh], or with lse (f32
+// [L, Hkv, G], else null: the partial mode) out f32 [L, Hkv, G, Dh].
+// Dh % 16 == 0,
 // Dh <= dpad <= 256 (dpad a multiple of 32), 1 <= hg <= 16 query heads a
 // block, bk <= min(128, W), kv_codes / v_exps 16-byte aligned. Grid: L x
 // Hkv x ceil(G / hg) * ceil(Dh / 128). Returns the launch's cudaError_t.
 extern "C" int paged_decode_mx_launch(
     const void* q, const uint8_t* kv_codes, const int8_t* k_exps,
     const int8_t* v_exps, const int* rows, const int* lengths,
-    const uint32_t* table, void* out, int L, int W, int Hkv, int G, int Dh,
-    int dpad, int nwb, int bk, int hg, float scale, void* stream) {
+    const uint32_t* table, void* out, float* lse, int L, int W, int Hkv,
+    int G, int Dh, int dpad, int nwb, int bk, int hg, float scale,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Dh > dpad || dpad > DMAX || dpad % 32 || Dh % 16)
     return (int)cudaErrorInvalidValue;
   if (dpad <= 128)
     return launch<1>(q, kv_codes, k_exps, v_exps, rows, lengths, table, out,
-                     L, W, Hkv, G, Dh, dpad, nwb, bk, hg, scale, st);
-  return launch<2>(q, kv_codes, k_exps, v_exps, rows, lengths, table, out, L,
-                   W, Hkv, G, Dh, dpad, nwb, bk, hg, scale, st);
+                     lse, L, W, Hkv, G, Dh, dpad, nwb, bk, hg, scale, st);
+  return launch<2>(q, kv_codes, k_exps, v_exps, rows, lengths, table, out,
+                   lse, L, W, Hkv, G, Dh, dpad, nwb, bk, hg, scale, st);
 }

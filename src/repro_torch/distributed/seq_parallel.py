@@ -35,6 +35,31 @@ reference's specs, ``layers.attention.ATTN_QUANT_CACHE_SPECS``) are held
 as each rank's blocks, beside its ``v_codes``: the rank that writes a
 slot requantizes its V block and has the block's exponent, and no other
 rank reads it.
+
+:func:`fused_decode` is the fused paged decode of ``layers.attention``
+on the rank's block of a fused pool (its ``kv`` and, under the digital
+SDPA, its ``kv_codes``, ``k_exps`` and ``v_exps``, held as each rank's
+32-slot blocks as the legacy ``v_exps`` are):
+
+- the lane's row is written, and its mirrors requantized, by the rank
+  whose block holds slot ``pos % W`` only;
+- each rank's lanes attend over a contiguous prefix of its block,
+  ``clamp(min(pos + 1, W) - lo, 0, w_local)`` slots;
+- kernel D (float pages) or B (the mirrors) runs in its partial mode on
+  the block (``kernels.paged_attention.ops``, ``partial=True``), at the
+  block's own chunk width, and returns (o, lse);
+- one all-gather of the packed [o | lse] over ``comm``, and every rank
+  combines the partials in rank order (:func:`combine_partials`): the
+  same bits on every rank, one sync point for the attention.
+
+Under the digital SDPA B quantizes P per chunk against its running max,
+so a block's partial is not a piece of the whole page's sum: the ranks
+compute the decode of the page over its blocks, combined (bitwise the
+same function run block by block on one device), which agrees with the
+dense function (``ragged_paged_decode_ref``) as closely as the whole
+page's kernel does. On one device (:data:`WHOLE`) it is the one-kernel
+decode of the whole page, or with ``partial`` the partial mode at one
+block, whose combine is the identity (w = 1), bitwise.
 """
 
 from __future__ import annotations
@@ -46,6 +71,9 @@ import torch.distributed as dist
 
 from repro_torch.core import mx as mxlib
 from repro_torch.distributed.collectives import LocalComm
+from repro_torch.kernels.paged_attention import layout as paged_layout
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention import ref as paged_ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +220,102 @@ def legacy_decode(cfg, q, k, v, cache: dict, pos, mx_dig: bool,
     den, o = _sum_pair(shard.comm, pr.sum(-1, keepdim=True), o)
     den = torch.where(den == 0.0, 1.0, den)
     return (o / torch.movedim(den, -2, 1)).to(cv.dtype)
+
+
+def fused_decode(ctx, cfg, q, k, v, cache: dict, pos, mx_dig: bool,
+                 shard: SeqShard = None, partial: bool = False
+                 ) -> torch.Tensor:
+    """One fused paged decode step on this rank's block of the pool
+    (``shard``; default :data:`WHOLE`: the whole page, one kernel launch
+    as the engine's step) at the pool rows ``ctx.paged_rows`` (default:
+    lane i -> row i): each lane's K/V row and its mirrors written in
+    place at slot ``pos % W`` by its owner, then the decode over the
+    lane's valid slots, kernel B or D in the partial mode over a cut
+    sequence (or with ``partial``: at one block, identity collectives)
+    and the blocks' partials combined (see the module). q [B, 1, Hkv, G,
+    Dh]; k / v [B, 1, Hkv, Dh]; returns [B, 1, Hkv, G, Dh], bf16, on every
+    rank."""
+    from repro_torch.layers import attention as A
+
+    shard = shard or WHOLE
+    partial = partial or shard.n > 1
+    b = q.shape[0]
+    kvp = cache["kv"]
+    wl = kvp.shape[1]
+    lo, w = shard.bounds(wl)
+    dev = q.device
+    pos_b = torch.as_tensor(pos, device=dev).to(torch.long).expand(b)
+    rows = (torch.arange(b, device=dev) if ctx.paged_rows is None
+            else ctx.paged_rows.to(device=dev, dtype=torch.long))
+    slot = pos_b % w
+    resident = "kv_codes" in cache
+    mine, ls = None, slot  # one block: every lane writes
+    if shard.n > 1:
+        if resident:
+            check_blocks(wl, "the fused pool's resident mirrors")
+        mine = (slot >= lo) & (slot < lo + wl)
+        ls = torch.clamp(slot - lo, 0, wl - 1)
+    _owner_write(kvp, rows, ls, paged_layout.fuse_kv(k[:, 0], v[:, 0]), mine)
+    if resident:
+        paged_layout.quant_page_step(cache, kvp, rows, ls, write=mine)
+    # min(pos+1, W): a contiguous valid prefix, all W once the ring wraps;
+    # the block's part of it
+    lengths = torch.clamp(torch.clamp(pos_b + 1, max=w) - lo, 0, wl).to(
+        torch.int32)
+    qd, kv_pages, quant = q, kvp, None
+    if mx_dig:
+        if not resident:
+            raise ValueError("fused paged decode under a digital-SDPA backend "
+                             "needs the quantized-resident mirrors — init the "
+                             "cache with mx_digital=True")
+        qd = A._mx_fq(q).to(torch.bfloat16)
+        kv_pages = None
+        quant = {n: cache[n] for n in ("kv_codes", "k_exps", "v_exps")}
+    if ctx.impl == "ref":
+        if partial:
+            raise ValueError("impl='ref' runs the dense whole-page decode, "
+                             "which has no partial form over a cut cache "
+                             "sequence")
+        o = paged_ref.ragged_paged_decode_ref(
+            qd[:, 0], rows, lengths, kv=kv_pages, quant=quant,
+            scale=cfg.scale)
+        return o[:, None]
+    out = paged_ops.ragged_paged_decode(
+        qd[:, 0], rows, lengths, kv=kv_pages, quant=quant, scale=cfg.scale,
+        obs=ctx.obs, partial=partial)
+    if not partial:
+        return out[:, None]
+    o, lse = gather_partials(shard.comm, *out)
+    return combine_partials(o, lse, torch.bfloat16 if mx_dig
+                            else kvp.dtype)[:, None]
+
+
+def gather_partials(comm, o: torch.Tensor, lse: torch.Tensor) -> tuple:
+    """The ranks' partials (o [L, Hkv, G, Dh], lse [L, Hkv, G], f32) in rank
+    order, in one all-gather of the packed [o | lse] over ``comm``:
+    (o [n, L, Hkv, G, Dh], lse [n, L, Hkv, G])."""
+    packed = torch.cat([o, lse[..., None]], dim=-1).unsqueeze(0)
+    full = comm.all_gather(packed, 0)
+    return full[..., :-1], full[..., -1]
+
+
+def combine_partials(o: torch.Tensor, lse: torch.Tensor,
+                     dtype=torch.bfloat16) -> torch.Tensor:
+    """The decode over a page from the partials of its blocks, in block
+    order (flash-decoding): o [n, ..., Dh] and lse [n, ...] f32 ->
+    ``sum_r w_r o_r / sum_r w_r`` with ``w_r = exp(lse_r - max_r
+    lse_r)``, cast to ``dtype`` once; 0 where every block is empty (lse
+    ``-inf``, o 0). One block gives its o cast, bitwise (w = 1)."""
+    top = lse.amax(0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    num = den = None
+    for r in range(o.shape[0]):
+        wr = torch.exp(lse[r] - top)  # 0 for an empty block
+        part = wr[..., None] * o[r]
+        num = part if num is None else num + part
+        den = wr if den is None else den + wr
+    den = torch.where(den == 0.0, 1.0, den)
+    return (num / den[..., None]).to(dtype)
 
 
 def _sum_pair(comm, a: torch.Tensor, b: torch.Tensor) -> tuple:

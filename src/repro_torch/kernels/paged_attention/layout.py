@@ -85,20 +85,30 @@ def quant_page_full(kw: torch.Tensor, vw: torch.Tensor) -> dict:
 
 
 def quant_page_step(quant: dict, kv: torch.Tensor, rows: torch.Tensor,
-                    slot: torch.Tensor) -> None:
+                    slot: torch.Tensor,
+                    write: torch.Tensor | None = None) -> None:
     """In-place per-step update of the fused mirrors ``quant`` from the
     just-updated pool ``kv`` [P, W, 2Hkv, Dh]: re-quantize the written K
     row and the active 32-slot V block of each lane (``rows``, ``slot``
-    int [L]). Bitwise the reference's ``quant_page_step``."""
+    int [L]). Bitwise the reference's ``quant_page_step``. ``write``
+    (bool [L]) limits the update to its lanes (a rank's block of a pool
+    whose sequence is cut: the lanes whose slot it holds; no host sync)."""
+
+    def put(dst, idx, new):
+        if write is not None:
+            m = write.reshape((-1,) + (1,) * (new.ndim - 1))
+            new = torch.where(m, new.to(dst.dtype), dst[idx])
+        dst[idx] = new
+
     w, hd = kv.shape[1], kv.shape[3]
     hkv = kv.shape[2] // 2
     dpad = padded_head_dim(hd)
     rows, slot = rows.long(), slot.long()
     even = 2 * torch.arange(hkv, device=kv.device)
     kq = mxlib.quantize(kv[rows, slot][:, 0::2].to(torch.float32))
-    quant["kv_codes"][rows[:, None], slot[:, None], even[None, :]] = \
-        mxlib.pack_codes(kq.codes)
-    quant["k_exps"][rows, slot] = kq.exps
+    put(quant["kv_codes"], (rows[:, None], slot[:, None], even[None, :]),
+        mxlib.pack_codes(kq.codes))
+    put(quant["k_exps"], (rows, slot), kq.exps)
     start = (slot // BLOCK) * BLOCK  # [L]
     idx = start[:, None] + torch.arange(BLOCK, device=kv.device)  # [L, 32]
     inside = idx < w
@@ -115,8 +125,9 @@ def quant_page_step(quant: dict, kv: torch.Tensor, rows: torch.Tensor,
     packed = packed[torch.arange(len(rows), device=kv.device)[:, None],
                     last - start[:, None]]
     odd = (even + 1)[None, None, :]
-    quant["kv_codes"][rows[:, None, None], last[:, :, None], odd] = packed
-    quant["v_exps"][rows, slot // BLOCK] = vq.exps[..., 0]
+    put(quant["kv_codes"], (rows[:, None, None], last[:, :, None], odd),
+        packed)
+    put(quant["v_exps"], (rows, slot // BLOCK), vq.exps[..., 0])
 
 
 def _scale_blocks(codes: torch.Tensor, exps: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,12 @@
   PV with f32 accumulation and a running normaliser of the quantized P.
 
 Lane ``i`` attends over slots ``[0, lengths[i])`` of pool row ``rows[i]``;
-a lane of length 0 yields zeros. "bf16 operands with f32 accumulation"
+a lane of length 0 yields zeros. With ``partial=True`` the two chunked
+versions return the flash-decoding partial of those slots instead: ``o =
+acc / l`` in f32 (its bf16 cast is the plain output, bitwise) and ``lse
+= m + log l`` in f32 [L, Hkv, G], ``-inf`` for a lane with no live slot
+(its o is 0); ``distributed.seq_parallel.combine_partials`` joins the
+partials of a page's blocks. "bf16 operands with f32 accumulation"
 is computed as an f32 product of the (exactly bf16-valued) operands.
 """
 
@@ -72,9 +77,10 @@ def ragged_paged_decode_ref(q, rows, lengths, *, kv=None, quant=None,
 
 
 def paged_flash_decode_ref(q, kv, rows, lengths, *, scale: float,
-                           bk: int) -> torch.Tensor:
+                           bk: int, partial: bool = False):
     """Chunked online-softmax decode over float pages kv [P, W, 2Hkv, Dh],
-    all lanes and KV heads at once -> ``kv.dtype`` [L, Hkv, G, Dh]. As in
+    all lanes and KV heads at once -> ``kv.dtype`` [L, Hkv, G, Dh]
+    (``partial``: the (o, lse) of the module's docstring). As in
     :func:`paged_flash_decode_mx_ref`, a chunk past a lane's length leaves
     its state bitwise unchanged."""
     L, hkv, g, hd = q.shape
@@ -103,14 +109,14 @@ def paged_flash_decode_ref(q, kv, rows, lengths, *, scale: float,
         acc = acc * corr[..., None] + pv
         l = l * corr + p.sum(-1)
         m = m_new
-    den = torch.where(l == 0.0, 1.0, l)
-    return (acc / den[..., None]).to(kv.dtype)
+    return _finish(acc, m, l, kv.dtype, partial)
 
 
 def paged_flash_decode_mx_ref(q, kv_codes, k_exps, v_exps, rows, lengths, *,
-                              scale: float, bk: int) -> torch.Tensor:
+                              scale: float, bk: int, partial: bool = False):
     """Chunked online-softmax decode from the quantized mirrors, all lanes
-    and KV heads at once. A chunk past a lane's length is all-dead for it
+    and KV heads at once -> bf16 [L, Hkv, G, Dh] (``partial``: (o, lse)).
+    A chunk past a lane's length is all-dead for it
     and leaves its state bitwise unchanged (corr = 1, P = 0), so running
     every lane to the longest lane's chunk count is the per-lane loop."""
     L, hkv, g, hd = q.shape
@@ -148,5 +154,15 @@ def paged_flash_decode_mx_ref(q, kv_codes, k_exps, v_exps, rows, lengths, *,
         acc = acc * corr[..., None] + pv
         l = l * corr + p.sum(-1)
         m = m_new
+    return _finish(acc, m, l, torch.bfloat16, partial)
+
+
+def _finish(acc, m, l, dtype, partial: bool):
+    """The output ``acc / l`` (l == 0 -> 1) in ``dtype``, or with
+    ``partial`` that quotient in f32 and the lanes' ``m + log l``."""
     den = torch.where(l == 0.0, 1.0, l)
-    return (acc / den[..., None]).to(torch.bfloat16)
+    o = acc / den[..., None]
+    if not partial:
+        return o.to(dtype)
+    return o, torch.where(l == 0.0, float("-inf"), m + torch.log(den))
+

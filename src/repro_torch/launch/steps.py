@@ -640,7 +640,8 @@ def _cache_layout(c_shard) -> list:
     """The resolved cache specs as the sharded steps hold the caches: the
     reference's, but the V mirror's 32-block exponents (``v_exps``,
     replicated there) cut as its codes are, each rank's blocks beside its
-    codes (``distributed.seq_parallel``)."""
+    codes (``distributed.seq_parallel``): the legacy ``v_codes``' key
+    axis, or the fused pool's rows and slot-block axis as ``kv``'s."""
     out = []
     for seg in c_shard:
         layers = []
@@ -648,6 +649,8 @@ def _cache_layout(c_shard) -> list:
             spec = dict(spec)
             if "v_exps" in spec and "v_codes" in spec:
                 spec["v_exps"] = spec["v_codes"]
+            elif "v_exps" in spec and "kv" in spec:
+                spec["v_exps"] = tuple(spec["kv"][:2]) + (None, None)
             layers.append(spec)
         out.append(layers)
     return out
@@ -853,9 +856,14 @@ def make_paged_decode_step(cfg, mesh: Mesh, shape: Shape, num_slots: int,
     every rank decodes every lane on its block of the sequence. ``rows``,
     ``ids`` and ``pos`` are replicated, the ids come back replicated.
     ``legacy`` runs the sharded decode of :func:`make_decode_step`;
-    ``fused`` runs kernels B and D as they are on the rank's rows, and
-    raises ``NotImplementedError`` (``ROADMAP.md``) on a model axis or a
-    cut sequence (they would need partial (o, lse) outputs)."""
+    ``fused`` runs kernels B and D on the rank's rows: as they are where
+    the sequence is whole, else in their partial mode on the rank's block
+    of it, the blocks' (o, lse) combined over the ranks that hold the
+    sequence (``distributed.seq_parallel.fused_decode``; heads whole, q, k
+    and v gathered over the model ranks). Under the digital SDPA a block
+    must be whole 32-slot blocks, or it raises ``NotImplementedError``
+    (``ROADMAP.md``). With ``model_forms`` the fused decode takes the
+    partial mode at one block, its combine over identity collectives."""
     if kv_layout not in ("legacy", "fused"):
         raise ValueError(f"unknown KV layout {kv_layout!r}")
     fused = kv_layout == "fused"
@@ -887,12 +895,12 @@ def make_paged_decode_step(cfg, mesh: Mesh, shape: Shape, num_slots: int,
         local_rows = shd.shard_shape(first, (local_rows,), mesh)[0]
         by_data = shd.shard_index(first, 0, mesh)[1] > 1  # rows over data
         first_row = data_rank(mesh) * local_rows
-        if fused and (ctx.tp is not None or ctx.seq_shards is not None):
-            raise NotImplementedError(
-                f"the fused paged decode on a {mesh.name} mesh: kernels B "
-                "and D decode whole pages; a model axis or a cut cache "
-                "sequence needs their partial (o, lse) outputs; see "
-                "ROADMAP.md")
+        if fused and mx_dig:
+            for seg, shard in zip(pool, ctx.seq_shards or ()):
+                if shard is not None:
+                    spl.check_blocks(seg[0]["kv"].shape[1] // shard.n,
+                                     "the digital SDPA's P quantization on "
+                                     "the fused pool")
         params = shd.take_shard_tree(params, p_shard, mesh)
         pool = shd.take_shard_tree(pool, layout, mesh)
 
@@ -908,7 +916,7 @@ def make_paged_decode_step(cfg, mesh: Mesh, shape: Shape, num_slots: int,
         if rows.numel():
             if fused:
                 dctx = dataclasses.replace(ctx, paged_rows=rows)
-                logits, _ = lm.decode_step(params, cfg, dctx, ids, pos, pool)
+                logits, _ = _decode_logits(cfg, dctx, params, ids, pos, pool)
             else:
                 caches = gather_rows(pool, specs, rows)
                 logits, caches = _decode_logits(cfg, ctx, params, ids, pos,

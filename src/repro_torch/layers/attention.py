@@ -3,8 +3,9 @@ the fused paged KV cache (counterpart of ``repro.layers.attention``).
 
 Ported branches of :func:`attn_apply`: prefill without a cache, prefill
 into a fused or a legacy split cache, chunked prefill into a fused page,
-the fused paged decode, over float pages or (under a digital-SDPA
-backend) the quantized-resident mirrors, and the legacy decode (torch
+the fused paged decode (``distributed.seq_parallel.fused_decode``), over
+float pages or (under a digital-SDPA backend) the quantized-resident
+mirrors, and the legacy decode (torch
 ops, as the reference's einsums), at a scalar or per-lane position, float
 or on the digital MXFP4 SDPA from the resident mirrors or by
 requantizing the cache each step. Prefill past ``RunCtx.dense_attn_max``
@@ -25,8 +26,6 @@ from repro_torch.core import mx as mxlib
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import layout as paged_layout
-from repro_torch.kernels.paged_attention import ops as paged_ops
-from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.distributed import seq_parallel as spl
 from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.layers import rope as ropelib
@@ -495,20 +494,25 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
     decode under ``ctx.tp`` gathers q, k and v over the model ranks
     (heads are whole at decode) and takes ``wo``'s rows of its features;
     over a cache whose sequence is cut (``ctx.seq``) it is the
-    flash-decoding of ``distributed.seq_parallel``. The fused page and
-    the chunked prefill raise ``NotImplementedError`` under either.
+    flash-decoding of ``distributed.seq_parallel``. The fused paged
+    decode does the same (q, k and v gathered under ``ctx.tp``), kernel B
+    or D in its partial mode on the rank's block of the pool and the
+    blocks' (o, lse) combined over the ranks
+    (``distributed.seq_parallel.fused_decode``; under ``ctx.tp`` on a
+    whole sequence, at one block). The prefill into a fused page and the
+    chunked prefill, which no sharded step of the reference runs (its
+    engine is unsharded), raise ``NotImplementedError`` under either.
     """
     b, s, _ = x.shape
     kv_range = None
     tp, seq = ctx.tp, ctx.seq
     decode_tp = tp is not None and cache is not None and s == 1
-    if (tp is not None or seq is not None) and cache is not None and (
-            "kv" in cache or (s > 1 and pos is not None)):
+    if (tp is not None or seq is not None) and cache is not None and s > 1 \
+            and ("kv" in cache or pos is not None):
         raise NotImplementedError(
-            "the sharded serving steps run legacy caches: the fused page "
-            "(kernels B and D would need partial (o, lse) outputs) and the "
-            "chunked prefill on a model axis or a cut cache sequence are "
-            "not ported; see ROADMAP.md")
+            "the sharded serving steps prefill into legacy caches: the "
+            "prefill into a fused page and the chunked prefill on a model "
+            "axis or a cut cache sequence are not ported; see ROADMAP.md")
     if tp is not None and not decode_tp:
         cfg, kv_range = tp_heads(cfg, tp.size, tp.rank)
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -566,7 +570,8 @@ def attn_apply(ctx: RunCtx, cfg: AttnStatic, p: dict, x: torch.Tensor,
                 cache = _keep_seq_block(cache, seq)
         o = _prefill_attn(ctx, cfg, q, k, v, positions, mx_dig)
     elif fused:
-        o = _fused_decode(ctx, cfg, q, k, v, cache, pos, mx_dig)
+        o = spl.fused_decode(ctx, cfg, q, k, v, cache, pos, mx_dig, seq,
+                             partial=tp is not None)
     elif cache is not None:
         o = spl.legacy_decode(cfg, q, k, v, cache, pos, mx_dig, seq)
     else:
@@ -635,41 +640,6 @@ def _chunk_prefill(cfg, q, k, v, positions, cache, mx_dig):
     k_pos = torch.arange(w, device=dev)[None].expand(b, w)
     o = _dense_attn(q, kpage, vpage, positions, k_pos, cfg, mx_digital=mx_dig)
     return o, new_cache
-
-
-def _fused_decode(ctx, cfg, q, k, v, cache, pos, mx_dig):
-    b = q.shape[0]
-    w = cache["kv"].shape[1]
-    dev = q.device
-    pos_b = torch.as_tensor(pos, device=dev).to(torch.long).expand(b)
-    rows = (torch.arange(b, device=dev) if ctx.paged_rows is None
-            else ctx.paged_rows.to(device=dev, dtype=torch.long))
-    slot = pos_b % w
-    kvnew = paged_layout.fuse_kv(k[:, 0], v[:, 0])
-    cache["kv"][rows, slot] = kvnew.to(cache["kv"].dtype)
-    resident = "kv_codes" in cache
-    if resident:
-        paged_layout.quant_page_step(cache, cache["kv"], rows, slot)
-    # min(pos+1, W): a contiguous valid prefix, all W once the ring wraps
-    lengths = torch.clamp(pos_b + 1, max=w).to(torch.int32)
-    qd, kv_pages, quant = q, cache["kv"], None
-    if mx_dig:
-        if not resident:
-            raise ValueError("fused paged decode under a digital-SDPA backend "
-                             "needs the quantized-resident mirrors — init the "
-                             "cache with mx_digital=True")
-        qd = _mx_fq(q).to(torch.bfloat16)
-        kv_pages = None
-        quant = {n: cache[n] for n in ("kv_codes", "k_exps", "v_exps")}
-    if ctx.impl == "ref":
-        o = paged_ref.ragged_paged_decode_ref(
-            qd[:, 0], rows, lengths, kv=kv_pages, quant=quant,
-            scale=cfg.scale)
-    else:
-        o = paged_ops.ragged_paged_decode(
-            qd[:, 0], rows, lengths, kv=kv_pages, quant=quant,
-            scale=cfg.scale, obs=ctx.obs)
-    return o[:, None]
 
 
 def attn_cache_init(cfg: AttnStatic, batch: int, max_len: int,

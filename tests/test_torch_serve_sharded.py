@@ -30,9 +30,21 @@ rank 0 alone (1, 1) on a group of one.
   units, and the digital SDPA's quantization absorbs the reordered f32
   sums here). One lane at (2, 2) puts the decode cache's sequence on
   (data, model), its softmax combined over the world.
+- The fused paged step (starcoder2-7b under ``mxfp4_wonly`` and ``cim``)
+  on all four meshes, and on (2, 1) and (2, 2) over a pool of 3 rows,
+  which do not divide the data axis, so its sequence is cut over
+  ``data`` (over the world at (2, 2)): kernels B and D in their partial
+  mode on the rank's block, the blocks' (o, lse) combined over the
+  ranks. Held as the legacy step against the plain one-device fused
+  step (ids; blocks >= 40 dB, under ``cim`` >= 30 dB; each change >= 30
+  dB), and under ``cim`` bitwise against the one-device step run as the
+  ranks run it (``torch_serve_ranks.seq_blocks``: each block's partial
+  by the plain version, combined in block order): A's sums are exact
+  and the combine runs in rank order.
 - (1, 1) with ``model_forms`` (the row-parallel linears' modes, the
-  gathers and the vocab-parallel head at model 1): the steps bitwise the
-  one-device bundles under ``mxfp4_wonly`` and ``cim``.
+  gathers, the vocab-parallel head and the fused decode's partial mode
+  at one block, at model 1): the steps bitwise the one-device bundles
+  under ``mxfp4_wonly`` and ``cim``, the fused paged step too.
 - Row-parallel ``w2`` (K over the model ranks) on its own: ``cim`` (kernel
   A's pass sums, summed as integers, one read-out) bitwise the one-device
   linear; ``mxfp4_wonly`` (C's f32 partials, one rounding) within a bf16
@@ -45,12 +57,15 @@ rank 0 alone (1, 1) on a group of one.
   unconverted, as the reference's builders take them: the digital
   SDPA's quantized-resident pool, the MXFP4 fake-quant linears),
   h2o-danube-1.8b and gemma3-1b under ``none``, qwen2-vl-7b (its vision
-  embeddings too) under ``mxfp4_wonly``.
-- Collectives: the decode's and the prefill's counts and result bytes on
-  the model axis are the formula's (below), with the ring model's wire
-  bytes.
-- Raises (``NotImplementedError`` naming ``ROADMAP.md``): the fused
-  layout on a model axis, a non-dense family (mixtral-8x22b) on the model
+  embeddings too) under ``mxfp4_wonly``; starcoder2-7b's fused paged
+  step under ``mxfp4_wonly`` and ``cim`` too (the reference's
+  ``kv_layout="fused"``, whose dense decode XLA's partitioner cuts).
+- Collectives: the decode's, the prefill's and the fused paged step's
+  counts and result bytes on the model axis are the formula's (below),
+  with the ring model's wire bytes.
+- Raises (``NotImplementedError`` naming ``ROADMAP.md``): the digital
+  SDPA on a fused pool whose sequence block is not whole 32-blocks (24
+  slots at model 2), a non-dense family (mixtral-8x22b) on the model
   axis, a K shard off the 32-blocks (d_ff 96 over 2 under
   ``mxfp4_wonly``: ``w2``'s 48 rows).
 """
@@ -103,6 +118,8 @@ MATRIX = {
     ("qwen2-vl-7b", "cim"): ((1, 4),),
 }
 FUSED = (("starcoder2-7b", "mxfp4_wonly"), ("starcoder2-7b", "cim"))
+# the pool of 3 rows (its sequence on the data axes)
+FUSED3_MESHES = ((2, 1), (2, 2))
 REF_CASES = (("starcoder2-7b", "none"), ("starcoder2-7b", "mxfp4_wonly"),
              ("starcoder2-7b", "cim"), ("h2o-danube-1.8b", "none"),
              ("gemma3-1b", "none"), ("qwen2-vl-7b", "mxfp4_wonly"))
@@ -111,7 +128,7 @@ FLOORS = sorted({(a, q, m[1]) for (a, q), ms in MATRIX.items() for m in ms
                  if R.config(a).qk_norm and q != "cim" and m[1] > 1})
 FORMS = ("mxfp4_wonly", "cim")  # (1, 1) with model_forms
 RAISES = {
-    "fused_on_model": ((1, 2), "starcoder2-7b", "mxfp4_wonly", ("fused",)),
+    "fused_block_off_32": ((1, 2), "starcoder2-7b", "cim", ("fused_odd",)),
     "moe_on_model": ((1, 2), "mixtral-8x22b", "mxfp4_wonly", ("prefill",)),
     "k_shard_off_blocks": ((1, 2), "starcoder2-7b", "mxfp4_wonly",
                            ("decode",), 96),
@@ -120,8 +137,8 @@ RAISES = {
 
 def _steps(arch, quant, mesh) -> tuple:
     s = STEPS
-    if (arch, quant) in FUSED and mesh[1] == 1:
-        s += ("fused",)
+    if (arch, quant) in FUSED:
+        s += ("fused",) + (("fused3",) if mesh in FUSED3_MESHES else ())
     if arch == "starcoder2-7b" and mesh[1] > 1:
         s += ("rowlin",)
     if (arch, quant, mesh) == ("starcoder2-7b", "none", (2, 2)):
@@ -163,14 +180,15 @@ def floors(cases):
 
 @pytest.fixture(scope="module")
 def cases(ref_params):
-    out = {key: R.case(*key) for key in MATRIX}
+    out = {key: R.case(*key, fused3=key in FUSED) for key in MATRIX}
     gen = torch.Generator().manual_seed(9)
     for key in (("starcoder2-7b", q) for q in R.QUANTS):
         out[key]["x"] = torch.randn((4, 128), generator=gen).to(
             torch.bfloat16)
     for key, params in ref_params.items():
         out[("ref",) + key] = R.case(
-            *key, params=from_reference(_np(params), device="cpu"))
+            *key, params=from_reference(_np(params), device="cpu"),
+            fused3=False)
     return out
 
 
@@ -186,15 +204,16 @@ def worlds(tmp_path_factory, cases):
     from concurrent.futures import ThreadPoolExecutor
 
     jobs2 = _jobs(W2)
-    jobs2 += [((1, 2),) + key[1:] + (STEPS, 128, key)
+    jobs2 += [((1, 2),) + key[1:] + (
+        STEPS + (("fused",) if key[1:] in FUSED else ()), 128, key)
               for key in cases if key[0] == "ref"]
     jobs2 += [RAISES[k] for k in RAISES]
     jobs4 = _jobs(W4)
     jobs1 = [((1, 1), "starcoder2-7b", q,
               STEPS + (("fused",) if q != "none" else ()))
              for q in R.QUANTS]
-    jobs1 += [((1, 1), "starcoder2-7b", q, STEPS, 128, None, True)
-              for q in FORMS]
+    jobs1 += [((1, 1), "starcoder2-7b", q, STEPS + ("fused",), 128, None,
+               True) for q in FORMS]
     store1 = str(tmp_path_factory.mktemp("serve1") / "store")
     with ThreadPoolExecutor(2) as pool:
         f2 = pool.submit(torch_dist.spawn, R.run, 2,
@@ -248,7 +267,7 @@ def _logits(cfg, quant, case, step: str) -> torch.Tensor:
                                   inp["pos"], caches)[0]
         pool = R._clone(case["pools"][step])
         rows = inp["rows"].long()
-        if step == "fused":
+        if step in ("fused", "fused3"):
             return lm.decode_step(params, cfg, dataclasses.replace(
                 ctx, paged_rows=rows), inp["ids"], inp["paged_pos"],
                 pool)[0]
@@ -291,7 +310,7 @@ def _gate(want, floor, spec, mesh, base: float, b0=None) -> float:
 
 
 def _check_blocks(want_tree, got, specs, mesh, bitwise: bool, before=None,
-                  floor=None):
+                  floor=None, min_db: float = MIN_DB):
     for si, seg in enumerate(want_tree):
         for li, layer in enumerate(seg):
             for k, v in layer.items():
@@ -303,7 +322,7 @@ def _check_blocks(want_tree, got, specs, mesh, bitwise: bool, before=None,
                     continue
                 fl = None if floor is None else floor[si][li][k]
                 assert _sqnr_db(w.float().numpy(), g.float().numpy()) >= \
-                    _gate(w, fl, spec, mesh, MIN_DB), (si, li, k)
+                    _gate(w, fl, spec, mesh, min_db), (si, li, k)
                 if before is not None:  # a pool: its change from the input
                     b0 = shd.take_shard(before[si][li][k], spec, mesh)
                     if torch.equal(_bits(w), _bits(b0)):
@@ -336,7 +355,6 @@ def test_sharded_steps_against_one_device(world2, world4, cases, floors,
     floor = floors.get((arch, quant, mesh[1]))
     res, jobs = _results(world2, world4, mesh)
     job = next(j for j in jobs if j[:3] == (mesh, arch, quant))
-    bitwise = quant == "cim"
     for rank in range(mesh[0] * mesh[1]):
         got = res[rank][job]
         assert "raised" not in got, got
@@ -346,6 +364,16 @@ def test_sharded_steps_against_one_device(world2, world4, cases, floors,
                 continue
             g = got[step]
             want_ids, want_c = one[step]
+            bitwise, min_db = quant == "cim", MIN_DB
+            n = _seq_blocks(g["specs"], m) if step.startswith("fused") else 1
+            if bitwise and n > 1:
+                # bitwise the function the ranks compute; the plain
+                # one-device step's own decode quantizes P per chunk of
+                # the whole page
+                b_ids, b_c = one[f"{step}@{n}"]
+                assert torch.equal(g["ids"].long(), b_ids.long()), step
+                _check_blocks(b_c, g["caches"], g["specs"], m, True)
+                bitwise, min_db = False, REF_DB
             if step == "prefill":
                 rows = _rows_of(g["batch_spec"], m, R.BATCH)
                 specs = g["specs"]
@@ -355,10 +383,15 @@ def test_sharded_steps_against_one_device(world2, world4, cases, floors,
             else:
                 rows, specs = slice(None), g["specs"]
             _check_ids(case, cfg, quant, step, g["ids"], want_ids, rows)
-            before = case["pools"][step] if step in ("paged", "fused") \
-                else None
+            before = case["pools"][step] if step in ("paged", "fused",
+                                                     "fused3") else None
             _check_blocks(want_c, g["caches"], specs, m, bitwise, before,
-                          None if floor is None else floor[step][1])
+                          None if floor is None else floor[step][1], min_db)
+
+
+def _seq_blocks(specs, mesh) -> int:
+    """The blocks a fused pool's sequence is cut in (its first leaf's)."""
+    return shd.shard_index(specs[0][0]["kv"], 1, mesh)[1]
 
 
 @pytest.mark.parametrize("quant", R.QUANTS)
@@ -432,15 +465,17 @@ def test_reference_builders_against_port(world2, cases, ref_params, key):
         R.SEQ, R.BATCH, "decode"), quant=quant)
     d_ids, d_caches = compiled(db)(params, j_caches, inp["ids"].numpy(),
                                    inp["pos"].numpy())
-    kb = jsteps.make_paged_decode_step(jcfg, jmesh, jconfigs.Shape(
-        R.SEQ, R.BATCH, "decode"), R.SLOTS, quant=quant)
-    pool_np = [{k: np.stack([_j(layer[k]) for layer in seg]) if len(seg) > 1
-                else _j(seg[0][k]) for k in seg[0]}
-               for seg in case["pools"]["paged"]]
-    p_ids, p_pool = compiled(kb)(params, pool_np, inp["rows"].numpy(),
-                                 inp["ids"].numpy(), inp["paged_pos"].numpy())
-    want = {"prefill": (j_ids, j_caches), "decode": (d_ids, d_caches),
-            "paged": (p_ids, p_pool)}
+    want = {"prefill": (j_ids, j_caches), "decode": (d_ids, d_caches)}
+    for step in ("paged", "fused") if key in FUSED else ("paged",):
+        kb = jsteps.make_paged_decode_step(
+            jcfg, jmesh, jconfigs.Shape(R.SEQ, R.BATCH, "decode"), R.SLOTS,
+            quant=quant, kv_layout="legacy" if step == "paged" else "fused")
+        pool_np = [{k: np.stack([_j(layer[k]) for layer in seg])
+                    if len(seg) > 1 else _j(seg[0][k]) for k in seg[0]}
+                   for seg in case["pools"][step]]
+        want[step] = compiled(kb)(params, pool_np, inp["rows"].numpy(),
+                                  inp["ids"].numpy(),
+                                  inp["paged_pos"].numpy())
     for rank in (0, 1):
         got, m = res[rank][job], _mesh((1, 2), rank)
         for step, (ids, tree) in want.items():
@@ -448,7 +483,8 @@ def test_reference_builders_against_port(world2, cases, ref_params, key):
             assert torch.equal(g["ids"].long(), torch.from_numpy(
                 np.array(ids)).long()), step
             port = _to_port(jax.tree.map(np.asarray, tree), cfg)
-            before = case["pools"]["paged"] if step == "paged" else None
+            before = case["pools"][step] if step in ("paged", "fused") \
+                else None
             for si, seg in enumerate(port):
                 for li, layer in enumerate(seg):
                     for k, v in layer.items():
@@ -530,6 +566,40 @@ def test_collectives_formula(world2, world4, quant, mesh):
             assert (count, result) == (n, nbytes), (step, kind, stats[kind])
             assert wire == pytest.approx(ring_wire_bytes(kind, nbytes, m))
         assert "data" not in got[step]["stats"], step
+
+
+def _formula_fused(cfg, quant: str, m: int, lanes: int) -> dict:
+    """The model axis's collectives of one fused paged step whose pool's
+    sequence is cut over the model ranks: a layer's q|k|v gathered as the
+    decode's, and its partials [m, lanes, Hkv, G, Dh + 1] f32 in one
+    all-gather, the head's pairs; the embedding's, ``wo``'s and ``w2``'s
+    sums (under ``cim`` their pass sums): 4 a layer + 2."""
+    L, d, h, kv, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                       cfg.n_kv_heads, cfg.hd)
+    rowpar = 2 * lanes * d * 4 * (2 if quant == "cim" else 1)
+    gather = (2 * L + 1, L * lanes * (h + 2 * kv) * hd * 2
+              + L * m * lanes * h * (hd + 1) * 4 + m * lanes * 2 * 8)
+    return {"all-gather": gather,
+            "all-reduce": (1 + 2 * L, lanes * d * 4 + L * rowpar)}
+
+
+@pytest.mark.parametrize("quant", [q for _, q in FUSED])
+@pytest.mark.parametrize("mesh", ((1, 2), (1, 4), (2, 2)),
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+def test_collectives_formula_fused(world2, world4, quant, mesh):
+    """The fused paged step on the model meshes: the formula's counts and
+    bytes (each rank decodes its lanes: at (2, 2) the lane whose row its
+    data rank holds), the ring model's wire bytes."""
+    cfg = R.config("starcoder2-7b")
+    res, jobs = _results(world2, world4, mesh)
+    job = next(j for j in jobs if j[:3] == (mesh, "starcoder2-7b", quant))
+    stats = res[0][job]["fused"]["stats"]["model"]
+    want = _formula_fused(cfg, quant, mesh[1], R.BATCH // mesh[0])
+    assert set(stats) == set(want), stats
+    for kind, (n, nbytes) in want.items():
+        count, wire, result = stats[kind]
+        assert (count, result) == (n, nbytes), (kind, stats[kind])
+        assert wire == pytest.approx(ring_wire_bytes(kind, nbytes, mesh[1]))
 
 
 def test_paged_ids_combined_over_data(world2, world4):

@@ -9,6 +9,7 @@ the port only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 from pathlib import Path
@@ -16,6 +17,7 @@ from pathlib import Path
 import torch
 
 from repro_torch import configs as C
+from repro_torch.distributed import seq_parallel as spl
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_local_mesh
@@ -33,6 +35,13 @@ PREFILL = C.Shape(SEQ, BATCH, "prefill")
 DECODE = C.Shape(SEQ, BATCH, "decode")
 DECODE1 = C.Shape(SEQ, 1, "decode")  # one lane: the sequence on data too
 SLOTS = 2  # the paged pool: SLOTS + BATCH rows of SEQ
+# a fused pool of SLOTS3 + BATCH = 3 rows: they do not divide a data axis
+# of 2, so the decode rules cut its sequence over the data axes
+SLOTS3 = 1
+# a fused pool of pages of ODD_PAGE: a block of 24 slots at model 2, not
+# whole 32-blocks (the digital SDPA raises)
+ODD_PAGE = 48
+BLOCKS = (2, 4)  # the sequence blocks of the meshes' fused pools
 ROWS = (1, 2)  # a lane a pool row: on both data ranks of a 2-way data axis
 MIN_N = 32  # packing and calibration gate at the tiny width
 
@@ -74,11 +83,12 @@ def served(cfg, quant: str) -> dict:
     return params
 
 
-def random_pool(cfg, quant: str, fused: bool = False):
+def random_pool(cfg, quant: str, fused: bool = False, slots: int = SLOTS,
+                page: int = SEQ):
     """A paged pool of random values (seed 3): K/V normal, the quantized
     mirrors' codes and exponents small integers."""
     mx = quant == "cim"
-    pool = lm.init_cache(cfg, SLOTS + BATCH, SEQ, mx_digital=mx,
+    pool = lm.init_cache(cfg, slots + BATCH, page, mx_digital=mx,
                          fused=fused, device="cpu")
     gen = torch.Generator().manual_seed(3)
     for seg in pool:
@@ -97,12 +107,60 @@ def _row0(caches):
             for seg in caches]
 
 
+class _Keep:
+    """A rank's collectives with the ranks' partials kept: its all-gather
+    returns the rank's own and records it (``seq_blocks``)."""
+
+    def __init__(self):
+        self.got = None
+
+    def all_gather(self, x, dim=0):
+        self.got = x
+        return x
+
+
+@contextlib.contextmanager
+def seq_blocks(n: int):
+    """The one-device fused decode run as ``n`` ranks run it on a sequence
+    cut in ``n`` blocks: each block's row write and partial (o, lse) by
+    ``seq_parallel.fused_decode`` on that block of the pool (a view), the
+    partials combined in block order (``combine_partials``), the same
+    code and the same values as the ranks'."""
+    whole = spl.fused_decode
+
+    def blocked(ctx, cfg, q, k, v, cache, pos, mx_dig, shard=None,
+                partial=False):
+        wl = cache["kv"].shape[1] // n
+        parts = []
+        for r in range(n):
+            view = {name: t.narrow(1, r * (wl // 32 if name == "v_exps"
+                                           else wl),
+                                   wl // 32 if name == "v_exps" else wl)
+                    for name, t in cache.items()}
+            keep = _Keep()
+            whole(ctx, cfg, q, k, v, view, pos, mx_dig,
+                  spl.SeqShard(keep, n, r))
+            parts.append(keep.got)
+        full = torch.cat(parts, 0)
+        return spl.combine_partials(
+            full[..., :-1], full[..., -1],
+            torch.bfloat16 if mx_dig else cache["kv"].dtype)[:, None]
+
+    spl.fused_decode = blocked
+    try:
+        yield
+    finally:
+        spl.fused_decode = whole
+
+
 def one_device(cfg, quant: str, params, inp: dict, pools: dict,
-               caches=None) -> dict:
+               caches=None, blocks: tuple = ()) -> dict:
     """The one-device bundles' results on ``params`` and ``inp``: prefill,
     one decode step over the prefill's caches (or over ``caches``), the
     same for its first lane alone (``decode1``), and the paged step over
-    a copy of each of ``pools`` (``paged``: legacy, ``fused``)."""
+    a copy of each of ``pools`` (``paged``: legacy; ``fused``,
+    ``fused3``), each fused one also with its sequence in each of
+    ``blocks`` (``fused@2``: :func:`seq_blocks`)."""
     out = {}
     one = make_local_mesh(1, 1, device="cpu")  # outside a group: one device
     pb = steps.make_prefill_step(cfg, one, PREFILL, quant=quant,
@@ -117,12 +175,22 @@ def one_device(cfg, quant: str, params, inp: dict, pools: dict,
                             inp["pos"])
     for name, pool in pools.items():
         kb = steps.make_paged_decode_step(
-            cfg, one, DECODE, SLOTS, quant=quant,
-            kv_layout="fused" if name == "fused" else "legacy",
+            cfg, one, DECODE, pool_slots(name), quant=quant,
+            kv_layout="legacy" if name == "paged" else "fused",
             device="cpu")
         out[name] = kb.fn(params, _clone(pool), inp["rows"], inp["ids"],
                           inp["paged_pos"])
+        for n in blocks if name != "paged" else ():
+            with seq_blocks(n):
+                out[f"{name}@{n}"] = kb.fn(params, _clone(pool), inp["rows"],
+                                           inp["ids"], inp["paged_pos"])
     return out
+
+
+def pool_slots(name: str) -> int:
+    """The request pages of the pool ``name`` (``paged``, ``fused``,
+    ``fused3``)."""
+    return SLOTS3 if name == "fused3" else SLOTS
 
 
 def floor(arch: str, quant: str, case: dict, parts: int) -> dict:
@@ -137,16 +205,20 @@ def floor(arch: str, quant: str, case: dict, parts: int) -> dict:
                           case["pools"], case["caches"])
 
 
-def case(arch: str, quant: str, params=None) -> dict:
+def case(arch: str, quant: str, params=None, fused3: bool = False) -> dict:
     """The global case of (arch, quant): the served tree (``params``, or
-    :func:`served`'s), the inputs, both random pools and the one-device
-    results."""
+    :func:`served`'s), the inputs, the random pools (with ``fused3`` the
+    3-row fused one too, and under ``cim`` the fused steps over
+    ``BLOCKS`` blocks) and the one-device results."""
     cfg = config(arch)
     params = served(cfg, quant) if params is None else params
     inp = inputs(cfg)
     pools = {"paged": random_pool(cfg, quant),
              "fused": random_pool(cfg, quant, fused=True)}
-    one = one_device(cfg, quant, params, inp, pools)
+    if fused3:
+        pools["fused3"] = random_pool(cfg, quant, fused=True, slots=SLOTS3)
+    one = one_device(cfg, quant, params, inp, pools,
+                     blocks=BLOCKS if fused3 and quant == "cim" else ())
     return {"params": params, "inp": inp, "pools": pools,
             "caches": one["prefill"][1], "one": one}
 
@@ -167,7 +239,8 @@ def _stats(bundle) -> dict:
 def sharded(cfg, quant: str, mesh, case: dict, steps_: tuple,
             forms: bool = False) -> dict:
     """This rank's results of the sharded steps named in ``steps_``
-    (``prefill``, ``decode``, ``paged``, ``fused``) on ``mesh`` (with
+    (``prefill``, ``decode``, ``paged``, ``fused``, ``fused3``; ``fused_odd``
+    only builds) on ``mesh`` (with
     ``forms``, the model axis's forms at model 1: ``model_forms``), from
     the global ``case`` (``params``, ``inp``, ``caches``: the one-device
     prefill's, ``pool``): each step's ids, its blocks and their specs."""
@@ -215,12 +288,16 @@ def sharded(cfg, quant: str, mesh, case: dict, steps_: tuple,
         got, caches = b.fn(pp, caches, inp["ids"][:1], inp["pos"])
         out["decode1"] = {"ids": got, "caches": caches, "specs": layout,
                           "ids_spec": b.shardings[2], "stats": _stats(b)}
-    for name in ("paged", "fused"):
+    if "fused_odd" in steps_:  # raises at build under the digital SDPA
+        steps.make_paged_decode_step(
+            cfg, mesh, C.Shape(ODD_PAGE, BATCH, "decode"), SLOTS,
+            quant=quant, kv_layout="fused", device="cpu")
+    for name in ("paged", "fused", "fused3"):
         if name not in steps_:
             continue
         b = steps.make_paged_decode_step(
-            cfg, mesh, DECODE, SLOTS, quant=quant,
-            kv_layout="fused" if name == "fused" else "legacy",
+            cfg, mesh, DECODE, pool_slots(name), quant=quant,
+            kv_layout="legacy" if name == "paged" else "fused",
             device="cpu", model_forms=forms)
         pp, _ = steps.shard_params(cfg, mesh, params, "decode",
                                    batch_size=BATCH)
